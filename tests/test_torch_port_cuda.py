@@ -1,0 +1,109 @@
+"""The Hopper kernels against their plain versions on the card, at small
+shapes that reach the edge cases: ragged tiles, odd sizes under the fused
+pool, odd crop offsets, 3-class heads, several output-channel blocks.
+
+Marked `cuda` and skipped without a card. The file imports no jax, so on a
+GPU machine it runs without the JAX package:
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+"""
+
+import pytest
+import torch
+
+from unetseg_tpu_torch.models.unet import to_nchw, to_nhwc
+from unetseg_tpu_torch.ops.kernels import conv3x3 as K
+
+pytestmark = pytest.mark.cuda
+
+# bf16 output rounding (2^-9 relative) plus f32 summation order
+RTOL, ATOL = 1e-2, 1e-2
+# the head kernel rounds its activation a to bf16 before the f32 head
+# product; the fp32 reference does not: allow 2^-8 * sum_c |a_c| |k_c|
+HEAD_SLACK = 2.0**-8
+
+
+@pytest.fixture
+def g():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _act(g, *shape):
+    return torch.rand(*shape, generator=g, device="cuda").to(torch.bfloat16)
+
+
+def _w(g, *shape, fan):
+    w = torch.randn(*shape, generator=g, device="cuda") * (2.0 / fan) ** 0.5
+    return w.to(torch.bfloat16).float()
+
+
+def _b(g, n):
+    return 0.1 * torch.randn(n, generator=g, device="cuda")
+
+
+def _close(got, ref, slack=0.0):
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs()
+    bound = ATOL + RTOL * ref.float().abs() + slack
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= bound).all()), f"max err {err.max().item():.3e}, worst err/bound {(err / bound).max().item():.3f}"
+
+
+@pytest.mark.parametrize("ci,co,h,w,pool", [
+    (1, 64, 37, 45, True), (1, 128, 20, 19, False),
+    (32, 64, 23, 35, True), (64, 128, 40, 18, True), (96, 64, 19, 50, False),
+])
+def test_conv3x3_bias_relu(g, ci, co, h, w, pool):
+    x = _act(g, 2, h, w, ci)
+    wt, b = _w(g, co, ci, 3, 3, fan=9 * co), _b(g, co)
+    K.reset_launch_counts()
+    got = K.conv3x3_bias_relu(x, wt, b, fuse_pool=pool)
+    ref = K.conv3x3_bias_relu_plain(x.float(), wt, b, fuse_pool=pool)
+    assert K.launch_counts()["conv3x3_bias_relu"] == 1
+    for a, r in zip(got, ref) if pool else [(got, ref)]:
+        assert a.shape == r.shape and a.dtype == torch.bfloat16
+        _close(a, r)
+
+
+@pytest.mark.parametrize("ci,co,h,w", [(128, 64, 13, 21), (64, 128, 5, 17)])
+def test_tconv2x2_bias(g, ci, co, h, w):
+    x = _act(g, 3, h, w, ci)
+    wt, b = _w(g, ci, co, 2, 2, fan=4 * co), _b(g, co)
+    got = K.tconv2x2_bias(x, wt, b)
+    _close(got, K.tconv2x2_bias_plain(x.float(), wt, b))
+
+
+@pytest.mark.parametrize("hs,ws,hu,wu,row_off,col_off", [
+    (40, 40, 24, 24, 8, 8), (33, 31, 20, 18, 5, 7), (30, 30, 27, 19, 0, 11),
+])
+def test_dec_conv0(g, hs, ws, hu, wu, row_off, col_off):
+    skip, up = _act(g, 2, hs, ws, 64), _act(g, 2, hu, wu, 32)
+    wt, b = _w(g, 64, 96, 3, 3, fan=9 * 64), _b(g, 64)
+    got = K.dec_conv0(skip, up, wt, b, row_off, col_off)
+    _close(got, K.dec_conv0_plain(skip.float(), up.float(), wt, b, row_off, col_off))
+
+
+@pytest.mark.parametrize("nc,h,w", [(2, 35, 22), (3, 18, 40), (1, 20, 20)])
+def test_conv3x3_head(g, nc, h, w):
+    x = _act(g, 2, h, w, 64)
+    wt, b = _w(g, 64, 64, 3, 3, fan=9 * 64), _b(g, 64)
+    kh, bh = _w(g, nc, 64, 1, 1, fan=nc), _b(g, nc)
+    got = K.conv3x3_head(x, wt, b, kh, bh)
+    assert got.dtype == torch.float32
+    a = K.conv3x3_bias_relu_plain(x.float(), wt, b)
+    slack = HEAD_SLACK * to_nhwc(torch.nn.functional.conv2d(to_nchw(a).abs(), kh.abs()))
+    _close(got, K.conv3x3_head_plain(x.float(), wt, b, kh, bh), slack)
+
+
+def test_wrappers_raise_on_shapes_the_kernels_do_not_take(g):
+    x = _act(g, 1, 10, 10, 48)  # 48 channels: not a multiple of 32
+    with pytest.raises(ValueError, match="multiple of 32"):
+        K.conv3x3_bias_relu(x, _w(g, 64, 48, 3, 3, fan=9), _b(g, 64))
+    with pytest.raises(TypeError, match="bfloat16"):
+        K.conv3x3_bias_relu(x.float()[..., :32].contiguous(), _w(g, 64, 32, 3, 3, fan=9), _b(g, 64))
+    with pytest.raises(ValueError, match="exactly 64"):
+        K.conv3x3_head(_act(g, 1, 10, 10, 32), _w(g, 128, 32, 3, 3, fan=9), _b(g, 128),
+                       _w(g, 2, 128, 1, 1, fan=2), _b(g, 2))

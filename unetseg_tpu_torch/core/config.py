@@ -1,0 +1,105 @@
+"""Configuration for the PyTorch port: copies of the JAX package's
+`ModelConfig` and `InferConfig` (unetseg_tpu/core/config.py).
+
+Copied rather than imported because importing anything under
+`unetseg_tpu` imports jax. tests/test_torch_port_bridge.py keeps the
+fields and defaults equal to the originals.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """U-Net architecture (reference: models/unet_model.py:65-85)."""
+
+    in_channels: int = 1
+    # The reference trains with n_classes=2 + softmax CE (scripts/train.py:93)
+    # but some of its scripts build n_classes=1 + sigmoid — a documented defect
+    # (SURVEY.md §2). We standardise on 2 everywhere; 1 remains supported.
+    num_classes: int = 2
+    base_features: int = 64          # channels double each level: 64..1024
+    levels: int = 5                  # encoder depth incl. bottleneck
+    bilinear: bool = False           # False => transposed-conv up path (reference default)
+    # Numerics policy: params are always fp32; compute dtype is configurable.
+    compute_dtype: str = "bfloat16"  # "bfloat16" | "float32"
+    bn_momentum: float = 0.9         # flax convention; == torch momentum 0.1
+    bn_epsilon: float = 1e-5
+
+
+@dataclass(frozen=True)
+class InferConfig:
+    """Inference (reference: scripts/inference.py, scripts/predict.py; plus the
+    overlap-tile engine the reference only advertises)."""
+
+    image_size: int = 512
+    threshold: float = 0.5
+    normalize_mean: float = 0.5      # scripts/predict.py:53
+    normalize_std: float = 0.5
+    # The reference TRAINS on ToTensor [0,1] inputs but predict.py applies
+    # Normalize(0.5, 0.5) at inference — a train/infer skew (its inference.py
+    # does not normalize). We default to the training distribution;
+    # normalize=True reproduces predict.py's behavior.
+    normalize: bool = False
+    # Per-frame z-score at inference; must match DataConfig.standardize used
+    # in training.
+    standardize: bool = False
+    min_cell_size: int = 15          # scripts/predict.py:47
+    tile_input: int = 512            # overlap-tile input tile size
+    tile_batch: int = 8              # tiles per device batch
+    # Temporal-marker watershed for predict (post/temporal.py): re-seed the
+    # watershed from the previous frame's instance cores where the distance
+    # transform under-segments. The measured-best instance pipeline
+    # (docs/RESULTS.md round 2); off here for reference-parity defaults,
+    # on in configs/best_recipe.json.
+    temporal_markers: bool = False
+    # Fragment guard for the temporal re-split (post/temporal.py): drop a
+    # re-seeded sub-instance below this fraction of its seeding previous
+    # instance's area and re-flood with the surviving seeds. 0 disables.
+    temporal_area_guard: float = 0.3
+    # Backward temporal sweep (post/temporal.refine_backward): after the
+    # forward pass, propagate later frames' instance boundaries BACKWARD so
+    # early frames — which have no history — get their touching cells split
+    # too. Adoption is strictly more-pieces-only (splits propagate, merges
+    # never do). Requires temporal_markers.
+    temporal_bidi: bool = False
+    # sweep depth from the sequence start (post/temporal.refine_backward
+    # max_frames): whole-sequence sweeps pre-split dividing parents — a
+    # measured negative (docs/RESULTS.md round 7)
+    temporal_bidi_frames: int = 8
+    # test-time augmentation for tiled binary prediction: "none" | "flips"
+    # (the 4 axis-flip transforms) | "flips8" (the full D4 group: 4 flips x
+    # transpose, square frames only — best measured TRA/DET at a small SEG
+    # cost, docs/RESULTS.md round 7). Probabilities combine per tta_merge
+    # before thresholding (infer/tiling.TTA_TRANSFORMS). 4x/8x device
+    # compute; the reference has no equivalent. Validated when the
+    # Predictor is constructed.
+    tta: str = "none"
+    # how TTA probabilities merge (infer/tiling.py): "mean" (arithmetic —
+    # smooths cell-cell boundaries), "gmean" (geometric — a near-zero
+    # boundary probability under any flip keeps the pixel background, so
+    # separating membranes survive), "vote" (per-flip threshold then strict
+    # pixel majority, >half the flips), "max" (union — recall-maximizing).
+    tta_merge: str = "mean"
+    # load the EMA weight shadow instead of the raw weights (requires
+    # checkpoints trained with TrainConfig.ema_decay > 0). CLI --ema also
+    # turns this on per invocation. Measured round 8: per-seed SEG means
+    # up ~+0.013 on both sequences and the seq-02 seed spread collapses
+    # ~6x (docs/RESULTS.md round-8 table).
+    use_ema: bool = False
+    # grow every predicted instance up to this many px into BACKGROUND at
+    # write time (post/boundary.grow_instances): nearest-label assignment,
+    # labels never overwrite labels, so touching-cell membranes stay put.
+    # Recovers the boundary ring the vote merges erode — measured round 5:
+    # seq-01 grow 1.0 TRA +0.0039/DET +0.0039 (SEG +0.0002), seq-02 grow
+    # 1.5 SEG +0.0067/TRA +0.0063/DET +0.0069, divisions intact. 0 = off.
+    # The optimum is sequence-dependent; best_recipe.json ships 1.0 plus a
+    # per-sequence override (Config.infer_per_sequence) of 1.5 for seq 02.
+    boundary_grow: float = 0.0
+    # how deep-ensemble MEMBER probabilities merge (infer/engine.py):
+    # "mean" | "gmean" | "vote" — same trade-offs as tta_merge (member
+    # disagreement concentrates on the membranes between touching cells).
+    # Binary head only; 3-class ensembles always mean.
+    ensemble_merge: str = "mean"

@@ -1,0 +1,245 @@
+// Implicit-GEMM valid 3x3 convolution on Hopper tensor cores (mma.sync).
+//
+// Shared by conv3x3_bias_relu.cu, dec_conv0.cu and conv3x3_head.cu. NHWC
+// bf16 activations, weights (CO, 3, 3, CI) bf16 ("OHWI"), f32 bias, f32
+// accumulation. GEMM view: M = output pixels, N = output channels,
+// K = 9 taps x CI.
+//
+// A block owns a 16x16 tile of output pixels and 64 output channels.
+// Each step stages a 32-channel slice of the (16+2)x(16+2) input window
+// and of the 9 x 64 weight taps in shared memory (rows padded to 40 bf16 so
+// the fragment loads below hit 32 distinct banks), then eight warps each run
+// two m16 tiles (two output rows) x eight n8 tiles with
+// mma.m16n8k16.bf16. The epilogue adds the bias, applies ReLU, rounds to
+// bf16 into a shared tile and from there writes coalesced 16-byte vectors,
+// plus optionally the 2x2 max-pool of the tile (MODE_STORE) or the 1x1 head
+// on the rounded activation in f32 (MODE_HEAD).
+//
+// Two input sources: channels [0, s0.C) come from s0 read at
+// (off_y, off_x) and channels [s0.C, s0.C + s1.C) from s1, so the decoder
+// entry reads its skip at the crop offset and never materialises the crop
+// or the concat. Requirements (checked by the Python wrappers): s0.C and
+// s1.C multiples of 32, CO a multiple of 64 (MODE_HEAD: CO == 64),
+// 16-byte aligned pointers, contiguous tensors.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace unet {
+
+constexpr int TW = 16;            // output columns per block (one m16 tile)
+constexpr int TH = 16;            // output rows per block (8 warps x 2 rows)
+constexpr int KC = 32;            // input channels staged per step
+constexpr int KP = KC + 8;        // padded smem row, bf16 (80 bytes)
+constexpr int NCO = 64;           // output channels per block
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int IN_ROWS = TH + 2;
+constexpr int IN_COLS = TW + 2;
+constexpr int OUT_P = NCO + 8;    // padded output row in smem, bf16 (144 bytes)
+constexpr int MAX_NC = 4;         // head classes
+constexpr int MODE_STORE = 0;
+constexpr int MODE_HEAD = 1;
+
+constexpr int CONV_SMEM =
+    (IN_ROWS * IN_COLS * KP + 9 * NCO * KP) * (int)sizeof(__nv_bfloat16);
+static_assert(TH * TW * OUT_P * 2 + MAX_NC * NCO * 4 <= CONV_SMEM,
+              "epilogue tile must fit in the staging buffers");
+
+struct Src {
+  const __nv_bfloat16* p;
+  int H, W, C, off_y, off_x;
+};
+
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
+                                               const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS)
+conv3x3_mma_kernel(Src s0, Src s1, const __nv_bfloat16* __restrict__ w,
+                   const float* __restrict__ bias, int Ho, int Wo, int CO,
+                   __nv_bfloat16* __restrict__ y,
+                   __nv_bfloat16* __restrict__ pooled,
+                   const float* __restrict__ head_w,
+                   const float* __restrict__ head_b, int NC,
+                   float* __restrict__ logits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* in_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* w_s = in_s + IN_ROWS * IN_COLS * KP;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int n_co_blk = CO / NCO;
+  const int b = blockIdx.z / n_co_blk;
+  const int co0 = (blockIdx.z % n_co_blk) * NCO;
+  const int CI = s0.C + s1.C;
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+
+  for (int c = 0; c < CI; c += KC) {
+    const Src s = c < s0.C ? s0 : s1;
+    const int cs = c < s0.C ? c : c - s0.C;
+    for (int i = tid; i < IN_ROWS * IN_COLS * (KC / 8); i += THREADS) {
+      const int v = i % (KC / 8), pix = i / (KC / 8);
+      const int iy = y0 + pix / IN_COLS + s.off_y;
+      const int ix = x0 + pix % IN_COLS + s.off_x;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (iy < s.H && ix < s.W) {
+        const size_t off = ((size_t)b * s.H + iy) * s.W + ix;
+        val = *reinterpret_cast<const uint4*>(s.p + off * s.C + cs + v * 8);
+      }
+      *reinterpret_cast<uint4*>(in_s + pix * KP + v * 8) = val;
+    }
+    for (int i = tid; i < 9 * NCO * (KC / 8); i += THREADS) {
+      const int v = i % (KC / 8), rest = i / (KC / 8);
+      const int co = rest % NCO, tap = rest / NCO;
+      const size_t off = ((size_t)(co0 + co) * 9 + tap) * CI + c + v * 8;
+      *reinterpret_cast<uint4*>(w_s + (tap * NCO + co) * KP + v * 8) =
+          *reinterpret_cast<const uint4*>(w + off);
+    }
+    __syncthreads();
+
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3, kx = tap % 3;
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const __nv_bfloat16* base =
+              in_s + ((warp * 2 + m + ky) * IN_COLS + kx) * KP + kk + 2 * t;
+          a[m][0] = ld_u32(base + g * KP);
+          a[m][1] = ld_u32(base + (g + 8) * KP);
+          a[m][2] = ld_u32(base + g * KP + 8);
+          a[m][3] = ld_u32(base + (g + 8) * KP + 8);
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const __nv_bfloat16* wb = w_s + (tap * NCO + n * 8 + g) * KP + kk + 2 * t;
+          uint32_t bf[2] = {ld_u32(wb), ld_u32(wb + 8)};
+          mma_bf16_16816(acc[0][n], a[0], bf);
+          mma_bf16_16816(acc[1][n], a[1], bf);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // Epilogue: bias + ReLU, rounded to bf16, into a shared (TH*TW, NCO) tile.
+  __nv_bfloat16* out_s = reinterpret_cast<__nv_bfloat16*>(smem);
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int row = warp * 2 + m;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int co = n * 8 + 2 * t;
+      const float b0 = bias[co0 + co], b1 = bias[co0 + co + 1];
+      *reinterpret_cast<__nv_bfloat162*>(out_s + (row * TW + g) * OUT_P + co) =
+          __floats2bfloat162_rn(fmaxf(acc[m][n][0] + b0, 0.f),
+                                fmaxf(acc[m][n][1] + b1, 0.f));
+      *reinterpret_cast<__nv_bfloat162*>(out_s + (row * TW + g + 8) * OUT_P + co) =
+          __floats2bfloat162_rn(fmaxf(acc[m][n][2] + b0, 0.f),
+                                fmaxf(acc[m][n][3] + b1, 0.f));
+    }
+  }
+
+  if (MODE == MODE_STORE) {
+    __syncthreads();
+    for (int i = tid; i < TH * TW * (NCO / 8); i += THREADS) {
+      const int v = i % (NCO / 8), pix = i / (NCO / 8);
+      const int oy = y0 + pix / TW, ox = x0 + pix % TW;
+      if (oy < Ho && ox < Wo) {
+        const size_t off = ((size_t)b * Ho + oy) * Wo + ox;
+        *reinterpret_cast<uint4*>(y + off * CO + co0 + v * 8) =
+            *reinterpret_cast<const uint4*>(out_s + pix * OUT_P + v * 8);
+      }
+    }
+    if (pooled != nullptr) {
+      // Tiles start at even rows and columns, so every 2x2 window lies in
+      // one tile; odd sizes floor (Hp = Ho / 2).
+      const int Hp = Ho / 2, Wp = Wo / 2;
+      for (int i = tid; i < (TH / 2) * (TW / 2) * (NCO / 8); i += THREADS) {
+        const int v = i % (NCO / 8), q = i / (NCO / 8);
+        const int qr = q / (TW / 2), qc = q % (TW / 2);
+        const int py = y0 / 2 + qr, px = x0 / 2 + qc;
+        if (py < Hp && px < Wp) {
+          const int p00 = (2 * qr) * TW + 2 * qc;
+          uint4 r = *reinterpret_cast<const uint4*>(out_s + p00 * OUT_P + v * 8);
+          const int others[3] = {p00 + 1, p00 + TW, p00 + TW + 1};
+          __nv_bfloat162* rv = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            uint4 o = *reinterpret_cast<const uint4*>(out_s + others[k] * OUT_P + v * 8);
+            const __nv_bfloat162* ov = reinterpret_cast<const __nv_bfloat162*>(&o);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) rv[j] = __hmax2(rv[j], ov[j]);
+          }
+          const size_t off = ((size_t)b * Hp + py) * Wp + px;
+          *reinterpret_cast<uint4*>(pooled + off * CO + co0 + v * 8) = r;
+        }
+      }
+    }
+  } else {
+    // 1x1 head on the bf16-rounded activation, f32 products and sums.
+    float* hw_s = reinterpret_cast<float*>(smem + TH * TW * OUT_P * 2);
+    for (int i = tid; i < NC * NCO; i += THREADS) hw_s[i] = head_w[i];
+    __syncthreads();
+    for (int pix = tid; pix < TH * TW; pix += THREADS) {
+      const int oy = y0 + pix / TW, ox = x0 + pix % TW;
+      if (oy >= Ho || ox >= Wo) continue;
+      float l[MAX_NC];
+#pragma unroll
+      for (int k = 0; k < MAX_NC; ++k) l[k] = k < NC ? head_b[k] : 0.f;
+      for (int co = 0; co < NCO; co += 2) {
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(out_s + pix * OUT_P + co));
+#pragma unroll
+        for (int k = 0; k < MAX_NC; ++k)
+          if (k < NC) l[k] += v.x * hw_s[k * NCO + co] + v.y * hw_s[k * NCO + co + 1];
+      }
+      const size_t off = ((size_t)b * Ho + oy) * Wo + ox;
+      for (int k = 0; k < NC; ++k) logits[off * NC + k] = l[k];
+    }
+  }
+}
+
+template <int MODE>
+inline int launch_conv3x3_mma(Src s0, Src s1, const void* w, const void* bias,
+                              int B, int Ho, int Wo, int CO, void* y,
+                              void* pooled, const void* head_w,
+                              const void* head_b, int NC, void* logits,
+                              void* stream) {
+  auto kernel = conv3x3_mma_kernel<MODE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, CONV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Wo + TW - 1) / TW, (Ho + TH - 1) / TH, B * (CO / NCO));
+  kernel<<<grid, THREADS, CONV_SMEM, (cudaStream_t)stream>>>(
+      s0, s1, (const __nv_bfloat16*)w, (const float*)bias, Ho, Wo, CO,
+      (__nv_bfloat16*)y, (__nv_bfloat16*)pooled, (const float*)head_w,
+      (const float*)head_b, NC, (float*)logits);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace unet

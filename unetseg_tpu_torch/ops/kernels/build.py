@@ -1,0 +1,102 @@
+"""Build and load the Hopper kernels of `unetseg_tpu_torch/csrc`.
+
+One `nvcc` call compiles every `csrc/*.cu` into a shared library with a
+plain C interface, loaded with ctypes. The library goes to
+`unetseg_tpu_torch/build/<hash>/`, keyed by a hash of the sources and the
+flags, at first use; later calls in the process and later processes on
+the same checkout reuse it. Nothing is compiled at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC = PKG_DIR / "csrc"
+BUILD_ROOT = PKG_DIR / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+)
+
+P, I = ctypes.c_void_p, ctypes.c_int
+# C signatures of the kernels' entry points (csrc/*.cu); each returns the
+# CUDA error code of its launch.
+SIGNATURES = {
+    "conv3x3_bias_relu_bf16": [P, P, P, P, P, I, I, I, I, I, P],
+    "dec_conv0_bf16": [P, I, I, I, I, I, P, I, I, I, P, P, P, I, I, P],
+    "conv3x3_head_bf16": [P, P, P, P, P, P, I, I, I, I, I, P],
+    "tconv2x2_bias_bf16": [P, P, P, P, I, I, I, I, I, P],
+}
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> dict:
+    """Compile the library if this source hash has no build yet.
+
+    Returns {"path", "seconds", "log"}: `seconds` is 0.0 and `log` the
+    saved compiler output when an existing build was reused."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / "libunetseg_kernels.so"
+    log = out_dir / "nvcc.log"
+    if lib.is_file():
+        return {"path": str(lib), "seconds": 0.0, "log": log.read_text()}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}"
+        )
+    text = res.stdout + res.stderr
+    log.write_text(text)
+    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    return {"path": str(lib), "seconds": seconds, "log": text}
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    lib = ctypes.CDLL(build()["path"])
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

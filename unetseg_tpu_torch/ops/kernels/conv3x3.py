@@ -1,0 +1,256 @@
+"""The serving path's four convolution kernels: wrappers, plain versions
+and launch counters (counterpart of unetseg_tpu/ops/pallas/conv3x3.py).
+
+Each wrapper takes NHWC activations and torch-layout weights (Conv2d
+OIHW, ConvTranspose2d (CI, CO, kH, kW)). Routing is by the tensor's
+device: a CPU tensor runs the plain PyTorch version beside the wrapper; a
+CUDA tensor launches the hand-written Hopper kernel (csrc/*.cu, built by
+build.py) on the current stream, or raises. There is no fallback from a
+failed check, build or launch. Each wrapper counts its kernel launches in
+its `launches` attribute.
+
+| wrapper            | CUDA source                 | TPU kernel it replaces                     |
+|--------------------|-----------------------------|--------------------------------------------|
+| conv3x3_bias_relu  | csrc/conv3x3_bias_relu.cu   | ops/pallas/conv3x3.py:conv3x3_phase2       |
+| tconv2x2_bias      | csrc/tconv2x2_bias.cu       | ops/pallas/conv3x3.py:tconv2x2_phase2      |
+| dec_conv0          | csrc/dec_conv0.cu           | ops/pallas/conv3x3.py:dec_conv0_phase2     |
+| conv3x3_head       | csrc/conv3x3_head.cu        | ops/pallas/conv3x3.py:conv3x3_head_phase2  |
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from unetseg_tpu_torch.models.unet import to_nchw, to_nhwc
+from unetseg_tpu_torch.ops.kernels.build import library
+
+MAX_HEAD_CLASSES = 4  # csrc/conv_mma.cuh MAX_NC
+
+
+# ------------------------------------------------------------ plain versions
+def conv3x3_bias_relu_plain(x, w, b, fuse_pool=False):
+    y = F.relu(F.conv2d(to_nchw(x), w.to(x.dtype), b.to(x.dtype)))
+    if fuse_pool:
+        return to_nhwc(y), to_nhwc(F.max_pool2d(y, 2))
+    return to_nhwc(y)
+
+
+def tconv2x2_bias_plain(x, w, b):
+    y = F.conv_transpose2d(to_nchw(x), w.to(x.dtype), b.to(x.dtype), stride=2)
+    return to_nhwc(y)
+
+
+def dec_conv0_plain(skip, up, w, b, row_off, col_off):
+    hu, wu = up.shape[1], up.shape[2]
+    crop = skip[:, row_off : row_off + hu, col_off : col_off + wu, :]
+    xc = torch.cat([crop, up], dim=-1)
+    return conv3x3_bias_relu_plain(xc, w, b)
+
+
+def conv3x3_head_plain(x, w, b, k_head, b_head):
+    y = conv3x3_bias_relu_plain(x, w, b)  # rounded to x.dtype, as stored
+    kh = k_head.to(x.dtype).float()
+    return to_nhwc(F.conv2d(to_nchw(y).float(), kh, b_head.float()))
+
+
+# ------------------------------------------------------------------ helpers
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True routes to the plain version; False means launch the kernel.
+    Raises for mixed devices and for devices with no kernel."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel for device {dev}")
+    return False
+
+
+def _check_act(name: str, t: torch.Tensor, channels_multiple: int = 32) -> None:
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: kernel takes bfloat16, got {t.dtype}")
+    if t.dim() != 4 or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous NHWC tensor, got {tuple(t.shape)}")
+    c = t.shape[3]
+    if c % channels_multiple:
+        raise ValueError(f"{name}: channels {c} not a multiple of {channels_multiple}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data not 16-byte aligned")
+
+
+def _check_co(co: int, exact: Optional[int] = None) -> None:
+    if exact is not None and co != exact:
+        raise ValueError(f"kernel needs exactly {exact} output channels, got {co}")
+    if co % 64:
+        raise ValueError(f"kernel needs output channels a multiple of 64, got {co}")
+
+
+def _ohwi(w: torch.Tensor) -> torch.Tensor:
+    """(CO, CI, 3, 3) -> contiguous bf16 (CO, 3, 3, CI)."""
+    return w.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.float().contiguous()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+# ----------------------------------------------------------------- wrappers
+def conv3x3_bias_relu(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, fuse_pool: bool = False
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """ReLU(valid 3x3 conv(x, w) + b), NHWC.
+
+    x (B,H,W,CI), w (CO,CI,3,3), b (CO,) -> (B,H-2,W-2,CO) in x's dtype;
+    with fuse_pool also the 2x2 max-pool (B,(H-2)//2,(W-2)//2,CO), floor
+    on odd sizes. The kernel takes CI == 1 (the stem) or CI % 32 == 0."""
+    if _on_cpu(x, w, b):
+        return conv3x3_bias_relu_plain(x, w, b, fuse_pool)
+    bsz, h, wd, ci = x.shape
+    co = w.shape[0]
+    if tuple(w.shape) != (co, ci, 3, 3) or tuple(b.shape) != (co,):
+        raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} do not fit x {tuple(x.shape)}")
+    _check_act("x", x, channels_multiple=1 if ci == 1 else 32)
+    _check_co(co)
+    ho, wo = h - 2, wd - 2
+    if ho < 1 or wo < 1:
+        raise ValueError(f"input {h}x{wd} too small for a valid 3x3 conv")
+    y = torch.empty((bsz, ho, wo, co), dtype=x.dtype, device=x.device)
+    pooled = (
+        torch.empty((bsz, ho // 2, wo // 2, co), dtype=x.dtype, device=x.device)
+        if fuse_pool else None
+    )
+    wk, bk = _ohwi(w), _f32(b)
+    err = library().conv3x3_bias_relu_bf16(
+        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(),
+        pooled.data_ptr() if fuse_pool else None,
+        bsz, h, wd, ci, co, _stream(x),
+    )
+    _raise_on(err, "conv3x3_bias_relu")
+    conv3x3_bias_relu.launches += 1
+    return (y, pooled) if fuse_pool else y
+
+
+def tconv2x2_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 transposed conv + b, NHWC: x (B,h,w,CI), w (CI,CO,2,2)
+    (torch ConvTranspose2d layout), b (CO,) -> (B,2h,2w,CO)."""
+    if _on_cpu(x, w, b):
+        return tconv2x2_bias_plain(x, w, b)
+    bsz, h, wd, ci = x.shape
+    co = w.shape[1]
+    if tuple(w.shape) != (ci, co, 2, 2) or tuple(b.shape) != (co,):
+        raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} do not fit x {tuple(x.shape)}")
+    _check_act("x", x)
+    _check_co(co)
+    y = torch.empty((bsz, 2 * h, 2 * wd, co), dtype=x.dtype, device=x.device)
+    # (CI, CO, dy, dx) -> (dy*2+dx, CO, CI)
+    wk = w.to(torch.bfloat16).permute(2, 3, 1, 0).reshape(4, co, ci).contiguous()
+    bk = _f32(b)
+    err = library().tconv2x2_bias_bf16(
+        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(),
+        bsz, h, wd, ci, co, _stream(x),
+    )
+    _raise_on(err, "tconv2x2_bias")
+    tconv2x2_bias.launches += 1
+    return y
+
+
+def dec_conv0(
+    skip: torch.Tensor, up: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+    row_off: int, col_off: int,
+) -> torch.Tensor:
+    """ReLU(conv3x3(concat(skip[:, row_off:row_off+Hu, col_off:col_off+Wu],
+    up)) + b), NHWC, without materialising the crop or the concat.
+
+    skip (B,Hs,Ws,CIs), up (B,Hu,Wu,CIu), w (CO,CIs+CIu,3,3) skip channels
+    first, b (CO,) -> (B,Hu-2,Wu-2,CO). Any offsets, odd ones included."""
+    if _on_cpu(skip, up, w, b):
+        return dec_conv0_plain(skip, up, w, b, row_off, col_off)
+    bsz, hs, ws, cis = skip.shape
+    bu, hu, wu, ciu = up.shape
+    co = w.shape[0]
+    if bu != bsz or tuple(w.shape) != (co, cis + ciu, 3, 3) or tuple(b.shape) != (co,):
+        raise ValueError(
+            f"skip {tuple(skip.shape)}, up {tuple(up.shape)}, weight "
+            f"{tuple(w.shape)}, bias {tuple(b.shape)} do not fit together"
+        )
+    if row_off < 0 or col_off < 0 or row_off + hu > hs or col_off + wu > ws:
+        raise ValueError(f"crop ({row_off}, {col_off}) + {hu}x{wu} leaves skip {hs}x{ws}")
+    if up.dtype != skip.dtype:
+        raise TypeError(f"skip {skip.dtype} and up {up.dtype} differ")
+    _check_act("skip", skip)
+    _check_act("up", up)
+    _check_co(co)
+    y = torch.empty((bsz, hu - 2, wu - 2, co), dtype=up.dtype, device=up.device)
+    wk, bk = _ohwi(w), _f32(b)
+    err = library().dec_conv0_bf16(
+        skip.data_ptr(), hs, ws, cis, row_off, col_off,
+        up.data_ptr(), hu, wu, ciu, wk.data_ptr(), bk.data_ptr(),
+        y.data_ptr(), bsz, co, _stream(up),
+    )
+    _raise_on(err, "dec_conv0")
+    dec_conv0.launches += 1
+    return y
+
+
+def conv3x3_head(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+    k_head: torch.Tensor, b_head: torch.Tensor,
+) -> torch.Tensor:
+    """1x1 head over ReLU(valid 3x3 conv(x, w) + b), NHWC.
+
+    x (B,H,W,CI), w (CO,CI,3,3), b (CO,), k_head (NC,CO,1,1), b_head (NC,)
+    -> f32 logits (B,H-2,W-2,NC). The activation is rounded to x's dtype
+    and the head kernel to x's dtype before the f32 head product, as the
+    unfused path stores and reads them. The kernel needs CO == 64."""
+    if _on_cpu(x, w, b, k_head, b_head):
+        return conv3x3_head_plain(x, w, b, k_head, b_head)
+    bsz, h, wd, ci = x.shape
+    co = w.shape[0]
+    nc = k_head.shape[0]
+    if (tuple(w.shape) != (co, ci, 3, 3) or tuple(b.shape) != (co,)
+            or tuple(k_head.shape) != (nc, co, 1, 1) or tuple(b_head.shape) != (nc,)):
+        raise ValueError("head conv weights do not fit x")
+    if not 1 <= nc <= MAX_HEAD_CLASSES:
+        raise ValueError(f"head kernel takes 1..{MAX_HEAD_CLASSES} classes, got {nc}")
+    _check_act("x", x)
+    _check_co(co, exact=64)
+    logits = torch.empty((bsz, h - 2, wd - 2, nc), dtype=torch.float32, device=x.device)
+    wk, bk = _ohwi(w), _f32(b)
+    kh = k_head.reshape(nc, co).to(torch.bfloat16).float().contiguous()
+    bh = _f32(b_head)
+    err = library().conv3x3_head_bf16(
+        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), kh.data_ptr(), bh.data_ptr(),
+        logits.data_ptr(), bsz, h, wd, ci, nc, _stream(x),
+    )
+    _raise_on(err, "conv3x3_head")
+    conv3x3_head.launches += 1
+    return logits
+
+
+KERNELS = (conv3x3_bias_relu, tconv2x2_bias, dec_conv0, conv3x3_head)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+reset_launch_counts()
