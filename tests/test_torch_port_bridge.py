@@ -50,7 +50,7 @@ def test_flax_tree_round_trip_is_bit_exact(source):
         np.testing.assert_array_equal(back[k], want[k], err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["ModelConfig", "InferConfig"])
+@pytest.mark.parametrize("name", ["ModelConfig", "InferConfig", "DataConfig", "TrainConfig"])
 def test_config_copies_match_the_originals(name):
     ours, orig = getattr(config, name), getattr(jax_config, name)
     strip = lambda fs: [(f.name, f.type, f.default) for f in fs]
@@ -76,7 +76,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import unetseg_tpu_torch, unetseg_tpu_torch.infer.engine, chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'unetseg_tpu'))\n"
+        "import unetseg_tpu_torch.train.steps\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'unetseg_tpu'))\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

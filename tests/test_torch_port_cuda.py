@@ -1,6 +1,9 @@
 """The Hopper kernels against their plain versions on the card, at small
 shapes that reach the edge cases: ragged tiles, odd sizes under the fused
-pool, odd crop offsets, 3-class heads, several output-channel blocks.
+pool, odd crop offsets, 3-class heads, several output-channel blocks; for
+the train step's kernels odd sizes, batch 1, CI=1, crop offsets of either
+parity, relu=False, wgrad determinism, the sampler's reflection and
+rounding ties at sizes off the 32-pixel grid, and the wrappers' refusals.
 
 Marked `cuda` and skipped without a card. The file imports no jax, so on a
 GPU machine it runs without the JAX package:
@@ -12,6 +15,8 @@ import torch
 
 from unetseg_tpu_torch.models.unet import to_nchw, to_nhwc
 from unetseg_tpu_torch.ops.kernels import conv3x3 as K
+from unetseg_tpu_torch.ops.kernels import conv3x3_train as KT
+from unetseg_tpu_torch.ops.kernels import elastic as KE
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +112,111 @@ def test_wrappers_raise_on_shapes_the_kernels_do_not_take(g):
     with pytest.raises(ValueError, match="exactly 64"):
         K.conv3x3_head(_act(g, 1, 10, 10, 32), _w(g, 128, 32, 3, 3, fan=9), _b(g, 128),
                        _w(g, 2, 128, 1, 1, fan=2), _b(g, 2))
+
+
+# ------------------------------------------------------ train-step kernels
+
+
+def _g(g, *shape):
+    return (torch.rand(*shape, generator=g, device="cuda") - 0.5).to(torch.bfloat16)
+
+
+def _close_rel(got, ref):
+    """Weight gradients sum thousands of products: hold them to 1e-2 of
+    the reference's largest entry (bf16 inputs, f32 sums) plus 1e-2 rel."""
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs()
+    bound = 1e-2 * ref.float().abs().max() + 1e-2 * ref.float().abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= bound).all()), f"worst err/bound {(err / bound).max().item():.3f}"
+
+
+@pytest.mark.parametrize("ci,co,relu", [(1, 64, False), (64, 64, False), (32, 128, True)])
+def test_forward_relu_flag(g, ci, co, relu):
+    """relu=False keeps the negative pre-activations (stem and mma paths,
+    and the decoder-entry conv)."""
+    x = _g(g, 1, 19, 23, ci)
+    wt, b = _w(g, co, ci, 3, 3, fan=9 * co), _b(g, co)
+    got = K.conv3x3_bias_relu(x, wt, b, relu=relu)
+    ref = K.conv3x3_bias_relu_plain(x.float(), wt, b, relu=relu)
+    assert bool((got < 0).any()) != relu
+    _close(got, ref)
+    skip, up = _g(g, 1, 30, 31, 64), _g(g, 1, 20, 17, 64)
+    wd, bd = _w(g, 64, 128, 3, 3, fan=9 * 64), _b(g, 64)
+    _close(K.dec_conv0(skip, up, wd, bd, 5, 6, relu=relu),
+           K.dec_conv0_plain(skip.float(), up.float(), wd, bd, 5, 6, relu=relu))
+
+
+@pytest.mark.parametrize("b,hg,wg,co,ci", [(1, 17, 23, 64, 64), (2, 30, 9, 32, 128), (1, 5, 40, 64, 64)])
+def test_dgrad(g, b, hg, wg, co, ci):
+    gr = _g(g, b, hg, wg, co)
+    wt = _w(g, co, ci, 3, 3, fan=9 * co)
+    KT.conv3x3_dgrad.launches = 0
+    got = KT.conv3x3_dgrad(gr, wt)
+    assert KT.conv3x3_dgrad.launches == 1
+    assert got.shape == (b, hg + 2, wg + 2, ci) and got.dtype == torch.bfloat16
+    _close(got, KT.conv3x3_dgrad_plain(gr.float(), wt))
+
+
+@pytest.mark.parametrize("b,h,w,ci,co", [(1, 19, 25, 1, 64), (2, 21, 17, 64, 64), (1, 12, 40, 32, 128)])
+def test_wgrad(g, b, h, w, ci, co):
+    x = _act(g, b, h, w, ci)
+    gr = _g(g, b, h - 2, w - 2, co)
+    got = KT.conv3x3_wgrad(x, gr)
+    assert got.shape == (co, ci, 3, 3) and got.dtype == torch.float32
+    _close_rel(got, KT.conv3x3_wgrad_plain(x.float(), gr.float()))
+
+
+@pytest.mark.parametrize("row_off,col_off", [(3, 4), (4, 7), (0, 0), (5, 5)])
+def test_dec0_wgrad(g, row_off, col_off):
+    skip, up = _act(g, 2, 31, 33, 64), _act(g, 2, 21, 19, 64)
+    gr = _g(g, 2, 19, 17, 64)
+    got = KT.conv3x3_dec0_wgrad(skip, up, gr, row_off, col_off)
+    ref = KT.conv3x3_dec0_wgrad_plain(skip.float(), up.float(), gr.float(), row_off, col_off)
+    assert got.shape == (64, 128, 3, 3)
+    _close_rel(got, ref)
+
+
+def test_wgrad_is_deterministic(g):
+    """Two-pass split-K: the same inputs give the same bits."""
+    x, gr = _act(g, 2, 66, 70, 64), _g(g, 2, 64, 68, 64)
+    a, b = KT.conv3x3_wgrad(x, gr), KT.conv3x3_wgrad(x, gr)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 37, 45), (3, 64, 20)])
+def test_sample_displaced(g, b, h, w):
+    img = torch.rand(b, h, w, generator=g, device="cuda")
+    lab = torch.randint(0, 9, (b, h, w), generator=g, device="cuda", dtype=torch.int32)
+    d = 12.0
+    yy = torch.arange(h, device="cuda", dtype=torch.float32)[None, :, None] + d * (
+        torch.rand(b, h, w, generator=g, device="cuda") * 2 - 1)
+    xx = torch.arange(w, device="cuda", dtype=torch.float32)[None, None, :] + d * (
+        torch.rand(b, h, w, generator=g, device="cuda") * 2 - 1)
+    yy[0, 0, :4] = torch.tensor([2.5, 3.5, -0.5, -7.25], device="cuda")  # ties, reflection
+    yy, xx = yy.clamp(-d, h - 1 + d - 1.001), xx.clamp(-d, w - 1 + d - 1.001)
+    got_i, got_m = KE.sample_displaced(img, lab, yy, xx)
+    ref_i, ref_m = KE.sample_displaced_plain(img, lab, yy, xx)
+    torch.cuda.synchronize()
+    assert (got_i - ref_i).abs().max().item() <= 1e-5
+    assert torch.equal(got_m, ref_m)
+
+
+def test_train_wrappers_raise_on_what_the_kernels_do_not_take(g):
+    gr = _g(g, 1, 10, 10, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        KT.conv3x3_dgrad(gr.float(), _w(g, 64, 64, 3, 3, fan=9))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        KT.conv3x3_dgrad(gr, _w(g, 64, 32, 3, 3, fan=9))
+    with pytest.raises(ValueError, match="contiguous"):
+        KT.conv3x3_wgrad(_act(g, 1, 12, 12, 64).transpose(1, 2), gr)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        KT.conv3x3_wgrad(_act(g, 1, 12, 12, 48), gr)
+    with pytest.raises(ValueError, match="leaves skip"):
+        KT.conv3x3_dec0_wgrad(_act(g, 1, 14, 14, 64), _act(g, 1, 12, 12, 64), gr, 3, 0)
+    img = torch.rand(1, 8, 8, device="cuda")
+    with pytest.raises(TypeError, match="int32"):
+        KE.sample_displaced(img, img, img, img)
+    with pytest.raises(ValueError, match="contiguous"):
+        KE.sample_displaced(img, img.int(), img.transpose(1, 2), img)

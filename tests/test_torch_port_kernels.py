@@ -161,9 +161,9 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     K.reset_launch_counts()
     got = K.conv3x3_bias_relu(x, w, b)
     torch.testing.assert_close(got, K.conv3x3_bias_relu_plain(x, w, b), rtol=0, atol=0)
-    assert K.launch_counts() == {
-        "conv3x3_bias_relu": 0, "tconv2x2_bias": 0, "dec_conv0": 0, "conv3x3_head": 0,
-    }
+    counts = K.launch_counts()  # every imported kernel wrapper, train ones too
+    assert {"conv3x3_bias_relu", "tconv2x2_bias", "dec_conv0", "conv3x3_head"} <= set(counts)
+    assert set(counts.values()) == {0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

@@ -1,5 +1,6 @@
 """Configuration for the PyTorch port: copies of the JAX package's
-`ModelConfig` and `InferConfig` (unetseg_tpu/core/config.py).
+`ModelConfig`, `DataConfig`, `TrainConfig` and `InferConfig`
+(unetseg_tpu/core/config.py).
 
 Copied rather than imported because importing anything under
 `unetseg_tpu` imports jax. tests/test_torch_port_bridge.py keeps the
@@ -9,6 +10,7 @@ fields and defaults equal to the originals.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -27,6 +29,70 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"  # "bfloat16" | "float32"
     bn_momentum: float = 0.9         # flax convention; == torch momentum 0.1
     bn_epsilon: float = 1e-5
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Dataset layout & augmentation (reference: utils/dataset.py,
+    utils/augmentations.py, scripts/preprocess_data.py)."""
+
+    data_root: str = "./data/raw/train/DIC-C2DH-HeLa"
+    sequence: str = "01"
+    val_percent: float = 0.1
+    augment: bool = True
+    elastic_alpha: float = 2000.0    # scripts/train.py:35
+    elastic_sigma: float = 20.0      # scripts/train.py:36
+    # Weight-map parameters (scripts/preprocess_data.py:14-15)
+    w0: float = 10.0
+    sigma_w: float = 5.0
+    image_size: int = 512            # training / predict resize target
+    # Per-frame z-score standardization, applied inside the train step
+    # after photometric augmentation (ops/intensity.py).
+    standardize: bool = False
+    # Photometric augmentation (ops/intensity.py); 0.0 disables each stage.
+    aug_gamma: float = 0.0           # log-range of per-item random gamma
+    aug_illum: float = 0.0           # low-freq multiplicative illumination
+    aug_noise: float = 0.0           # max additive Gaussian noise std
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training (reference: scripts/train.py:22-36,97). The port runs the
+    train step and its state; the loop fields (epochs, checkpoints,
+    logging, data feed) are copied for parity and read by no ported code
+    yet, apart from num_epochs, which sizes the cosine schedule."""
+
+    batch_size: int = 4
+    num_epochs: int = 20
+    learning_rate: float = 1e-4
+    momentum: float = 0.99
+    optimizer: str = "sgd"           # "sgd" (reference) | "adam" | "adamw"
+    weight_decay: float = 0.0        # adamw only
+    cosine_decay: bool = False       # cosine lr schedule over num_epochs
+    checkpoint_dir: str = "./checkpoints"
+    save_checkpoint: bool = True
+    keep_best_k: int = 3
+    checkpoint_min_interval: int = 1
+    async_save: bool = True
+    full_save_interval: int = 5
+    seed: int = 0
+    log_every: int = 10
+    metrics_jsonl: Optional[str] = None
+    resume: bool = False
+    donate_state: bool = True
+    profile_dir: Optional[str] = None
+    profile_steps: int = 5
+    border_boost: float = 5.0        # 3-class mode: loss multiplier on the
+                                     # (rare) border class
+    remat: Optional[str] = "dots"    # a jax.checkpoint policy; no effect here
+    # Kernel train forward (models/train_forward.py): "auto" uses it on a
+    # CUDA device when the kernels take the geometry; "on"/"off" force
+    # (train/steps.lanes_active). The name is the JAX package's.
+    lanes: str = "auto"
+    # EMA of params + BN stats (0 disables), debiased decay
+    # min(ema_decay, (1+t)/(10+t)) after every step (train/state.py).
+    ema_decay: float = 0.0
+    device_data: bool = True
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,10 @@
 // conv3x3_bias_relu: valid 3x3 conv + bias + ReLU, optionally with the 2x2
-// max-pool of the output fused into the epilogue.
+// max-pool of the output fused into the epilogue. With relu == 0 it writes
+// the pre-activation conv + bias (the train step's pre-BatchNorm z).
 //
 // Replaces the TPU kernel unetseg_tpu/ops/pallas/conv3x3.py:conv3x3_phase2
-// (stem, and enc0 conv1 + pool0 on the serving path).
+// (stem, and enc0 conv1 + pool0 on the serving path; stem, enc0 conv1 and
+// dec3 conv1 with relu=False in the train step).
 //
 // CI >= 32 (enc0 conv1, 64 -> 64 channels at 696^2 outputs): about 36 GFLOP
 // per 700^2 tile against 124 MB of traffic, so tensor-core bound; it runs
@@ -27,7 +29,7 @@ constexpr int STEM_QUADS = STEM_THREADS / 8;  // quads per block (8 threads each
 __global__ void __launch_bounds__(STEM_THREADS)
 stem_kernel(const __nv_bfloat16* __restrict__ x, int H, int W,
             const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
-            int Ho, int Wo, int CO, __nv_bfloat16* __restrict__ y,
+            int relu, int Ho, int Wo, int CO, __nv_bfloat16* __restrict__ y,
             __nv_bfloat16* __restrict__ pooled) {
   __shared__ float w_s[9][64];
   __shared__ float b_s[64];
@@ -82,8 +84,8 @@ stem_kernel(const __nv_bfloat16* __restrict__ x, int H, int W,
   for (int q = 0; q < 4; ++q)
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      out[q][k] = __floats2bfloat162_rn(fmaxf(acc[q][2 * k], 0.f),
-                                        fmaxf(acc[q][2 * k + 1], 0.f));
+      out[q][k] = __floats2bfloat162_rn(unet::act(acc[q][2 * k], relu),
+                                        unet::act(acc[q][2 * k + 1], relu));
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const int py = oy + (q >> 1), px = ox + (q & 1);
@@ -108,25 +110,26 @@ stem_kernel(const __nv_bfloat16* __restrict__ x, int H, int W,
 }  // namespace
 
 // x (B,H,W,CI) bf16, w (CO,3,3,CI) bf16, bias (CO,) f32 -> y (B,H-2,W-2,CO)
-// bf16 and, when pooled is not null, pooled (B,(H-2)/2,(W-2)/2,CO) bf16.
-// Returns the CUDA error code of the launch (0 on success).
+// bf16 and, when pooled is not null, pooled (B,(H-2)/2,(W-2)/2,CO) bf16;
+// relu == 0 skips the ReLU. Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int conv3x3_bias_relu_bf16(const void* x, const void* w,
                                       const void* bias, void* y, void* pooled,
                                       int B, int H, int W, int CI, int CO,
-                                      void* stream) {
+                                      int relu, void* stream) {
   const int Ho = H - 2, Wo = W - 2;
   if (CI == 1) {
     const int Hq = (Ho + 1) / 2, Wq = (Wo + 1) / 2;
     dim3 grid((Wq + STEM_QUADS - 1) / STEM_QUADS, Hq, B * (CO / 64));
     stem_kernel<<<grid, STEM_THREADS, 0, (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)x, H, W, (const __nv_bfloat16*)w,
-        (const float*)bias, Ho, Wo, CO, (__nv_bfloat16*)y,
+        (const float*)bias, relu, Ho, Wo, CO, (__nv_bfloat16*)y,
         (__nv_bfloat16*)pooled);
     return (int)cudaGetLastError();
   }
   unet::Src s0{(const __nv_bfloat16*)x, H, W, CI, 0, 0};
   unet::Src s1{nullptr, 0, 0, 0, 0, 0};
   return unet::launch_conv3x3_mma<unet::MODE_STORE>(
-      s0, s1, w, bias, B, Ho, Wo, CO, y, pooled, nullptr, nullptr, 0,
+      s0, s1, w, bias, relu, B, Ho, Wo, CO, y, pooled, nullptr, nullptr, 0,
       nullptr, stream);
 }

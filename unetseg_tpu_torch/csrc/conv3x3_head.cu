@@ -22,6 +22,6 @@ extern "C" int conv3x3_head_bf16(const void* x, const void* w, const void* bias,
   unet::Src s0{(const __nv_bfloat16*)x, H, W, CI, 0, 0};
   unet::Src s1{nullptr, 0, 0, 0, 0, 0};
   return unet::launch_conv3x3_mma<unet::MODE_HEAD>(
-      s0, s1, w, bias, B, H - 2, W - 2, unet::NCO, nullptr, nullptr, head_w,
-      head_b, NC, logits, stream);
+      s0, s1, w, bias, /*relu=*/1, B, H - 2, W - 2, unet::NCO, nullptr,
+      nullptr, head_w, head_b, NC, logits, stream);
 }

@@ -1,24 +1,29 @@
 // Implicit-GEMM valid 3x3 convolution on Hopper tensor cores (mma.sync).
 //
-// Shared by conv3x3_bias_relu.cu, dec_conv0.cu and conv3x3_head.cu. NHWC
-// bf16 activations, weights (CO, 3, 3, CI) bf16 ("OHWI"), f32 bias, f32
-// accumulation. GEMM view: M = output pixels, N = output channels,
-// K = 9 taps x CI.
+// Shared by conv3x3_bias_relu.cu, dec_conv0.cu, conv3x3_head.cu and
+// conv3x3_dgrad.cu (tconv2x2_bias.cu and conv3x3_wgrad.cu use its
+// constants and mma helper). NHWC bf16 activations, weights (CO, 3, 3, CI)
+// bf16 ("OHWI"), f32 bias, f32 accumulation. GEMM view: M = output pixels,
+// N = output channels, K = 9 taps x CI.
 //
 // A block owns a 16x16 tile of output pixels and 64 output channels.
 // Each step stages a 32-channel slice of the (16+2)x(16+2) input window
 // and of the 9 x 64 weight taps in shared memory (rows padded to 40 bf16 so
 // the fragment loads below hit 32 distinct banks), then eight warps each run
 // two m16 tiles (two output rows) x eight n8 tiles with
-// mma.m16n8k16.bf16. The epilogue adds the bias, applies ReLU, rounds to
-// bf16 into a shared tile and from there writes coalesced 16-byte vectors,
-// plus optionally the 2x2 max-pool of the tile (MODE_STORE) or the 1x1 head
-// on the rounded activation in f32 (MODE_HEAD).
+// mma.m16n8k16.bf16. The epilogue adds the bias (none when `bias` is null),
+// applies ReLU when `relu` is set, rounds to bf16 into a shared tile and
+// from there writes coalesced 16-byte vectors, plus optionally the 2x2
+// max-pool of the tile (MODE_STORE) or the 1x1 head on the rounded
+// activation in f32 (MODE_HEAD).
 //
 // Two input sources: channels [0, s0.C) come from s0 read at
 // (off_y, off_x) and channels [s0.C, s0.C + s1.C) from s1, so the decoder
 // entry reads its skip at the crop offset and never materialises the crop
-// or the concat. Requirements (checked by the Python wrappers): s0.C and
+// or the concat. A source offset may be negative: rows and columns outside
+// the source read as zeros, so the input gradient (conv3x3_dgrad.cu) runs
+// this kernel on g at offset (-2, -2) without materialising the zero pad.
+// Requirements (checked by the Python wrappers): s0.C and
 // s1.C multiples of 32, CO a multiple of 64 (MODE_HEAD: CO == 64),
 // 16-byte aligned pointers, contiguous tensors.
 #pragma once
@@ -62,6 +67,10 @@ __device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ float act(float v, int relu) {
+  return relu ? fmaxf(v, 0.f) : v;
+}
+
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -69,8 +78,8 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_mma_kernel(Src s0, Src s1, const __nv_bfloat16* __restrict__ w,
-                   const float* __restrict__ bias, int Ho, int Wo, int CO,
-                   __nv_bfloat16* __restrict__ y,
+                   const float* __restrict__ bias, int relu, int Ho, int Wo,
+                   int CO, __nv_bfloat16* __restrict__ y,
                    __nv_bfloat16* __restrict__ pooled,
                    const float* __restrict__ head_w,
                    const float* __restrict__ head_b, int NC,
@@ -104,7 +113,7 @@ conv3x3_mma_kernel(Src s0, Src s1, const __nv_bfloat16* __restrict__ w,
       const int iy = y0 + pix / IN_COLS + s.off_y;
       const int ix = x0 + pix % IN_COLS + s.off_x;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (iy < s.H && ix < s.W) {
+      if (iy >= 0 && iy < s.H && ix >= 0 && ix < s.W) {
         const size_t off = ((size_t)b * s.H + iy) * s.W + ix;
         val = *reinterpret_cast<const uint4*>(s.p + off * s.C + cs + v * 8);
       }
@@ -146,7 +155,7 @@ conv3x3_mma_kernel(Src s0, Src s1, const __nv_bfloat16* __restrict__ w,
     __syncthreads();
   }
 
-  // Epilogue: bias + ReLU, rounded to bf16, into a shared (TH*TW, NCO) tile.
+  // Epilogue: bias (+ ReLU), rounded to bf16, into a shared (TH*TW, NCO) tile.
   __nv_bfloat16* out_s = reinterpret_cast<__nv_bfloat16*>(smem);
 #pragma unroll
   for (int m = 0; m < 2; ++m) {
@@ -154,13 +163,14 @@ conv3x3_mma_kernel(Src s0, Src s1, const __nv_bfloat16* __restrict__ w,
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const int co = n * 8 + 2 * t;
-      const float b0 = bias[co0 + co], b1 = bias[co0 + co + 1];
+      const float b0 = bias ? bias[co0 + co] : 0.f;
+      const float b1 = bias ? bias[co0 + co + 1] : 0.f;
       *reinterpret_cast<__nv_bfloat162*>(out_s + (row * TW + g) * OUT_P + co) =
-          __floats2bfloat162_rn(fmaxf(acc[m][n][0] + b0, 0.f),
-                                fmaxf(acc[m][n][1] + b1, 0.f));
+          __floats2bfloat162_rn(act(acc[m][n][0] + b0, relu),
+                                act(acc[m][n][1] + b1, relu));
       *reinterpret_cast<__nv_bfloat162*>(out_s + (row * TW + g + 8) * OUT_P + co) =
-          __floats2bfloat162_rn(fmaxf(acc[m][n][2] + b0, 0.f),
-                                fmaxf(acc[m][n][3] + b1, 0.f));
+          __floats2bfloat162_rn(act(acc[m][n][2] + b0, relu),
+                                act(acc[m][n][3] + b1, relu));
     }
   }
 
@@ -226,7 +236,7 @@ conv3x3_mma_kernel(Src s0, Src s1, const __nv_bfloat16* __restrict__ w,
 
 template <int MODE>
 inline int launch_conv3x3_mma(Src s0, Src s1, const void* w, const void* bias,
-                              int B, int Ho, int Wo, int CO, void* y,
+                              int relu, int B, int Ho, int Wo, int CO, void* y,
                               void* pooled, const void* head_w,
                               const void* head_b, int NC, void* logits,
                               void* stream) {
@@ -236,7 +246,7 @@ inline int launch_conv3x3_mma(Src s0, Src s1, const void* w, const void* bias,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Wo + TW - 1) / TW, (Ho + TH - 1) / TH, B * (CO / NCO));
   kernel<<<grid, THREADS, CONV_SMEM, (cudaStream_t)stream>>>(
-      s0, s1, (const __nv_bfloat16*)w, (const float*)bias, Ho, Wo, CO,
+      s0, s1, (const __nv_bfloat16*)w, (const float*)bias, relu, Ho, Wo, CO,
       (__nv_bfloat16*)y, (__nv_bfloat16*)pooled, (const float*)head_w,
       (const float*)head_b, NC, (float*)logits);
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
 // dec_conv0: the decoder-entry conv, ReLU(conv3x3(concat(crop(skip), up)) + b),
-// with neither the crop nor the concat materialised.
+// with neither the crop nor the concat materialised (relu == 0: the train
+// step's pre-BatchNorm z, without the ReLU).
 //
 // Replaces the TPU kernel
 // unetseg_tpu/ops/pallas/conv3x3.py:dec_conv0_phase2 (dec3 conv0 on the
@@ -20,10 +21,10 @@
 extern "C" int dec_conv0_bf16(const void* skip, int Hs, int Ws, int CIs,
                               int row_off, int col_off, const void* up, int Hu,
                               int Wu, int CIu, const void* w, const void* bias,
-                              void* y, int B, int CO, void* stream) {
+                              void* y, int B, int CO, int relu, void* stream) {
   unet::Src s0{(const __nv_bfloat16*)skip, Hs, Ws, CIs, row_off, col_off};
   unet::Src s1{(const __nv_bfloat16*)up, Hu, Wu, CIu, 0, 0};
   return unet::launch_conv3x3_mma<unet::MODE_STORE>(
-      s0, s1, w, bias, B, Hu - 2, Wu - 2, CO, y, nullptr, nullptr, nullptr, 0,
-      nullptr, stream);
+      s0, s1, w, bias, relu, B, Hu - 2, Wu - 2, CO, y, nullptr, nullptr,
+      nullptr, 0, nullptr, stream);
 }

@@ -1,0 +1,129 @@
+"""Kernel train forward of the U-Net (counterpart of
+unetseg_tpu/models/lanes_train.py:train_forward_lanes at tier 1, in its
+default configuration: fused dec0, fused BN, stop-gradient on the middle's
+pre-BN conv biases). The same stages, NHWC instead of the lanes layout:
+
+    enc0      stem and conv1 through Conv3x3Train (conv3x3_bias_relu with
+              relu=False forward, dgrad/wgrad backward), each followed by
+              the fused BN+ReLU; 2x2 max-pool
+    middle    enc1..enc4, up0..up2, dec0..dec2 as plain PyTorch (cuDNN)
+              convs with the fused BN+ReLU, the pre-BN conv biases
+              detached as at lanes_train.py:309-318 (their true gradient is
+              exactly 0: BN's mean subtraction removes any shift)
+    up3       TConv2x2Train (tconv2x2_bias forward, plain backward)
+    dec3      conv0 through DecConv0Train (dec_conv0 with relu=False, skip0
+              read at its center-crop offset; dgrad + two-source wgrad),
+              conv1 through Conv3x3Train, each with the fused BN+ReLU
+    head      1x1 conv in f32, plain PyTorch
+
+On a CUDA tensor the Functions launch the hand-written kernels; on the CPU
+their plain versions, which is what the CPU tests compare with the JAX
+package. Parameters and statistics use the state-dict names of
+models/unet.UNet; returns (f32 NHWC logits, new batch stats, detached).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from unetseg_tpu_torch.core.config import ModelConfig
+from unetseg_tpu_torch.models.shapes import center_crop_bounds, unet_shapes
+from unetseg_tpu_torch.models.unet import center_crop_nhwc, compute_dtype, to_nchw, to_nhwc
+from unetseg_tpu_torch.ops.fused_bn import bn_relu_nhwc
+from unetseg_tpu_torch.ops.kernels.conv3x3_train import (
+    Conv3x3Train,
+    DecConv0Train,
+    TConv2x2Train,
+)
+
+
+def supports(model_cfg: ModelConfig, input_size: int, device) -> bool:
+    """True when the kernel train forward runs this net at this input size
+    on this device: the 5-level transposed-conv U-Net with one input
+    channel at a valid input size; on a CUDA device also the kernels'
+    dtype and widths (bf16, base features a multiple of 64)."""
+    cfg = model_cfg
+    if cfg.levels != 5 or cfg.bilinear or cfg.in_channels != 1:
+        return False
+    try:
+        unet_shapes(input_size, cfg.levels)
+    except ValueError:
+        return False
+    if torch.device(device).type == "cuda":
+        return cfg.compute_dtype == "bfloat16" and cfg.base_features % 64 == 0
+    return True
+
+
+def train_forward(
+    params: Mapping[str, torch.Tensor], batch_stats: Mapping[str, torch.Tensor],
+    x: torch.Tensor, cfg: ModelConfig, item_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B, S, S, 1) -> (f32 logits (B, s', s', num_classes), new batch
+    stats); the same values and gradients as models/unet.unet_train_forward
+    up to summation order, except the middle's pre-BN conv biases, whose
+    gradient is dropped."""
+    dtype = compute_dtype(cfg)
+    new_stats: Dict[str, torch.Tensor] = {}
+
+    def bn(z: torch.Tensor, name: str) -> torch.Tensor:  # z NHWC
+        y, nm, nv = bn_relu_nhwc(
+            z, params[f"{name}.weight"], params[f"{name}.bias"],
+            batch_stats[f"{name}.running_mean"], batch_stats[f"{name}.running_var"],
+            cfg.bn_momentum, cfg.bn_epsilon, item_mask,
+        )
+        new_stats[f"{name}.running_mean"] = nm.detach()
+        new_stats[f"{name}.running_var"] = nv.detach()
+        return y
+
+    def kconv(h: torch.Tensor, name: str) -> torch.Tensor:
+        return Conv3x3Train.apply(h, params[f"{name}.weight"], params[f"{name}.bias"])
+
+    def middle_block(h: torch.Tensor, name: str) -> torch.Tensor:  # NCHW views
+        for i in range(2):
+            c = f"{name}.conv{i}"
+            z = F.conv2d(h, params[f"{c}.weight"].to(dtype),
+                         params[f"{c}.bias"].detach().to(dtype))
+            h = to_nchw(bn(to_nhwc(z), f"{name}.bn{i}"))
+        return h
+
+    # ---- enc0: kernels
+    x = x.to(dtype).contiguous()
+    h = bn(kconv(x, "enc0.conv0"), "enc0.bn0")
+    skip0 = bn(kconv(h, "enc0.conv1"), "enc0.bn1")
+
+    # ---- middle: plain PyTorch on NCHW views of NHWC storage
+    xm = F.max_pool2d(to_nchw(skip0), 2)
+    skips = []
+    for lvl in range(1, cfg.levels):
+        if lvl > 1:
+            xm = F.max_pool2d(xm, 2)
+        xm = middle_block(xm, f"enc{lvl}")
+        skips.append(xm)
+    xm = skips[-1]
+    last = cfg.levels - 2  # the decoder level the kernels run (dec3)
+    for i in range(last):
+        t = f"up{i}_tconv"
+        xm = F.conv_transpose2d(xm, params[f"{t}.weight"].to(dtype),
+                                params[f"{t}.bias"].to(dtype), stride=2)
+        skip_c = center_crop_nhwc(to_nhwc(skips[-(i + 2)]), xm.shape[2], xm.shape[3])
+        xm = middle_block(torch.cat([to_nchw(skip_c), xm], dim=1), f"dec{i}")
+
+    # ---- up3 + dec3: kernels
+    t = f"up{last}_tconv"
+    up = TConv2x2Train.apply(to_nhwc(xm).contiguous(), params[f"{t}.weight"],
+                             params[f"{t}.bias"])
+    row_off = center_crop_bounds(skip0.shape[1], up.shape[1])[0]
+    col_off = center_crop_bounds(skip0.shape[2], up.shape[2])[0]
+    d = f"dec{last}"
+    z = DecConv0Train.apply(skip0, up, params[f"{d}.conv0.weight"],
+                            params[f"{d}.conv0.bias"], row_off, col_off)
+    h = bn(z, f"{d}.bn0")
+    h = bn(kconv(h, f"{d}.conv1"), f"{d}.bn1")
+
+    # ---- 1x1 head in f32
+    k = params["outc.weight"]
+    logits = h.float() @ k.reshape(k.shape[0], -1).t() + params["outc.bias"]
+    return logits, new_stats

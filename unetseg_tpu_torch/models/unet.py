@@ -1,4 +1,4 @@
-"""Eval-mode valid-convolution U-Net (counterpart of unetseg_tpu/models/unet.py).
+"""Valid-convolution U-Net (counterpart of unetseg_tpu/models/unet.py).
 
 Same topology and parameter tree as the Flax `UNet`: per level a
 `DoubleConv` of two (valid 3x3 conv -> BatchNorm -> ReLU), 2x2 max-pool
@@ -9,13 +9,17 @@ logits. Module names follow the Flax names (`enc0.conv0`, `enc0.bn0`,
 `up0_tconv`, `outc`) so utils/flax_bridge.py maps one tree onto the other
 by name.
 
-Only inference is ported: BatchNorm normalises with its running statistics.
-The masked train-mode BatchNorm comes with the train step.
+In eval mode BatchNorm normalises with its running statistics. In train
+mode `UNet.forward` returns `(logits, new_batch_stats)`, the counterpart
+of `UNet.apply(train=True, mutable=["batch_stats"])`: `unet_train_forward`
+over a flat parameter dict, with the masked train-mode BatchNorm
+(`masked_batch_norm`). It is the plain train path; models/train_forward.py
+is the kernel one.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,11 +61,48 @@ def upsample_bilinear_align_corners(x: torch.Tensor) -> torch.Tensor:
     return to_nhwc(y)
 
 
-class BatchNorm(nn.Module):
-    """BatchNorm over channels, normalising with the running statistics.
+def masked_batch_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+    running_mean: torch.Tensor, running_var: torch.Tensor,
+    momentum: float, eps: float, item_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Train-mode MaskedBatchNorm (unetseg_tpu/models/unet.py:82-153) on an
+    NCHW tensor -> (y, new running mean, new running var).
 
-    Matches MaskedBatchNorm(use_running_average=True): fp32 statistics
-    folded into one per-channel multiply-add, applied in the input dtype."""
+    One-pass fp32 statistics E[x^2] - E[x]^2 over (N, H, W), var clamped at
+    0; with a per-item mask the sums are weighted and n = sum(mask)*H*W,
+    clamped to >= 1. Running stats follow flax's momentum (0.9 keeps 90%)
+    with torch's unbiased n/(n-1) variance. The normalisation is one
+    per-channel multiply-add in x's dtype."""
+    dims = (0, 2, 3)
+    hw = x.shape[2] * x.shape[3]
+    if item_mask is None:
+        n = torch.tensor(float(x.shape[0] * hw), device=x.device)
+        mean = x.sum(dims, dtype=torch.float32) / n
+        mean_sq = x.square().sum(dims, dtype=torch.float32) / n
+    else:
+        wm = item_mask.to(x.dtype)[:, None, None, None]
+        n = (item_mask.float().sum() * hw).clamp_min(1.0)
+        mean = (x * wm).sum(dims, dtype=torch.float32) / n
+        mean_sq = (x.square() * wm).sum(dims, dtype=torch.float32) / n
+    var = (mean_sq - mean.square()).clamp_min(0.0)
+    unbias = n / (n - 1.0).clamp_min(1.0)
+    new_mean = momentum * running_mean + (1 - momentum) * mean
+    new_var = momentum * running_var + (1 - momentum) * var * unbias
+    a = weight * torch.rsqrt(var + eps)
+    b = bias - mean * a
+    y = x * a.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
+    return y, new_mean, new_var
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over channels (NCHW).
+
+    Eval mode matches MaskedBatchNorm(use_running_average=True): fp32
+    statistics folded into one per-channel multiply-add, applied in the
+    input dtype. Train mode normalises with the batch statistics
+    (masked_batch_norm); the updated running statistics are returned by
+    the U-Net's train forward, not written into the buffers."""
 
     def __init__(self, channels: int, eps: float):
         super().__init__()
@@ -73,9 +114,8 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # x NCHW
         if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported; call .eval()"
-            )
+            return masked_batch_norm(x, self.weight, self.bias, self.running_mean,
+                                     self.running_var, 0.9, self.eps)[0]
         a = self.weight * torch.rsqrt(self.running_var + self.eps)
         b = self.bias - self.running_mean * a
         return x * a.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
@@ -100,7 +140,8 @@ class DoubleConv(nn.Module):
 
 class UNet(nn.Module):
     """Input NHWC (N, H, W, in_channels); output f32 logits
-    (N, H', W', num_classes) with H' = H - margin(H)."""
+    (N, H', W', num_classes) with H' = H - margin(H). Built in eval mode;
+    after .train(), forward returns (logits, new_batch_stats)."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
@@ -108,7 +149,12 @@ class UNet(nn.Module):
         add_blocks(self, lambda cin, f: DoubleConv(cin, f, cfg.bn_epsilon))
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, item_mask: Optional[torch.Tensor] = None):
+        if self.training:
+            return unet_train_forward(
+                dict(self.named_parameters()), dict(self.named_buffers()), x,
+                self.cfg, item_mask,
+            )
         x = trunk(self, to_nchw(x.to(compute_dtype(self.cfg))))
         logits = F.conv2d(x.float(), self.outc.weight, self.outc.bias)
         return to_nhwc(logits)
@@ -137,13 +183,28 @@ def trunk(net: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Encoder and decoder of a U-Net module with blocks enc{k}, up{i}_tconv
     and dec{i} (UNet or infer.folding.FoldedUNet): NCHW input in the compute
     dtype -> the last decoder block's NCHW output, before the head."""
-    cfg = net.cfg
     dtype = x.dtype
+
+    def tconv(i, h):
+        t = getattr(net, f"up{i}_tconv")
+        return F.conv_transpose2d(h, t.weight.to(dtype), t.bias.to(dtype), stride=2)
+
+    return trunk_with(net.cfg, x, lambda name, h: getattr(net, name)(h), tconv)
+
+
+def trunk_with(
+    cfg: ModelConfig, x: torch.Tensor,
+    block: Callable[[str, torch.Tensor], torch.Tensor],
+    tconv: Callable[[int, torch.Tensor], torch.Tensor],
+) -> torch.Tensor:
+    """The U-Net's encoder and decoder around `block(name, x)` (the
+    DoubleConv named enc{k} or dec{i}) and `tconv(i, x)` (up{i}_tconv),
+    both NCHW."""
     skips = []
     for lvl in range(cfg.levels):
         if lvl > 0:
             x = F.max_pool2d(x, 2)  # floors odd sizes
-        x = getattr(net, f"enc{lvl}")(x)
+        x = block(f"enc{lvl}", x)
         skips.append(x)
 
     x = skips[-1]
@@ -151,10 +212,52 @@ def trunk(net: nn.Module, x: torch.Tensor) -> torch.Tensor:
         if cfg.bilinear:
             x = to_nchw(upsample_bilinear_align_corners(to_nhwc(x)))
         else:
-            t = getattr(net, f"up{i}_tconv")
-            x = F.conv_transpose2d(x, t.weight.to(dtype), t.bias.to(dtype), stride=2)
+            x = tconv(i, x)
         skip_c = center_crop_nhwc(to_nhwc(skip), x.shape[2], x.shape[3])
         # skip first, as the reference concatenates
-        x = torch.cat([to_nchw(skip_c), x], dim=1)
-        x = getattr(net, f"dec{i}")(x)
+        x = torch.cat([to_nchw(skip_c), x.to(skip.dtype)], dim=1)
+        x = block(f"dec{i}", x)
     return x
+
+
+def split_state_dict(sd: Mapping[str, torch.Tensor]):
+    """Flat state dict -> (params, batch_stats): the running statistics go
+    to batch_stats, everything else is a parameter."""
+    params, stats = {}, {}
+    for k, v in sd.items():
+        (stats if k.endswith(("running_mean", "running_var")) else params)[k] = v
+    return params, stats
+
+
+def unet_train_forward(
+    params: Mapping[str, torch.Tensor], batch_stats: Mapping[str, torch.Tensor],
+    x: torch.Tensor, cfg: ModelConfig, item_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Plain train-mode forward, UNet.apply(train=True, item_mask=...,
+    mutable=["batch_stats"]): x (N, H, W, 1) -> (f32 NHWC logits, new
+    batch stats). `params` and `batch_stats` use the state-dict names
+    (`enc0.conv0.weight`, `enc0.bn0.running_mean`, ...); the new stats are
+    detached."""
+    dtype = compute_dtype(cfg)
+    new_stats: Dict[str, torch.Tensor] = {}
+
+    def block(name: str, h: torch.Tensor) -> torch.Tensor:
+        for i in range(2):
+            c, bn = f"{name}.conv{i}", f"{name}.bn{i}"
+            h = F.conv2d(h, params[f"{c}.weight"].to(dtype), params[f"{c}.bias"].to(dtype))
+            h, nm, nv = masked_batch_norm(
+                h, params[f"{bn}.weight"], params[f"{bn}.bias"],
+                batch_stats[f"{bn}.running_mean"], batch_stats[f"{bn}.running_var"],
+                cfg.bn_momentum, cfg.bn_epsilon, item_mask,
+            )
+            new_stats[f"{bn}.running_mean"] = nm.detach()
+            new_stats[f"{bn}.running_var"] = nv.detach()
+            h = F.relu(h).to(dtype)
+        return h
+
+    h = trunk_with(cfg, to_nchw(x.to(dtype)), block,
+                   lambda i, h: F.conv_transpose2d(
+                       h, params[f"up{i}_tconv.weight"].to(dtype),
+                       params[f"up{i}_tconv.bias"].to(dtype), stride=2))
+    logits = F.conv2d(h.float(), params["outc.weight"], params["outc.bias"])
+    return to_nhwc(logits), new_stats

@@ -1,6 +1,7 @@
 """Build and load the Hopper kernels of `unetseg_tpu_torch/csrc`.
 
-One `nvcc` call compiles every `csrc/*.cu` into a shared library with a
+One `nvcc` process per `csrc/*.cu`, all started together, compiles the
+sources to objects; one more links them into a shared library with a
 plain C interface, loaded with ctypes. The library goes to
 `unetseg_tpu_torch/build/<hash>/`, keyed by a hash of the sources and the
 flags, at first use; later calls in the process and later processes on
@@ -22,19 +23,22 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "build"
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+    *GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
 P, I = ctypes.c_void_p, ctypes.c_int
 # C signatures of the kernels' entry points (csrc/*.cu); each returns the
 # CUDA error code of its launch.
 SIGNATURES = {
-    "conv3x3_bias_relu_bf16": [P, P, P, P, P, I, I, I, I, I, P],
-    "dec_conv0_bf16": [P, I, I, I, I, I, P, I, I, I, P, P, P, I, I, P],
+    "conv3x3_bias_relu_bf16": [P, P, P, P, P, I, I, I, I, I, I, P],
+    "dec_conv0_bf16": [P, I, I, I, I, I, P, I, I, I, P, P, P, I, I, I, P],
     "conv3x3_head_bf16": [P, P, P, P, P, P, I, I, I, I, I, P],
     "tconv2x2_bias_bf16": [P, P, P, P, I, I, I, I, I, P],
+    "conv3x3_dgrad_bf16": [P, P, P, I, I, I, I, I, P],
+    "conv3x3_wgrad_bf16": [P, I, I, I, I, I, P, I, I, I, P, I, I, I, I, I, P, P, P],
+    "sample_displaced_f32": [P, P, P, P, I, I, I, P, P, P],
 }
 
 
@@ -72,22 +76,36 @@ def build() -> dict:
     if lib.is_file():
         return {"path": str(lib), "seconds": 0.0, "log": log.read_text()}
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+               "-o", str(work / f"{src.stem}.o")]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    text, failed = "", []
+    for cmd, proc in jobs:  # wait for every compile, then report all failures
+        out = proc.communicate()[0]
+        text += out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if not failed:
+        tmp = work / "lib.so"
+        cmd = [nvcc, *GENCODE, "-shared", "-o", str(tmp), *sorted(map(str, work.glob("*.o")))]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        text += res.stdout + res.stderr
+        if res.returncode != 0:
+            failed.append(f"nvcc link failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                          f"{res.stdout}\n{res.stderr}")
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
-    text = res.stdout + res.stderr
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError("\n".join(failed))
     log.write_text(text)
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    shutil.rmtree(work, ignore_errors=True)
     return {"path": str(lib), "seconds": seconds, "log": text}
 
 

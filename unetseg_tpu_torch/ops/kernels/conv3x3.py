@@ -7,7 +7,10 @@ device: a CPU tensor runs the plain PyTorch version beside the wrapper; a
 CUDA tensor launches the hand-written Hopper kernel (csrc/*.cu, built by
 build.py) on the current stream, or raises. There is no fallback from a
 failed check, build or launch. Each wrapper counts its kernel launches in
-its `launches` attribute.
+its `launches` attribute (ops/kernels/launches.py).
+
+`conv3x3_bias_relu` and `dec_conv0` take `relu=False` for the train
+step, which needs the pre-BatchNorm z = conv + bias.
 
 | wrapper            | CUDA source                 | TPU kernel it replaces                     |
 |--------------------|-----------------------------|--------------------------------------------|
@@ -26,13 +29,20 @@ import torch.nn.functional as F
 
 from unetseg_tpu_torch.models.unet import to_nchw, to_nhwc
 from unetseg_tpu_torch.ops.kernels.build import library
+from unetseg_tpu_torch.ops.kernels.launches import (  # noqa: F401 (re-exported)
+    counted,
+    launch_counts,
+    reset_launch_counts,
+)
 
 MAX_HEAD_CLASSES = 4  # csrc/conv_mma.cuh MAX_NC
 
 
 # ------------------------------------------------------------ plain versions
-def conv3x3_bias_relu_plain(x, w, b, fuse_pool=False):
-    y = F.relu(F.conv2d(to_nchw(x), w.to(x.dtype), b.to(x.dtype)))
+def conv3x3_bias_relu_plain(x, w, b, fuse_pool=False, relu=True):
+    y = F.conv2d(to_nchw(x), w.to(x.dtype), b.to(x.dtype))
+    if relu:
+        y = F.relu(y)
     if fuse_pool:
         return to_nhwc(y), to_nhwc(F.max_pool2d(y, 2))
     return to_nhwc(y)
@@ -43,11 +53,11 @@ def tconv2x2_bias_plain(x, w, b):
     return to_nhwc(y)
 
 
-def dec_conv0_plain(skip, up, w, b, row_off, col_off):
+def dec_conv0_plain(skip, up, w, b, row_off, col_off, relu=True):
     hu, wu = up.shape[1], up.shape[2]
     crop = skip[:, row_off : row_off + hu, col_off : col_off + wu, :]
     xc = torch.cat([crop, up], dim=-1)
-    return conv3x3_bias_relu_plain(xc, w, b)
+    return conv3x3_bias_relu_plain(xc, w, b, relu=relu)
 
 
 def conv3x3_head_plain(x, w, b, k_head, b_head):
@@ -109,16 +119,19 @@ def _raise_on(err: int, name: str) -> None:
 
 
 # ----------------------------------------------------------------- wrappers
+@counted
 def conv3x3_bias_relu(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, fuse_pool: bool = False
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, fuse_pool: bool = False,
+    relu: bool = True,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """ReLU(valid 3x3 conv(x, w) + b), NHWC.
+    """ReLU(valid 3x3 conv(x, w) + b), NHWC (without the ReLU when relu is
+    False).
 
     x (B,H,W,CI), w (CO,CI,3,3), b (CO,) -> (B,H-2,W-2,CO) in x's dtype;
     with fuse_pool also the 2x2 max-pool (B,(H-2)//2,(W-2)//2,CO), floor
     on odd sizes. The kernel takes CI == 1 (the stem) or CI % 32 == 0."""
     if _on_cpu(x, w, b):
-        return conv3x3_bias_relu_plain(x, w, b, fuse_pool)
+        return conv3x3_bias_relu_plain(x, w, b, fuse_pool, relu)
     bsz, h, wd, ci = x.shape
     co = w.shape[0]
     if tuple(w.shape) != (co, ci, 3, 3) or tuple(b.shape) != (co,):
@@ -137,13 +150,14 @@ def conv3x3_bias_relu(
     err = library().conv3x3_bias_relu_bf16(
         x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(),
         pooled.data_ptr() if fuse_pool else None,
-        bsz, h, wd, ci, co, _stream(x),
+        bsz, h, wd, ci, co, int(relu), _stream(x),
     )
     _raise_on(err, "conv3x3_bias_relu")
     conv3x3_bias_relu.launches += 1
     return (y, pooled) if fuse_pool else y
 
 
+@counted
 def tconv2x2_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """2x2 stride-2 transposed conv + b, NHWC: x (B,h,w,CI), w (CI,CO,2,2)
     (torch ConvTranspose2d layout), b (CO,) -> (B,2h,2w,CO)."""
@@ -168,17 +182,19 @@ def tconv2x2_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
     return y
 
 
+@counted
 def dec_conv0(
     skip: torch.Tensor, up: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-    row_off: int, col_off: int,
+    row_off: int, col_off: int, relu: bool = True,
 ) -> torch.Tensor:
     """ReLU(conv3x3(concat(skip[:, row_off:row_off+Hu, col_off:col_off+Wu],
-    up)) + b), NHWC, without materialising the crop or the concat.
+    up)) + b), NHWC, without materialising the crop or the concat (without
+    the ReLU when relu is False).
 
     skip (B,Hs,Ws,CIs), up (B,Hu,Wu,CIu), w (CO,CIs+CIu,3,3) skip channels
     first, b (CO,) -> (B,Hu-2,Wu-2,CO). Any offsets, odd ones included."""
     if _on_cpu(skip, up, w, b):
-        return dec_conv0_plain(skip, up, w, b, row_off, col_off)
+        return dec_conv0_plain(skip, up, w, b, row_off, col_off, relu)
     bsz, hs, ws, cis = skip.shape
     bu, hu, wu, ciu = up.shape
     co = w.shape[0]
@@ -199,13 +215,14 @@ def dec_conv0(
     err = library().dec_conv0_bf16(
         skip.data_ptr(), hs, ws, cis, row_off, col_off,
         up.data_ptr(), hu, wu, ciu, wk.data_ptr(), bk.data_ptr(),
-        y.data_ptr(), bsz, co, _stream(up),
+        y.data_ptr(), bsz, co, int(relu), _stream(up),
     )
     _raise_on(err, "dec_conv0")
     dec_conv0.launches += 1
     return y
 
 
+@counted
 def conv3x3_head(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     k_head: torch.Tensor, b_head: torch.Tensor,
@@ -240,17 +257,3 @@ def conv3x3_head(
     conv3x3_head.launches += 1
     return logits
 
-
-KERNELS = (conv3x3_bias_relu, tconv2x2_bias, dec_conv0, conv3x3_head)
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
-
-
-def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
-
-
-reset_launch_counts()

@@ -1,0 +1,192 @@
+"""Train state: params, BatchNorm statistics, optimizer state, step count
+and the optional EMA shadows (counterpart of unetseg_tpu/train/state.py).
+
+Parameters and statistics are flat dicts of f32 tensors under the
+state-dict names of models/unet.UNet. The optimizers are plain functions
+of those dicts with optax's arithmetic (optax is the reference; torch.optim
+orders some operations differently):
+
+  sgd    trace = g + momentum * trace (no dampening, no Nesterov, as optax
+         `trace`); p += -lr * trace
+  adam   optax scale_by_adam (b1 0.9, b2 0.999, eps 1e-8, bias correction
+         with the post-increment count); p += -lr * update
+  adamw  adam's update + weight_decay * p, decoupled, then scaled by -lr
+
+The cosine schedule reads the step count before its increment, as optax's
+schedule count does. After every step the EMA shadows move by
+e += (1 - d) (p - e), d = min(ema_decay, (1 + t) / (10 + t)) with t the
+post-increment step (unetseg_tpu/train/state.py:40-58). Updates make new
+tensors, as the JAX state is immutable; the step then drops the old ones.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Mapping, Optional, Union
+
+import numpy as np
+import torch
+
+from unetseg_tpu_torch.core.config import ModelConfig, TrainConfig
+from unetseg_tpu_torch.models.fast_init import fast_random_variables
+from unetseg_tpu_torch.models.unet import split_state_dict
+from unetseg_tpu_torch.utils.flax_bridge import flax_to_state_dict
+
+Tensors = Dict[str, torch.Tensor]
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule(init_value, decay_steps) with alpha 0."""
+
+    def schedule(count: int) -> float:
+        c = min(count, decay_steps)
+        return init_value * 0.5 * (1.0 + math.cos(math.pi * c / decay_steps))
+
+    return schedule
+
+
+def _f32_pow(base: float, count: int, device) -> torch.Tensor:
+    """base ** count in f32, as optax's bias correction computes it."""
+    return torch.tensor(base, dtype=torch.float32, device=device) ** count
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """An optax-style gradient transformation over flat tensor dicts."""
+
+    kind: str                       # "sgd" | "adam" | "adamw"
+    learning_rate: Union[float, Callable[[int], float]]
+    momentum: float = 0.99
+    weight_decay: float = 0.0
+
+    def lr(self, count: int) -> float:
+        lr = self.learning_rate
+        return float(lr(count)) if callable(lr) else float(lr)
+
+    def init(self, params: Tensors) -> Dict[str, Any]:
+        zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+        if self.kind == "sgd":
+            return {"count": 0, "trace": zeros}
+        return {"count": 0, "mu": zeros,
+                "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
+
+    def apply(self, params: Tensors, grads: Tensors, state: Dict[str, Any]):
+        """-> (new params, new optimizer state)."""
+        keys = list(params)
+        p = [params[k] for k in keys]
+        g = [grads[k] for k in keys]
+        count = state["count"]
+        step = -self.lr(count)
+        if self.kind == "sgd":
+            tr = torch._foreach_add(g, torch._foreach_mul([state["trace"][k] for k in keys],
+                                                          self.momentum))
+            upd = torch._foreach_mul(tr, step)
+            new_state = {"count": count + 1, "trace": dict(zip(keys, tr))}
+        elif self.kind in ("adam", "adamw"):
+            mu = torch._foreach_add(torch._foreach_mul(g, 1 - ADAM_B1),
+                                    torch._foreach_mul([state["mu"][k] for k in keys], ADAM_B1))
+            nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1 - ADAM_B2),
+                                    torch._foreach_mul([state["nu"][k] for k in keys], ADAM_B2))
+            dev = p[0].device
+            c1 = 1 - _f32_pow(ADAM_B1, count + 1, dev)
+            c2 = 1 - _f32_pow(ADAM_B2, count + 1, dev)
+            mu_hat = torch._foreach_div(mu, c1)
+            nu_hat = torch._foreach_div(nu, c2)
+            den = torch._foreach_add(torch._foreach_sqrt(nu_hat), ADAM_EPS)
+            upd = torch._foreach_div(mu_hat, den)
+            if self.kind == "adamw":
+                upd = torch._foreach_add(upd, torch._foreach_mul(p, self.weight_decay))
+            upd = torch._foreach_mul(upd, step)
+            new_state = {"count": count + 1, "mu": dict(zip(keys, mu)), "nu": dict(zip(keys, nu))}
+        else:
+            raise ValueError(f"unknown optimizer {self.kind!r}")
+        return dict(zip(keys, torch._foreach_add(p, upd))), new_state
+
+
+def make_optimizer(cfg: TrainConfig, steps_per_epoch: Optional[int] = None) -> Optimizer:
+    """SGD momentum 0.99 by default (the reference's optimizer); adam/adamw
+    and cosine decay over num_epochs * steps_per_epoch as in
+    unetseg_tpu/train/state.py:61-77."""
+    lr: Union[float, Callable[[int], float]] = cfg.learning_rate
+    if cfg.cosine_decay and steps_per_epoch:
+        lr = cosine_decay_schedule(cfg.learning_rate, cfg.num_epochs * steps_per_epoch)
+    if cfg.optimizer == "sgd":
+        return Optimizer("sgd", lr, momentum=cfg.momentum)
+    if cfg.optimizer == "adam":
+        return Optimizer("adam", lr)
+    if cfg.optimizer == "adamw":
+        return Optimizer("adamw", lr, weight_decay=cfg.weight_decay)
+    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+
+
+def _ema(shadow: Tensors, new: Tensors, d: float) -> Tensors:
+    keys = list(shadow)
+    e = [shadow[k] for k in keys]
+    diff = torch._foreach_sub([new[k].to(shadow[k].dtype) for k in keys], e)
+    return dict(zip(keys, torch._foreach_add(e, torch._foreach_mul(diff, 1.0 - d))))
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Tensors
+    batch_stats: Tensors
+    tx: Optimizer
+    opt_state: Dict[str, Any]
+    model_cfg: ModelConfig
+    step: int = 0
+    ema_params: Optional[Tensors] = None
+    ema_batch_stats: Optional[Tensors] = None
+    ema_decay: float = 0.0
+
+    def apply_gradients(self, grads: Tensors, batch_stats: Tensors) -> "TrainState":
+        """One optimizer step, then the EMA update (when EMA is on)."""
+        params, opt_state = self.tx.apply(self.params, grads, self.opt_state)
+        state = dataclasses.replace(self, params=params, batch_stats=dict(batch_stats),
+                                    opt_state=opt_state, step=self.step + 1)
+        if self.ema_params is None:
+            return state
+        t = np.float32(state.step)
+        d = float(min(np.float32(self.ema_decay), (1.0 + t) / (10.0 + t)))
+        return dataclasses.replace(
+            state, ema_params=_ema(self.ema_params, params, d),
+            ema_batch_stats=_ema(self.ema_batch_stats, state.batch_stats, d),
+        )
+
+
+def create_train_state(
+    rng: Union[int, torch.Generator, Mapping[str, Any]],
+    model_cfg: Optional[ModelConfig] = None,
+    train_cfg: Optional[TrainConfig] = None,
+    input_size: int = 512,
+    steps_per_epoch: Optional[int] = None,
+    device=None,
+) -> TrainState:
+    """The counterpart of unetseg_tpu/train/state.py:create_train_state.
+
+    `rng` is either the variables in the Flax layout ({'params',
+    'batch_stats'}, e.g. from the JAX package through utils/flax_bridge or
+    from models/fast_init) or a seed (an int, or a torch.Generator whose
+    initial seed is used) for models/fast_init.fast_random_variables.
+    `input_size` is accepted for the JAX signature; the weights do not
+    depend on it. Tensors go to `device` in f32."""
+    m_cfg = model_cfg or ModelConfig()
+    t_cfg = train_cfg or TrainConfig()
+    if isinstance(rng, Mapping):
+        variables = rng
+    else:
+        seed = rng.initial_seed() if isinstance(rng, torch.Generator) else int(rng)
+        variables = fast_random_variables(m_cfg, seed % 2**32)
+    sd = {k: v.to(device) for k, v in flax_to_state_dict(variables).items()}
+    params, stats = split_state_dict(sd)
+    tx = make_optimizer(t_cfg, steps_per_epoch)
+    ema = float(t_cfg.ema_decay or 0.0)
+    clone = lambda d: {k: v.clone() for k, v in d.items()}  # noqa: E731
+    return TrainState(
+        params=params, batch_stats=stats, tx=tx, opt_state=tx.init(params),
+        model_cfg=m_cfg, step=0,
+        ema_params=clone(params) if ema > 0 else None,
+        ema_batch_stats=clone(stats) if ema > 0 else None,
+        ema_decay=ema,
+    )

@@ -1,0 +1,228 @@
+"""The augmented train step (counterpart of unetseg_tpu/train/steps.py).
+
+One step: elastic augmentation -> photometric (gamma / illumination) ->
+per-item standardization -> additive noise -> targets -> U-Net forward ->
+center-cropped weighted softmax CE in fp32, averaged over the valid items'
+pixels -> backward -> optimizer update (+ EMA).
+
+Randomness comes from a torch.Generator, drawn per stage in that order
+(AugmentDraws), where the JAX step folds distinct constants into one key;
+a step can also be handed the draws, which is how the tests feed both
+packages the same numbers.
+
+The forward is the kernel train forward (models/train_forward.py) when
+`lanes` resolves to on, else the plain train-mode UNet
+(models/unet.unet_train_forward): "auto" takes the kernels on a CUDA
+device at a geometry they take, "on" requires them (it raises where they
+do not fit, and on the CPU runs the kernels' plain versions), "off"
+never takes them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from unetseg_tpu_torch.core.config import ModelConfig
+from unetseg_tpu_torch.models.train_forward import supports, train_forward
+from unetseg_tpu_torch.models.unet import unet_train_forward
+from unetseg_tpu_torch.ops.elastic import draw_elastic, elastic_deform_batch
+from unetseg_tpu_torch.ops.intensity import (
+    draw_noise,
+    draw_photometric,
+    gaussian_noise_batch,
+    photometric_augment_batch,
+    standardize_batch,
+)
+from unetseg_tpu_torch.ops.losses import center_crop_nhw, per_pixel_ce
+from unetseg_tpu_torch.train.state import TrainState
+
+Forward = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+@dataclasses.dataclass
+class AugmentDraws:
+    """The random numbers of one augmented step; None where a stage is off.
+
+    elastic      (B, 2, H, W) U[-1, 1): the fields behind dx ([:, 0]), dy
+    log_gamma    (B,) U[-aug_gamma, aug_gamma]
+    illum        (B, 4, 4) U[-1, 1], the coarse illumination grid
+    noise_sigma  (B,) U[0, aug_noise]
+    noise        (B, H, W) standard normal
+    """
+
+    elastic: Optional[torch.Tensor] = None
+    log_gamma: Optional[torch.Tensor] = None
+    illum: Optional[torch.Tensor] = None
+    noise_sigma: Optional[torch.Tensor] = None
+    noise: Optional[torch.Tensor] = None
+
+
+def _masked_mean_loss(
+    logits: torch.Tensor, full_targets: torch.Tensor,
+    full_weights: Optional[torch.Tensor], valid: torch.Tensor,
+) -> torch.Tensor:
+    """Mean over the valid items' pixels of w * CE, targets and weights
+    center-cropped to the logits (reference: scripts/train.py:118-128)."""
+    th, tw = logits.shape[1], logits.shape[2]
+    ce = per_pixel_ce(logits, center_crop_nhw(full_targets, th, tw))
+    if full_weights is not None:
+        ce = ce * center_crop_nhw(full_weights, th, tw).float()
+    item = valid.float()
+    n_pix = item.sum().clamp_min(1.0) * (th * tw)
+    return (ce * item[:, None, None]).sum() / n_pix
+
+
+def three_class_targets(masks: torch.Tensor, halo: int = 2) -> torch.Tensor:
+    """Instance labels -> {0 background, 1 interior, 2 border}: a foreground
+    pixel is interior iff its (2*halo+1)^2 window holds only its own label
+    (window min == max, the window clipped at the frame)."""
+    k = 2 * halo + 1
+    m = masks.double()[:, None]  # labels are exact in f64
+    mx = F.max_pool2d(m, k, stride=1, padding=halo)
+    mn = -F.max_pool2d(-m, k, stride=1, padding=halo)
+    fg = masks > 0
+    interior = fg & (mn == mx)[:, 0]
+    return torch.where(interior, 1, torch.where(fg, 2, 0)).to(torch.int32)
+
+
+def draw_augment(
+    generator: torch.Generator, images: torch.Tensor, augment: bool,
+    aug_gamma: float, aug_illum: float, aug_noise: float,
+) -> AugmentDraws:
+    """Draw every random number one step needs, stage by stage."""
+    if not augment:
+        return AugmentDraws()
+    b, h, w = images.shape
+    dev = images.device
+    draws = AugmentDraws(elastic=draw_elastic(generator, b, h, w, dev))
+    if aug_gamma > 0 or aug_illum > 0:
+        draws.log_gamma, draws.illum = draw_photometric(
+            generator, b, aug_gamma, aug_illum, device=dev)
+    if aug_noise > 0:
+        draws.noise_sigma, draws.noise = draw_noise(generator, (b, h, w), aug_noise, dev)
+    return draws
+
+
+def make_augmenter(
+    augment: bool, elastic_alpha: float, elastic_sigma: float, three_class: bool,
+    border_boost: float, standardize: bool, aug_gamma: float, aug_illum: float,
+    aug_noise: float,
+) -> Callable:
+    """(images, masks, weights, draws) -> (images, targets, weights), the
+    stage order of unetseg_tpu/train/steps.py:make_augmenter: elastic ->
+    photometric ([0, 1] domain) -> standardize -> noise."""
+
+    def apply(images, masks, weights, draws: AugmentDraws):
+        if augment:
+            # fresh field per item; image bilinear, labels nearest; the
+            # weight maps are not deformed (reference: utils/dataset.py:83-93)
+            images, masks = elastic_deform_batch(
+                images, masks, draws.elastic, alpha=elastic_alpha, sigma=elastic_sigma)
+            if aug_gamma > 0 or aug_illum > 0:
+                images = photometric_augment_batch(
+                    images, draws.log_gamma, draws.illum, illum=aug_illum)
+        if standardize:
+            images = standardize_batch(images)
+        if augment and aug_noise > 0:
+            images = gaussian_noise_batch(images, draws.noise_sigma, draws.noise)
+        if three_class:
+            targets = three_class_targets(masks)
+            if border_boost != 1.0:
+                weights = torch.where(targets == 2, weights * border_boost, weights)
+        else:
+            targets = (masks > 0).to(torch.int32)
+        return images, targets, weights
+
+    return apply
+
+
+def lanes_active(mode: str, model_cfg: ModelConfig, input_size: int, device) -> bool:
+    """Resolve TrainConfig.lanes ("auto" | "on" | "off") for a step on
+    `device` at `input_size`, as unetseg_tpu/train/loop.lanes_active does
+    for the TPU: "auto" takes the kernel train forward on a CUDA device at
+    a geometry its kernels take; "on" raises where they do not."""
+    if mode == "off":
+        return False
+    ok = supports(model_cfg, input_size, device)
+    if mode == "on":
+        if not ok:
+            raise ValueError(
+                f"lanes='on' but the kernel train forward does not take this "
+                f"geometry on {device} (input_size={input_size}, levels="
+                f"{model_cfg.levels}, base_features={model_cfg.base_features}, "
+                f"compute_dtype={model_cfg.compute_dtype})")
+        return True
+    if mode != "auto":
+        raise ValueError(f"lanes must be auto|on|off, got {mode!r}")
+    return ok and torch.device(device).type == "cuda"
+
+
+def loss_and_grads(
+    forward: Forward, state: TrainState, images: torch.Tensor, targets: torch.Tensor,
+    weights: Optional[torch.Tensor], valid: torch.Tensor, bn_mask: Optional[torch.Tensor],
+    model_cfg: Optional[ModelConfig] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(loss, new batch stats, grads) of one forward/backward; a parameter
+    the loss does not reach gets a zero gradient (as jax.grad gives)."""
+    cfg = model_cfg or state.model_cfg
+    params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+    with torch.enable_grad():
+        logits, new_bs = forward(params, state.batch_stats, images[..., None], cfg, bn_mask)
+        loss = _masked_mean_loss(logits, targets, weights, valid)
+        keys = list(params)
+        gs = torch.autograd.grad(loss, [params[k] for k in keys], allow_unused=True)
+    grads = {k: (g if g is not None else torch.zeros_like(params[k])) for k, g in zip(keys, gs)}
+    return loss.detach(), new_bs, grads
+
+
+def optax_global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32."""
+    return torch.sqrt(sum(x.float().square().sum() for x in tree.values()))
+
+
+def make_train_step(
+    model_cfg: Optional[ModelConfig] = None,
+    augment: bool = True,
+    elastic_alpha: float = 2000.0,
+    elastic_sigma: float = 20.0,
+    three_class: bool = False,
+    border_boost: float = 1.0,
+    standardize: bool = False,
+    aug_gamma: float = 0.0,
+    aug_illum: float = 0.0,
+    aug_noise: float = 0.0,
+    lanes: str = "auto",
+    assume_valid: bool = False,
+) -> Callable:
+    """Build the train step (unetseg_tpu/train/steps.py:151, without the
+    JAX-only donate / jit / remat / Pallas-loss switches).
+
+    step(state, images (B,H,W) f32 [0,1], masks (B,H,W) int32 instance
+         labels, weights (B,H,W) f32, valid (B,) bool, generator, *,
+         draws=None) -> (state, {"loss", "grad_norm"})
+
+    `draws` (AugmentDraws) replaces the generator's draws. With
+    `assume_valid` every item is promised real: BatchNorm gets no item
+    mask, while `valid` still weights the loss. `model_cfg` defaults to
+    the state's."""
+    augmenter = make_augmenter(augment, elastic_alpha, elastic_sigma, three_class,
+                               border_boost, standardize, aug_gamma, aug_illum, aug_noise)
+
+    def step(state: TrainState, images, masks, weights, valid, generator=None, *, draws=None):
+        cfg = model_cfg or state.model_cfg
+        if draws is None:
+            draws = draw_augment(generator, images, augment, aug_gamma, aug_illum, aug_noise)
+        images, targets, weights = augmenter(images, masks, weights, draws)
+        use_kernels = lanes_active(lanes, cfg, images.shape[1], images.device)
+        forward = train_forward if use_kernels else unet_train_forward
+        bn_mask = None if assume_valid else valid
+        loss, new_bs, grads = loss_and_grads(
+            forward, state, images, targets, weights, valid, bn_mask, cfg)
+        state = state.apply_gradients(grads, new_bs)
+        return state, {"loss": loss, "grad_norm": optax_global_norm(grads)}
+
+    return step
