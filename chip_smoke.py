@@ -28,25 +28,51 @@ its own line, and any failure raises (non-zero exit):
    one step's gradients through the kernels against the plain path in
    fp32 beside the plain path in bf16; times kernel and plain bf16 steps
    the same number of times, alternating which goes first, and prints a
-   torch.profiler table (top 10 operations) of three kernel-path steps.
+   torch.profiler table (top 10 operations) of three kernel-path steps;
+7. kernel parity of the weighted CE (forward and backward at batch 4,
+   324^2 logits, C = 2 and 3, targets and weights read at the 512 -> 324
+   crop) and the min-plus product ((32, 512, 512) with either operand
+   shared), against their plain versions;
+8. preprocess path: weight_map (the preprocess command's dispatcher, paper
+   mode on the card) on 8 seeded synthetic 512^2 label frames: 2 min-plus
+   launches per frame, within 1e-3 of scipy's weight_map_np, ms per frame
+   beside scipy's host time;
+9. training loop: train() on 17 synthetic 512^2 frames in memory (16 train
+   in 4 steps, 1 val) with the best recipe at full width for 2 epochs,
+   then resumed for a third: launches (the weighted CE once per step, every
+   train kernel), finite history, both checkpoint streams, the restored
+   full state bit for bit, the resume at epoch 2, and Predictor.masks_tiled
+   on the restored light checkpoint; ms per step of the epoch feed, ms per
+   validation pass and seconds per checkpoint write.
 
-The last two lines are the kernels' JSON record and {"ok": true,
-"device": {...}}; the line before them is nvidia-smi's name and power
-limit.
+Every parity case prints the kernel's ms, its plain version's, the one
+PyTorch call that computes the same work where there is one (library),
+and the bound: the larger of the case's operations over the card's peak
+for their type and its bytes (each input read once, each output written
+once) over the memory rate (H100 SXM data sheet: 989 TFLOP/s bf16
+dense, 67 TFLOP/s f32, 3.35 TB/s). The min-plus product does no FMA: its
+add and its min are one instruction each, at the f32 issue rate of half
+the FLOP rate (33.5e12/s). The last two lines are the kernels'
+JSON record and {"ok": true, "device": {...}}; the line before them is
+nvidia-smi's name and power limit.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from unetseg_tpu_torch.core.config import InferConfig, ModelConfig, TrainConfig
+from unetseg_tpu_torch.core.config import Config, DataConfig, InferConfig, ModelConfig, TrainConfig
+from unetseg_tpu_torch.data.dataset import HeLaArrays, epoch_index_matrix, train_val_split
 from unetseg_tpu_torch.infer.engine import Predictor
 from unetseg_tpu_torch.infer.folding import FoldedUNet
 from unetseg_tpu_torch.infer.kernel_net import folded_forward_kernels
@@ -65,13 +91,20 @@ from unetseg_tpu_torch.ops.elastic import displaced_coords, draw_elastic
 from unetseg_tpu_torch.ops.kernels import conv3x3 as K
 from unetseg_tpu_torch.ops.kernels import conv3x3_train as KT
 from unetseg_tpu_torch.ops.kernels import elastic as KE
+from unetseg_tpu_torch.ops.kernels import minplus as KM
+from unetseg_tpu_torch.ops.kernels import wce as KW
 from unetseg_tpu_torch.ops.kernels.build import build, nvcc_path
 from unetseg_tpu_torch.ops.losses import binary_probs_from_logits
+from unetseg_tpu_torch.ops.weight_maps import weight_map, weight_map_np
+from unetseg_tpu_torch.train import checkpoint as ckpt
+from unetseg_tpu_torch.train.loop import train
 from unetseg_tpu_torch.train.state import create_train_state
 from unetseg_tpu_torch.train.steps import (
     draw_augment,
     loss_and_grads,
     make_augmenter,
+    make_epoch_eval_step,
+    make_epoch_train_step,
     make_train_step,
 )
 
@@ -108,10 +141,23 @@ SOURCES = {
                            "unetseg_tpu/ops/pallas/conv3x3_train.py:616"),
     "sample_displaced": ("unetseg_tpu_torch/csrc/sample_displaced.cu",
                          "unetseg_tpu/ops/pallas/elastic.py:103"),
+    "weighted_ce_fwd": ("unetseg_tpu_torch/csrc/weighted_ce.cu",
+                        "unetseg_tpu/ops/pallas/wce.py:59"),
+    "weighted_ce_bwd": ("unetseg_tpu_torch/csrc/weighted_ce.cu",
+                        "unetseg_tpu/ops/pallas/wce.py:76"),
+    "minplus": ("unetseg_tpu_torch/csrc/minplus.cu", "unetseg_tpu/ops/pallas/minplus.py:47"),
 }
 SERVING = ("conv3x3_bias_relu", "tconv2x2_bias", "dec_conv0", "conv3x3_head")
 TRAINING = ("conv3x3_bias_relu", "tconv2x2_bias", "dec_conv0", "conv3x3_dgrad",
-            "conv3x3_wgrad", "conv3x3_dec0_wgrad", "sample_displaced")
+            "conv3x3_wgrad", "conv3x3_dec0_wgrad", "sample_displaced", "weighted_ce_fwd",
+            "weighted_ce_bwd")
+PREPROCESS = ("minplus",)
+# H100 SXM peaks (data sheet; dense, at the 700 W limit)
+PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
+# f32 instructions per second: the FLOP rate counts an FMA as two
+# (132 SMs x 128 lanes x 1.98 GHz = 33.5e12); FADD and FMNMX issue at
+# no more than this
+F32_ISSUE = PEAK_F32 / 2
 
 # The train step: batch 4 at 512^2 (TrainConfig.batch_size,
 # DataConfig.image_size) with configs/best_recipe.json's options.
@@ -127,6 +173,15 @@ SAMPLER_ATOL = 1e-5
 # at most max(GRAD_FACTOR x the plain bf16 path's error, GRAD_FLOOR)
 GRAD_FACTOR, GRAD_FLOOR, LOSS_RTOL = 2.0, 1e-2, 1e-2
 TIMING_ROUNDS = 4  # timed runs of each train path, alternating which goes first
+# the weighted CE against its plain version, max |k - ref| / max |ref|:
+# both are f32 with the same formula, apart in exp/log implementations and
+# operation order (~1e-7 relative); a confident pixel's gradient is a
+# difference whose rounding is an ulp of w*g, not of the difference
+WCE_RTOL = 1e-5
+MINPLUS_K = 32  # instances of one frame: the smallest label bucket
+PRE_FRAMES, PRE_SIZE = 8, 512
+WMAP_ATOL = 1e-3  # device weight maps against scipy's (tests/test_weight_maps.py)
+LOOP_FRAMES, LOOP_EPOCHS = 17, 2  # train_val_split: 16 train (4 steps of 4), 1 val
 
 
 def run(cmd):
@@ -144,6 +199,24 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=2):
+    """Summed device time of the kernels fn() launches, per call, from
+    torch.profiler. For kernels of a few microseconds: CUDA events around
+    back-to-back launches time the host's launch rate instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def compare(name, got, ref, slack=0.0):
@@ -176,43 +249,94 @@ def head_slack(x, w, b, k_head, b_head):
     return HEAD_SLACK * to_nhwc(F.conv2d(to_nchw(a).abs(), k_head.abs()))
 
 
+def conv_ops(b, ho, wo, ci, co, taps=9):
+    """Multiply-adds x 2 of a convolution with (b, ho, wo, co) outputs."""
+    return 2 * b * ho * wo * ci * co * taps
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
+
+
+def crop_read(skip, up, off, *rest):
+    """The tensors a two-source kernel reads: skip only at its crop."""
+    hu, wu = up.shape[1], up.shape[2]
+    return (skip[:, off:off + hu, off:off + wu], up, *rest)
+
+
+def new_stats():
+    return {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+                "bound_ms": 0.0, "bound_by": None, "_ops_ms": 0.0, "_bytes_ms": 0.0}
+            for k in SOURCES}
+
+
+def add_bound(st, ops, peak, n_bytes):
+    """Accumulate one case's bound (ms) into a kernel's stats; bound_by
+    names whichever limit takes more of the summed bound."""
+    t_ops, t_bytes = ops / peak * 1e3, n_bytes / HBM_BPS * 1e3
+    st["bound_ms"] += max(t_ops, t_bytes)
+    st["_ops_ms" if t_ops >= t_bytes else "_bytes_ms"] += max(t_ops, t_bytes)
+    st["bound_by"] = "operations" if st["_ops_ms"] >= st["_bytes_ms"] else "bytes"
+    return max(t_ops, t_bytes)
+
+
+def add_times(st, ms, plain_ms, library_ms):
+    st["ms"] += ms
+    st["plain_ms"] += plain_ms
+    if library_ms is not None:
+        st["library_ms"] = (st["library_ms"] or 0.0) + library_ms
+
+
+def bf(t):
+    return t.to(torch.bfloat16)
+
+
 @torch.inference_mode()
 def kernel_parity(sh, c=64):
     """Each kernel at the main path's shapes against its plain version."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    bf = torch.bfloat16
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
     def rand(*shape):
-        return torch.rand(*shape, generator=g, device="cuda").to(bf)
+        return bf(torch.rand(*shape, generator=g, device="cuda"))
 
-    s = sh.input_size
-    e0, up_w = sh.encoder[0], sh.crops[-1]
-    off = (e0 - up_w) // 2
+    def bias(n):
+        return 0.1 * torch.randn(n, generator=g, device="cuda")
+
+    s, b = sh.input_size, BATCH
+    e0, u = sh.encoder[0], sh.crops[-1]
+    off = (e0 - u) // 2
+    stem = (rand(b, s, s, 1), he(g, c, 1, 3, 3, fan_out=9 * c), bias(c))
+    enc0 = (rand(b, s - 2, s - 2, c), he(g, c, c, 3, 3, fan_out=9 * c), bias(c))
+    up3 = (rand(b, u // 2, u // 2, 2 * c), he(g, 2 * c, c, 2, 2, fan_out=4 * c), bias(c))
+    dec0 = (rand(b, e0, e0, c), rand(b, u, u, c), he(g, c, 2 * c, 3, 3, fan_out=9 * c), bias(c),
+            off, off)
+    dec0_cat = torch.cat([dec0[0][:, off:off + u, off:off + u], dec0[1]], -1)
+    head = (rand(b, u - 2, u - 2, c), he(g, c, c, 3, 3, fan_out=9 * c), bias(c),
+            he(g, 2, c, 1, 1, fan_out=2), bias(2))
+
+    def conv_lib(x, w, bb):
+        return lambda: F.conv2d(to_nchw(x), bf(w), bf(bb))
+
     cases = {
-        "stem": ("conv3x3_bias_relu", K.conv3x3_bias_relu, K.conv3x3_bias_relu_plain,
-                 (rand(BATCH, s, s, 1), he(g, c, 1, 3, 3, fan_out=9 * c),
-                  0.1 * torch.randn(c, generator=g, device="cuda")), {}),
-        "enc0_conv1_pool": ("conv3x3_bias_relu", K.conv3x3_bias_relu,
-                            K.conv3x3_bias_relu_plain,
-                            (rand(BATCH, s - 2, s - 2, c), he(g, c, c, 3, 3, fan_out=9 * c),
-                             0.1 * torch.randn(c, generator=g, device="cuda")),
-                            {"fuse_pool": True}),
-        "up3": ("tconv2x2_bias", K.tconv2x2_bias, K.tconv2x2_bias_plain,
-                (rand(BATCH, up_w // 2, up_w // 2, 2 * c), he(g, 2 * c, c, 2, 2, fan_out=4 * c),
-                 0.1 * torch.randn(c, generator=g, device="cuda")), {}),
-        "dec3_conv0": ("dec_conv0", K.dec_conv0, K.dec_conv0_plain,
-                       (rand(BATCH, e0, e0, c), rand(BATCH, up_w, up_w, c),
-                        he(g, c, 2 * c, 3, 3, fan_out=9 * c),
-                        0.1 * torch.randn(c, generator=g, device="cuda"), off, off), {}),
-        "dec3_conv1_head": ("conv3x3_head", K.conv3x3_head, K.conv3x3_head_plain,
-                            (rand(BATCH, up_w - 2, up_w - 2, c), he(g, c, c, 3, 3, fan_out=9 * c),
-                             0.1 * torch.randn(c, generator=g, device="cuda"),
-                             he(g, 2, c, 1, 1, fan_out=2),
-                             0.1 * torch.randn(2, generator=g, device="cuda")), {}),
+        "stem": ("conv3x3_bias_relu", K.conv3x3_bias_relu, K.conv3x3_bias_relu_plain, stem, {},
+                 conv_lib(*stem), conv_ops(b, s - 2, s - 2, 1, c)),
+        "enc0_conv1_pool": ("conv3x3_bias_relu", K.conv3x3_bias_relu, K.conv3x3_bias_relu_plain,
+                            enc0, {"fuse_pool": True}, conv_lib(*enc0),
+                            conv_ops(b, s - 4, s - 4, c, c)),
+        "up3": ("tconv2x2_bias", K.tconv2x2_bias, K.tconv2x2_bias_plain, up3, {},
+                lambda: F.conv_transpose2d(to_nchw(up3[0]), bf(up3[1]), bf(up3[2]), stride=2),
+                conv_ops(b, u // 2, u // 2, 2 * c, c, taps=4)),
+        "dec3_conv0": ("dec_conv0", K.dec_conv0, K.dec_conv0_plain, dec0, {},
+                       conv_lib(dec0_cat, dec0[2], dec0[3]),
+                       (conv_ops(b, u - 2, u - 2, 2 * c, c),
+                        nbytes(*crop_read(dec0[0], dec0[1], off, *dec0[2:4])))),
+        "dec3_conv1_head": ("conv3x3_head", K.conv3x3_head, K.conv3x3_head_plain, head, {},
+                            None, conv_ops(b, u - 4, u - 4, c, c) + conv_ops(b, u - 4, u - 4,
+                                                                             c, 2, taps=1)),
     }
-    stats = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in SOURCES}
+    stats = new_stats()
     run_cases(cases, stats, BATCH)
     return stats
 
@@ -224,24 +348,35 @@ def f32(*ts):
 
 def run_cases(cases, stats, batch):
     """Each case's kernel against its plain version in fp32 on the same
-    values (compare's bound), then both timed on the bf16 tensors; the
-    errors and times accumulate per kernel into `stats`."""
-    for case, (kname, kernel, plain, args, kw) in cases.items():
+    values (compare's bound), then the kernel, the plain version and the
+    library call (the one cuDNN call of the plain version, on a prepared
+    input where the plain version crops or concatenates) timed on the bf16
+    tensors, and the case's bound from its operations (bf16 tensor-core
+    peak) and bytes (the inputs as given, or `(ops, input bytes)` where a
+    kernel reads only part of one); errors, times and bounds accumulate
+    per kernel into `stats`."""
+    for case, (kname, kernel, plain, args, kw, lib, ops) in cases.items():
+        ops, in_bytes = ops if isinstance(ops, tuple) else (ops, nbytes(*args))
         got = kernel(*args, **kw)
         ref = plain(*f32(*args), **kw)
         torch.cuda.synchronize()
         slack = head_slack(*f32(*args)) if kname == "conv3x3_head" else 0.0
         pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
         err = max(compare(f"{case}[{i}]", a, b, slack) for i, (a, b) in enumerate(pairs))
+        out_bytes = nbytes(*(got if isinstance(got, tuple) else (got,)))
         del got, ref, pairs, slack
         ms = cuda_ms(lambda: kernel(*args, **kw))
         plain_ms = cuda_ms(lambda: plain(*args, **kw))  # same bf16 tensors (cuDNN)
-        print(f"time {case}: kernel {ms:.3f} ms, plain bf16 {plain_ms:.3f} ms "
-              f"(batch {batch})", flush=True)
+        lib_ms = cuda_ms(lib) if lib is not None else None
         st = stats[kname]
+        n_bytes = in_bytes + out_bytes
+        bound = add_bound(st, ops, PEAK_BF16, n_bytes)
+        lib = "none" if lib_ms is None else f"{lib_ms:.3f}"
+        print(f"time {case}: kernel {ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, library {lib} "
+              f"ms, bound {bound:.3f} ms ({ops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB; "
+              f"batch {batch})", flush=True)
         st["max_abs_err"] = max(st["max_abs_err"], err)
-        st["ms"] += ms
-        st["plain_ms"] += plain_ms
+        add_times(st, ms, plain_ms, lib_ms)
 
 
 def cell_frames(rs, n, size, labels=False):
@@ -269,27 +404,6 @@ def cell_frames(rs, n, size, labels=False):
         labs.append(lab)
     frames = np.stack(frames).astype(np.float32)
     return (frames, np.stack(labs)) if labels else frames
-
-
-def weight_map(labels, w0=10.0, sigma=5.0):
-    """The reference's pixel weight map (scripts/preprocess_data.py:17-77,
-    w0 10, sigma 5): class-balance weights plus w0 exp(-(d1 + d2)^2 /
-    (2 sigma^2)), d1 and d2 the two smallest per-cell distances, each
-    min(EDT(cell), EDT(not cell)) as the reference computes it."""
-    from scipy.ndimage import distance_transform_edt as edt
-
-    fg = labels > 0
-    n_fg, total = int(fg.sum()), fg.size
-    wc = np.where(fg, total / max(n_fg, 1), total / max(total - n_fg, 1))
-    dists = [np.minimum(edt(labels == k), edt(labels != k))
-             for k in np.unique(labels[fg])]
-    if len(dists) >= 2:
-        d1, d2 = np.partition(np.stack(dists, -1), 1, axis=-1)[..., :2].transpose(2, 0, 1)
-    else:
-        d1 = dists[0] if dists else np.zeros(labels.shape)
-        d2 = np.zeros(labels.shape)
-    sep = w0 * np.exp(-((d1 + d2) ** 2) / (2 * (sigma**2 + 1e-8)))
-    return (wc + sep).astype(np.float32)
 
 
 def plant_intensity_path(variables, gain=20.0, level=0.475, head_scale=0.05):
@@ -421,29 +535,55 @@ def train_kernel_parity(stats, c=64):
         return 0.1 * torch.randn(n, generator=g, device="cuda")
 
     w64, w128 = he(g, c, c, 3, 3, fan_out=9 * c), he(g, c, 2 * c, 3, 3, fan_out=9 * c)
-    dg, wg = ("conv3x3_dgrad", KT.conv3x3_dgrad, KT.conv3x3_dgrad_plain), \
-        ("conv3x3_wgrad", KT.conv3x3_wgrad, KT.conv3x3_wgrad_plain)
+    u = up_w
+    dg = ("conv3x3_dgrad", KT.conv3x3_dgrad, KT.conv3x3_dgrad_plain)
+    wg = ("conv3x3_wgrad", KT.conv3x3_wgrad, KT.conv3x3_wgrad_plain)
     fw = ("conv3x3_bias_relu", K.conv3x3_bias_relu, K.conv3x3_bias_relu_plain)
     nr = {"relu": False}
+
+    def dgrad(gr, w):  # (args, library call, operations)
+        bb, hg, wgd, co = gr.shape
+        ci = w.shape[1]
+        return ((gr, w), lambda: torch.nn.grad.conv2d_input((bb, ci, hg + 2, wgd + 2), bf(w),
+                                                             to_nchw(gr)),
+                conv_ops(bb, hg, wgd, ci, co))
+
+    def wgrad(x, gr):
+        co, ci = gr.shape[3], x.shape[3]
+        return ((x, gr), lambda: torch.nn.grad.conv2d_weight(to_nchw(x), (co, ci, 3, 3),
+                                                             to_nchw(gr)),
+                conv_ops(b, gr.shape[1], gr.shape[2], ci, co))
+
+    def fwd(x, w, bb):
+        return ((x, w, bb), lambda: F.conv2d(to_nchw(x), bf(w), bf(bb)),
+                conv_ops(b, x.shape[1] - 2, x.shape[2] - 2, w.shape[1], w.shape[0]))
+
+    skip, up, b_dec0 = act(b, e0, e0, c), act(b, u, u, c), bias(c)
+    cat = torch.cat([skip[:, off:off + u, off:off + u], up], -1)
+    g_dec0 = grad(b, u - 2, u - 2, c)
     cases = {
-        "dgrad_enc0_conv1": (*dg, (grad(b, s - 4, s - 4, c), w64), {}),
-        "dgrad_dec3_conv1": (*dg, (grad(b, up_w - 4, up_w - 4, c), w64), {}),
-        "dgrad_dec3_conv0": (*dg, (grad(b, up_w - 2, up_w - 2, c), w128), {}),
-        "wgrad_stem": (*wg, (act(b, s, s, 1), grad(b, s - 2, s - 2, c)), {}),
-        "wgrad_enc0_conv1": (*wg, (act(b, s - 2, s - 2, c), grad(b, s - 4, s - 4, c)), {}),
-        "wgrad_dec3_conv1": (*wg, (act(b, up_w - 2, up_w - 2, c),
-                                   grad(b, up_w - 4, up_w - 4, c)), {}),
-        "dec0_wgrad_dec3_conv0": ("conv3x3_dec0_wgrad", KT.conv3x3_dec0_wgrad,
-                                  KT.conv3x3_dec0_wgrad_plain,
-                                  (act(b, e0, e0, c), act(b, up_w, up_w, c),
-                                   grad(b, up_w - 2, up_w - 2, c), off, off), {}),
-        "stem_relu_false": (*fw, (act(b, s, s, 1), he(g, c, 1, 3, 3, fan_out=9 * c), bias(c)), nr),
-        "enc0_conv1_relu_false": (*fw, (act(b, s - 2, s - 2, c), w64, bias(c)), nr),
-        "dec3_conv0_relu_false": ("dec_conv0", K.dec_conv0, K.dec_conv0_plain,
-                                  (act(b, e0, e0, c), act(b, up_w, up_w, c), w128, bias(c),
-                                   off, off), nr),
-        "dec3_conv1_relu_false": (*fw, (act(b, up_w - 2, up_w - 2, c), w64, bias(c)), nr),
+        "dgrad_enc0_conv1": (*dg, *dgrad(grad(b, s - 4, s - 4, c), w64)),
+        "dgrad_dec3_conv1": (*dg, *dgrad(grad(b, u - 4, u - 4, c), w64)),
+        "dgrad_dec3_conv0": (*dg, *dgrad(grad(b, u - 2, u - 2, c), w128)),
+        "wgrad_stem": (*wg, *wgrad(act(b, s, s, 1), grad(b, s - 2, s - 2, c))),
+        "wgrad_enc0_conv1": (*wg, *wgrad(act(b, s - 2, s - 2, c), grad(b, s - 4, s - 4, c))),
+        "wgrad_dec3_conv1": (*wg, *wgrad(act(b, u - 2, u - 2, c), grad(b, u - 4, u - 4, c))),
+        "dec0_wgrad_dec3_conv0": (
+            "conv3x3_dec0_wgrad", KT.conv3x3_dec0_wgrad, KT.conv3x3_dec0_wgrad_plain,
+            (skip, up, g_dec0, off, off),
+            lambda: torch.nn.grad.conv2d_weight(to_nchw(cat), (c, 2 * c, 3, 3), to_nchw(g_dec0)),
+            (conv_ops(b, u - 2, u - 2, 2 * c, c), nbytes(*crop_read(skip, up, off, g_dec0)))),
+        "stem_relu_false": (*fw, *fwd(act(b, s, s, 1), he(g, c, 1, 3, 3, fan_out=9 * c),
+                                      bias(c))),
+        "enc0_conv1_relu_false": (*fw, *fwd(act(b, s - 2, s - 2, c), w64, bias(c))),
+        "dec3_conv0_relu_false": (
+            "dec_conv0", K.dec_conv0, K.dec_conv0_plain, (skip, up, w128, b_dec0, off, off),
+            lambda: F.conv2d(to_nchw(cat), bf(w128), bf(b_dec0)),
+            (conv_ops(b, u - 2, u - 2, 2 * c, c), nbytes(*crop_read(skip, up, off, w128, b_dec0)))),
+        "dec3_conv1_relu_false": (*fw, *fwd(act(b, u - 2, u - 2, c), w64, bias(c))),
     }
+    for k, v in cases.items():  # the relu flag rides in the kwargs slot
+        cases[k] = (*v[:4], nr if k.endswith("relu_false") else {}, *v[4:])
     run_cases(cases, stats, b)
 
     # the elastic sampler: real recipe fields on synthetic cell frames
@@ -462,11 +602,19 @@ def train_kernel_parity(stats, c=64):
           flush=True)
     if not (err <= SAMPLER_ATOL and exact and bool(torch.isfinite(img).all())):
         raise AssertionError("sample_displaced disagrees with its plain version")
-    ms = cuda_ms(lambda: KE.sample_displaced(images, masks, yy, xx))
-    plain_ms = cuda_ms(lambda: KE.sample_displaced_plain(images, masks, yy, xx))
-    print(f"time sample_displaced: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+    kern = lambda: KE.sample_displaced(images, masks, yy, xx)  # noqa: E731
+    event_ms = cuda_ms(kern)
+    ms = device_ms(kern)
+    plain_ms = device_ms(lambda: KE.sample_displaced_plain(images, masks, yy, xx))
+    st = stats["sample_displaced"]
+    # per pixel: image, mask, yy, xx read, image and mask written (4 bytes each)
+    bound = add_bound(st, 0, PEAK_F32, nbytes(images, masks, yy, xx, img, mask))
+    print(f"time sample_displaced (device time, torch.profiler): kernel {ms:.4f} ms (CUDA "
+          f"events over back-to-back launches: {event_ms:.4f}), plain {plain_ms:.3f} ms, "
+          f"library none (no one PyTorch call reflects as scipy does), bound {bound:.4f} ms "
           f"(batch {b})", flush=True)
-    stats["sample_displaced"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    st["max_abs_err"] = err
+    add_times(st, ms, plain_ms, None)
 
 
 def zero_grad_params(name):
@@ -485,7 +633,7 @@ def train_path(gpu):
     dev = torch.device(DEVICE)
     frames, labels = cell_frames(np.random.RandomState(SEED + 3), TRAIN_BATCH, TRAIN_SIZE,
                                  labels=True)
-    weights = np.stack([weight_map(lab) for lab in labels])
+    weights = np.stack([weight_map_np(lab, mode="reference") for lab in labels])
     images, masks, wts = (torch.from_numpy(a).to(dev) for a in (frames, labels, weights))
     valid = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev)
     state = create_train_state(fast_random_variables(cfg, SEED), cfg, RECIPE_TRAIN,
@@ -609,6 +757,243 @@ def profile_step(step, state, images, masks, wts, valid, gen, step_ms, steps=3):
     print(events.table(sort_by="self_device_time_total", row_limit=10), flush=True)
 
 
+def rel_err(got, ref):
+    """max |got - ref| / max |ref|, in f32."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def loss_and_edt_parity(stats, labels):
+    """The weighted CE pair and the min-plus product at their paths' shapes
+    against their plain versions (phase 7)."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    b, s = TRAIN_BATCH, TRAIN_SIZE
+    o = unet_shapes(s).output_size
+    off = (s - o) // 2  # the train step's center crop, 512 -> 324: offset 94
+    n = b * o * o
+    for c in (2, 3):
+        logits = 2 * torch.randn(b, o, o, c, generator=g, device=DEVICE)
+        t = torch.randint(0, c, (b, s, s), generator=g, device=DEVICE, dtype=torch.int32)
+        w = 1 + 10 * torch.rand(b, s, s, generator=g, device=DEVICE)
+        gin = torch.full((b, o, o), 1.0 / n, device=DEVICE)  # the mean's cotangent
+        args = (logits, t, w, off, off)
+        out, ref = KW.weighted_ce_fwd(*args), KW.weighted_ce_fwd_plain(*args)
+        d = KW.weighted_ce_bwd(logits, t, w, gin, off, off)
+        dref = KW.weighted_ce_bwd_plain(logits, t, w, gin, off, off)
+        torch.cuda.synchronize()
+        errs = rel_err(out, ref), rel_err(d, dref)
+        print(f"parity weighted_ce C={c}: logits {tuple(logits.shape)} f32, targets and weights "
+              f"{tuple(t.shape)} read at ({off}, {off}); max rel err forward {errs[0]:.3e}, "
+              f"backward {errs[1]:.3e} (bound {WCE_RTOL:g})", flush=True)
+        if max(errs) > WCE_RTOL or not (torch.isfinite(out).all() and torch.isfinite(d).all()):
+            raise AssertionError(f"weighted CE (C={c}) disagrees with its plain version")
+        # the library yardstick: F.cross_entropy on the cropped targets, times w
+        t_crop = t[:, off:off + o, off:off + o].long()
+        w_crop = w[:, off:off + o, off:off + o].contiguous()
+        lg = logits.clone().requires_grad_(True)
+        lib_out = F.cross_entropy(to_nchw(lg), t_crop, reduction="none") * w_crop
+        cases = {
+            "weighted_ce_fwd": (lambda: KW.weighted_ce_fwd(*args),
+                                lambda: KW.weighted_ce_fwd_plain(*args),
+                                lambda: F.cross_entropy(to_nchw(logits), t_crop,
+                                                        reduction="none") * w_crop,
+                                n * (4 * c + 12), errs[0]),
+            "weighted_ce_bwd": (lambda: KW.weighted_ce_bwd(logits, t, w, gin, off, off),
+                                lambda: KW.weighted_ce_bwd_plain(logits, t, w, gin, off, off),
+                                lambda: torch.autograd.grad(lib_out, lg, gin, retain_graph=True),
+                                n * (8 * c + 12), errs[1]),
+        }
+        for name, (kern, plain, lib, n_bytes, err) in cases.items():
+            event_ms = cuda_ms(kern)
+            ms, plain_ms, lib_ms = device_ms(kern), device_ms(plain), device_ms(lib)
+            st = stats[name]
+            bound = add_bound(st, n * (6 * c + 4), PEAK_F32, n_bytes)
+            print(f"time {name} C={c} (device time, torch.profiler): kernel {ms:.4f} ms (CUDA "
+                  f"events over back-to-back launches: {event_ms:.4f}), plain {plain_ms:.4f} "
+                  f"ms, library {lib_ms:.4f} ms, bound {bound:.4f} ms ({n_bytes / 1e6:.2f} MB)",
+                  flush=True)
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            add_times(st, ms, plain_ms, lib_ms)
+        del lg, lib_out
+
+    # min-plus: the EDT's two phases for MINPLUS_K instances of real frames
+    with torch.inference_mode():
+        lab = torch.from_numpy(labels).to(DEVICE)
+        planes = torch.cat([lab[i][None] == torch.unique(lab[i])[1:, None, None]
+                            for i in range(len(lab))])[:MINPLUS_K]
+        if planes.shape[0] < MINPLUS_K:
+            raise AssertionError(f"{planes.shape[0]} instances < {MINPLUS_K}")
+        col_cost = torch.where(planes, 0.0, KM.BIG)
+        i = torch.arange(labels.shape[1], dtype=torch.float32, device=DEVICE)
+        dist = (i[:, None] - i[None, :]) ** 2
+        g1 = KM.minplus(dist, col_cost)
+        phases = {"phase 1 (a shared)": (dist, col_cost), "phase 2 (b shared)": (g1, dist)}
+        st = stats["minplus"]
+        for name, (a, bm) in phases.items():
+            got, ref = KM.minplus(a, bm), KM.minplus_plain(a, bm)
+            torch.cuda.synchronize()
+            exact = bool(torch.equal(got, ref))
+            print(f"parity minplus {name}: {tuple(a.shape)} x {tuple(bm.shape)} -> "
+                  f"{tuple(got.shape)}, equal to the plain version: {exact}", flush=True)
+            if not exact:
+                raise AssertionError(f"minplus {name} differs from its plain version")
+            ms = cuda_ms(lambda: KM.minplus(a, bm))
+            plain_ms = cuda_ms(lambda: KM.minplus_plain(a, bm), iters=2, warmup=1)
+            cand = got.numel() * a.shape[-1]
+            bound = add_bound(st, 2 * cand, F32_ISSUE, nbytes(a, bm, got))
+            print(f"time minplus {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+                  f"none, bound {bound:.3f} ms ({2 * cand / 1e9:.1f} G FADD+FMNMX at the f32 "
+                  f"issue rate; {2 * cand / (ms * 1e-3) / 1e12:.1f} T instructions/s, "
+                  f"{bound / ms:.0%} of the bound)", flush=True)
+            add_times(st, ms, plain_ms, None)
+
+
+def preprocess_path(labels):
+    """weight_map, the preprocess command's dispatcher, in paper mode on the
+    card for every frame (phase 8): two min-plus launches per frame, within
+    WMAP_ATOL of scipy's host maps."""
+    weight_map(labels[0], mode="paper", device=DEVICE)  # warm-up: allocator
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    maps = [weight_map(lab, mode="paper", device=DEVICE) for lab in labels]
+    dev_s = time.perf_counter() - t0  # each map ends in a copy to the host
+    launches = K.launch_counts()
+    t0 = time.perf_counter()
+    host = [weight_map_np(lab, mode="paper") for lab in labels]
+    host_s = time.perf_counter() - t0
+    err = max(float(np.abs(a - h).max()) for a, h in zip(maps, host))
+    n_inst = [len(np.unique(lab)) - 1 for lab in labels]
+    print(f"preprocess path: {len(labels)} frames {labels.shape[1:]} with {min(n_inst)}-"
+          f"{max(n_inst)} instances, launches {launches}; max |device - scipy| {err:.3e} "
+          f"(bound {WMAP_ATOL:g}); {dev_s / len(labels) * 1e3:.2f} ms per frame on the card "
+          f"(host to host), scipy {host_s / len(labels) * 1e3:.1f} ms per frame", flush=True)
+    if launches["minplus"] != 2 * len(labels) or err > WMAP_ATOL:
+        raise AssertionError("preprocess path: min-plus not launched twice per frame, or the "
+                             "device maps disagree with scipy's")
+    return launches
+
+
+def states_equal(a, b):
+    """Every tensor of two TrainStates bit for bit, and the step."""
+    pairs = [(a.params, b.params), (a.batch_stats, b.batch_stats),
+             (a.opt_state["mu"], b.opt_state["mu"]), (a.opt_state["nu"], b.opt_state["nu"]),
+             (a.ema_params, b.ema_params), (a.ema_batch_stats, b.ema_batch_stats)]
+    return (a.step == b.step and a.opt_state["count"] == b.opt_state["count"]
+            and all(torch.equal(x[k], y[k]) for x, y in pairs for k in x))
+
+
+def loop_path(gpu):
+    """train() with the best recipe at full width on LOOP_FRAMES synthetic
+    frames (phase 9): 2 epochs, a resume for a third, both checkpoint
+    streams, and the light checkpoint served by the Predictor."""
+    frames, labels = cell_frames(np.random.RandomState(SEED + 6), LOOP_FRAMES, TRAIN_SIZE,
+                                 labels=True)
+    wmaps = np.stack([weight_map(lab, mode="paper", device=DEVICE) for lab in labels])
+    data = HeLaArrays(frames, labels, wmaps, [])
+    work = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    d = os.path.join(work, "ckpt")
+    cfg = Config(model=TRAIN_MODEL, data=DataConfig(**RECIPE), train=dataclasses.replace(
+        RECIPE_TRAIN, num_epochs=LOOP_EPOCHS, checkpoint_dir=d, checkpoint_min_interval=4,
+        metrics_jsonl=os.path.join(work, "metrics.jsonl")))
+    spe = -(-len(train_val_split(LOOP_FRAMES, cfg.data.val_percent, cfg.train.seed)[0])
+            // cfg.train.batch_size)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train(cfg, data=data, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    steps = LOOP_EPOCHS * spe
+    print(f"loop path: {LOOP_EPOCHS} epochs of {spe} steps in {wall:.2f} s (checkpoints "
+          f"included), best epoch {res.best_epoch}, history "
+          f"{[{k: round(v, 5) for k, v in h.items()} for h in res.history]}, launches {launches}",
+          flush=True)
+    missing = [k for k in TRAINING if launches[k] == 0]
+    if missing or launches["weighted_ce_fwd"] != steps or launches["weighted_ce_bwd"] != steps:
+        raise AssertionError(f"loop path: kernels not launched as expected ({missing}; "
+                             f"the weighted CE {steps} times each)")
+    if not all(np.isfinite(v) for h in res.history for v in h.values()):
+        raise AssertionError("loop path: history not finite")
+    if ckpt.best_epoch(d) is None or ckpt.latest_epoch(d) != LOOP_EPOCHS - 1:
+        raise AssertionError("loop path: the light or the full checkpoint is missing")
+    template = create_train_state(0, cfg.model, cfg.train, steps_per_epoch=spe, device=DEVICE)
+    restored, epoch, _ = ckpt.restore_checkpoint(d, template)
+    if not states_equal(restored, res.state):
+        raise AssertionError("loop path: the restored full state differs from the saved one")
+
+    cfg2 = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, num_epochs=LOOP_EPOCHS + 1, resume=True))
+    res2 = train(cfg2, data=data, device=DEVICE)
+    with open(cfg.train.metrics_jsonl) as f:
+        resumed = [json.loads(ln) for ln in f if '"resume"' in ln]
+    if (len(res2.history) != 1 or res2.state.step != (LOOP_EPOCHS + 1) * spe
+            or [r["epoch"] for r in resumed] != [LOOP_EPOCHS]):
+        raise AssertionError(f"loop path: the resume did not continue at epoch {LOOP_EPOCHS}")
+    variables = ckpt.restore_params_for_inference(d)
+    pred = Predictor(TRAIN_MODEL, variables, InferConfig(
+        tile_input=min_tile_input(TRAIN_SIZE), tile_batch=2), DEVICE)
+    masks = pred.masks_tiled(frames[:2])
+    if masks.shape != (2, TRAIN_SIZE, TRAIN_SIZE) or masks.dtype != np.uint8 or \
+            set(np.unique(masks)) - {0, 1}:
+        raise AssertionError(f"loop path: served masks {masks.shape} {masks.dtype}")
+    print(f"loop path: full checkpoint of epoch {epoch} restored bit for bit; resumed at "
+          f"epoch {LOOP_EPOCHS}, step {res2.state.step}; light checkpoint of epoch "
+          f"{ckpt.best_epoch(d)} served {masks.shape} uint8 masks, foreground "
+          f"{float(masks.mean()):.4f}", flush=True)
+
+    # ---- times: the epoch feed per step, a validation pass, checkpoint writes
+    train_idx, val_idx = train_val_split(LOOP_FRAMES, cfg.data.val_percent, cfg.train.seed)
+    on_dev = [torch.from_numpy(a).to(DEVICE) for a in (frames, labels, wmaps)]
+    mat, vmat = (torch.from_numpy(a).to(DEVICE) for a in epoch_index_matrix(
+        train_idx, cfg.train.batch_size, shuffle=True, seed=0))
+    val_mat, val_valid = (torch.from_numpy(a).to(DEVICE) for a in epoch_index_matrix(
+        val_idx, cfg.train.batch_size, shuffle=False, seed=0))
+    epoch_step = make_epoch_train_step(TRAIN_MODEL, assume_valid=True, **RECIPE)
+    epoch_eval = make_epoch_eval_step(TRAIN_MODEL, standardize=RECIPE["standardize"])
+    holder = [res2.state]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    single = make_train_step(TRAIN_MODEL, assume_valid=True, **RECIPE)
+    batch = [t.index_select(0, mat[0]) for t in on_dev]
+
+    def one_epoch():
+        holder[0] = epoch_step(holder[0], *on_dev, mat, vmat, gen)[0]
+
+    def single_steps():  # as many steps of one resident batch, as phase 6 times them
+        for _ in range(len(mat)):
+            holder[0] = single(holder[0], *batch, vmat[0], gen)[0]
+
+    feed, steps = [], []
+    for first in (True, False, False, True):  # alternating which goes first
+        for fn, out in ((one_epoch, feed), (single_steps, steps))[:: 1 if first else -1]:
+            out.append(cuda_ms(fn, iters=2, warmup=1) / len(mat))
+    step_ms = float(np.median(feed))
+    print(f"loop path: ms per step, epoch feed {', '.join(f'{t:.2f}' for t in feed)}; single "
+          f"steps on one resident batch {', '.join(f'{t:.2f}' for t in steps)} (alternating)",
+          flush=True)
+    val_ms = cuda_ms(lambda: epoch_eval(holder[0], on_dev[0], on_dev[1], val_mat, val_valid),
+                     iters=3, warmup=1)
+    ck = ckpt.Checkpointer(os.path.join(work, "timed"))
+    t0 = time.perf_counter()
+    ck.save_light_payload(ckpt.device_light_payload(holder[0]), 0, 1.0)
+    light_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck.save_full(holder[0], 0, 1.0)
+    full_s = time.perf_counter() - t0
+    ck.close()
+    sizes = {name: os.path.getsize(os.path.join(work, "timed", *parts)) / 1e6 for name, parts in
+             (("light", ("0.pt",)), ("full", ("full", "0.pt")))}
+    print(f"loop path: {step_ms:.2f} ms per step in the epoch feed (median; {len(mat)} steps of "
+          f"{cfg.train.batch_size} at {TRAIN_SIZE}^2), {val_ms:.2f} ms per validation pass "
+          f"({len(val_mat)} batch), checkpoint writes {light_s:.2f} s light "
+          f"({sizes['light']:.0f} MB), {full_s:.2f} s full ({sizes['full']:.0f} MB), "
+          f"synchronous, on {gpu}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
@@ -632,13 +1017,24 @@ def main():
     serving = main_path(gpu)
     train_kernel_parity(stats)
     training = train_path(gpu)
+    pre_labels = cell_frames(np.random.RandomState(SEED + 5), PRE_FRAMES, PRE_SIZE,
+                             labels=True)[1]
+    loss_and_edt_parity(stats, pre_labels)
+    preprocess = preprocess_path(pre_labels)
+    loop = loop_path(gpu)
 
-    # launches: the serving path's run plus the train path's run
+    # launches: each path's run (serving call, train step, preprocess of
+    # PRE_FRAMES frames, the loop's first train()), counted from 0
+    paths = (serving, training, preprocess, loop)
     record = [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
-         "launches": serving[k] + training[k], **stats[k]}
+         "launches": sum(p[k] for p in paths),
+         **{key: v for key, v in stats[k].items() if not key.startswith("_")}}
         for k in SOURCES
     ]
+    missing = [r["name"] for r in record if r["launches"] == 0]
+    if missing:
+        raise AssertionError(f"kernels launched on no path: {missing}")
     print(json.dumps({"kernels": record}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -50,12 +50,23 @@ def test_flax_tree_round_trip_is_bit_exact(source):
         np.testing.assert_array_equal(back[k], want[k], err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["ModelConfig", "InferConfig", "DataConfig", "TrainConfig"])
+@pytest.mark.parametrize("name", ["ModelConfig", "InferConfig", "DataConfig", "TrainConfig",
+                                  "TrackConfig", "EvalConfig", "MeshConfig", "Config"])
 def test_config_copies_match_the_originals(name):
     ours, orig = getattr(config, name), getattr(jax_config, name)
     strip = lambda fs: [(f.name, f.type, f.default) for f in fs]
     assert strip(dataclasses.fields(ours)) == strip(dataclasses.fields(orig))
     assert dataclasses.asdict(ours()) == dataclasses.asdict(orig())
+
+
+def test_config_files_load_alike():
+    root = Path(__file__).resolve().parents[1]
+    for path in sorted((root / "configs").glob("*.json")):
+        ours, orig = config.Config.from_json_file(path), jax_config.Config.from_json_file(path)
+        assert ours.to_dict() == orig.to_dict(), path
+        assert config.Config.from_dict(ours.to_dict()) == ours
+    with pytest.raises(KeyError, match="unknown config key"):
+        config.Config.from_dict({"train": {"no_such_field": 1}})
 
 
 def test_shapes_copy_matches_the_original():
@@ -73,11 +84,15 @@ def test_shapes_copy_matches_the_original():
 
 
 def test_port_imports_no_jax():
+    """Nor Pillow: the GPU machine has none, and the port reads files with
+    it only inside the functions that read them."""
     code = (
         "import sys\n"
         "import unetseg_tpu_torch, unetseg_tpu_torch.infer.engine, chip_smoke\n"
-        "import unetseg_tpu_torch.train.steps\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'unetseg_tpu'))\n"
+        "import unetseg_tpu_torch.train.steps, unetseg_tpu_torch.train.loop\n"
+        "import unetseg_tpu_torch.cli.main, unetseg_tpu_torch.ops.weight_maps\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'unetseg_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

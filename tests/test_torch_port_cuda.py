@@ -3,7 +3,10 @@ shapes that reach the edge cases: ragged tiles, odd sizes under the fused
 pool, odd crop offsets, 3-class heads, several output-channel blocks; for
 the train step's kernels odd sizes, batch 1, CI=1, crop offsets of either
 parity, relu=False, wgrad determinism, the sampler's reflection and
-rounding ties at sizes off the 32-pixel grid, and the wrappers' refusals.
+rounding ties at sizes off the 32-pixel grid; the weighted CE at ragged
+pixel counts, odd crop offsets, bf16 logits and three classes; the
+min-plus product at sizes off its 128-tile, K = 1 and both shared-operand
+patterns; and the wrappers' refusals.
 
 Marked `cuda` and skipped without a card. The file imports no jax, so on a
 GPU machine it runs without the JAX package:
@@ -17,6 +20,8 @@ from unetseg_tpu_torch.models.unet import to_nchw, to_nhwc
 from unetseg_tpu_torch.ops.kernels import conv3x3 as K
 from unetseg_tpu_torch.ops.kernels import conv3x3_train as KT
 from unetseg_tpu_torch.ops.kernels import elastic as KE
+from unetseg_tpu_torch.ops.kernels import minplus as KM
+from unetseg_tpu_torch.ops.kernels import wce as KW
 
 pytestmark = pytest.mark.cuda
 
@@ -220,3 +225,71 @@ def test_train_wrappers_raise_on_what_the_kernels_do_not_take(g):
         KE.sample_displaced(img, img, img, img)
     with pytest.raises(ValueError, match="contiguous"):
         KE.sample_displaced(img, img.int(), img.transpose(1, 2), img)
+
+
+# ------------------------------------------------ weighted CE and min-plus
+
+
+@pytest.mark.parametrize("b,h,w,c,dtype,row_off,col_off", [
+    (1, 7, 9, 2, torch.float32, 0, 0), (3, 13, 17, 2, torch.float32, 5, 3),
+    (2, 11, 6, 3, torch.float32, 1, 8), (2, 15, 15, 2, torch.bfloat16, 4, 7),
+    (1, 5, 33, 3, torch.bfloat16, 2, 0),
+])
+def test_weighted_ce(g, b, h, w, c, dtype, row_off, col_off):
+    """Forward and backward against the plain versions (the JAX step's
+    default loss and its autograd): 1e-5 of the largest entry (f32
+    arithmetic in another order; for bf16 logits the plain backward rounds
+    its f32 gradient to bf16 as the kernel does, one bf16 ulp apart at most)."""
+    ht, wt = h + row_off + 3, w + col_off + 2
+    logits = (2 * torch.randn(b, h, w, c, generator=g, device="cuda")).to(dtype)
+    t = torch.randint(0, c, (b, ht, wt), generator=g, device="cuda", dtype=torch.int32)
+    wts = torch.rand(b, ht, wt, generator=g, device="cuda") * 3 + 0.5
+    gin = torch.randn(b, h, w, generator=g, device="cuda")
+    KW.weighted_ce_fwd.launches = KW.weighted_ce_bwd.launches = 0
+    out = KW.weighted_ce_fwd(logits, t, wts, row_off, col_off)
+    d = KW.weighted_ce_bwd(logits, t, wts, gin, row_off, col_off)
+    assert KW.weighted_ce_fwd.launches == KW.weighted_ce_bwd.launches == 1
+    ref = KW.weighted_ce_fwd_plain(logits, t, wts, row_off, col_off)
+    dref = KW.weighted_ce_bwd_plain(logits, t, wts, gin, row_off, col_off)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and d.dtype == dtype and d.shape == logits.shape
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    ulp = 2.0**-8 if dtype == torch.bfloat16 else 1e-5
+    assert (d.float() - dref.float()).abs().max().item() <= ulp * dref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("m,k,n,shared", [
+    (1, 1, 1, None), (130, 200, 70, None), (37, 1, 129, "a"), (257, 45, 31, "b"),
+    (128, 128, 128, "a"),
+])
+def test_minplus_equals_plain(g, m, k, n, shared):
+    """Exact: one f32 add per candidate and an exact min."""
+    def mat(*shape):
+        x = torch.randint(0, 5000, shape, generator=g, device="cuda").float()
+        return torch.where(torch.rand(shape, generator=g, device="cuda") < 0.2, 1e12, x)
+
+    a = mat(m, k) if shared == "a" else mat(3, m, k) if shared else mat(m, k)
+    bm = mat(k, n) if shared == "b" else mat(3, k, n) if shared else mat(k, n)
+    KM.minplus.launches = 0
+    got = KM.minplus(a, bm)
+    ref = KM.minplus_plain(a, bm)
+    torch.cuda.synchronize()
+    assert KM.minplus.launches == 1 and got.shape == ref.shape
+    assert torch.equal(got, ref)
+
+
+def test_new_wrappers_raise_on_what_the_kernels_do_not_take(g):
+    lg = torch.randn(1, 4, 4, 2, device="cuda")
+    t = torch.zeros(1, 6, 6, dtype=torch.int32, device="cuda")
+    w = torch.ones(1, 6, 6, device="cuda")
+    with pytest.raises(TypeError, match="int32"):
+        KW.weighted_ce_fwd(lg, t.long(), w)
+    with pytest.raises(ValueError, match="leaves"):
+        KW.weighted_ce_fwd(lg, t, w, 3, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        KW.weighted_ce_fwd(lg.transpose(1, 2), t, w)
+    with pytest.raises(TypeError, match="float32"):
+        KM.minplus(torch.ones(3, 4, device="cuda", dtype=torch.float64),
+                   torch.ones(4, 5, device="cuda"))
+    with pytest.raises(ValueError, match="batch sizes"):
+        KM.minplus(torch.ones(2, 3, 4, device="cuda"), torch.ones(3, 4, 5, device="cuda"))

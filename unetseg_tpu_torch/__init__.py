@@ -1,4 +1,6 @@
-"""PyTorch + CUDA port of unetseg_tpu's overlap-tile inference path.
+"""PyTorch + CUDA port of unetseg_tpu: the overlap-tile serving path, the
+augmented training loop with its checkpoints, and the weight-map
+preprocessing, with `python -m unetseg_tpu_torch preprocess|train`.
 
 The JAX package (`unetseg_tpu`) is the reference; each module here names
 its counterpart there, and tests/test_torch_port_*.py hold the two against
@@ -8,5 +10,6 @@ never jax, flax or anything under `unetseg_tpu`.
 Activations are NHWC at every public function, as in the JAX package. The
 Hopper kernels of the serving path live in `ops/kernels` (sources in
 `csrc/`); on a CPU tensor each kernel wrapper runs its plain PyTorch
-version instead.
+version instead. Entry points run on the card unless the caller asks for
+the CPU.
 """

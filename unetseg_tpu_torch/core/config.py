@@ -1,6 +1,8 @@
 """Configuration for the PyTorch port: copies of the JAX package's
-`ModelConfig`, `DataConfig`, `TrainConfig` and `InferConfig`
-(unetseg_tpu/core/config.py).
+`ModelConfig`, `DataConfig`, `TrainConfig`, `InferConfig`, `TrackConfig`,
+`EvalConfig`, `MeshConfig` and the `Config` tree with its JSON loaders
+(unetseg_tpu/core/config.py), so that its config files (e.g.
+configs/best_recipe.json) load here.
 
 Copied rather than imported because importing anything under
 `unetseg_tpu` imports jax. tests/test_torch_port_bridge.py keeps the
@@ -9,7 +11,9 @@ fields and defaults equal to the originals.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import json
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -57,10 +61,12 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training (reference: scripts/train.py:22-36,97). The port runs the
-    train step and its state; the loop fields (epochs, checkpoints,
-    logging, data feed) are copied for parity and read by no ported code
-    yet, apart from num_epochs, which sizes the cosine schedule."""
+    """Training loop (reference: scripts/train.py:22-36,97), read by
+    train/loop.py. `remat`, `donate_state` and `async_save` are read by
+    no ported code (JAX-only switches; the port writes checkpoints
+    synchronously), kept so that config files of either package load in
+    both; `device_data` keeps the dataset on the device and feeds each
+    epoch by index (train/steps.make_epoch_train_step)."""
 
     batch_size: int = 4
     num_epochs: int = 20
@@ -169,3 +175,85 @@ class InferConfig:
     # disagreement concentrates on the membranes between touching cells).
     # Binary head only; 3-class ensembles always mean.
     ensemble_merge: str = "mean"
+
+
+@dataclass(frozen=True)
+class TrackConfig:
+    """Tracker thresholds (reference: scripts/track.py:21-24). The tracker
+    is not ported; the section is copied so that config files load."""
+
+    iou_threshold_track: float = 0.3
+    iou_threshold_division: float = 0.1
+    max_children: int = 2
+    division_from_matched: bool = True
+    matched_division_iou_cap: float = 0.6
+    division_min_child_frac: float = 0.25
+    division_child_cover: float = 0.25
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation (reference: scripts/evaluate.py, utils/metrics.py)."""
+
+    threshold: float = 0.5
+    penalize_extra_detections: bool = True  # DET FP weight on/off
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Named device mesh of the JAX package (data / tile / model axes); the
+    port's data parallelism is not ported yet, so nothing reads it."""
+
+    data_axis: str = "data"
+    tile_axis: str = "tile"
+    model_axis: str = "model"
+    # -1 => use all available devices on that axis
+    data_parallel: int = -1
+    tile_parallel: int = 1
+    model_parallel: int = 1
+
+
+@dataclass(frozen=True)
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    infer: InferConfig = field(default_factory=InferConfig)
+    track: TrackConfig = field(default_factory=TrackConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    # per-sequence InferConfig field overrides, e.g. {"02": {"boundary_grow": 1.5}}
+    infer_per_sequence: dict = field(default_factory=dict)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Config":
+        def build(tp, sub):
+            names = {f.name for f in dataclasses.fields(tp)}
+            kw = {}
+            for k, v in sub.items():
+                if k not in names:
+                    raise KeyError(f"unknown config key {tp.__name__}.{k}")
+                section = isinstance(v, dict) and k in _SECTION_TYPES
+                kw[k] = build(_SECTION_TYPES[k], v) if section else v
+            return tp(**kw)
+
+        return build(cls, d)
+
+    @classmethod
+    def from_json_file(cls, path: str) -> "Config":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+
+_SECTION_TYPES = {
+    "model": ModelConfig,
+    "data": DataConfig,
+    "train": TrainConfig,
+    "infer": InferConfig,
+    "track": TrackConfig,
+    "eval": EvalConfig,
+    "mesh": MeshConfig,
+}

@@ -28,10 +28,13 @@ NVCC_FLAGS = (
     *GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of the kernels' entry points (csrc/*.cu); each returns the
 # CUDA error code of its launch.
 SIGNATURES = {
+    "weighted_ce_fwd": [P, I, P, P, I, I, I, I, I, I, I, I, P, P],
+    "weighted_ce_bwd": [P, I, P, P, P, I, I, I, I, I, I, I, I, P, P],
+    "minplus_f32": [P, L, P, L, P, I, I, I, I, P],
     "conv3x3_bias_relu_bf16": [P, P, P, P, P, I, I, I, I, I, I, P],
     "dec_conv0_bf16": [P, I, I, I, I, I, P, I, I, I, P, P, P, I, I, I, P],
     "conv3x3_head_bf16": [P, P, P, P, P, P, I, I, I, I, I, P],

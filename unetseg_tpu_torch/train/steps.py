@@ -1,4 +1,5 @@
-"""The augmented train step (counterpart of unetseg_tpu/train/steps.py).
+"""The augmented train step, the eval step and their whole-epoch forms
+(counterpart of unetseg_tpu/train/steps.py).
 
 One step: elastic augmentation -> photometric (gamma / illumination) ->
 per-item standardization -> additive noise -> targets -> U-Net forward ->
@@ -15,7 +16,12 @@ The forward is the kernel train forward (models/train_forward.py) when
 (models/unet.unet_train_forward): "auto" takes the kernels on a CUDA
 device at a geometry they take, "on" requires them (it raises where they
 do not fit, and on the CPU runs the kernels' plain versions), "off"
-never takes them.
+never takes them. The weighted loss is the fused weighted CE
+(ops/kernels/wce.py) on every path.
+
+The epoch steps take the dataset resident on the device and an (S, B)
+index matrix per epoch; a Python loop over its rows, gathering each
+batch with index_select, takes the place of the JAX package's lax.scan.
 """
 
 from __future__ import annotations
@@ -27,8 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from unetseg_tpu_torch.core.config import ModelConfig
+from unetseg_tpu_torch.models.shapes import center_crop_bounds
 from unetseg_tpu_torch.models.train_forward import supports, train_forward
-from unetseg_tpu_torch.models.unet import unet_train_forward
+from unetseg_tpu_torch.models.unet import UNet, unet_train_forward
 from unetseg_tpu_torch.ops.elastic import draw_elastic, elastic_deform_batch
 from unetseg_tpu_torch.ops.intensity import (
     draw_noise,
@@ -37,7 +44,7 @@ from unetseg_tpu_torch.ops.intensity import (
     photometric_augment_batch,
     standardize_batch,
 )
-from unetseg_tpu_torch.ops.losses import center_crop_nhw, per_pixel_ce
+from unetseg_tpu_torch.ops.losses import center_crop_nhw, per_pixel_ce, weighted_ce_pixels
 from unetseg_tpu_torch.train.state import TrainState
 
 Forward = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -66,11 +73,17 @@ def _masked_mean_loss(
     full_weights: Optional[torch.Tensor], valid: torch.Tensor,
 ) -> torch.Tensor:
     """Mean over the valid items' pixels of w * CE, targets and weights
-    center-cropped to the logits (reference: scripts/train.py:118-128)."""
+    center-cropped to the logits (reference: scripts/train.py:118-128).
+    The weighted case is the fused weighted CE (the JAX step's
+    use_pallas_loss), which reads the uncropped targets and weights at the
+    crop's offsets; the unweighted case (validation) is per_pixel_ce."""
     th, tw = logits.shape[1], logits.shape[2]
-    ce = per_pixel_ce(logits, center_crop_nhw(full_targets, th, tw))
     if full_weights is not None:
-        ce = ce * center_crop_nhw(full_weights, th, tw).float()
+        row_off = center_crop_bounds(full_targets.shape[1], th)[0]
+        col_off = center_crop_bounds(full_targets.shape[2], tw)[0]
+        ce = weighted_ce_pixels(logits, full_targets, full_weights, row_off, col_off)
+    else:
+        ce = per_pixel_ce(logits, center_crop_nhw(full_targets, th, tw))
     item = valid.float()
     n_pix = item.sum().clamp_min(1.0) * (th * tw)
     return (ce * item[:, None, None]).sum() / n_pix
@@ -224,5 +237,88 @@ def make_train_step(
             forward, state, images, targets, weights, valid, bn_mask, cfg)
         state = state.apply_gradients(grads, new_bs)
         return state, {"loss": loss, "grad_norm": optax_global_norm(grads)}
+
+    return step
+
+
+def make_epoch_train_step(
+    model_cfg: Optional[ModelConfig] = None, inner_step: Optional[Callable] = None, **step_kw
+) -> Callable:
+    """Whole-epoch train step over a device-resident dataset
+    (unetseg_tpu/train/steps.py:247).
+
+    epoch_step(state, images_all (N,H,W) f32, masks_all (N,H,W) int32,
+               wmaps_all (N,H,W) f32, idx (S,B) int, valid (S,B) bool,
+               generator) -> (state, {"loss": (S,), "grad_norm": (S,)})
+
+    The steps draw their augmentation from `generator` in order; the loop
+    seeds it from (seed, epoch) alone, so a run resumed at an epoch
+    boundary draws what an uninterrupted run draws. `inner_step` overrides
+    make_train_step(model_cfg, **step_kw). The metrics stay on the device."""
+    inner = inner_step or make_train_step(model_cfg, **step_kw)
+
+    def epoch_step(state, images_all, masks_all, wmaps_all, idx, valid, generator=None):
+        metrics = []
+        for ib, vb in zip(idx, valid):
+            state, m = inner(state, images_all.index_select(0, ib), masks_all.index_select(0, ib),
+                             wmaps_all.index_select(0, ib), vb, generator)
+            metrics.append(m)
+        return state, {k: torch.stack([m[k] for m in metrics]) for k in ("loss", "grad_norm")}
+
+    return epoch_step
+
+
+def make_epoch_eval_step(model_cfg: Optional[ModelConfig] = None, **eval_kw) -> Callable:
+    """Whole-validation eval over the device-resident dataset (the
+    companion of make_epoch_train_step, unetseg_tpu/train/steps.py:308).
+
+    epoch_eval(state, images_all, masks_all, idx (S,B), valid (S,B))
+        -> {"val_loss": (S,), "val_acc": (S,), "val_iou": (S,)}"""
+    inner = make_eval_step(model_cfg, **eval_kw)
+
+    def epoch_eval(state, images_all, masks_all, idx, valid):
+        ms = [inner(state, images_all.index_select(0, ib), masks_all.index_select(0, ib), vb)
+              for ib, vb in zip(idx, valid)]
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return epoch_eval
+
+
+def make_eval_step(
+    model_cfg: Optional[ModelConfig] = None, three_class: bool = False,
+    standardize: bool = False,
+) -> Callable:
+    """Validation step (unetseg_tpu/train/steps.py:336): unweighted CE on
+    the cropped targets over the valid items, pixel accuracy and the binary
+    foreground IoU (classes {1, 2} count as foreground with three classes),
+    through the eval-mode UNet (BatchNorm on its running statistics).
+
+    step(state, images (B,H,W), masks (B,H,W) int32, valid (B,) bool)
+        -> {"val_loss", "val_acc", "val_iou"} as device scalars"""
+    nets: Dict[ModelConfig, UNet] = {}
+
+    @torch.no_grad()
+    def step(state: TrainState, images, masks, valid):
+        cfg = model_cfg or state.model_cfg
+        if cfg not in nets:  # the state's tensors stand in for the module's
+            with torch.device("meta"):
+                nets[cfg] = UNet(cfg)
+        net = nets[cfg]
+        if standardize:
+            images = standardize_batch(images)
+        targets = three_class_targets(masks) if three_class else (masks > 0).to(torch.int32)
+        logits = torch.func.functional_call(
+            net, {**state.params, **state.batch_stats}, (images[..., None],))
+        loss = _masked_mean_loss(logits, targets, None, valid)
+        th, tw = logits.shape[1], logits.shape[2]
+        t = center_crop_nhw(targets, th, tw)
+        pred = logits.argmax(-1)
+        item = valid[:, None, None]
+        acc = ((pred == t) & item).sum() / (valid.sum() * th * tw).clamp_min(1)
+        pred_fg, t_fg = pred >= 1, t >= 1
+        inter = (pred_fg & t_fg & item).sum()
+        union = ((pred_fg | t_fg) & item).sum()
+        iou = torch.where(union > 0, inter / union.clamp_min(1), 1.0)
+        return {"val_loss": loss, "val_acc": acc, "val_iou": iou}
 
     return step
