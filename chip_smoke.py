@@ -6,17 +6,29 @@ toolkit: `python3 chip_smoke.py`. The phases run in order, each prints
 its own line, and any failure raises (non-zero exit):
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
-2. build the eight kernels from unetseg_tpu_torch/csrc (one nvcc per
-   source, in parallel) and print ptxas's register and spill lines;
+2. build the kernels of the sixteen wrappers from the eleven CUDA sources
+   of unetseg_tpu_torch/csrc (one nvcc per source, in parallel) and print
+   ptxas's register and spill lines;
 3. serving-kernel parity at the serving path's full-width shapes (700^2
    tiles, base 64, batch 16): kernel on bf16 inputs against its plain
-   version in fp32 (TF32 off) on the same values, plus both times;
+   version in fp32 (TF32 off) on the same values, plus both times; also
+   the serving variants' kernels: enc0_fused, dec_tail, conv3x3_dense
+   (tier-2 enc1 conv0, enc1 conv1 + pool, dec2 conv1), dec_conv0_dense
+   (dec2 conv0 at offset 40) and conv3x3_cblock (the eleven middle convs
+   with output channels a multiple of 128);
 4. serving path: Predictor.masks_tiled on 16 seeded synthetic 512^2 cell
    frames at full width, with seeded He-scaled weights, random BatchNorm
    statistics and a planted intensity path (see plant_intensity_path);
-   checks the uint8 masks, that its four kernels launched, finite logits,
-   and >= 0.999 pixel agreement with the plain forward on the card, and
-   times it with CUDA events;
+   checks the uint8 masks, that its four kernels launched exactly as
+   before (2, 1, 1, 1 per forward chunk), finite logits, and >= 0.999
+   pixel agreement with the plain fp32 forward on the card, and times it
+   with CUDA events;
+4b. serving variants: Predictor.masks_tiled on the same frames with (a)
+   tier2, (b) fused_enc0 with dec_fuse="tail", (c) cblock=("all",), (d)
+   all three; checks each one's uint8 masks, finite
+   logits, its exact launch counts and >= 0.999 pixel agreement with phase
+   4's plain fp32 masks, and times it with CUDA events beside the default
+   configuration, alternating which goes first;
 5. train-kernel parity at the train step's full-width shapes (batch 4,
    512^2 input): dgrad, wgrad, the decoder-entry wgrad, the elastic
    sampler, and the forward kernels with relu=False, same bound;
@@ -46,8 +58,8 @@ its own line, and any failure raises (non-zero exit):
    validation pass and seconds per checkpoint write.
 
 Every parity case prints the kernel's ms, its plain version's, the one
-PyTorch call that computes the same work where there is one (library),
-and the bound: the larger of the case's operations over the card's peak
+PyTorch call that computes the same work where there is one (library;
+none for the fused enc0 and decoder tail), and the bound: the larger of the case's operations over the card's peak
 for their type and its bytes (each input read once, each output written
 once) over the memory rate (H100 SXM data sheet: 989 TFLOP/s bf16
 dense, 67 TFLOP/s f32, 3.35 TB/s). The min-plus product does no FMA: its
@@ -122,6 +134,10 @@ SEED = 0
 # head before the slack term.
 RTOL, ATOL_REL = 1e-2, 1e-2
 HEAD_SLACK = 2.0**-8
+# The fused kernels round their intermediate (the stem activation, conv0's
+# output) to bf16 where the chained kernels store it: they are held to the
+# fp32 chain with that rounding (fused_reference) within the tolerance
+# above, and to the chained kernels bit for bit.
 AGREEMENT_BAR = 0.999  # BASELINE.md's bf16 pixel-agreement bar
 
 SOURCES = {
@@ -146,8 +162,30 @@ SOURCES = {
     "weighted_ce_bwd": ("unetseg_tpu_torch/csrc/weighted_ce.cu",
                         "unetseg_tpu/ops/pallas/wce.py:76"),
     "minplus": ("unetseg_tpu_torch/csrc/minplus.cu", "unetseg_tpu/ops/pallas/minplus.py:47"),
+    "conv3x3_dense": ("unetseg_tpu_torch/csrc/conv3x3_bias_relu.cu",
+                      "unetseg_tpu/ops/pallas/conv3x3.py:190"),
+    "dec_conv0_dense": ("unetseg_tpu_torch/csrc/dec_conv0.cu",
+                        "unetseg_tpu/ops/pallas/conv3x3.py:1170"),
+    "conv3x3_cblock": ("unetseg_tpu_torch/csrc/conv3x3_bias_relu.cu",
+                       "unetseg_tpu/ops/pallas/conv_cblock.py:118"),
+    "enc0_fused": ("unetseg_tpu_torch/csrc/enc0_fused.cu", "unetseg_tpu/ops/pallas/conv3x3.py:663"),
+    "dec_tail": ("unetseg_tpu_torch/csrc/dec_tail.cu", "unetseg_tpu/ops/pallas/conv3x3.py:1026"),
 }
-SERVING = ("conv3x3_bias_relu", "tconv2x2_bias", "dec_conv0", "conv3x3_head")
+# launches per forward chunk of the default serving path and of each
+# variant (phase 4b); the middle has 11 convs with CO % 128 == 0, 8 of
+# them from enc2 on
+DEFAULT_LAUNCHES = {"conv3x3_bias_relu": 2, "tconv2x2_bias": 1, "dec_conv0": 1, "conv3x3_head": 1}
+VARIANTS = {
+    "a tier2": (dict(tier2=True),
+                {**DEFAULT_LAUNCHES, "conv3x3_dense": 3, "dec_conv0_dense": 1}),
+    "b fused_enc0 + tail": (dict(fused_enc0=True, dec_fuse="tail"),
+                            {"enc0_fused": 1, "tconv2x2_bias": 1, "dec_tail": 1}),
+    "c cblock all": (dict(cblock=("all",)), {**DEFAULT_LAUNCHES, "conv3x3_cblock": 11}),
+    "d all three": (dict(tier2=True, fused_enc0=True, dec_fuse="tail", cblock=("all",)),
+                   {"enc0_fused": 1, "conv3x3_dense": 3, "conv3x3_cblock": 8,
+                    "dec_conv0_dense": 1, "tconv2x2_bias": 1, "dec_tail": 1}),
+}
+VARIANT_ROUNDS = 2  # timed runs of each variant and the default, alternating
 TRAINING = ("conv3x3_bias_relu", "tconv2x2_bias", "dec_conv0", "conv3x3_dgrad",
             "conv3x3_wgrad", "conv3x3_dec0_wgrad", "sample_displaced", "weighted_ce_fwd",
             "weighted_ce_bwd")
@@ -245,8 +283,26 @@ def he(g, *shape, fan_out):
 
 def head_slack(x, w, b, k_head, b_head):
     """HEAD_SLACK * sum_c |a_c| |k_c| per pixel, a = the fp32 activation."""
-    a = K.conv3x3_bias_relu_plain(x, w, b)
-    return HEAD_SLACK * to_nhwc(F.conv2d(to_nchw(a).abs(), k_head.abs()))
+    return HEAD_SLACK * abs_conv(K.conv3x3_bias_relu_plain(x, w, b), k_head)
+
+
+def abs_conv(x, w):
+    """sum |w| |x| over each output's window: (NHWC x, OIHW w) -> NHWC."""
+    return to_nhwc(F.conv2d(to_nchw(x).abs(), w.abs()))
+
+
+def fused_reference(kname, args):
+    """A fused kernel's fp32 plain chain on the fp32 values of its args,
+    with the intermediate rounded to bf16 where the kernel rounds it, and
+    the slack of each output."""
+    if kname == "enc0_fused":
+        x, w0, b0, w1, b1 = args
+        h = bf(K.conv3x3_bias_relu_plain(x, w0, b0)).float()
+        return K.conv3x3_bias_relu_plain(h, w1, b1, fuse_pool=True), (0.0, 0.0)
+    skip, up, w0, b0, w1, b1, k_head, b_head, row_off, col_off = args
+    y = bf(K.dec_conv0_plain(skip, up, w0, b0, row_off, col_off)).float()
+    return (K.conv3x3_head_plain(y, w1, b1, k_head, b_head),
+            (head_slack(y, w1, b1, k_head, b_head),))
 
 
 def conv_ops(b, ho, wo, ci, co, taps=9):
@@ -338,6 +394,61 @@ def kernel_parity(sh, c=64):
     }
     stats = new_stats()
     run_cases(cases, stats, BATCH)
+
+    # ---- the serving variants' kernels at their full-width shapes
+    f1 = 2 * c
+    p0 = e0 // 2  # pooled enc0 (348 at 700^2)
+    e1, d2 = sh.encoder[1], sh.crops[-2]  # skip1 and up2: 344, 264
+    off2 = (e1 - d2) // 2  # 40
+    enc1 = (rand(b, p0, p0, c), he(g, f1, c, 3, 3, fan_out=9 * f1), bias(f1))
+    enc1b = (rand(b, p0 - 2, p0 - 2, f1), he(g, f1, f1, 3, 3, fan_out=9 * f1), bias(f1))
+    dec2 = (rand(b, e1, e1, f1), rand(b, d2, d2, f1), he(g, f1, 2 * f1, 3, 3, fan_out=9 * f1),
+            bias(f1), off2, off2)
+    dec2_cat = torch.cat([dec2[0][:, off2:off2 + d2, off2:off2 + d2], dec2[1]], -1)
+    dec2b = (rand(b, d2 - 2, d2 - 2, f1), he(g, f1, f1, 3, 3, fan_out=9 * f1), bias(f1))
+    fused0 = (*stem, *enc0[1:])
+    tail = (*dec0[:4], *head[1:], off, off)
+    dense = ("conv3x3_dense", K.conv3x3_dense, K.conv3x3_bias_relu_plain)
+    cases = {
+        "enc0_fused": ("enc0_fused", K.enc0_fused, K.enc0_fused_plain, fused0, {}, None,
+                       conv_ops(b, s - 2, s - 2, 1, c) + conv_ops(b, s - 4, s - 4, c, c)),
+        "dec3_tail": ("dec_tail", K.dec_tail, K.dec_tail_plain, tail, {}, None,
+                      (conv_ops(b, u - 2, u - 2, 2 * c, c) + conv_ops(b, u - 4, u - 4, c, c)
+                       + conv_ops(b, u - 4, u - 4, c, 2, taps=1),
+                       nbytes(*crop_read(dec0[0], dec0[1], off, *tail[2:8])))),
+        "enc1_conv0_dense": (*dense, enc1, {}, conv_lib(*enc1), conv_ops(b, p0 - 2, p0 - 2, c, f1)),
+        "enc1_conv1_pool_dense": (*dense, enc1b, {"fuse_pool": True}, conv_lib(*enc1b),
+                                  conv_ops(b, p0 - 4, p0 - 4, f1, f1)),
+        "dec2_conv1_dense": (*dense, dec2b, {}, conv_lib(*dec2b), conv_ops(b, d2 - 4, d2 - 4, f1, f1)),
+        "dec2_conv0_dense": ("dec_conv0_dense", K.dec_conv0_dense, K.dec_conv0_plain, dec2, {},
+                             conv_lib(dec2_cat, dec2[2], dec2[3]),
+                             (conv_ops(b, d2 - 2, d2 - 2, 2 * f1, f1),
+                              nbytes(*crop_read(dec2[0], dec2[1], off2, *dec2[2:4])))),
+    }
+    # cblock: the middle's convs with CO % 128 == 0 (tier 1); enc1 and dec2
+    # conv1 reuse the tier-2 cases' inputs, which have their shapes
+    cb = ("conv3x3_cblock", K.conv3x3_cblock, K.conv3x3_bias_relu_plain)
+    mids = {"enc1c0": enc1, "enc1c1": enc1b, "dec2c1": dec2b}
+    for lvl in range(2, len(sh.encoder)):
+        n_in, ci, co = sh.encoder[lvl - 1] // 2, c << (lvl - 1), c << lvl
+        mids[f"enc{lvl}c0"] = (rand(b, n_in, n_in, ci), he(g, co, ci, 3, 3, fan_out=9 * co), bias(co))
+        mids[f"enc{lvl}c1"] = (rand(b, n_in - 2, n_in - 2, co), he(g, co, co, 3, 3, fan_out=9 * co),
+                               bias(co))
+    for i in range(2):
+        n_in, co = sh.crops[i] - 2, c << (3 - i)
+        mids[f"dec{i}c1"] = (rand(b, n_in, n_in, co), he(g, co, co, 3, 3, fan_out=9 * co), bias(co))
+    for name, args in mids.items():
+        x, w = args[0], args[1]
+        cases[f"cblock_{name}"] = (*cb, args, {}, conv_lib(*args),
+                                   conv_ops(b, x.shape[1] - 2, x.shape[2] - 2, w.shape[1], w.shape[0]))
+    run_cases(cases, stats, BATCH)
+    # the fused kernels sum and round in the chained kernels' order
+    chained = K.conv3x3_bias_relu(K.conv3x3_bias_relu(*stem), *enc0[1:], fuse_pool=True)
+    same = {"enc0_fused": all(map(torch.equal, K.enc0_fused(*fused0), chained)),
+            "dec_tail": torch.equal(K.dec_tail(*tail), K.conv3x3_head(K.dec_conv0(*dec0), *head[1:]))}
+    print(f"parity fused kernels equal to the chained kernels bit for bit: {same}", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"fused kernels differ from the chained kernels: {same}")
     return stats
 
 
@@ -358,13 +469,17 @@ def run_cases(cases, stats, batch):
     for case, (kname, kernel, plain, args, kw, lib, ops) in cases.items():
         ops, in_bytes = ops if isinstance(ops, tuple) else (ops, nbytes(*args))
         got = kernel(*args, **kw)
-        ref = plain(*f32(*args), **kw)
+        if kname in ("enc0_fused", "dec_tail"):
+            ref, slacks = fused_reference(kname, f32(*args))
+        else:
+            ref = plain(*f32(*args), **kw)
+            slacks = (head_slack(*f32(*args)) if kname == "conv3x3_head" else 0.0,) * 2
         torch.cuda.synchronize()
-        slack = head_slack(*f32(*args)) if kname == "conv3x3_head" else 0.0
         pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
-        err = max(compare(f"{case}[{i}]", a, b, slack) for i, (a, b) in enumerate(pairs))
+        err = max(compare(f"{case}[{i}]", a, b, sl)
+                  for i, ((a, b), sl) in enumerate(zip(pairs, slacks)))
         out_bytes = nbytes(*(got if isinstance(got, tuple) else (got,)))
-        del got, ref, pairs, slack
+        del got, ref, pairs, slacks
         ms = cuda_ms(lambda: kernel(*args, **kw))
         plain_ms = cuda_ms(lambda: plain(*args, **kw))  # same bf16 tensors (cuDNN)
         lib_ms = cuda_ms(lib) if lib is not None else None
@@ -437,7 +552,9 @@ def plant_intensity_path(variables, gain=20.0, level=0.475, head_scale=0.05):
 
 @torch.inference_mode()
 def main_path(gpu):
-    """Predictor.masks_tiled at full width through the kernels."""
+    """Predictor.masks_tiled at full width through the kernels. Returns the
+    launches, and what phase 4b reuses: the Predictor, its variables, the
+    frames and the plain fp32 forward's masks."""
     cfg = ModelConfig()
     variables = plant_intensity_path(fast_random_variables(cfg, SEED))
     frames = cell_frames(np.random.RandomState(SEED), FRAMES, SIZE)
@@ -457,11 +574,9 @@ def main_path(gpu):
         raise AssertionError(f"masks {masks.shape} {masks.dtype}")
     if set(np.unique(masks)) - {0, 1}:
         raise AssertionError("masks are not binary")
-    missing = [k for k in SERVING if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the serving path: {missing}")
-
     grid = plan_tiles(SIZE, SIZE, tile)
+    check_launches("main path", launches, DEFAULT_LAUNCHES, chunks(grid))
+
     x = torch.from_numpy(frames).cuda()
     tiles = extract_tiles(mirror_pad(x, grid), grid).reshape(-1, tile, tile)
     logits = folded_forward_kernels(pred.folded, tiles[..., None])
@@ -509,7 +624,70 @@ def main_path(gpu):
     print(f"main path: {ms:.2f} ms per {FRAMES} frames = {mpix:.2f} MPix/s "
           f"(plain bf16 forward: {plain_ms:.2f} ms = "
           f"{FRAMES * SIZE * SIZE / 1e6 / (plain_ms / 1e3):.2f} MPix/s) on {gpu}", flush=True)
-    return launches
+    return launches, dict(pred=pred, variables=variables, frames=frames, ref_masks=plain["fp32"])
+
+
+def chunks(grid):
+    """Forward chunks of one masks_tiled call on FRAMES frames."""
+    return -(-FRAMES * grid.ny * grid.nx // BATCH)
+
+
+def check_launches(name, launches, per_chunk, n_chunks):
+    """The wrappers that launched, and how often, must be exactly per_chunk
+    times the number of forward chunks."""
+    ran = {k: v for k, v in launches.items() if v}
+    want = {k: v * n_chunks for k, v in per_chunk.items()}
+    if ran != want:
+        raise AssertionError(f"{name}: launches {ran}, expected {want}")
+
+
+@torch.inference_mode()
+def variants_path(gpu, main):
+    """Phase 4b: Predictor.masks_tiled with each serving variant on the
+    main path's frames and variables; launches, masks, logits, agreement
+    with the plain fp32 masks of phase 4, times beside the default."""
+    cfg, frames, default = ModelConfig(), main["frames"], main["pred"]
+    tile = default.cfg.tile_input
+    grid = plan_tiles(SIZE, SIZE, tile)
+    x = torch.from_numpy(frames).cuda()
+    tiles = extract_tiles(mirror_pad(x, grid), grid).reshape(-1, tile, tile)
+    o = unet_shapes(tile).output_size
+    total = {k: 0 for k in SOURCES}
+    for name, (opts, per_chunk) in VARIANTS.items():
+        pred = Predictor(cfg, main["variables"], default.cfg, "cuda", **opts)
+        pred.masks_tiled(frames)  # warm-up
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        masks = pred.masks_tiled(frames)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        check_launches(f"variant {name}", launches, per_chunk, chunks(grid))
+        for k, v in launches.items():
+            total[k] += v
+        if (masks.shape != (FRAMES, SIZE, SIZE) or masks.dtype != np.uint8
+                or set(np.unique(masks)) - {0, 1}):
+            raise AssertionError(f"variant {name}: masks {masks.shape} {masks.dtype} not binary")
+        logits = folded_forward_kernels(pred.folded, tiles[..., None], **pred.options)
+        if logits.shape != (FRAMES, o, o, 2) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"variant {name}: logits {tuple(logits.shape)} not finite")
+        agreement = float((main["ref_masks"] == masks).mean())
+        times = {"default": [], name: []}
+        for r in range(VARIANT_ROUNDS):
+            for k, p in ((("default", default), (name, pred)) if r % 2 == 0
+                         else ((name, pred), ("default", default))):
+                times[k].append(cuda_ms(lambda p=p: p.masks_tiled(frames), iters=3, warmup=1))
+        ms = {k: float(np.median(v)) for k, v in times.items()}
+        runs = "; ".join(f"{k} " + ", ".join(f"{t:.2f}" for t in v) for k, v in times.items())
+        print(f"variant {name}: launches {per_chunk} per chunk, foreground "
+              f"{float(masks.mean()):.4f}, pixel agreement with the plain fp32 forward "
+              f"{agreement:.6f}; {ms[name]:.2f} ms = "
+              f"{FRAMES * SIZE * SIZE / 1e6 / (ms[name] / 1e3):.2f} MPix/s, default "
+              f"{ms['default']:.2f} ms = {FRAMES * SIZE * SIZE / 1e6 / (ms['default'] / 1e3):.2f}"
+              f" MPix/s (ms per call, runs of 3 alternating: {runs}) on {gpu}", flush=True)
+        if agreement < AGREEMENT_BAR:
+            raise AssertionError(f"variant {name}: agreement {agreement:.6f} < {AGREEMENT_BAR}")
+        del pred, logits
+    return total
 
 
 @torch.inference_mode()
@@ -1014,7 +1192,9 @@ def main():
 
     sh = unet_shapes(min_tile_input(SIZE))
     stats = kernel_parity(sh)
-    serving = main_path(gpu)
+    serving, main = main_path(gpu)
+    variants = variants_path(gpu, main)
+    del main
     train_kernel_parity(stats)
     training = train_path(gpu)
     pre_labels = cell_frames(np.random.RandomState(SEED + 5), PRE_FRAMES, PRE_SIZE,
@@ -1023,9 +1203,10 @@ def main():
     preprocess = preprocess_path(pre_labels)
     loop = loop_path(gpu)
 
-    # launches: each path's run (serving call, train step, preprocess of
-    # PRE_FRAMES frames, the loop's first train()), counted from 0
-    paths = (serving, training, preprocess, loop)
+    # launches: each path's run (serving call, the four variant calls, train
+    # step, preprocess of PRE_FRAMES frames, the loop's first train()),
+    # counted from 0
+    paths = (serving, variants, training, preprocess, loop)
     record = [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": sum(p[k] for p in paths),

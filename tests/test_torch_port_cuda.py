@@ -6,7 +6,11 @@ parity, relu=False, wgrad determinism, the sampler's reflection and
 rounding ties at sizes off the 32-pixel grid; the weighted CE at ragged
 pixel counts, odd crop offsets, bf16 logits and three classes; the
 min-plus product at sizes off its 128-tile, K = 1 and both shared-operand
-patterns; and the wrappers' refusals.
+patterns; the serving variants' kernels: the fused enc0 at odd sizes and
+batch 1, the fused decoder tail at odd crop offsets with 1-4 classes
+(both also bit for bit against the chained kernels), the cblock conv at
+CI 1024 on a 6x6 input, the dense decoder entry at offset 41, the dense
+conv on both conv paths; and the wrappers' refusals.
 
 Marked `cuda` and skipped without a card. The file imports no jax, so on a
 GPU machine it runs without the JAX package:
@@ -293,3 +297,114 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(g):
                    torch.ones(4, 5, device="cuda"))
     with pytest.raises(ValueError, match="batch sizes"):
         KM.minplus(torch.ones(2, 3, 4, device="cuda"), torch.ones(3, 4, 5, device="cuda"))
+
+
+# ------------------------------------------------------ serving variants
+
+
+# A rounding to bf16 moves a value v by at most 2^-8 |v|: the fused kernels
+# round their intermediate where the chained kernels store it, the fp32
+# reference does not, so a conv of it may move by 2^-8 sum |w| |v|.
+ROUND = 2.0**-8
+
+
+def _abs_conv(x, w):
+    return to_nhwc(torch.nn.functional.conv2d(to_nchw(x).abs(), w.abs()))
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 37, 45), (2, 22, 53), (1, 7, 9)])
+def test_enc0_fused(g, b, h, w):
+    """Odd sizes under the pool (floor), batch 1, a single pooled pixel:
+    the chained kernels' bits, and the fp32 plain version within the
+    stem's rounding."""
+    x = _act(g, b, h, w, 1)
+    w0, b0 = _w(g, 64, 1, 3, 3, fan=9 * 64), _b(g, 64)
+    w1, b1 = _w(g, 64, 64, 3, 3, fan=9 * 64), _b(g, 64)
+    K.reset_launch_counts()
+    skip, pooled = K.enc0_fused(x, w0, b0, w1, b1)
+    assert K.launch_counts()["enc0_fused"] == 1
+    assert skip.shape == (b, h - 4, w - 4, 64) and pooled.shape == (b, (h - 4) // 2, (w - 4) // 2, 64)
+    c_skip, c_pool = K.conv3x3_bias_relu(K.conv3x3_bias_relu(x, w0, b0), w1, b1, fuse_pool=True)
+    torch.cuda.synchronize()
+    assert torch.equal(skip, c_skip) and torch.equal(pooled, c_pool)
+    r_skip, r_pool = K.enc0_fused_plain(x.float(), w0, b0, w1, b1)
+    slack = ROUND * _abs_conv(K.conv3x3_bias_relu_plain(x.float(), w0, b0), w1)
+    _close(skip, r_skip, slack)
+    _close(pooled, r_pool, to_nhwc(torch.nn.functional.max_pool2d(to_nchw(slack), 2)))
+
+
+@pytest.mark.parametrize("nc,row_off,col_off", [(1, 3, 5), (2, 5, 2), (3, 0, 7), (4, 1, 1)])
+def test_dec_tail(g, nc, row_off, col_off):
+    """Odd crop offsets, 1-4 classes, ragged tiles: the chained kernels'
+    bits, and the fp32 plain version within both roundings."""
+    skip, up = _act(g, 2, 40, 38, 64), _act(g, 2, 27, 23, 64)
+    w0, b0 = _w(g, 64, 128, 3, 3, fan=9 * 64), _b(g, 64)
+    w1, b1 = _w(g, 64, 64, 3, 3, fan=9 * 64), _b(g, 64)
+    kh, bh = _w(g, nc, 64, 1, 1, fan=nc), _b(g, nc)
+    K.reset_launch_counts()
+    got = K.dec_tail(skip, up, w0, b0, w1, b1, kh, bh, row_off, col_off)
+    assert K.launch_counts()["dec_tail"] == 1
+    assert got.shape == (2, 23, 19, nc) and got.dtype == torch.float32
+    chained = K.conv3x3_head(K.dec_conv0(skip, up, w0, b0, row_off, col_off), w1, b1, kh, bh)
+    torch.cuda.synchronize()
+    assert torch.equal(got, chained)
+    y = K.dec_conv0_plain(skip.float(), up.float(), w0, b0, row_off, col_off)
+    a = K.conv3x3_bias_relu_plain(y, w1, b1)
+    slack = HEAD_SLACK * _abs_conv(a, kh) + ROUND * _abs_conv(_abs_conv(y, w1), kh)
+    _close(got, K.dec_tail_plain(skip.float(), up.float(), w0, b0, w1, b1, kh, bh, row_off,
+                                 col_off), slack)
+
+
+def test_conv3x3_cblock_deep(g):
+    """enc4's width on a tiny input: CI 1024, a 4x4 output in one ragged
+    tile, two output-channel blocks."""
+    x = _act(g, 2, 6, 6, 1024)
+    wt, b = _w(g, 128, 1024, 3, 3, fan=9 * 128), _b(g, 128)
+    K.reset_launch_counts()
+    got = K.conv3x3_cblock(x, wt, b)
+    assert K.launch_counts() == {**{k: 0 for k in K.launch_counts()}, "conv3x3_cblock": 1}
+    assert got.shape == (2, 4, 4, 128)
+    _close(got, K.conv3x3_bias_relu_plain(x.float(), wt, b))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        K.conv3x3_cblock(_act(g, 1, 8, 8, 64), _w(g, 64, 64, 3, 3, fan=9), _b(g, 64))
+
+
+def test_dec_conv0_dense_offset_41(g):
+    """The tier-2 decoder entry at 512^2 tiles reads skip1 at (41, 41)."""
+    skip, up = _act(g, 2, 62, 63, 128), _act(g, 2, 20, 21, 128)
+    wt, b = _w(g, 128, 256, 3, 3, fan=9 * 128), _b(g, 128)
+    K.reset_launch_counts()
+    got = K.dec_conv0_dense(skip, up, wt, b, 41, 41)
+    assert K.launch_counts()["dec_conv0_dense"] == 1 and K.launch_counts()["dec_conv0"] == 0
+    _close(got, K.dec_conv0_plain(skip.float(), up.float(), wt, b, 41, 41))
+
+
+@pytest.mark.parametrize("ci,pool", [(1, True), (64, True), (32, False)])
+def test_conv3x3_dense(g, ci, pool):
+    """conv3x3_dense on both conv paths (the stem's FMAs, the mma
+    epilogue), with and without the pool; it counts apart from
+    conv3x3_bias_relu."""
+    x = _g(g, 2, 19, 26, ci)
+    wt, b = _w(g, 64, ci, 3, 3, fan=9 * 64), _b(g, 64)
+    K.reset_launch_counts()
+    got = K.conv3x3_dense(x, wt, b, fuse_pool=pool)
+    assert K.launch_counts()["conv3x3_dense"] == 1 and K.launch_counts()["conv3x3_bias_relu"] == 0
+    ref = K.conv3x3_bias_relu_plain(x.float(), wt, b, fuse_pool=pool)
+    for a, r in zip(got, ref) if pool else [(got, ref)]:
+        _close(a, r)
+
+
+def test_variant_wrappers_raise_on_what_the_kernels_do_not_take(g):
+    x = _act(g, 1, 20, 20, 1)
+    w64 = _w(g, 64, 64, 3, 3, fan=9)
+    with pytest.raises(ValueError, match="exactly 64"):
+        K.enc0_fused(x, _w(g, 128, 1, 3, 3, fan=9), _b(g, 128),
+                     _w(g, 128, 128, 3, 3, fan=9), _b(g, 128))
+    with pytest.raises(ValueError, match="do not fit"):
+        K.enc0_fused(_act(g, 1, 20, 20, 32), _w(g, 64, 32, 3, 3, fan=9), _b(g, 64), w64, _b(g, 64))
+    skip, up = _act(g, 1, 30, 30, 64), _act(g, 1, 20, 20, 64)
+    w0 = _w(g, 64, 128, 3, 3, fan=9)
+    with pytest.raises(ValueError, match="leaves skip"):
+        K.dec_tail(skip, up, w0, _b(g, 64), w64, _b(g, 64), _w(g, 2, 64, 1, 1, fan=2), _b(g, 2), 11, 0)
+    with pytest.raises(ValueError, match="classes"):
+        K.dec_tail(skip, up, w0, _b(g, 64), w64, _b(g, 64), _w(g, 5, 64, 1, 1, fan=2), _b(g, 5), 0, 0)

@@ -2,9 +2,13 @@
 // max-pool of the output fused into the epilogue. With relu == 0 it writes
 // the pre-activation conv + bias (the train step's pre-BatchNorm z).
 //
-// Replaces the TPU kernel unetseg_tpu/ops/pallas/conv3x3.py:conv3x3_phase2
+// Replaces the TPU kernels unetseg_tpu/ops/pallas/conv3x3.py:conv3x3_phase2
 // (stem, and enc0 conv1 + pool0 on the serving path; stem, enc0 conv1 and
-// dec3 conv1 with relu=False in the train step).
+// dec3 conv1 with relu=False in the train step), conv3x3.py:conv3x3_lanes
+// through the conv3x3_dense wrapper (tier-2 enc1 and dec2 convs, enc1
+// conv1 with the pool) and conv_cblock.py:conv3x3_cblock through the
+// conv3x3_cblock wrapper (the middle convs with CO % 128 == 0). The TPU
+// needed three kernels for three layouts; on NHWC they are one function.
 //
 // CI >= 32 (enc0 conv1, 64 -> 64 channels at 696^2 outputs): about 36 GFLOP
 // per 700^2 tile against 124 MB of traffic, so tensor-core bound; it runs

@@ -1,10 +1,12 @@
 // Implicit-GEMM valid 3x3 convolution on Hopper tensor cores (mma.sync).
 //
 // Shared by conv3x3_bias_relu.cu, dec_conv0.cu, conv3x3_head.cu and
-// conv3x3_dgrad.cu (tconv2x2_bias.cu and conv3x3_wgrad.cu use its
-// constants and mma helper). NHWC bf16 activations, weights (CO, 3, 3, CI)
-// bf16 ("OHWI"), f32 bias, f32 accumulation. GEMM view: M = output pixels,
-// N = output channels, K = 9 taps x CI.
+// conv3x3_dgrad.cu; enc0_fused.cu and dec_tail.cu build their fused
+// kernels from its pieces (staging, fragment loads, tile loop, epilogues);
+// tconv2x2_bias.cu and conv3x3_wgrad.cu use its constants and mma helper.
+// NHWC bf16 activations, weights (CO, 3, 3, CI) bf16 ("OHWI"), f32 bias,
+// f32 accumulation. GEMM view: M = output pixels, N = output channels,
+// K = 9 taps x CI.
 //
 // A block owns a 16x16 tile of output pixels and 64 output channels.
 // Each step stages a 32-channel slice of the (16+2)x(16+2) input window
@@ -43,14 +45,16 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int IN_ROWS = TH + 2;
 constexpr int IN_COLS = TW + 2;
-constexpr int OUT_P = NCO + 8;    // padded output row in smem, bf16 (144 bytes)
+constexpr int OUT_P = NCO + 8;    // padded 64-channel pixel row in smem, bf16 (144 bytes)
 constexpr int MAX_NC = 4;         // head classes
 constexpr int MODE_STORE = 0;
 constexpr int MODE_HEAD = 1;
 
+constexpr int W_SLICE = 9 * NCO * KP;  // bf16 of one staged weight slice
 constexpr int CONV_SMEM =
-    (IN_ROWS * IN_COLS * KP + 9 * NCO * KP) * (int)sizeof(__nv_bfloat16);
-static_assert(TH * TW * OUT_P * 2 + MAX_NC * NCO * 4 <= CONV_SMEM,
+    (IN_ROWS * IN_COLS * KP + W_SLICE) * (int)sizeof(__nv_bfloat16);
+constexpr int TILE_BYTES = TH * TW * OUT_P * 2;  // the epilogue's shared tile
+static_assert(TILE_BYTES + MAX_NC * NCO * 4 <= CONV_SMEM,
               "epilogue tile must fit in the staging buffers");
 
 struct Src {
@@ -73,6 +77,184 @@ __device__ __forceinline__ float act(float v, int relu) {
 
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A fragment of an m16 x k16 tile: `lo` and `hi` point at column 2t of the
+// fragment's rows g and g + 8.
+__device__ __forceinline__ void load_a(uint32_t* a, const __nv_bfloat16* lo,
+                                       const __nv_bfloat16* hi) {
+  a[0] = ld_u32(lo);
+  a[1] = ld_u32(hi);
+  a[2] = ld_u32(lo + 8);
+  a[3] = ld_u32(hi + 8);
+}
+
+// B fragment of a k16 x n8 tile: `p` points at row 2t of the fragment's
+// column g (a weight row of the staged slice).
+__device__ __forceinline__ void load_b(uint32_t* b, const __nv_bfloat16* p) {
+  b[0] = ld_u32(p);
+  b[1] = ld_u32(p + 8);
+}
+
+// Stage channels [cs, cs + KC) of the ROWS x COLS window of s whose corner
+// is (y0 + s.off_y, x0 + s.off_x) into in_s, one KP-padded row per pixel;
+// pixels outside s read as zeros.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void stage_window(__nv_bfloat16* in_s, Src s, int b,
+                                             int y0, int x0, int cs, int tid) {
+  for (int i = tid; i < ROWS * COLS * (KC / 8); i += THREADS) {
+    const int v = i % (KC / 8), pix = i / (KC / 8);
+    const int iy = y0 + pix / COLS + s.off_y;
+    const int ix = x0 + pix % COLS + s.off_x;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (iy >= 0 && iy < s.H && ix >= 0 && ix < s.W) {
+      const size_t off = ((size_t)b * s.H + iy) * s.W + ix;
+      val = *reinterpret_cast<const uint4*>(s.p + off * s.C + cs + v * 8);
+    }
+    *reinterpret_cast<uint4*>(in_s + pix * KP + v * 8) = val;
+  }
+}
+
+// Stage input channels [c, c + KC) of output channels [co0, co0 + NCO) of
+// w (CO, 3, 3, CI) into w_s, one KP-padded row per (tap, co).
+__device__ __forceinline__ void stage_weights(__nv_bfloat16* w_s,
+                                              const __nv_bfloat16* __restrict__ w,
+                                              int co0, int CI, int c, int tid) {
+  for (int i = tid; i < 9 * NCO * (KC / 8); i += THREADS) {
+    const int v = i % (KC / 8), rest = i / (KC / 8);
+    const int co = rest % NCO, tap = rest / NCO;
+    const size_t off = ((size_t)(co0 + co) * 9 + tap) * CI + c + v * 8;
+    *reinterpret_cast<uint4*>(w_s + (tap * NCO + co) * KP + v * 8) =
+        *reinterpret_cast<const uint4*>(w + off);
+  }
+}
+
+// One staged KC-channel slice into the accumulators of a 16x16 output
+// tile: warp `warp` owns output rows 2 warp and 2 warp + 1. The input tile
+// in_s holds COLS pixels per row and STRIDE bf16 per pixel, the slice at
+// channel c_off of each pixel.
+template <int COLS, int STRIDE>
+__device__ __forceinline__ void mma_slice(float (&acc)[2][8][4],
+                                          const __nv_bfloat16* in_s, int c_off,
+                                          const __nv_bfloat16* w_s, int warp,
+                                          int g, int t) {
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const int ky = tap / 3, kx = tap % 3;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const __nv_bfloat16* base =
+            in_s + ((warp * 2 + m + ky) * COLS + kx) * STRIDE + c_off + kk + 2 * t;
+        load_a(a[m], base + g * STRIDE, base + (g + 8) * STRIDE);
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        uint32_t bf[2];
+        load_b(bf, w_s + (tap * NCO + n * 8 + g) * KP + kk + 2 * t);
+        mma_bf16_16816(acc[0][n], a[0], bf);
+        mma_bf16_16816(acc[1][n], a[1], bf);
+      }
+    }
+  }
+}
+
+// Epilogue of a 16x16 tile: acc + bias (a null bias adds 0), ReLU when
+// relu, rounded to bf16 into out_s, one OUT_P-padded row per pixel.
+__device__ __forceinline__ void tile_to_smem(__nv_bfloat16* out_s,
+                                             const float (&acc)[2][8][4],
+                                             const float* __restrict__ bias,
+                                             int relu, int co0, int warp, int g,
+                                             int t) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int row = warp * 2 + m;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int co = n * 8 + 2 * t;
+      const float b0 = bias ? bias[co0 + co] : 0.f;
+      const float b1 = bias ? bias[co0 + co + 1] : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(out_s + (row * TW + g) * OUT_P + co) =
+          __floats2bfloat162_rn(act(acc[m][n][0] + b0, relu),
+                                act(acc[m][n][1] + b1, relu));
+      *reinterpret_cast<__nv_bfloat162*>(out_s + (row * TW + g + 8) * OUT_P + co) =
+          __floats2bfloat162_rn(act(acc[m][n][2] + b0, relu),
+                                act(acc[m][n][3] + b1, relu));
+    }
+  }
+}
+
+// Coalesced store of the shared tile to y (B, Ho, Wo, CO) at channels
+// [co0, co0 + NCO), and its 2x2 max-pool to pooled when it is not null.
+__device__ __forceinline__ void store_tile(const __nv_bfloat16* out_s,
+                                           __nv_bfloat16* __restrict__ y,
+                                           __nv_bfloat16* __restrict__ pooled,
+                                           int b, int y0, int x0, int Ho, int Wo,
+                                           int CO, int co0, int tid) {
+  __syncthreads();
+  for (int i = tid; i < TH * TW * (NCO / 8); i += THREADS) {
+    const int v = i % (NCO / 8), pix = i / (NCO / 8);
+    const int oy = y0 + pix / TW, ox = x0 + pix % TW;
+    if (oy < Ho && ox < Wo) {
+      const size_t off = ((size_t)b * Ho + oy) * Wo + ox;
+      *reinterpret_cast<uint4*>(y + off * CO + co0 + v * 8) =
+          *reinterpret_cast<const uint4*>(out_s + pix * OUT_P + v * 8);
+    }
+  }
+  if (pooled == nullptr) return;
+  // Tiles start at even rows and columns, so every 2x2 window lies in
+  // one tile; odd sizes floor (Hp = Ho / 2).
+  const int Hp = Ho / 2, Wp = Wo / 2;
+  for (int i = tid; i < (TH / 2) * (TW / 2) * (NCO / 8); i += THREADS) {
+    const int v = i % (NCO / 8), q = i / (NCO / 8);
+    const int qr = q / (TW / 2), qc = q % (TW / 2);
+    const int py = y0 / 2 + qr, px = x0 / 2 + qc;
+    if (py < Hp && px < Wp) {
+      const int p00 = (2 * qr) * TW + 2 * qc;
+      uint4 r = *reinterpret_cast<const uint4*>(out_s + p00 * OUT_P + v * 8);
+      const int others[3] = {p00 + 1, p00 + TW, p00 + TW + 1};
+      __nv_bfloat162* rv = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        uint4 o = *reinterpret_cast<const uint4*>(out_s + others[k] * OUT_P + v * 8);
+        const __nv_bfloat162* ov = reinterpret_cast<const __nv_bfloat162*>(&o);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) rv[j] = __hmax2(rv[j], ov[j]);
+      }
+      const size_t off = ((size_t)b * Hp + py) * Wp + px;
+      *reinterpret_cast<uint4*>(pooled + off * CO + co0 + v * 8) = r;
+    }
+  }
+}
+
+// 1x1 head on the shared tile (the bf16-rounded activation), f32 products
+// and sums, to logits (B, Ho, Wo, NC); hw_s holds MAX_NC x NCO floats.
+__device__ __forceinline__ void head_tile(const __nv_bfloat16* out_s, float* hw_s,
+                                          const float* __restrict__ head_w,
+                                          const float* __restrict__ head_b,
+                                          int NC, float* __restrict__ logits,
+                                          int b, int y0, int x0, int Ho, int Wo,
+                                          int tid) {
+  for (int i = tid; i < NC * NCO; i += THREADS) hw_s[i] = head_w[i];
+  __syncthreads();
+  for (int pix = tid; pix < TH * TW; pix += THREADS) {
+    const int oy = y0 + pix / TW, ox = x0 + pix % TW;
+    if (oy >= Ho || ox >= Wo) continue;
+    float l[MAX_NC];
+#pragma unroll
+    for (int k = 0; k < MAX_NC; ++k) l[k] = k < NC ? head_b[k] : 0.f;
+    for (int co = 0; co < NCO; co += 2) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(out_s + pix * OUT_P + co));
+#pragma unroll
+      for (int k = 0; k < MAX_NC; ++k)
+        if (k < NC) l[k] += v.x * hw_s[k * NCO + co] + v.y * hw_s[k * NCO + co + 1];
+    }
+    const size_t off = ((size_t)b * Ho + oy) * Wo + ox;
+    for (int k = 0; k < NC; ++k) logits[off * NC + k] = l[k];
+  }
 }
 
 template <int MODE>
@@ -108,129 +290,22 @@ conv3x3_mma_kernel(Src s0, Src s1, const __nv_bfloat16* __restrict__ w,
   for (int c = 0; c < CI; c += KC) {
     const Src s = c < s0.C ? s0 : s1;
     const int cs = c < s0.C ? c : c - s0.C;
-    for (int i = tid; i < IN_ROWS * IN_COLS * (KC / 8); i += THREADS) {
-      const int v = i % (KC / 8), pix = i / (KC / 8);
-      const int iy = y0 + pix / IN_COLS + s.off_y;
-      const int ix = x0 + pix % IN_COLS + s.off_x;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (iy >= 0 && iy < s.H && ix >= 0 && ix < s.W) {
-        const size_t off = ((size_t)b * s.H + iy) * s.W + ix;
-        val = *reinterpret_cast<const uint4*>(s.p + off * s.C + cs + v * 8);
-      }
-      *reinterpret_cast<uint4*>(in_s + pix * KP + v * 8) = val;
-    }
-    for (int i = tid; i < 9 * NCO * (KC / 8); i += THREADS) {
-      const int v = i % (KC / 8), rest = i / (KC / 8);
-      const int co = rest % NCO, tap = rest / NCO;
-      const size_t off = ((size_t)(co0 + co) * 9 + tap) * CI + c + v * 8;
-      *reinterpret_cast<uint4*>(w_s + (tap * NCO + co) * KP + v * 8) =
-          *reinterpret_cast<const uint4*>(w + off);
-    }
+    stage_window<IN_ROWS, IN_COLS>(in_s, s, b, y0, x0, cs, tid);
+    stage_weights(w_s, w, co0, CI, c, tid);
     __syncthreads();
-
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int ky = tap / 3, kx = tap % 3;
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          const __nv_bfloat16* base =
-              in_s + ((warp * 2 + m + ky) * IN_COLS + kx) * KP + kk + 2 * t;
-          a[m][0] = ld_u32(base + g * KP);
-          a[m][1] = ld_u32(base + (g + 8) * KP);
-          a[m][2] = ld_u32(base + g * KP + 8);
-          a[m][3] = ld_u32(base + (g + 8) * KP + 8);
-        }
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const __nv_bfloat16* wb = w_s + (tap * NCO + n * 8 + g) * KP + kk + 2 * t;
-          uint32_t bf[2] = {ld_u32(wb), ld_u32(wb + 8)};
-          mma_bf16_16816(acc[0][n], a[0], bf);
-          mma_bf16_16816(acc[1][n], a[1], bf);
-        }
-      }
-    }
+    mma_slice<IN_COLS, KP>(acc, in_s, 0, w_s, warp, g, t);
     __syncthreads();
   }
 
-  // Epilogue: bias (+ ReLU), rounded to bf16, into a shared (TH*TW, NCO) tile.
+  // Epilogue: bias (+ ReLU), rounded to bf16, into a shared (TH*TW, NCO)
+  // tile over the staging buffers.
   __nv_bfloat16* out_s = reinterpret_cast<__nv_bfloat16*>(smem);
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    const int row = warp * 2 + m;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int co = n * 8 + 2 * t;
-      const float b0 = bias ? bias[co0 + co] : 0.f;
-      const float b1 = bias ? bias[co0 + co + 1] : 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(out_s + (row * TW + g) * OUT_P + co) =
-          __floats2bfloat162_rn(act(acc[m][n][0] + b0, relu),
-                                act(acc[m][n][1] + b1, relu));
-      *reinterpret_cast<__nv_bfloat162*>(out_s + (row * TW + g + 8) * OUT_P + co) =
-          __floats2bfloat162_rn(act(acc[m][n][2] + b0, relu),
-                                act(acc[m][n][3] + b1, relu));
-    }
-  }
-
+  tile_to_smem(out_s, acc, bias, relu, co0, warp, g, t);
   if (MODE == MODE_STORE) {
-    __syncthreads();
-    for (int i = tid; i < TH * TW * (NCO / 8); i += THREADS) {
-      const int v = i % (NCO / 8), pix = i / (NCO / 8);
-      const int oy = y0 + pix / TW, ox = x0 + pix % TW;
-      if (oy < Ho && ox < Wo) {
-        const size_t off = ((size_t)b * Ho + oy) * Wo + ox;
-        *reinterpret_cast<uint4*>(y + off * CO + co0 + v * 8) =
-            *reinterpret_cast<const uint4*>(out_s + pix * OUT_P + v * 8);
-      }
-    }
-    if (pooled != nullptr) {
-      // Tiles start at even rows and columns, so every 2x2 window lies in
-      // one tile; odd sizes floor (Hp = Ho / 2).
-      const int Hp = Ho / 2, Wp = Wo / 2;
-      for (int i = tid; i < (TH / 2) * (TW / 2) * (NCO / 8); i += THREADS) {
-        const int v = i % (NCO / 8), q = i / (NCO / 8);
-        const int qr = q / (TW / 2), qc = q % (TW / 2);
-        const int py = y0 / 2 + qr, px = x0 / 2 + qc;
-        if (py < Hp && px < Wp) {
-          const int p00 = (2 * qr) * TW + 2 * qc;
-          uint4 r = *reinterpret_cast<const uint4*>(out_s + p00 * OUT_P + v * 8);
-          const int others[3] = {p00 + 1, p00 + TW, p00 + TW + 1};
-          __nv_bfloat162* rv = reinterpret_cast<__nv_bfloat162*>(&r);
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            uint4 o = *reinterpret_cast<const uint4*>(out_s + others[k] * OUT_P + v * 8);
-            const __nv_bfloat162* ov = reinterpret_cast<const __nv_bfloat162*>(&o);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) rv[j] = __hmax2(rv[j], ov[j]);
-          }
-          const size_t off = ((size_t)b * Hp + py) * Wp + px;
-          *reinterpret_cast<uint4*>(pooled + off * CO + co0 + v * 8) = r;
-        }
-      }
-    }
+    store_tile(out_s, y, pooled, b, y0, x0, Ho, Wo, CO, co0, tid);
   } else {
-    // 1x1 head on the bf16-rounded activation, f32 products and sums.
-    float* hw_s = reinterpret_cast<float*>(smem + TH * TW * OUT_P * 2);
-    for (int i = tid; i < NC * NCO; i += THREADS) hw_s[i] = head_w[i];
-    __syncthreads();
-    for (int pix = tid; pix < TH * TW; pix += THREADS) {
-      const int oy = y0 + pix / TW, ox = x0 + pix % TW;
-      if (oy >= Ho || ox >= Wo) continue;
-      float l[MAX_NC];
-#pragma unroll
-      for (int k = 0; k < MAX_NC; ++k) l[k] = k < NC ? head_b[k] : 0.f;
-      for (int co = 0; co < NCO; co += 2) {
-        const float2 v = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(out_s + pix * OUT_P + co));
-#pragma unroll
-        for (int k = 0; k < MAX_NC; ++k)
-          if (k < NC) l[k] += v.x * hw_s[k * NCO + co] + v.y * hw_s[k * NCO + co + 1];
-      }
-      const size_t off = ((size_t)b * Ho + oy) * Wo + ox;
-      for (int k = 0; k < NC; ++k) logits[off * NC + k] = l[k];
-    }
+    head_tile(out_s, reinterpret_cast<float*>(smem + TILE_BYTES), head_w, head_b,
+              NC, logits, b, y0, x0, Ho, Wo, tid);
   }
 }
 
@@ -247,8 +322,8 @@ inline int launch_conv3x3_mma(Src s0, Src s1, const void* w, const void* bias,
   dim3 grid((Wo + TW - 1) / TW, (Ho + TH - 1) / TH, B * (CO / NCO));
   kernel<<<grid, THREADS, CONV_SMEM, (cudaStream_t)stream>>>(
       s0, s1, (const __nv_bfloat16*)w, (const float*)bias, relu, Ho, Wo, CO,
-      (__nv_bfloat16*)y, (__nv_bfloat16*)pooled, (const float*)head_w,
-      (const float*)head_b, NC, (float*)logits);
+      (__nv_bfloat16*)y, (__nv_bfloat16*)pooled,
+      (const float*)head_w, (const float*)head_b, NC, (float*)logits);
   return (int)cudaGetLastError();
 }
 

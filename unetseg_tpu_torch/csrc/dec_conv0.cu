@@ -2,10 +2,13 @@
 // with neither the crop nor the concat materialised (relu == 0: the train
 // step's pre-BatchNorm z, without the ReLU).
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
 // unetseg_tpu/ops/pallas/conv3x3.py:dec_conv0_phase2 (dec3 conv0 on the
 // serving path: skip (B,696,696,64) read at offset (88, 88), up
-// (B,520,520,64) -> (B,518,518,64)).
+// (B,520,520,64) -> (B,518,518,64)) and, through the dec_conv0_dense
+// wrapper, conv3x3.py:dec_conv0_lanes (tier-2 dec2 conv0: skip1
+// (B,344,344,128) at offset (40, 40), up2 (B,264,264,128) ->
+// (B,262,262,128)).
 //
 // About 40 GFLOP per 700^2 tile (K = 9 x 128) against ~140 MB of traffic, so
 // tensor-core bound. It runs the implicit GEMM of conv_mma.cuh with two

@@ -8,18 +8,37 @@ folded net on an explicit device, and runs every forward under
 the kernel forward (infer/kernel_net.py), as the JAX Predictor runs its
 Pallas forward on a TPU; other nets run FoldedUNet's plain forward. It
 never moves work to another device by itself.
+
+The kernel forward's serving variants are keyword arguments of the
+Predictor, with the JAX Predictor's defaults; they take the place of its
+environment switches (unetseg_tpu/infer/engine.py:149-171):
+
+    tier2=False       UNETSEG_LANES_TIER2=1   enc1 and dec2 through the kernels
+    fused_enc0=False  UNETSEG_FUSED_ENC0=1    stem + enc0 conv1 + pool in one kernel
+    dec_fuse="head"   UNETSEG_DEC_FUSE        "head" or "tail"
+    cblock=()         UNETSEG_CBLOCK          "all" or names such as "enc2c1"
+
+An unknown dec_fuse or cblock name raises (the JAX "none", which runs the
+head outside the kernels, among them), and so does any variant the
+kernel forward cannot run for this net on this device: a request never
+silently becomes another forward.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Collection, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from unetseg_tpu_torch.core.config import InferConfig, ModelConfig
 from unetseg_tpu_torch.infer.folding import fold_batchnorm
-from unetseg_tpu_torch.infer.kernel_net import folded_forward_kernels, supports
+from unetseg_tpu_torch.infer.kernel_net import (
+    check_options,
+    folded_forward_kernels,
+    supports,
+    supports_tier2,
+)
 from unetseg_tpu_torch.infer.tiling import (
     TTA_TRANSFORMS,
     make_tiled_mask_batch_fn,
@@ -43,6 +62,11 @@ class Predictor:
         variables: Mapping[str, Any],
         cfg: InferConfig,
         device: Union[str, torch.device],
+        *,
+        tier2: bool = False,
+        fused_enc0: bool = False,
+        dec_fuse: str = "head",
+        cblock: Collection[str] = (),
     ):
         if cfg.tta not in TTA_TRANSFORMS:
             raise ValueError(
@@ -57,13 +81,20 @@ class Predictor:
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.device = torch.device(device)
-        self.folded = fold_batchnorm(model_cfg, flax_to_state_dict(variables)).to(self.device)
+        self.options = dict(tier2=tier2, fused_enc0=fused_enc0, dec_fuse=dec_fuse,
+                            cblock=check_options(model_cfg, dec_fuse, cblock))
         self.uses_kernels = supports(model_cfg, self.device)
+        if tier2 and not supports_tier2(model_cfg, self.device):
+            raise ValueError(f"tier2: the kernel forward does not run this net on {self.device}")
+        if (fused_enc0 or dec_fuse != "head" or self.options["cblock"]) and not self.uses_kernels:
+            raise ValueError(f"fused_enc0, dec_fuse and cblock choose kernels of the kernel "
+                             f"forward, which does not run this net on {self.device}")
+        self.folded = fold_batchnorm(model_cfg, flax_to_state_dict(variables)).to(self.device)
 
     # ------------------------------------------------------------- forward
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.uses_kernels:
-            return folded_forward_kernels(self.folded, x)
+            return folded_forward_kernels(self.folded, x, **self.options)
         return self.folded(x)
 
     def _probs(self, images: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The serving path's four convolution kernels: wrappers, plain versions
-and launch counters (counterpart of unetseg_tpu/ops/pallas/conv3x3.py).
+"""The serving forward's convolution kernels: wrappers, plain versions and
+launch counters (counterpart of unetseg_tpu/ops/pallas/conv3x3.py and
+ops/pallas/conv_cblock.py).
 
 Each wrapper takes NHWC activations and torch-layout weights (Conv2d
 OIHW, ConvTranspose2d (CI, CO, kH, kW)). Routing is by the tensor's
@@ -10,14 +11,26 @@ failed check, build or launch. Each wrapper counts its kernel launches in
 its `launches` attribute (ops/kernels/launches.py).
 
 `conv3x3_bias_relu` and `dec_conv0` take `relu=False` for the train
-step, which needs the pre-BatchNorm z = conv + bias.
+step, which needs the pre-BatchNorm z = conv + bias. The TPU kernels'
+per-channel `scale` is not taken: every ported path folds it into the
+weights and passes ones.
 
-| wrapper            | CUDA source                 | TPU kernel it replaces                     |
-|--------------------|-----------------------------|--------------------------------------------|
-| conv3x3_bias_relu  | csrc/conv3x3_bias_relu.cu   | ops/pallas/conv3x3.py:conv3x3_phase2       |
-| tconv2x2_bias      | csrc/tconv2x2_bias.cu       | ops/pallas/conv3x3.py:tconv2x2_phase2      |
-| dec_conv0          | csrc/dec_conv0.cu           | ops/pallas/conv3x3.py:dec_conv0_phase2     |
-| conv3x3_head       | csrc/conv3x3_head.cu        | ops/pallas/conv3x3.py:conv3x3_head_phase2  |
+The TPU needed a kernel per layout (2-phase lanes, dense lanes, NHWC
+blocks) for one function; on NHWC the three layouts' convs launch one
+CUDA kernel each, through wrappers of their own so that each TPU
+kernel's counterpart counts its launches apart:
+
+| wrapper            | CUDA source                 | TPU kernel it replaces (ops/pallas/) | plain version           |
+|--------------------|-----------------------------|--------------------------------------|-------------------------|
+| conv3x3_bias_relu  | csrc/conv3x3_bias_relu.cu   | conv3x3.py:conv3x3_phase2            | conv3x3_bias_relu_plain |
+| conv3x3_dense      | csrc/conv3x3_bias_relu.cu   | conv3x3.py:conv3x3_lanes             | conv3x3_bias_relu_plain |
+| conv3x3_cblock     | csrc/conv3x3_bias_relu.cu   | conv_cblock.py:conv3x3_cblock        | conv3x3_bias_relu_plain |
+| enc0_fused         | csrc/enc0_fused.cu          | conv3x3.py:enc0_fused_phase2         | enc0_fused_plain        |
+| tconv2x2_bias      | csrc/tconv2x2_bias.cu       | conv3x3.py:tconv2x2_phase2           | tconv2x2_bias_plain     |
+| dec_conv0          | csrc/dec_conv0.cu           | conv3x3.py:dec_conv0_phase2          | dec_conv0_plain         |
+| dec_conv0_dense    | csrc/dec_conv0.cu           | conv3x3.py:dec_conv0_lanes           | dec_conv0_plain         |
+| conv3x3_head       | csrc/conv3x3_head.cu        | conv3x3.py:conv3x3_head_phase2       | conv3x3_head_plain      |
+| dec_tail           | csrc/dec_tail.cu            | conv3x3.py:dec_tail_phase2           | dec_tail_plain          |
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from unetseg_tpu_torch.ops.kernels.launches import (  # noqa: F401 (re-exported)
 )
 
 MAX_HEAD_CLASSES = 4  # csrc/conv_mma.cuh MAX_NC
+CBLOCK_CO = 128  # conv_cblock.py asserts CO % 128 == 0
 
 
 # ------------------------------------------------------------ plain versions
@@ -64,6 +78,16 @@ def conv3x3_head_plain(x, w, b, k_head, b_head):
     y = conv3x3_bias_relu_plain(x, w, b)  # rounded to x.dtype, as stored
     kh = k_head.to(x.dtype).float()
     return to_nhwc(F.conv2d(to_nchw(y).float(), kh, b_head.float()))
+
+
+def enc0_fused_plain(x, w0, b0, w1, b1):
+    h = conv3x3_bias_relu_plain(x, w0, b0)  # the stem, rounded to x.dtype
+    return conv3x3_bias_relu_plain(h, w1, b1, fuse_pool=True)
+
+
+def dec_tail_plain(skip, up, w0, b0, w1, b1, k_head, b_head, row_off, col_off):
+    y = dec_conv0_plain(skip, up, w0, b0, row_off, col_off)  # rounded to up.dtype
+    return conv3x3_head_plain(y, w1, b1, k_head, b_head)
 
 
 # ------------------------------------------------------------------ helpers
@@ -100,6 +124,18 @@ def _check_co(co: int, exact: Optional[int] = None) -> None:
         raise ValueError(f"kernel needs output channels a multiple of 64, got {co}")
 
 
+def _check_crop(skip: torch.Tensor, up: torch.Tensor, row_off: int, col_off: int) -> None:
+    hs, ws, hu, wu = skip.shape[1], skip.shape[2], up.shape[1], up.shape[2]
+    if row_off < 0 or col_off < 0 or row_off + hu > hs or col_off + wu > ws:
+        raise ValueError(f"crop ({row_off}, {col_off}) + {hu}x{wu} leaves skip {hs}x{ws}")
+    if skip.shape[0] != up.shape[0]:
+        raise ValueError(f"skip batch {skip.shape[0]} != up batch {up.shape[0]}")
+    if up.dtype != skip.dtype:
+        raise TypeError(f"skip {skip.dtype} and up {up.dtype} differ")
+    _check_act("skip", skip)
+    _check_act("up", up)
+
+
 def _ohwi(w: torch.Tensor) -> torch.Tensor:
     """(CO, CI, 3, 3) -> contiguous bf16 (CO, 3, 3, CI)."""
     return w.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
@@ -107,6 +143,17 @@ def _ohwi(w: torch.Tensor) -> torch.Tensor:
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.float().contiguous()
+
+
+def _head(k_head: torch.Tensor, b_head: torch.Tensor, co: int):
+    """The head's (NC, CO) kernel as bf16-rounded f32 values, and its bias."""
+    nc = k_head.shape[0]
+    if tuple(k_head.shape) != (nc, co, 1, 1) or tuple(b_head.shape) != (nc,):
+        raise ValueError(f"head {tuple(k_head.shape)} / {tuple(b_head.shape)} does not fit "
+                         f"{co} channels")
+    if not 1 <= nc <= MAX_HEAD_CLASSES:
+        raise ValueError(f"head kernel takes 1..{MAX_HEAD_CLASSES} classes, got {nc}")
+    return k_head.reshape(nc, co).to(torch.bfloat16).float().contiguous(), _f32(b_head)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -118,20 +165,9 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-# ----------------------------------------------------------------- wrappers
-@counted
-def conv3x3_bias_relu(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, fuse_pool: bool = False,
-    relu: bool = True,
-) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """ReLU(valid 3x3 conv(x, w) + b), NHWC (without the ReLU when relu is
-    False).
-
-    x (B,H,W,CI), w (CO,CI,3,3), b (CO,) -> (B,H-2,W-2,CO) in x's dtype;
-    with fuse_pool also the 2x2 max-pool (B,(H-2)//2,(W-2)//2,CO), floor
-    on odd sizes. The kernel takes CI == 1 (the stem) or CI % 32 == 0."""
-    if _on_cpu(x, w, b):
-        return conv3x3_bias_relu_plain(x, w, b, fuse_pool, relu)
+def _launch_conv3x3(name, x, w, b, fuse_pool, relu):
+    """csrc/conv3x3_bias_relu.cu on CUDA tensors, for the wrappers that
+    launch it; the caller counts the launch."""
     bsz, h, wd, ci = x.shape
     co = w.shape[0]
     if tuple(w.shape) != (co, ci, 3, 3) or tuple(b.shape) != (co,):
@@ -152,9 +188,120 @@ def conv3x3_bias_relu(
         pooled.data_ptr() if fuse_pool else None,
         bsz, h, wd, ci, co, int(relu), _stream(x),
     )
-    _raise_on(err, "conv3x3_bias_relu")
-    conv3x3_bias_relu.launches += 1
+    _raise_on(err, name)
     return (y, pooled) if fuse_pool else y
+
+
+def _launch_dec_conv0(name, skip, up, w, b, row_off, col_off, relu):
+    """csrc/dec_conv0.cu on CUDA tensors, for the wrappers that launch it;
+    the caller counts the launch."""
+    bsz, hs, ws, cis = skip.shape
+    _, hu, wu, ciu = up.shape
+    co = w.shape[0]
+    if tuple(w.shape) != (co, cis + ciu, 3, 3) or tuple(b.shape) != (co,):
+        raise ValueError(
+            f"skip {tuple(skip.shape)}, up {tuple(up.shape)}, weight "
+            f"{tuple(w.shape)}, bias {tuple(b.shape)} do not fit together"
+        )
+    _check_crop(skip, up, row_off, col_off)
+    _check_co(co)
+    y = torch.empty((bsz, hu - 2, wu - 2, co), dtype=up.dtype, device=up.device)
+    wk, bk = _ohwi(w), _f32(b)
+    err = library().dec_conv0_bf16(
+        skip.data_ptr(), hs, ws, cis, row_off, col_off,
+        up.data_ptr(), hu, wu, ciu, wk.data_ptr(), bk.data_ptr(),
+        y.data_ptr(), bsz, co, int(relu), _stream(up),
+    )
+    _raise_on(err, name)
+    return y
+
+
+# ----------------------------------------------------------------- wrappers
+@counted
+def conv3x3_bias_relu(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, fuse_pool: bool = False,
+    relu: bool = True,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """ReLU(valid 3x3 conv(x, w) + b), NHWC (without the ReLU when relu is
+    False).
+
+    x (B,H,W,CI), w (CO,CI,3,3), b (CO,) -> (B,H-2,W-2,CO) in x's dtype;
+    with fuse_pool also the 2x2 max-pool (B,(H-2)//2,(W-2)//2,CO), floor
+    on odd sizes. The kernel takes CI == 1 (the stem) or CI % 32 == 0."""
+    if _on_cpu(x, w, b):
+        return conv3x3_bias_relu_plain(x, w, b, fuse_pool, relu)
+    out = _launch_conv3x3("conv3x3_bias_relu", x, w, b, fuse_pool, relu)
+    conv3x3_bias_relu.launches += 1
+    return out
+
+
+@counted
+def conv3x3_dense(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, fuse_pool: bool = False,
+    relu: bool = True,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The tier-2 convs (enc1 conv0, enc1 conv1 with the pool, dec2 conv1):
+    conv3x3_bias_relu's function, counted as the counterpart of the TPU's
+    dense-lanes kernel."""
+    if _on_cpu(x, w, b):
+        return conv3x3_bias_relu_plain(x, w, b, fuse_pool, relu)
+    out = _launch_conv3x3("conv3x3_dense", x, w, b, fuse_pool, relu)
+    conv3x3_dense.launches += 1
+    return out
+
+
+@counted
+def conv3x3_cblock(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True,
+) -> torch.Tensor:
+    """A middle conv routed by the cblock option: ReLU(valid 3x3 conv(x, w)
+    + b), NHWC. Output channels must be a multiple of 128, as the TPU
+    kernel asserts, on either device."""
+    if w.shape[0] % CBLOCK_CO:
+        raise ValueError(
+            f"conv3x3_cblock needs output channels a multiple of {CBLOCK_CO}, got {w.shape[0]}"
+        )
+    if _on_cpu(x, w, b):
+        return conv3x3_bias_relu_plain(x, w, b, relu=relu)
+    out = _launch_conv3x3("conv3x3_cblock", x, w, b, False, relu)
+    conv3x3_cblock.launches += 1
+    return out
+
+
+@counted
+def enc0_fused(
+    x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
+    b1: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stem, enc0 conv1 and the 2x2 max-pool in one kernel:
+    h = ReLU(conv(x, w0) + b0) rounded to x's dtype, skip0 = ReLU(conv(h,
+    w1) + b1), pooled = maxpool2x2(skip0), floor on odd sizes.
+
+    x (B,H,W,1), w0 (F,1,3,3), w1 (F,F,3,3), b0 and b1 (F,) -> (skip0
+    (B,H-4,W-4,F), pooled (B,(H-4)//2,(W-4)//2,F)). The kernel needs F == 64."""
+    if _on_cpu(x, w0, b0, w1, b1):
+        return enc0_fused_plain(x, w0, b0, w1, b1)
+    bsz, h, wd, ci = x.shape
+    f = w0.shape[0]
+    if (ci != 1 or tuple(w0.shape) != (f, 1, 3, 3) or tuple(w1.shape) != (f, f, 3, 3)
+            or tuple(b0.shape) != (f,) or tuple(b1.shape) != (f,)):
+        raise ValueError(f"stem {tuple(w0.shape)} / conv1 {tuple(w1.shape)} do not fit "
+                         f"x {tuple(x.shape)}")
+    _check_act("x", x, channels_multiple=1)
+    _check_co(f, exact=64)
+    ho, wo = h - 4, wd - 4
+    if ho < 1 or wo < 1:
+        raise ValueError(f"input {h}x{wd} too small for two valid 3x3 convs")
+    y = torch.empty((bsz, ho, wo, f), dtype=x.dtype, device=x.device)
+    pooled = torch.empty((bsz, ho // 2, wo // 2, f), dtype=x.dtype, device=x.device)
+    w0k, w1k, b0k, b1k = _ohwi(w0), _ohwi(w1), _f32(b0), _f32(b1)
+    err = library().enc0_fused_bf16(
+        x.data_ptr(), w0k.data_ptr(), b0k.data_ptr(), w1k.data_ptr(), b1k.data_ptr(),
+        y.data_ptr(), pooled.data_ptr(), bsz, h, wd, _stream(x),
+    )
+    _raise_on(err, "enc0_fused")
+    enc0_fused.launches += 1
+    return y, pooled
 
 
 @counted
@@ -195,31 +342,24 @@ def dec_conv0(
     first, b (CO,) -> (B,Hu-2,Wu-2,CO). Any offsets, odd ones included."""
     if _on_cpu(skip, up, w, b):
         return dec_conv0_plain(skip, up, w, b, row_off, col_off, relu)
-    bsz, hs, ws, cis = skip.shape
-    bu, hu, wu, ciu = up.shape
-    co = w.shape[0]
-    if bu != bsz or tuple(w.shape) != (co, cis + ciu, 3, 3) or tuple(b.shape) != (co,):
-        raise ValueError(
-            f"skip {tuple(skip.shape)}, up {tuple(up.shape)}, weight "
-            f"{tuple(w.shape)}, bias {tuple(b.shape)} do not fit together"
-        )
-    if row_off < 0 or col_off < 0 or row_off + hu > hs or col_off + wu > ws:
-        raise ValueError(f"crop ({row_off}, {col_off}) + {hu}x{wu} leaves skip {hs}x{ws}")
-    if up.dtype != skip.dtype:
-        raise TypeError(f"skip {skip.dtype} and up {up.dtype} differ")
-    _check_act("skip", skip)
-    _check_act("up", up)
-    _check_co(co)
-    y = torch.empty((bsz, hu - 2, wu - 2, co), dtype=up.dtype, device=up.device)
-    wk, bk = _ohwi(w), _f32(b)
-    err = library().dec_conv0_bf16(
-        skip.data_ptr(), hs, ws, cis, row_off, col_off,
-        up.data_ptr(), hu, wu, ciu, wk.data_ptr(), bk.data_ptr(),
-        y.data_ptr(), bsz, co, int(relu), _stream(up),
-    )
-    _raise_on(err, "dec_conv0")
+    out = _launch_dec_conv0("dec_conv0", skip, up, w, b, row_off, col_off, relu)
     dec_conv0.launches += 1
-    return y
+    return out
+
+
+@counted
+def dec_conv0_dense(
+    skip: torch.Tensor, up: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+    row_off: int, col_off: int, relu: bool = True,
+) -> torch.Tensor:
+    """The tier-2 decoder entry (dec2 conv0, skip1 at its centre-crop
+    offset): dec_conv0's function, counted as the counterpart of the TPU's
+    dense-lanes kernel."""
+    if _on_cpu(skip, up, w, b):
+        return dec_conv0_plain(skip, up, w, b, row_off, col_off, relu)
+    out = _launch_dec_conv0("dec_conv0_dense", skip, up, w, b, row_off, col_off, relu)
+    dec_conv0_dense.launches += 1
+    return out
 
 
 @counted
@@ -237,23 +377,56 @@ def conv3x3_head(
         return conv3x3_head_plain(x, w, b, k_head, b_head)
     bsz, h, wd, ci = x.shape
     co = w.shape[0]
-    nc = k_head.shape[0]
-    if (tuple(w.shape) != (co, ci, 3, 3) or tuple(b.shape) != (co,)
-            or tuple(k_head.shape) != (nc, co, 1, 1) or tuple(b_head.shape) != (nc,)):
+    if tuple(w.shape) != (co, ci, 3, 3) or tuple(b.shape) != (co,):
         raise ValueError("head conv weights do not fit x")
-    if not 1 <= nc <= MAX_HEAD_CLASSES:
-        raise ValueError(f"head kernel takes 1..{MAX_HEAD_CLASSES} classes, got {nc}")
+    kh, bh = _head(k_head, b_head, co)
     _check_act("x", x)
     _check_co(co, exact=64)
-    logits = torch.empty((bsz, h - 2, wd - 2, nc), dtype=torch.float32, device=x.device)
+    logits = torch.empty((bsz, h - 2, wd - 2, kh.shape[0]), dtype=torch.float32, device=x.device)
     wk, bk = _ohwi(w), _f32(b)
-    kh = k_head.reshape(nc, co).to(torch.bfloat16).float().contiguous()
-    bh = _f32(b_head)
     err = library().conv3x3_head_bf16(
         x.data_ptr(), wk.data_ptr(), bk.data_ptr(), kh.data_ptr(), bh.data_ptr(),
-        logits.data_ptr(), bsz, h, wd, ci, nc, _stream(x),
+        logits.data_ptr(), bsz, h, wd, ci, kh.shape[0], _stream(x),
     )
     _raise_on(err, "conv3x3_head")
     conv3x3_head.launches += 1
     return logits
 
+
+@counted
+def dec_tail(
+    skip: torch.Tensor, up: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+    w1: torch.Tensor, b1: torch.Tensor, k_head: torch.Tensor, b_head: torch.Tensor,
+    row_off: int, col_off: int,
+) -> torch.Tensor:
+    """The decoder tail in one kernel: dec_conv0 (skip read at (row_off,
+    col_off)), its output rounded to up's dtype, then conv3x3_head.
+
+    skip (B,Hs,Ws,CIs), up (B,Hu,Wu,CIu), w0 (CO,CIs+CIu,3,3), w1
+    (CO,CO,3,3), b0 and b1 (CO,), k_head (NC,CO,1,1), b_head (NC,) -> f32
+    logits (B,Hu-4,Wu-4,NC). The kernel needs CO == 64."""
+    if _on_cpu(skip, up, w0, b0, w1, b1, k_head, b_head):
+        return dec_tail_plain(skip, up, w0, b0, w1, b1, k_head, b_head, row_off, col_off)
+    bsz, hs, ws, cis = skip.shape
+    _, hu, wu, ciu = up.shape
+    co = w0.shape[0]
+    if (tuple(w0.shape) != (co, cis + ciu, 3, 3) or tuple(w1.shape) != (co, co, 3, 3)
+            or tuple(b0.shape) != (co,) or tuple(b1.shape) != (co,)):
+        raise ValueError(f"skip {tuple(skip.shape)}, up {tuple(up.shape)}, conv0 "
+                         f"{tuple(w0.shape)}, conv1 {tuple(w1.shape)} do not fit together")
+    kh, bh = _head(k_head, b_head, co)
+    _check_crop(skip, up, row_off, col_off)
+    _check_co(co, exact=64)
+    if hu < 5 or wu < 5:
+        raise ValueError(f"up {hu}x{wu} too small for two valid 3x3 convs")
+    logits = torch.empty((bsz, hu - 4, wu - 4, kh.shape[0]), dtype=torch.float32,
+                         device=up.device)
+    w0k, w1k, b0k, b1k = _ohwi(w0), _ohwi(w1), _f32(b0), _f32(b1)
+    err = library().dec_tail_bf16(
+        skip.data_ptr(), hs, ws, cis, row_off, col_off, up.data_ptr(), hu, wu, ciu,
+        w0k.data_ptr(), b0k.data_ptr(), w1k.data_ptr(), b1k.data_ptr(),
+        kh.data_ptr(), bh.data_ptr(), kh.shape[0], logits.data_ptr(), bsz, _stream(up),
+    )
+    _raise_on(err, "dec_tail")
+    dec_tail.launches += 1
+    return logits
