@@ -6,7 +6,7 @@ toolkit: `python3 chip_smoke.py`. The phases run in order, each prints
 its own line, and any failure raises (non-zero exit):
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
-2. build the kernels of the sixteen wrappers from the eleven CUDA sources
+2. build the kernels of the nineteen wrappers from the eleven CUDA sources
    of unetseg_tpu_torch/csrc (one nvcc per source, in parallel) and print
    ptxas's register and spill lines;
 3. serving-kernel parity at the serving path's full-width shapes (700^2
@@ -31,16 +31,21 @@ its own line, and any failure raises (non-zero exit):
    configuration, alternating which goes first;
 5. train-kernel parity at the train step's full-width shapes (batch 4,
    512^2 input): dgrad, wgrad, the decoder-entry wgrad, the elastic
-   sampler, and the forward kernels with relu=False, same bound;
+   sampler, and the forward kernels with relu=False; the tier-2 option's
+   dense dgrad (enc1 conv0 and conv1, dec2 conv0 into its 256-channel
+   concat, dec2 conv1), dense wgrad (enc1 conv0 and conv1, dec2 conv1),
+   dense decoder-entry wgrad (skip1 at (41, 41)) and its forward kernels
+   with relu=False (conv3x3_dense, dec_conv0_dense); same bound;
 6. train path: make_train_step with the best recipe's options (Adam 3e-4,
    cosine, EMA 0.999, standardize, elastic 2000/20, gamma / illumination /
    noise) on 4 seeded synthetic 512^2 frames with instance labels and
-   reference weight maps, full width; checks that every kernel but the
-   head launched, finite loss and grad_norm, moved params and EMA; holds
-   one step's gradients through the kernels against the plain path in
-   fp32 beside the plain path in bf16; times kernel and plain bf16 steps
-   the same number of times, alternating which goes first, and prints a
-   torch.profiler table (top 10 operations) of three kernel-path steps;
+   reference weight maps, full width, at tier 1 and with tier2=True; checks
+   each step's exact launch counts (TRAIN_LAUNCHES, TIER2_LAUNCHES), finite
+   loss and grad_norm, moved params and EMA; holds one step's gradients
+   through either kernel path against the plain path in fp32 beside the
+   plain path in bf16; times tier-1, tier-2 and plain bf16 steps the same
+   number of times, rotating which goes first, and prints a torch.profiler
+   table (top 10 operations) of three steps of each kernel path;
 7. kernel parity of the weighted CE (forward and backward at batch 4,
    324^2 logits, C = 2 and 3, targets and weights read at the 512 -> 324
    crop) and the min-plus product ((32, 512, 512) with either operand
@@ -72,6 +77,7 @@ nvidia-smi's name and power limit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -170,6 +176,12 @@ SOURCES = {
                        "unetseg_tpu/ops/pallas/conv_cblock.py:118"),
     "enc0_fused": ("unetseg_tpu_torch/csrc/enc0_fused.cu", "unetseg_tpu/ops/pallas/conv3x3.py:663"),
     "dec_tail": ("unetseg_tpu_torch/csrc/dec_tail.cu", "unetseg_tpu/ops/pallas/conv3x3.py:1026"),
+    "conv3x3_dense_dgrad": ("unetseg_tpu_torch/csrc/conv3x3_dgrad.cu",
+                            "unetseg_tpu/ops/pallas/conv3x3_train.py:266"),
+    "conv3x3_dense_wgrad": ("unetseg_tpu_torch/csrc/conv3x3_wgrad.cu",
+                            "unetseg_tpu/ops/pallas/conv3x3_train.py:370"),
+    "conv3x3_dec0_dense_wgrad": ("unetseg_tpu_torch/csrc/conv3x3_wgrad.cu",
+                                 "unetseg_tpu/ops/pallas/conv3x3_train.py:852"),
 }
 # launches per forward chunk of the default serving path and of each
 # variant (phase 4b); the middle has 11 convs with CO % 128 == 0, 8 of
@@ -186,9 +198,18 @@ VARIANTS = {
                     "dec_conv0_dense": 1, "tconv2x2_bias": 1, "dec_tail": 1}),
 }
 VARIANT_ROUNDS = 2  # timed runs of each variant and the default, alternating
-TRAINING = ("conv3x3_bias_relu", "tconv2x2_bias", "dec_conv0", "conv3x3_dgrad",
-            "conv3x3_wgrad", "conv3x3_dec0_wgrad", "sample_displaced", "weighted_ce_fwd",
-            "weighted_ce_bwd")
+# launches per train step at tier 1 (the stem's dgrad is skipped: the input
+# needs no gradient), and with tier2=True: enc1 conv0 / conv1 and dec2
+# conv1 through the dense conv, dec2 conv0 through the dense entry, four
+# dense dgrads (dec2 conv0's into its concat), three dense wgrads and the
+# dense two-source wgrad; the tier-1 wrappers keep their counts
+TRAIN_LAUNCHES = {"conv3x3_bias_relu": 3, "tconv2x2_bias": 1, "dec_conv0": 1, "conv3x3_dgrad": 3,
+                  "conv3x3_wgrad": 3, "conv3x3_dec0_wgrad": 1, "sample_displaced": 1,
+                  "weighted_ce_fwd": 1, "weighted_ce_bwd": 1}
+TIER2_LAUNCHES = {**TRAIN_LAUNCHES, "conv3x3_dense": 3, "dec_conv0_dense": 1,
+                  "conv3x3_dense_dgrad": 4, "conv3x3_dense_wgrad": 3,
+                  "conv3x3_dec0_dense_wgrad": 1}
+TRAINING = tuple(TRAIN_LAUNCHES)
 PREPROCESS = ("minplus",)
 # H100 SXM peaks (data sheet; dense, at the 700 W limit)
 PEAK_BF16, PEAK_F32, HBM_BPS = 989e12, 67e12, 3.35e12
@@ -694,7 +715,7 @@ def variants_path(gpu, main):
 def train_kernel_parity(stats, c=64):
     """The train step's kernels at its full-width shapes (batch 4, 512^2
     input) against their plain versions, plus the forward kernels with
-    relu=False."""
+    relu=False; tier 1's, then the tier-2 option's at enc1 and dec2."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -760,6 +781,46 @@ def train_kernel_parity(stats, c=64):
             (conv_ops(b, u - 2, u - 2, 2 * c, c), nbytes(*crop_read(skip, up, off, w128, b_dec0)))),
         "dec3_conv1_relu_false": (*fw, *fwd(act(b, u - 2, u - 2, c), w64, bias(c))),
     }
+    # tier 2: enc1 on the pooled enc0 (254^2, 64 -> 128 -> 128), dec2 on
+    # up2 (168^2) and skip1 (250^2) read at (41, 41), 256 -> 128 -> 128
+    f1 = 2 * c
+    p0, e1, d2 = e0 // 2, sh.encoder[1], sh.crops[-2]
+    off2 = (e1 - d2) // 2
+    w_e10, w_f1 = he(g, f1, c, 3, 3, fan_out=9 * f1), he(g, f1, f1, 3, 3, fan_out=9 * f1)
+    w_d20 = he(g, f1, 2 * f1, 3, 3, fan_out=9 * f1)
+    ddg = ("conv3x3_dense_dgrad", KT.conv3x3_dense_dgrad, KT.conv3x3_dgrad_plain)
+    dwg = ("conv3x3_dense_wgrad", KT.conv3x3_dense_wgrad, KT.conv3x3_wgrad_plain)
+    dfw = ("conv3x3_dense", K.conv3x3_dense, K.conv3x3_bias_relu_plain)
+    skip1, up2, b_d20 = act(b, e1, e1, f1), act(b, d2, d2, f1), bias(f1)
+    cat2 = torch.cat([skip1[:, off2:off2 + d2, off2:off2 + d2], up2], -1)
+    g_d20 = grad(b, d2 - 2, d2 - 2, f1)
+    cases.update({
+        "dense_dgrad_enc1_conv0": (*ddg, *dgrad(grad(b, p0 - 2, p0 - 2, f1), w_e10)),
+        "dense_dgrad_enc1_conv1": (*ddg, *dgrad(grad(b, p0 - 4, p0 - 4, f1), w_f1)),
+        "dense_dgrad_dec2_conv0": (*ddg, *dgrad(g_d20, w_d20)),
+        "dense_dgrad_dec2_conv1": (*ddg, *dgrad(grad(b, d2 - 4, d2 - 4, f1), w_f1)),
+        "dense_wgrad_enc1_conv0": (*dwg, *wgrad(act(b, p0, p0, c), grad(b, p0 - 2, p0 - 2, f1))),
+        "dense_wgrad_enc1_conv1": (*dwg, *wgrad(act(b, p0 - 2, p0 - 2, f1),
+                                                grad(b, p0 - 4, p0 - 4, f1))),
+        "dense_wgrad_dec2_conv1": (*dwg, *wgrad(act(b, d2 - 2, d2 - 2, f1),
+                                                grad(b, d2 - 4, d2 - 4, f1))),
+        "dec0_dense_wgrad_dec2_conv0": (
+            "conv3x3_dec0_dense_wgrad", KT.conv3x3_dec0_dense_wgrad,
+            KT.conv3x3_dec0_wgrad_plain, (skip1, up2, g_d20, off2, off2),
+            lambda: torch.nn.grad.conv2d_weight(to_nchw(cat2), (f1, 2 * f1, 3, 3),
+                                                to_nchw(g_d20)),
+            (conv_ops(b, d2 - 2, d2 - 2, 2 * f1, f1),
+             nbytes(*crop_read(skip1, up2, off2, g_d20)))),
+        "enc1_conv0_dense_relu_false": (*dfw, *fwd(act(b, p0, p0, c), w_e10, bias(f1))),
+        "enc1_conv1_dense_relu_false": (*dfw, *fwd(act(b, p0 - 2, p0 - 2, f1), w_f1, bias(f1))),
+        "dec2_conv0_dense_relu_false": (
+            "dec_conv0_dense", K.dec_conv0_dense, K.dec_conv0_plain,
+            (skip1, up2, w_d20, b_d20, off2, off2),
+            lambda: F.conv2d(to_nchw(cat2), bf(w_d20), bf(b_d20)),
+            (conv_ops(b, d2 - 2, d2 - 2, 2 * f1, f1),
+             nbytes(*crop_read(skip1, up2, off2, w_d20, b_d20)))),
+        "dec2_conv1_dense_relu_false": (*dfw, *fwd(act(b, d2 - 2, d2 - 2, f1), w_f1, bias(f1))),
+    })
     for k, v in cases.items():  # the relu flag rides in the kwargs slot
         cases[k] = (*v[:4], nr if k.endswith("relu_false") else {}, *v[4:])
     run_cases(cases, stats, b)
@@ -805,8 +866,42 @@ def zero_grad_params(name):
     return name.endswith(".bias") and (".conv" in name or "_tconv" in name)
 
 
+def checked_step(name, step, state, batch, gen, per_step, kernel_levels):
+    """One train step after a warm-up, launches counted from 0: exact
+    launch counts, finite loss and grad_norm, and every parameter and EMA
+    shadow moved but the pre-BN conv biases that the kernel forward
+    detaches (those of the levels outside `kernel_levels`). Returns the
+    launches."""
+    step(state, *batch, gen)  # warm-up: cuDNN choice, allocator
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    new, metrics = step(state, *batch, gen)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    print(f"{name}: loss {loss:.6f}, grad_norm {gnorm:.6f}, step {new.step}, "
+          f"launches {({k: v for k, v in launches.items() if v})}", flush=True)
+    check_launches(name, launches, per_step, 1)
+    if not (np.isfinite(loss) and np.isfinite(gnorm)):
+        raise AssertionError(f"{name}: loss or grad_norm not finite")
+    # Adam moves every parameter with a nonzero gradient; the middle's
+    # pre-BN conv biases are detached on the kernel path and stay put
+    detached = [k for k in state.params if zero_grad_params(k) and ".conv" in k
+                and k.split(".")[0] not in kernel_levels]
+    for part, old, cur in (("params", state.params, new.params),
+                           ("EMA params", state.ema_params, new.ema_params),
+                           ("EMA batch stats", state.ema_batch_stats, new.ema_batch_stats)):
+        still = [k for k in old if k not in detached and torch.equal(old[k], cur[k])]
+        if still or not all(torch.isfinite(t).all() for t in cur.values()):
+            raise AssertionError(f"{name}: {part} did not all move or are not finite: {still[:5]}")
+    print(f"{name}: every parameter and EMA shadow moved except the {len(detached)} detached "
+          f"middle biases (kernel levels {', '.join(kernel_levels)})", flush=True)
+    return launches
+
+
 def train_path(gpu):
-    """make_train_step at full width through the kernel train forward."""
+    """make_train_step at full width through the kernel train forward, at
+    tier 1 and with tier2=True. Returns both steps' launches."""
     cfg = TRAIN_MODEL
     dev = torch.device(DEVICE)
     frames, labels = cell_frames(np.random.RandomState(SEED + 3), TRAIN_BATCH, TRAIN_SIZE,
@@ -814,39 +909,20 @@ def train_path(gpu):
     weights = np.stack([weight_map_np(lab, mode="reference") for lab in labels])
     images, masks, wts = (torch.from_numpy(a).to(dev) for a in (frames, labels, weights))
     valid = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev)
+    batch = (images, masks, wts, valid)
     state = create_train_state(fast_random_variables(cfg, SEED), cfg, RECIPE_TRAIN,
                                steps_per_epoch=STEPS_PER_EPOCH, device=dev)
-    step = make_train_step(cfg, lanes="auto", assume_valid=True, **RECIPE)
+    steps = {"kernel": make_train_step(cfg, lanes="auto", assume_valid=True, **RECIPE),
+             "kernel_tier2": make_train_step(cfg, lanes="auto", assume_valid=True, tier2=True,
+                                             **RECIPE),
+             "plain_bf16": make_train_step(cfg, lanes="off", assume_valid=True, **RECIPE)}
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    launches = checked_step("train path", steps["kernel"], state, batch, gen, TRAIN_LAUNCHES,
+                            ("enc0", "dec3"))
+    launches2 = checked_step("train path tier 2", steps["kernel_tier2"], state, batch, gen,
+                             TIER2_LAUNCHES, ("enc0", "enc1", "dec2", "dec3"))
 
-    step(state, images, masks, wts, valid, gen)  # warm-up: cuDNN choice, allocator
-    torch.cuda.synchronize()
-    K.reset_launch_counts()
-    new, metrics = step(state, images, masks, wts, valid, gen)
-    torch.cuda.synchronize()
-    launches = K.launch_counts()
-    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
-    print(f"train path: loss {loss:.6f}, grad_norm {gnorm:.6f}, step {new.step}, "
-          f"launches {launches}", flush=True)
-    missing = [k for k in TRAINING if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the train path: {missing}")
-    if not (np.isfinite(loss) and np.isfinite(gnorm)):
-        raise AssertionError("loss or grad_norm not finite")
-    # Adam moves every parameter with a nonzero gradient; the middle's
-    # pre-BN conv biases are detached on the kernel path and stay put
-    detached = [k for k in state.params if zero_grad_params(k) and ".conv" in k
-                and k.split(".")[0] not in ("enc0", "dec3")]
-    for name, old, cur in (("params", state.params, new.params),
-                           ("EMA params", state.ema_params, new.ema_params),
-                           ("EMA batch stats", state.ema_batch_stats, new.ema_batch_stats)):
-        still = [k for k in old if k not in detached and torch.equal(old[k], cur[k])]
-        if still or not all(torch.isfinite(t).all() for t in cur.values()):
-            raise AssertionError(f"{name} did not all move or are not finite: {still[:5]}")
-    print(f"train path: every parameter and EMA shadow moved except the "
-          f"{len(detached)} detached middle biases", flush=True)
-
-    # ---- one step's gradients: kernel path vs plain fp32 and plain bf16
+    # ---- one step's gradients: both kernel paths vs plain fp32 and plain bf16
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     draws = draw_augment(gen, images, True, RECIPE["aug_gamma"], RECIPE["aug_illum"],
@@ -857,58 +933,62 @@ def train_path(gpu):
     x, targets, w = augment(images, masks, wts, draws)
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     res = {}
-    for name, fwd, c in (("kernel", train_forward, cfg), ("plain_fp32", unet_train_forward, cfg32),
+    for name, fwd, c in (("kernel", train_forward, cfg),
+                         ("kernel_tier2", functools.partial(train_forward, tier2=True), cfg),
+                         ("plain_fp32", unet_train_forward, cfg32),
                          ("plain_bf16", unet_train_forward, cfg)):
         res[name] = loss_and_grads(fwd, state, x, targets, w, valid, None, c)
         torch.cuda.synchronize()
     l32 = float(res["plain_fp32"][0])
-    worst, worst_ratio = {}, 0.0
-    lines = []
+    errs, lines = {}, []
     for k, g32 in res["plain_fp32"][2].items():
         if zero_grad_params(k):
             continue
         n32 = g32.norm().item()
-        ek = (res["kernel"][2][k] - g32).norm().item() / n32
-        eb = (res["plain_bf16"][2][k] - g32).norm().item() / n32
-        lines.append(f"  {k}: kernel {ek:.3e}, plain bf16 {eb:.3e}")
-        worst[k] = (ek, eb)
-        worst_ratio = max(worst_ratio, ek / max(GRAD_FACTOR * eb, GRAD_FLOOR))
-    print(f"train grads: loss kernel {float(res['kernel'][0]):.6f}, plain fp32 {l32:.6f}, "
-          f"plain bf16 {float(res['plain_bf16'][0]):.6f}; relative L2 gradient error "
-          f"against plain fp32 per tensor ({len(lines)} tensors, the zero-gradient "
-          f"conv biases left out):", flush=True)
+        errs[k] = [(res[p][2][k] - g32).norm().item() / n32
+                   for p in ("kernel", "kernel_tier2", "plain_bf16")]
+        lines.append(f"  {k}: tier 1 {errs[k][0]:.3e}, tier 2 {errs[k][1]:.3e}, "
+                     f"plain bf16 {errs[k][2]:.3e}")
+    print(f"train grads: loss tier 1 {float(res['kernel'][0]):.6f}, tier 2 "
+          f"{float(res['kernel_tier2'][0]):.6f}, plain fp32 {l32:.6f}, plain bf16 "
+          f"{float(res['plain_bf16'][0]):.6f}; relative L2 gradient error against plain fp32 "
+          f"per tensor ({len(lines)} tensors, the zero-gradient conv biases left out):",
+          flush=True)
     print("\n".join(lines), flush=True)
-    print(f"train grads: worst kernel err / max({GRAD_FACTOR} x plain bf16 err, "
-          f"{GRAD_FLOOR}) = {worst_ratio:.3f}; median kernel err "
-          f"{np.median([e[0] for e in worst.values()]):.3e}, median plain bf16 err "
-          f"{np.median([e[1] for e in worst.values()]):.3e}", flush=True)
-    loss_rel = abs(float(res["kernel"][0]) - l32) / abs(l32)
-    if worst_ratio > 1.0 or loss_rel > LOSS_RTOL:
-        raise AssertionError(f"kernel path gradients or loss off the fp32 plain path "
-                             f"(worst ratio {worst_ratio:.3f}, loss rel {loss_rel:.3e})")
+    for i, p in enumerate(("kernel", "kernel_tier2")):
+        ratio = max(e[i] / max(GRAD_FACTOR * e[2], GRAD_FLOOR) for e in errs.values())
+        loss_rel = abs(float(res[p][0]) - l32) / abs(l32)
+        print(f"train grads {p}: worst err / max({GRAD_FACTOR} x plain bf16 err, {GRAD_FLOOR}) = "
+              f"{ratio:.3f}; median err {np.median([e[i] for e in errs.values()]):.3e}, "
+              f"median plain bf16 err {np.median([e[2] for e in errs.values()]):.3e}; loss rel "
+              f"{loss_rel:.3e}", flush=True)
+        if ratio > 1.0 or loss_rel > LOSS_RTOL:
+            raise AssertionError(f"{p} path gradients or loss off the fp32 plain path "
+                                 f"(worst ratio {ratio:.3f}, loss rel {loss_rel:.3e})")
     del res
 
-    # ---- time per step: kernel path vs plain bf16 path, same state and
-    # data, each timed TIMING_ROUNDS times with the first of each pair
-    # alternating (kernel first, then plain first, ...)
-    paths = {"kernel": step,
-             "plain_bf16": make_train_step(cfg, lanes="off", assume_valid=True, **RECIPE)}
-    times = {name: [] for name in paths}
+    # ---- time per step: tier 1, tier 2 and plain bf16, same state and data,
+    # each timed TIMING_ROUNDS times, the order rotating by one each round
+    names = list(steps)
+    times = {name: [] for name in names}
     for r in range(TIMING_ROUNDS):
-        for name in (("kernel", "plain_bf16") if r % 2 == 0 else ("plain_bf16", "kernel")):
+        for name in names[r % 3:] + names[:r % 3]:
             holder = [state]
 
-            def one(fn=paths[name], holder=holder):
-                holder[0] = fn(holder[0], images, masks, wts, valid, gen)[0]
+            def one(fn=steps[name], holder=holder):
+                holder[0] = fn(holder[0], *batch, gen)[0]
 
             times[name].append(cuda_ms(one, iters=5, warmup=2))
     med = {name: float(np.median(t)) for name, t in times.items()}
     runs = "; ".join(f"{name} " + ", ".join(f"{t:.2f}" for t in ts) for name, ts in times.items())
     print(f"train path: median ms per step {med['kernel']:.2f} through the kernels, "
-          f"{med['plain_bf16']:.2f} plain bf16 (runs of 5 steps, in ms: {runs}); "
-          f"batch {TRAIN_BATCH} at {TRAIN_SIZE}^2, best recipe, on {gpu}", flush=True)
-    profile_step(step, state, images, masks, wts, valid, gen, med["kernel"])
-    return launches
+          f"{med['kernel_tier2']:.2f} through the kernels at tier 2, {med['plain_bf16']:.2f} "
+          f"plain bf16 (runs of 5 steps, in ms: {runs}); batch {TRAIN_BATCH} at "
+          f"{TRAIN_SIZE}^2, best recipe, on {gpu}", flush=True)
+    for name in ("kernel", "kernel_tier2"):
+        print(f"profile of the {name} step:", flush=True)
+        profile_step(steps[name], state, images, masks, wts, valid, gen, med[name])
+    return launches, launches2
 
 
 def profile_step(step, state, images, masks, wts, valid, gen, step_ms, steps=3):
@@ -1196,17 +1276,17 @@ def main():
     variants = variants_path(gpu, main)
     del main
     train_kernel_parity(stats)
-    training = train_path(gpu)
+    training, training2 = train_path(gpu)
     pre_labels = cell_frames(np.random.RandomState(SEED + 5), PRE_FRAMES, PRE_SIZE,
                              labels=True)[1]
     loss_and_edt_parity(stats, pre_labels)
     preprocess = preprocess_path(pre_labels)
     loop = loop_path(gpu)
 
-    # launches: each path's run (serving call, the four variant calls, train
-    # step, preprocess of PRE_FRAMES frames, the loop's first train()),
-    # counted from 0
-    paths = (serving, variants, training, preprocess, loop)
+    # launches: each path's run (serving call, the four variant calls, the
+    # tier-1 and tier-2 train steps, preprocess of PRE_FRAMES frames, the
+    # loop's first train()), counted from 0
+    paths = (serving, variants, training, training2, preprocess, loop)
     record = [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": sum(p[k] for p in paths),

@@ -10,7 +10,11 @@ patterns; the serving variants' kernels: the fused enc0 at odd sizes and
 batch 1, the fused decoder tail at odd crop offsets with 1-4 classes
 (both also bit for bit against the chained kernels), the cblock conv at
 CI 1024 on a 6x6 input, the dense decoder entry at offset 41, the dense
-conv on both conv paths; and the wrappers' refusals.
+conv on both conv paths; the tier-2 train kernels: the dense dgrad with
+CI 64 out of CO 128 and CI 256, the dense wgrad at 128 -> 128 with ragged
+last tiles, the dense two-source wgrad at odd (41, 41) and even offsets,
+and the tier-2 Functions counting only under the dense wrappers; and the
+wrappers' refusals.
 
 Marked `cuda` and skipped without a card. The file imports no jax, so on a
 GPU machine it runs without the JAX package:
@@ -408,3 +412,79 @@ def test_variant_wrappers_raise_on_what_the_kernels_do_not_take(g):
         K.dec_tail(skip, up, w0, _b(g, 64), w64, _b(g, 64), _w(g, 2, 64, 1, 1, fan=2), _b(g, 2), 11, 0)
     with pytest.raises(ValueError, match="classes"):
         K.dec_tail(skip, up, w0, _b(g, 64), w64, _b(g, 64), _w(g, 5, 64, 1, 1, fan=2), _b(g, 5), 0, 0)
+
+
+# ------------------------------------------------------ tier-2 train kernels
+
+
+def _only(**want):
+    """The launch counts, all zero but `want`."""
+    return {**{k: 0 for k in K.launch_counts()}, **want}
+
+
+@pytest.mark.parametrize("co,ci", [(128, 64), (128, 256)])
+def test_dense_dgrad(g, co, ci):
+    """enc1 conv0's input gradient (64 channels out of 128) and dec2
+    conv0's into its 256-channel concat, at odd sizes; one launch, counted
+    under the tier-2 wrapper and not under conv3x3_dgrad."""
+    gr = _g(g, 2, 21, 13, co)
+    wt = _w(g, co, ci, 3, 3, fan=9 * co)
+    K.reset_launch_counts()
+    got = KT.conv3x3_dense_dgrad(gr, wt)
+    assert K.launch_counts() == _only(conv3x3_dense_dgrad=1)
+    assert got.shape == (2, 23, 15, ci) and got.dtype == torch.bfloat16
+    _close(got, KT.conv3x3_dgrad_plain(gr.float(), wt))
+
+
+def test_dense_wgrad_ragged_tiles(g):
+    """128 -> 128 over 21 x 37 outputs: the last 8x16 tile row and column
+    are ragged (21 = 2*8 + 5, 37 = 2*16 + 5)."""
+    x = _act(g, 2, 23, 39, 128)
+    gr = _g(g, 2, 21, 37, 128)
+    K.reset_launch_counts()
+    got = KT.conv3x3_dense_wgrad(x, gr)
+    assert K.launch_counts() == _only(conv3x3_dense_wgrad=1)
+    assert got.shape == (128, 128, 3, 3) and got.dtype == torch.float32
+    _close_rel(got, KT.conv3x3_wgrad_plain(x.float(), gr.float()))
+
+
+@pytest.mark.parametrize("row_off,col_off", [(41, 41), (40, 42)])
+def test_dec0_dense_wgrad(g, row_off, col_off):
+    """The tier-2 decoder entry's weight gradient reads skip1 at (41, 41)
+    at 512^2; an even pair beside it."""
+    skip, up = _act(g, 2, 62, 63, 128), _act(g, 2, 20, 21, 128)
+    gr = _g(g, 2, 18, 19, 128)
+    K.reset_launch_counts()
+    got = KT.conv3x3_dec0_dense_wgrad(skip, up, gr, row_off, col_off)
+    assert K.launch_counts() == _only(conv3x3_dec0_dense_wgrad=1)
+    assert got.shape == (128, 256, 3, 3)
+    _close_rel(got, KT.conv3x3_dec0_wgrad_plain(skip.float(), up.float(), gr.float(),
+                                                row_off, col_off))
+
+
+def test_tier2_functions_count_under_the_dense_wrappers(g):
+    """Conv3x3DenseTrain and DecConv0DenseTrain, forward and backward, each
+    launch their forward, dgrad and wgrad once, all under the tier-2
+    wrappers; their gradients match the plain versions'."""
+    x = _act(g, 1, 20, 22, 64).requires_grad_(True)
+    w, b = _w(g, 128, 64, 3, 3, fan=9 * 128).requires_grad_(True), _b(g, 128).requires_grad_(True)
+    K.reset_launch_counts()
+    z = KT.Conv3x3DenseTrain.apply(x, w, b)
+    z.float().sum().backward()
+    assert K.launch_counts() == _only(conv3x3_dense=1, conv3x3_dense_dgrad=1,
+                                      conv3x3_dense_wgrad=1)
+    ones = torch.ones_like(z)
+    _close(x.grad, KT.conv3x3_dgrad_plain(ones.float(), w.detach()))
+    _close_rel(w.grad, KT.conv3x3_wgrad_plain(x.detach().float(), ones.float()))
+
+    skip, up = _act(g, 1, 30, 31, 128).requires_grad_(True), _act(g, 1, 20, 19, 128).requires_grad_(True)
+    w0, b0 = _w(g, 128, 256, 3, 3, fan=9 * 128).requires_grad_(True), _b(g, 128).requires_grad_(True)
+    K.reset_launch_counts()
+    z = KT.DecConv0DenseTrain.apply(skip, up, w0, b0, 5, 7)
+    z.float().sum().backward()
+    assert K.launch_counts() == _only(dec_conv0_dense=1, conv3x3_dense_dgrad=1,
+                                      conv3x3_dec0_dense_wgrad=1)
+    dcat = KT.conv3x3_dgrad_plain(torch.ones_like(z).float(), w0.detach())
+    _close(skip.grad[:, 5:25, 7:26], dcat[..., :128])
+    assert not skip.grad[:, :5].any() and not skip.grad[:, 25:].any()
+    _close(up.grad, dcat[..., 128:])

@@ -1,27 +1,39 @@
 """The train step's convolution kernels and the autograd Functions around
 them (counterpart of unetseg_tpu/ops/pallas/conv3x3_train.py).
 
-| wrapper            | CUDA source                         | TPU kernel it replaces                        |
-|--------------------|-------------------------------------|-----------------------------------------------|
-| conv3x3_dgrad      | csrc/conv3x3_dgrad.cu               | ops/pallas/conv3x3_train.py:conv3x3_phase2_dx |
-| conv3x3_wgrad      | csrc/conv3x3_wgrad.cu               | ops/pallas/conv3x3_train.py:conv3x3_phase2_dw |
-| conv3x3_dec0_wgrad | csrc/conv3x3_wgrad.cu (two sources) | ops/pallas/conv3x3_train.py:conv3x3_dec0_dw   |
+| wrapper                  | CUDA source                         | TPU kernel it replaces (ops/pallas/conv3x3_train.py) |
+|--------------------------|-------------------------------------|------------------------------------------------------|
+| conv3x3_dgrad            | csrc/conv3x3_dgrad.cu               | conv3x3_phase2_dx                                    |
+| conv3x3_wgrad            | csrc/conv3x3_wgrad.cu               | conv3x3_phase2_dw                                    |
+| conv3x3_dec0_wgrad       | csrc/conv3x3_wgrad.cu (two sources) | conv3x3_dec0_dw                                      |
+| conv3x3_dense_dgrad      | csrc/conv3x3_dgrad.cu               | conv3x3_dense_dx                                     |
+| conv3x3_dense_wgrad      | csrc/conv3x3_wgrad.cu               | conv3x3_dense_dw                                     |
+| conv3x3_dec0_dense_wgrad | csrc/conv3x3_wgrad.cu (two sources) | conv3x3_dec0_dense_dw                                |
 
-Routing as in ops/kernels/conv3x3.py: a CPU tensor runs the plain PyTorch
-version beside the wrapper, a CUDA tensor the Hopper kernel or a raise;
-each wrapper counts its launches.
+The TPU needed one kernel per layout (2-phase lanes for tier 1, dense
+lanes for tier 2's enc1 and dec2); on NHWC the two layouts' gradients are
+one function each, so the dense wrappers launch the same CUDA kernels and
+count apart. Routing as in ops/kernels/conv3x3.py: a CPU tensor runs the
+plain PyTorch version beside the wrapper, a CUDA tensor the Hopper kernel
+or a raise; each wrapper counts its launches.
 
 The Functions are the custom VJPs of the JAX package without its lanes
 layout (activations NHWC, weights in torch's layouts):
-  Conv3x3Train   make_conv_p2_train: forward conv3x3_bias_relu(relu=False),
-                 backward dgrad + wgrad, db = sum g in fp32;
-  DecConv0Train  make_dec0_p2_train: forward dec_conv0(relu=False),
-                 backward dgrad into the concat gradient, split into the
-                 crop's (scattered into a zero skip-frame gradient) and
-                 up's, then the two-source wgrad;
-  TConv2x2Train  lanes_train.make_tconv_p2_train: forward tconv2x2_bias,
-                 backward plain channel contractions (the JAX backward is
-                 XLA dot_generals, not a kernel).
+  Conv3x3Train        make_conv_p2_train: forward conv3x3_bias_relu
+                      (relu=False), backward dgrad + wgrad, db = sum g in
+                      fp32;
+  Conv3x3DenseTrain   make_conv_dense_train: the same through conv3x3_dense,
+                      conv3x3_dense_dgrad and conv3x3_dense_wgrad;
+  DecConv0Train       make_dec0_p2_train: forward dec_conv0(relu=False),
+                      backward dgrad into the concat gradient, split into
+                      the crop's (scattered into a zero skip-frame
+                      gradient) and up's, then the two-source wgrad;
+  DecConv0DenseTrain  make_dec0_dense_train: the same through
+                      dec_conv0_dense, conv3x3_dense_dgrad and
+                      conv3x3_dec0_dense_wgrad;
+  TConv2x2Train       lanes_train.make_tconv_p2_train: forward
+                      tconv2x2_bias, backward plain channel contractions
+                      (the JAX backward is XLA dot_generals, not a kernel).
 """
 
 from __future__ import annotations
@@ -39,7 +51,9 @@ from unetseg_tpu_torch.ops.kernels.conv3x3 import (
     _raise_on,
     _stream,
     conv3x3_bias_relu,
+    conv3x3_dense,
     dec_conv0,
+    dec_conv0_dense,
     tconv2x2_bias,
 )
 from unetseg_tpu_torch.ops.kernels.launches import counted
@@ -66,14 +80,10 @@ def conv3x3_dec0_wgrad_plain(skip, up, g, row_off, col_off):
     return conv3x3_wgrad_plain(torch.cat([crop, up], dim=-1), g)
 
 
-# ------------------------------------------------------------------ wrappers
-@counted
-def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Input gradient of a valid 3x3 conv: g (B,Hg,Wg,CO) NHWC, w
-    (CO,CI,3,3) -> dx (B,Hg+2,Wg+2,CI) in g's dtype. The kernel needs
-    CO % 32 == 0 and CI % 64 == 0."""
-    if _on_cpu(g, w):
-        return conv3x3_dgrad_plain(g, w)
+# ------------------------------------------------------------------ launches
+def _launch_dgrad(name, g, w):
+    """csrc/conv3x3_dgrad.cu on CUDA tensors, for the wrappers that launch
+    it; the caller counts the launch."""
     bsz, hg, wg, co = g.shape
     ci = w.shape[1]
     if tuple(w.shape) != (co, ci, 3, 3):
@@ -86,8 +96,7 @@ def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     err = library().conv3x3_dgrad_bf16(
         g.data_ptr(), wt.data_ptr(), dx.data_ptr(), bsz, hg, wg, co, ci, _stream(g),
     )
-    _raise_on(err, "conv3x3_dgrad")
-    conv3x3_dgrad.launches += 1
+    _raise_on(err, name)
     return dx
 
 
@@ -96,9 +105,23 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _wgrad_launch(s0, off0, s1, g):
+def wgrad_chunks(bsz: int, ho: int, wo: int, ci: int, co: int, sm_count: int) -> int:
+    """Split-K chunks of one csrc/conv3x3_wgrad.cu launch over g (bsz, ho,
+    wo, co) and ci input channels: a chunk is one block per 32-channel
+    slice of ci (one for the stem, ci == 1) and per 64 output channels, and
+    the chunks fill one wave of WGRAD_BLOCKS_PER_SM blocks per SM. Rounding
+    up would leave a tail wave of a few blocks that doubles the time (17
+    chunks of 16 blocks at ci 256, co 128 made 272 blocks against 264
+    resident on an H100)."""
+    tiles = bsz * -(-ho // 8) * -(-wo // 16)
+    per_chunk = max(1, ci // 32) * (co // 64)
+    return max(1, min(tiles, WGRAD_BLOCKS_PER_SM * sm_count // per_chunk))
+
+
+def _wgrad_launch(name, s0, off0, s1, g):
     """One launch of csrc/conv3x3_wgrad.cu: dw (CO, C0+C1, 3, 3) f32 from
-    source s0 read at off0 = (row, col) and optional s1 at (0, 0)."""
+    source s0 read at off0 = (row, col) and optional s1 at (0, 0); the
+    caller counts the launch."""
     bsz, ho, wo, co = g.shape
     c0, c1 = s0.shape[3], (s1.shape[3] if s1 is not None else 0)
     ci = c0 + c1
@@ -106,15 +129,11 @@ def _wgrad_launch(s0, off0, s1, g):
     _check_co(co)
     if c0 == 1 and s1 is None:
         _check_act("x", s0, channels_multiple=1)
-        slices = 1
     else:
         _check_act("x", s0)
         if s1 is not None:
             _check_act("up", s1)
-        slices = ci // 32
-    tiles = bsz * -(-ho // 8) * -(-wo // 16)
-    blocks = WGRAD_BLOCKS_PER_SM * _sm_count(g.device.index or 0)
-    nchunks = max(1, min(tiles, -(-blocks // (slices * (co // 64)))))
+    nchunks = wgrad_chunks(bsz, ho, wo, ci, co, _sm_count(g.device.index or 0))
     partial = torch.empty((nchunks, co, 9, ci), dtype=torch.float32, device=g.device)
     dw = torch.empty((co, ci, 3, 3), dtype=torch.float32, device=g.device)
     h1, w1 = (s1.shape[1], s1.shape[2]) if s1 is not None else (0, 0)
@@ -124,7 +143,38 @@ def _wgrad_launch(s0, off0, s1, g):
         g.data_ptr(), bsz, ho, wo, co, nchunks, partial.data_ptr(), dw.data_ptr(),
         _stream(g),
     )
-    return err, dw
+    _raise_on(err, name)
+    return dw
+
+
+def _launch_wgrad(name, x, g):
+    if x.shape[0] != g.shape[0] or (x.shape[1] - 2, x.shape[2] - 2) != tuple(g.shape[1:3]):
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} do not fit a valid 3x3 conv")
+    return _wgrad_launch(name, x, (0, 0), None, g)
+
+
+def _launch_dec0_wgrad(name, skip, up, g, row_off, col_off):
+    bsz, hs, ws, _ = skip.shape
+    hu, wu = up.shape[1], up.shape[2]
+    if up.shape[0] != bsz or g.shape[0] != bsz or tuple(g.shape[1:3]) != (hu - 2, wu - 2):
+        raise ValueError(f"skip {tuple(skip.shape)}, up {tuple(up.shape)} and g "
+                         f"{tuple(g.shape)} do not fit together")
+    if row_off < 0 or col_off < 0 or row_off + hu > hs or col_off + wu > ws:
+        raise ValueError(f"crop ({row_off}, {col_off}) + {hu}x{wu} leaves skip {hs}x{ws}")
+    return _wgrad_launch(name, skip, (row_off, col_off), up, g)
+
+
+# ------------------------------------------------------------------ wrappers
+@counted
+def conv3x3_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of a valid 3x3 conv: g (B,Hg,Wg,CO) NHWC, w
+    (CO,CI,3,3) -> dx (B,Hg+2,Wg+2,CI) in g's dtype. The kernel needs
+    CO % 32 == 0 and CI % 64 == 0."""
+    if _on_cpu(g, w):
+        return conv3x3_dgrad_plain(g, w)
+    dx = _launch_dgrad("conv3x3_dgrad", g, w)
+    conv3x3_dgrad.launches += 1
+    return dx
 
 
 @counted
@@ -135,10 +185,7 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     two-pass and deterministic."""
     if _on_cpu(x, g):
         return conv3x3_wgrad_plain(x, g)
-    if x.shape[0] != g.shape[0] or (x.shape[1] - 2, x.shape[2] - 2) != tuple(g.shape[1:3]):
-        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} do not fit a valid 3x3 conv")
-    err, dw = _wgrad_launch(x, (0, 0), None, g)
-    _raise_on(err, "conv3x3_wgrad")
+    dw = _launch_wgrad("conv3x3_wgrad", x, g)
     conv3x3_wgrad.launches += 1
     return dw
 
@@ -153,16 +200,46 @@ def conv3x3_dec0_wgrad(
     (CO,CIs+CIu,3,3) f32, skip channels first."""
     if _on_cpu(skip, up, g):
         return conv3x3_dec0_wgrad_plain(skip, up, g, row_off, col_off)
-    bsz, hs, ws, _ = skip.shape
-    hu, wu = up.shape[1], up.shape[2]
-    if up.shape[0] != bsz or g.shape[0] != bsz or tuple(g.shape[1:3]) != (hu - 2, wu - 2):
-        raise ValueError(f"skip {tuple(skip.shape)}, up {tuple(up.shape)} and g "
-                         f"{tuple(g.shape)} do not fit together")
-    if row_off < 0 or col_off < 0 or row_off + hu > hs or col_off + wu > ws:
-        raise ValueError(f"crop ({row_off}, {col_off}) + {hu}x{wu} leaves skip {hs}x{ws}")
-    err, dw = _wgrad_launch(skip, (row_off, col_off), up, g)
-    _raise_on(err, "conv3x3_dec0_wgrad")
+    dw = _launch_dec0_wgrad("conv3x3_dec0_wgrad", skip, up, g, row_off, col_off)
     conv3x3_dec0_wgrad.launches += 1
+    return dw
+
+
+@counted
+def conv3x3_dense_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The tier-2 input gradients (enc1 conv0 and conv1, dec2 conv0 into
+    its concat, dec2 conv1): conv3x3_dgrad's function, counted as the
+    counterpart of the TPU's dense-lanes kernel."""
+    if _on_cpu(g, w):
+        return conv3x3_dgrad_plain(g, w)
+    dx = _launch_dgrad("conv3x3_dense_dgrad", g, w)
+    conv3x3_dense_dgrad.launches += 1
+    return dx
+
+
+@counted
+def conv3x3_dense_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The tier-2 weight gradients (enc1 conv0 and conv1, dec2 conv1):
+    conv3x3_wgrad's function, counted as the counterpart of the TPU's
+    dense-lanes kernel."""
+    if _on_cpu(x, g):
+        return conv3x3_wgrad_plain(x, g)
+    dw = _launch_wgrad("conv3x3_dense_wgrad", x, g)
+    conv3x3_dense_wgrad.launches += 1
+    return dw
+
+
+@counted
+def conv3x3_dec0_dense_wgrad(
+    skip: torch.Tensor, up: torch.Tensor, g: torch.Tensor, row_off: int, col_off: int,
+) -> torch.Tensor:
+    """The tier-2 decoder entry's weight gradient (dec2 conv0, skip1 at its
+    center-crop offset, odd at 512^2): conv3x3_dec0_wgrad's function,
+    counted as the counterpart of the TPU's dense-lanes kernel."""
+    if _on_cpu(skip, up, g):
+        return conv3x3_dec0_wgrad_plain(skip, up, g, row_off, col_off)
+    dw = _launch_dec0_wgrad("conv3x3_dec0_dense_wgrad", skip, up, g, row_off, col_off)
+    conv3x3_dec0_dense_wgrad.launches += 1
     return dw
 
 
@@ -171,22 +248,62 @@ def _db(g: torch.Tensor) -> torch.Tensor:
     return g.sum((0, 1, 2), dtype=torch.float32)
 
 
+def _conv_forward(ctx, conv, x, w, b):
+    ctx.save_for_backward(x, w)
+    return conv(x, w, b, relu=False)
+
+
+def _conv_backward(ctx, gz, dgrad, wgrad):
+    x, w = ctx.saved_tensors
+    g = gz.contiguous()
+    # the stem's input needs no gradient: skip its dgrad
+    dx = dgrad(g, w) if ctx.needs_input_grad[0] else None
+    dw = wgrad(x, g) if ctx.needs_input_grad[1] else None
+    return dx, dw, _db(g)
+
+
+def _dec0_forward(ctx, conv, skip, up, w, b, row_off, col_off):
+    ctx.save_for_backward(skip, up, w)
+    ctx.offs = (row_off, col_off)
+    return conv(skip, up, w, b, row_off, col_off, relu=False)
+
+
+def _dec0_backward(ctx, gz, dgrad, wgrad):
+    skip, up, w = ctx.saved_tensors
+    row_off, col_off = ctx.offs
+    g = gz.contiguous()
+    hu, wu, cis = up.shape[1], up.shape[2], skip.shape[3]
+    dcat = dgrad(g, w)  # (B, Hu, Wu, CIs + CIu)
+    d_skip = skip.new_zeros(skip.shape)
+    d_skip[:, row_off : row_off + hu, col_off : col_off + wu] = dcat[..., :cis]
+    d_up = dcat[..., cis:]
+    dw = wgrad(skip, up, g, row_off, col_off)
+    return d_skip, d_up, dw, _db(g), None, None
+
+
 class Conv3x3Train(torch.autograd.Function):
     """z = valid 3x3 conv(x, w) + b, NHWC, no ReLU (the pre-BN z)."""
 
     @staticmethod
     def forward(ctx, x, w, b):
-        ctx.save_for_backward(x, w)
-        return conv3x3_bias_relu(x, w, b, relu=False)
+        return _conv_forward(ctx, conv3x3_bias_relu, x, w, b)
 
     @staticmethod
     def backward(ctx, gz):
-        x, w = ctx.saved_tensors
-        g = gz.contiguous()
-        # the stem's input needs no gradient: skip its dgrad
-        dx = conv3x3_dgrad(g, w) if ctx.needs_input_grad[0] else None
-        dw = conv3x3_wgrad(x, g) if ctx.needs_input_grad[1] else None
-        return dx, dw, _db(g)
+        return _conv_backward(ctx, gz, conv3x3_dgrad, conv3x3_wgrad)
+
+
+class Conv3x3DenseTrain(torch.autograd.Function):
+    """Conv3x3Train's function for tier 2's enc1 and dec2 convs, through
+    the dense wrappers."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        return _conv_forward(ctx, conv3x3_dense, x, w, b)
+
+    @staticmethod
+    def backward(ctx, gz):
+        return _conv_backward(ctx, gz, conv3x3_dense_dgrad, conv3x3_dense_wgrad)
 
 
 class DecConv0Train(torch.autograd.Function):
@@ -195,22 +312,24 @@ class DecConv0Train(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, skip, up, w, b, row_off, col_off):
-        ctx.save_for_backward(skip, up, w)
-        ctx.offs = (row_off, col_off)
-        return dec_conv0(skip, up, w, b, row_off, col_off, relu=False)
+        return _dec0_forward(ctx, dec_conv0, skip, up, w, b, row_off, col_off)
 
     @staticmethod
     def backward(ctx, gz):
-        skip, up, w = ctx.saved_tensors
-        row_off, col_off = ctx.offs
-        g = gz.contiguous()
-        hu, wu, cis = up.shape[1], up.shape[2], skip.shape[3]
-        dcat = conv3x3_dgrad(g, w)  # (B, Hu, Wu, CIs + CIu)
-        d_skip = skip.new_zeros(skip.shape)
-        d_skip[:, row_off : row_off + hu, col_off : col_off + wu] = dcat[..., :cis]
-        d_up = dcat[..., cis:]
-        dw = conv3x3_dec0_wgrad(skip, up, g, row_off, col_off)
-        return d_skip, d_up, dw, _db(g), None, None
+        return _dec0_backward(ctx, gz, conv3x3_dgrad, conv3x3_dec0_wgrad)
+
+
+class DecConv0DenseTrain(torch.autograd.Function):
+    """DecConv0Train's function for tier 2's dec2 entry, through the dense
+    wrappers."""
+
+    @staticmethod
+    def forward(ctx, skip, up, w, b, row_off, col_off):
+        return _dec0_forward(ctx, dec_conv0_dense, skip, up, w, b, row_off, col_off)
+
+    @staticmethod
+    def backward(ctx, gz):
+        return _dec0_backward(ctx, gz, conv3x3_dense_dgrad, conv3x3_dec0_dense_wgrad)
 
 
 class TConv2x2Train(torch.autograd.Function):

@@ -67,12 +67,16 @@ def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
 def train(
     cfg: Config, data: Optional[HeLaArrays] = None, max_steps: Optional[int] = None,
     device: Union[str, torch.device] = "cuda", init: Optional[Mapping[str, Any]] = None,
+    tier2: bool = False,
 ) -> TrainResult:
     """Train on `device` (the card unless the caller asks otherwise).
     `init` is a Flax-layout {'params', 'batch_stats'} tree to start from
     (e.g. the JAX package's initial variables through the same layout);
     without it the weights come from models/fast_init with the config's
-    seed. `data` defaults to HeLaArrays.load(cfg.data)."""
+    seed. `data` defaults to HeLaArrays.load(cfg.data). `tier2` trains
+    through the kernel train forward's tier 2 (the JAX loop's
+    UNETSEG_LANES_TIER2_TRAIN); it raises ValueError where `lanes`
+    resolves to off."""
     t_cfg, d_cfg, m_cfg = cfg.train, cfg.data, cfg.model
     dev = torch.device(device)
     logger = MetricsLogger(t_cfg.metrics_jsonl)
@@ -93,7 +97,7 @@ def train(
     three_class = m_cfg.num_classes == 3
     lanes = "on" if lanes_active(t_cfg.lanes, m_cfg, input_size, dev) else "off"
     if lanes == "on":
-        logger.log({"event": "lanes_train", "input_size": input_size})
+        logger.log({"event": "lanes_train", "input_size": input_size, "tier2": tier2})
     # every item is real when the split divides evenly: BatchNorm then
     # needs no item mask
     assume_valid = len(train_idx) % t_cfg.batch_size == 0
@@ -102,7 +106,7 @@ def train(
         elastic_sigma=d_cfg.elastic_sigma, three_class=three_class,
         border_boost=t_cfg.border_boost, standardize=d_cfg.standardize,
         aug_gamma=d_cfg.aug_gamma, aug_illum=d_cfg.aug_illum, aug_noise=d_cfg.aug_noise,
-        lanes=lanes,
+        lanes=lanes, tier2=tier2,
     )
     eval_kw = dict(three_class=three_class, standardize=d_cfg.standardize)
     train_step = make_train_step(m_cfg, **step_kw)

@@ -16,8 +16,10 @@ The forward is the kernel train forward (models/train_forward.py) when
 (models/unet.unet_train_forward): "auto" takes the kernels on a CUDA
 device at a geometry they take, "on" requires them (it raises where they
 do not fit, and on the CPU runs the kernels' plain versions), "off"
-never takes them. The weighted loss is the fused weighted CE
-(ops/kernels/wce.py) on every path.
+never takes them. `tier2` runs the kernel train forward's tier 2 (enc1 and
+dec2 through the kernels too; the JAX package's UNETSEG_LANES_TIER2_TRAIN)
+and raises where the kernel forward is not taken. The weighted loss is
+the fused weighted CE (ops/kernels/wce.py) on every path.
 
 The epoch steps take the dataset resident on the device and an (S, B)
 index matrix per epoch; a Python loop over its rows, gathering each
@@ -27,6 +29,7 @@ batch with index_select, takes the place of the JAX package's lax.scan.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
@@ -34,7 +37,7 @@ import torch.nn.functional as F
 
 from unetseg_tpu_torch.core.config import ModelConfig
 from unetseg_tpu_torch.models.shapes import center_crop_bounds
-from unetseg_tpu_torch.models.train_forward import supports, train_forward
+from unetseg_tpu_torch.models.train_forward import supports, supports_tier2, train_forward
 from unetseg_tpu_torch.models.unet import UNet, unet_train_forward
 from unetseg_tpu_torch.ops.elastic import draw_elastic, elastic_deform_batch
 from unetseg_tpu_torch.ops.intensity import (
@@ -210,6 +213,7 @@ def make_train_step(
     aug_noise: float = 0.0,
     lanes: str = "auto",
     assume_valid: bool = False,
+    tier2: bool = False,
 ) -> Callable:
     """Build the train step (unetseg_tpu/train/steps.py:151, without the
     JAX-only donate / jit / remat / Pallas-loss switches).
@@ -221,7 +225,11 @@ def make_train_step(
     `draws` (AugmentDraws) replaces the generator's draws. With
     `assume_valid` every item is promised real: BatchNorm gets no item
     mask, while `valid` still weights the loss. `model_cfg` defaults to
-    the state's."""
+    the state's. `tier2` needs the kernel train forward: it raises
+    ValueError here for lanes="off", and in the step where "auto" resolves
+    to off or supports_tier2 fails."""
+    if tier2 and lanes == "off":
+        raise ValueError("tier2 runs in the kernel train forward, which lanes='off' never takes")
     augmenter = make_augmenter(augment, elastic_alpha, elastic_sigma, three_class,
                                border_boost, standardize, aug_gamma, aug_illum, aug_noise)
 
@@ -231,7 +239,12 @@ def make_train_step(
             draws = draw_augment(generator, images, augment, aug_gamma, aug_illum, aug_noise)
         images, targets, weights = augmenter(images, masks, weights, draws)
         use_kernels = lanes_active(lanes, cfg, images.shape[1], images.device)
-        forward = train_forward if use_kernels else unet_train_forward
+        if tier2 and not (use_kernels and supports_tier2(cfg, images.shape[1], images.device)):
+            raise ValueError(
+                f"tier2 needs the kernel train forward, which lanes={lanes!r} does not take "
+                f"on {images.device} at input_size={images.shape[1]}")
+        forward = (functools.partial(train_forward, tier2=tier2) if use_kernels
+                   else unet_train_forward)
         bn_mask = None if assume_valid else valid
         loss, new_bs, grads = loss_and_grads(
             forward, state, images, targets, weights, valid, bn_mask, cfg)
