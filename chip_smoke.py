@@ -35,7 +35,10 @@ its own line, and any failure raises (non-zero exit):
    dense dgrad (enc1 conv0 and conv1, dec2 conv0 into its 256-channel
    concat, dec2 conv1), dense wgrad (enc1 conv0 and conv1, dec2 conv1),
    dense decoder-entry wgrad (skip1 at (41, 41)) and its forward kernels
-   with relu=False (conv3x3_dense, dec_conv0_dense); same bound;
+   with relu=False (conv3x3_dense, dec_conv0_dense); same bound. Each
+   multi-channel weight gradient also prints its fraction of the bound,
+   cuDNN's time and the time of the mma.sync kernel that the wgmma kernel
+   replaced; two launches at enc0 conv1 must give the same bits;
 6. train path: make_train_step with the best recipe's options (Adam 3e-4,
    cosine, EMA 0.999, standardize, elastic 2000/20, gamma / illumination /
    noise) on 4 seeded synthetic 512^2 frames with instance labels and
@@ -45,7 +48,8 @@ its own line, and any failure raises (non-zero exit):
    through either kernel path against the plain path in fp32 beside the
    plain path in bf16; times tier-1, tier-2 and plain bf16 steps the same
    number of times, rotating which goes first, and prints a torch.profiler
-   table (top 10 operations) of three steps of each kernel path;
+   table (top 10 operations) of three steps of each kernel path, with the
+   summed device time beside the mma.sync wgrad kernel's;
 7. kernel parity of the weighted CE (forward and backward at batch 4,
    324^2 logits, C = 2 and 3, targets and weights read at the 512 -> 324
    crop) and the min-plus product ((32, 512, 512) with either operand
@@ -53,7 +57,8 @@ its own line, and any failure raises (non-zero exit):
 8. preprocess path: weight_map (the preprocess command's dispatcher, paper
    mode on the card) on 8 seeded synthetic 512^2 label frames: 2 min-plus
    launches per frame, within 1e-3 of scipy's weight_map_np, ms per frame
-   beside scipy's host time;
+   beside scipy's host time; then a 512^2 frame of 300 instances, more
+   than one EDT batch: 4 launches, within 1e-3 of scipy;
 9. training loop: train() on 17 synthetic 512^2 frames in memory (16 train
    in 4 steps, 1 val) with the best recipe at full width for 2 epochs,
    then resumed for a third: launches (the weighted CE once per step, every
@@ -232,6 +237,15 @@ SAMPLER_ATOL = 1e-5
 # at most max(GRAD_FACTOR x the plain bf16 path's error, GRAD_FLOOR)
 GRAD_FACTOR, GRAD_FLOOR, LOSS_RTOL = 2.0, 1e-2, 1e-2
 TIMING_ROUNDS = 4  # timed runs of each train path, alternating which goes first
+# csrc/conv3x3_wgrad.cu's multi-channel kernel was mma.sync with unpipelined
+# staging before the wgmma ring; its ms at phase 5's cases and the steps'
+# summed device ms with it (this script, NVIDIA H100 80GB HBM3, 700.00 W),
+# printed beside the new ones
+MMA_SYNC_WGRAD_MS = {"wgrad_enc0_conv1": 0.520, "wgrad_dec3_conv1": 0.234,
+                     "dec0_wgrad_dec3_conv0": 0.431, "dense_wgrad_enc1_conv0": 0.261,
+                     "dense_wgrad_enc1_conv1": 0.488, "dense_wgrad_dec2_conv1": 0.232,
+                     "dec0_dense_wgrad_dec2_conv0": 0.441}
+MMA_SYNC_STEP_DEVICE_MS = {"kernel": "30.99-31.15", "kernel_tier2": "33.35-33.70"}
 # the weighted CE against its plain version, max |k - ref| / max |ref|:
 # both are f32 with the same formula, apart in exp/log implementations and
 # operation order (~1e-7 relative); a confident pixel's gradient is a
@@ -240,6 +254,7 @@ WCE_RTOL = 1e-5
 MINPLUS_K = 32  # instances of one frame: the smallest label bucket
 PRE_FRAMES, PRE_SIZE = 8, 512
 WMAP_ATOL = 1e-3  # device weight maps against scipy's (tests/test_weight_maps.py)
+CROWD_INSTANCES = 300  # more than one EDT batch (ops/weight_maps.py EDT_CHUNK)
 LOOP_FRAMES, LOOP_EPOCHS = 17, 2  # train_val_split: 16 train (4 steps of 4), 1 val
 
 
@@ -507,10 +522,20 @@ def run_cases(cases, stats, batch):
         st = stats[kname]
         n_bytes = in_bytes + out_bytes
         bound = add_bound(st, ops, PEAK_BF16, n_bytes)
-        lib = "none" if lib_ms is None else f"{lib_ms:.3f}"
-        print(f"time {case}: kernel {ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, library {lib} "
+        lib_txt = "none" if lib_ms is None else f"{lib_ms:.3f}"
+        print(f"time {case}: kernel {ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, library {lib_txt} "
               f"ms, bound {bound:.3f} ms ({ops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB; "
               f"batch {batch})", flush=True)
+        if case in MMA_SYNC_WGRAD_MS:
+            # events over back-to-back calls time the host where its launch
+            # path outlasts the kernels; the profiler's device time does not
+            dev, lib_dev = device_ms(lambda: kernel(*args, **kw)), device_ms(lib)
+            prev = MMA_SYNC_WGRAD_MS[case]
+            print(f"wgrad {case}: kernel {ms:.4f} ms, cuDNN {lib_ms:.4f} ms (kernel / cuDNN "
+                  f"{ms / lib_ms:.2f}); device time kernel {dev:.4f} ms, cuDNN {lib_dev:.4f} ms "
+                  f"(kernel / cuDNN {dev / lib_dev:.2f}); bound {bound:.4f} ms ({bound / ms:.1%} "
+                  f"of the bound, {bound / dev:.1%} in device time, {ops / dev / 1e9:.0f} TFLOP/s); "
+                  f"mma.sync kernel {prev:.3f} ms ({prev / ms:.2f}x)", flush=True)
         st["max_abs_err"] = max(st["max_abs_err"], err)
         add_times(st, ms, plain_ms, lib_ms)
 
@@ -824,6 +849,16 @@ def train_kernel_parity(stats, c=64):
     for k, v in cases.items():  # the relu flag rides in the kwargs slot
         cases[k] = (*v[:4], nr if k.endswith("relu_false") else {}, *v[4:])
     run_cases(cases, stats, b)
+    # split-K sums its chunks in a fixed order: a second launch repeats the bits
+    x_rep, g_rep = cases["wgrad_enc0_conv1"][3]
+    first, again = KT.conv3x3_wgrad(x_rep, g_rep), KT.conv3x3_wgrad(x_rep, g_rep)
+    torch.cuda.synchronize()
+    same = torch.equal(first, again)
+    print(f"wgrad repeatability: two launches at enc0 conv1 {tuple(g_rep.shape)} equal bit for "
+          f"bit: {same}", flush=True)
+    if not same:
+        raise AssertionError("conv3x3_wgrad: two launches on the same inputs differ")
+    del first, again
 
     # the elastic sampler: real recipe fields on synthetic cell frames
     frames, labels = cell_frames(np.random.RandomState(SEED + 2), b, s, labels=True)
@@ -987,14 +1022,16 @@ def train_path(gpu):
           f"{TRAIN_SIZE}^2, best recipe, on {gpu}", flush=True)
     for name in ("kernel", "kernel_tier2"):
         print(f"profile of the {name} step:", flush=True)
-        profile_step(steps[name], state, images, masks, wts, valid, gen, med[name])
+        profile_step(steps[name], state, images, masks, wts, valid, gen, med[name],
+                     MMA_SYNC_STEP_DEVICE_MS[name])
     return launches, launches2
 
 
-def profile_step(step, state, images, masks, wts, valid, gen, step_ms, steps=3):
+def profile_step(step, state, images, masks, wts, valid, gen, step_ms, before, steps=3):
     """torch.profiler over `steps` kernel-path train steps: device time by
-    operation, and the device's idle share of the step time measured
-    without the profiler (`step_ms`), which slows the host down."""
+    operation (the sum beside `before`, the mma.sync wgrad kernel's), and
+    the device's idle share of the step time measured without the profiler
+    (`step_ms`), which slows the host down."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1010,8 +1047,9 @@ def profile_step(step, state, images, masks, wts, valid, gen, step_ms, steps=3):
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     dev_total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     print(f"profile: {wall:.2f} ms wall per step with the profiler on, {step_ms:.2f} ms "
-          f"without; summed device kernel time {dev_total:.2f} ms per step, idle share "
-          f"{1 - dev_total / step_ms:.3f} of the unprofiled step", flush=True)
+          f"without; summed device kernel time {dev_total:.2f} ms per step (with the mma.sync "
+          f"wgrad kernel: {before} ms), idle share {1 - dev_total / step_ms:.3f} of the "
+          f"unprofiled step", flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=10), flush=True)
 
 
@@ -1129,6 +1167,20 @@ def preprocess_path(labels):
     if launches["minplus"] != 2 * len(labels) or err > WMAP_ATOL:
         raise AssertionError("preprocess path: min-plus not launched twice per frame, or the "
                              "device maps disagree with scipy's")
+    # a frame of more instances than one EDT batch holds: two batches
+    crowd = np.zeros(labels.shape[1:], np.int32)
+    for k in range(CROWD_INSTANCES):
+        y, x = 25 * (k // 20), 25 * (k % 20)
+        crowd[y:y + 12, x:x + 12] = k + 1
+    K.reset_launch_counts()
+    got = weight_map(crowd, mode="paper", device=DEVICE)
+    n_mp = K.launch_counts()["minplus"]
+    err = float(np.abs(got - weight_map_np(crowd, mode="paper")).max())
+    print(f"preprocess path: a frame of {CROWD_INSTANCES} instances, min-plus launches {n_mp}, "
+          f"max |device - scipy| {err:.3e}", flush=True)
+    if n_mp != 4 or err > WMAP_ATOL:
+        raise AssertionError("preprocess path: the crowded frame took other than two EDT "
+                             "batches, or its map disagrees with scipy's")
     return launches
 
 

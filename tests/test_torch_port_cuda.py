@@ -2,7 +2,9 @@
 shapes that reach the edge cases: ragged tiles, odd sizes under the fused
 pool, odd crop offsets, 3-class heads, several output-channel blocks; for
 the train step's kernels odd sizes, batch 1, CI=1, crop offsets of either
-parity, relu=False, wgrad determinism, the sampler's reflection and
+parity, relu=False, wgrad determinism, wgrad tiles ragged on both edges,
+a g smaller than one tile, 32- and 96-channel sources, two 128-channel
+sources at odd offsets and more split-K chunks than tiles, the sampler's reflection and
 rounding ties at sizes off the 32-pixel grid; the weighted CE at ragged
 pixel counts, odd crop offsets, bf16 logits and three classes; the
 min-plus product at sizes off its 128-tile, K = 1 and both shared-operand
@@ -196,6 +198,43 @@ def test_wgrad_is_deterministic(g):
     a, b = KT.conv3x3_wgrad(x, gr), KT.conv3x3_wgrad(x, gr)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("b,h,w,ci,co", [
+    (2, 25, 21, 96, 128),  # 23 x 19 outputs: 4x16 tiles ragged on both edges; 96 = 64 + 32
+    (1, 5, 5, 64, 64),     # g 1x3x3: smaller than one tile
+    (3, 7, 70, 160, 64),   # 5 x 68: one ragged tile row; 160 = 2 x 64 + 32
+])
+def test_wgrad_ragged_and_tiny(g, b, h, w, ci, co):
+    """The copy's zero fill stands in for bounds checks: tiles past the
+    output on either edge, a g smaller than one tile, channel slices past
+    the source's channels."""
+    x, gr = _act(g, b, h, w, ci), _g(g, b, h - 2, w - 2, co)
+    got = KT.conv3x3_wgrad(x, gr)
+    assert got.shape == (co, ci, 3, 3)
+    _close_rel(got, KT.conv3x3_wgrad_plain(x.float(), gr.float()))
+
+
+@pytest.mark.parametrize("cis,ciu,row_off,col_off", [(128, 128, 5, 7), (32, 32, 1, 2),
+                                                     (64, 32, 3, 0)])
+def test_dec0_wgrad_sources(g, cis, ciu, row_off, col_off):
+    """Two sources: CI 256 at odd offsets, 32-channel sources (each its own
+    zero-filled 64-channel slice), unequal widths."""
+    skip, up = _act(g, 2, 45, 47, cis), _act(g, 2, 20, 23, ciu)
+    gr = _g(g, 2, 18, 21, 128)
+    got = KT.conv3x3_dec0_wgrad(skip, up, gr, row_off, col_off)
+    assert got.shape == (128, cis + ciu, 3, 3)
+    _close_rel(got, KT.conv3x3_dec0_wgrad_plain(skip.float(), up.float(), gr.float(),
+                                                row_off, col_off))
+
+
+def test_wgrad_more_chunks_than_tiles(g, monkeypatch):
+    """A chunk count above the tile count: the empty chunks write zero
+    partial sums, and the result still equals the plain version."""
+    x, gr = _act(g, 1, 10, 20, 64), _g(g, 1, 8, 18, 64)  # 2 x 2 tiles
+    monkeypatch.setattr(KT, "wgrad_chunks", lambda *a: 9)
+    got = KT.conv3x3_wgrad(x, gr)
+    _close_rel(got, KT.conv3x3_wgrad_plain(x.float(), gr.float()))
 
 
 @pytest.mark.parametrize("b,h,w", [(1, 37, 45), (3, 64, 20)])

@@ -162,3 +162,48 @@ def test_weight_map_device_equals_jax(which):
     # the reference formula has no device version: the host's, whatever the device
     np.testing.assert_array_equal(weight_maps.weight_map(m, device="cpu"),
                                   weight_maps.weight_map_np(m))
+
+
+def _grid_mask(rows=20, cols=15, size=64, seed=8):
+    """rows x cols 2x2 instances on a pitch of 3 x 4 pixels, their labels a
+    random sample of 1..5000 (not consecutive)."""
+    m = np.zeros((size, size), np.int32)
+    labels = np.random.RandomState(seed).choice(np.arange(1, 5001), rows * cols, replace=False)
+    for k, lab in enumerate(labels):
+        y, x = 3 * (k // cols), 4 * (k % cols)
+        m[y : y + 2, x : x + 2] = lab
+    return m
+
+
+def _count_edt_calls(monkeypatch):
+    calls = []
+    real = weight_maps.edt_sq
+    monkeypatch.setattr(weight_maps, "edt_sq", lambda f: calls.append(f.shape[0]) or real(f))
+    return calls
+
+
+def test_weight_map_paper_takes_every_instance(monkeypatch):
+    """300 instances, more than pack_labels' largest bucket (256): the
+    dispatcher hands all of them to the device path, which runs them in
+    two EDT batches (256 + 44) and lies within 1e-3 of scipy's map."""
+    m = _grid_mask()
+    assert len(np.unique(m)) - 1 == 300
+    calls = _count_edt_calls(monkeypatch)
+    got = weight_maps.weight_map(m, mode="paper", device="cpu")
+    assert calls == [weight_maps.EDT_CHUNK, 300 - weight_maps.EDT_CHUNK]
+    assert got.dtype == np.float32 and got.shape == m.shape
+    np.testing.assert_allclose(got, weight_maps.weight_map_np(m, mode="paper"), atol=1e-3)
+
+
+def test_weight_map_device_chunks_equal_one_batch(monkeypatch):
+    """EDT_CHUNK = 8 over 30 instances (four batches, the last of 6) gives
+    the single batch's map bit for bit: the running top-2 is a min over
+    the same values."""
+    m = torch.from_numpy(_grid_mask(rows=6, cols=5, size=20, seed=9))
+    labels = torch.unique(m)[1:]
+    calls = _count_edt_calls(monkeypatch)
+    one = weight_maps.weight_map_device(m, labels)
+    monkeypatch.setattr(weight_maps, "EDT_CHUNK", 8)
+    chunked = weight_maps.weight_map_device(m, labels)
+    assert calls == [30, 8, 8, 8, 6]
+    np.testing.assert_array_equal(chunked.numpy(), one.numpy())

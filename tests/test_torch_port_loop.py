@@ -299,6 +299,22 @@ def test_cli_preprocess_device_paper(tmp_path, capsys):
         np.testing.assert_array_equal(maps[1][i], maps[0][i])
 
 
+def test_cli_preprocess_paper_many_instances(tmp_path, capsys):
+    """A mask of 300 instances, more than the JAX package's largest label
+    bucket (256): paper mode writes its map, within 1e-3 of scipy's."""
+    root = _write_tree(tmp_path, 1)
+    mask = np.zeros((64, 64), np.uint16)
+    for k in range(300):  # 2x2 cells on a 3 x 4 pitch, labels 7, 14, ...
+        y, x = 3 * (k // 15), 4 * (k % 15)
+        mask[y : y + 2, x : x + 2] = 7 * (k + 1)
+    Image.fromarray(mask).save(os.path.join(root, "01_ST", "SEG", "man_seg000.tif"))
+    assert main(["preprocess", "--cpu", "--mode", "paper", "--data-root", root,
+                 "--sequence", "01"]) == 0
+    assert "1 written" in capsys.readouterr().out
+    got = np.load(os.path.join(root, "01_ST", "WEIGHT_MAPS", "weight_map_000.npy"))
+    np.testing.assert_allclose(got, weight_map_np(mask, mode="paper"), atol=1e-3)
+
+
 @pytest.mark.parametrize("command", ["preprocess", "train"])
 def test_cli_runs_on_the_card_by_default(tmp_path, monkeypatch, command):
     """Without --cpu both commands hand their work to the card."""

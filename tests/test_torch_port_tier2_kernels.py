@@ -34,6 +34,7 @@ from unetseg_tpu.ops.pallas.conv3x3_train import (
     make_conv_dense_train,
     make_dec0_dense_train,
 )
+from unetseg_tpu_torch.ops.kernels import build, wgrad_variants
 from unetseg_tpu_torch.ops.kernels import conv3x3_train as KT
 from unetseg_tpu_torch.ops.kernels.launches import launch_counts, reset_launch_counts
 from unetseg_tpu_torch.utils.flax_bridge import _conv_to_torch
@@ -166,21 +167,61 @@ def test_dec_conv0_dense_train_matches_make_dec0_dense_train():
     assert not np.any(_np(ts[0].grad)[:, :off]) and not np.any(_np(ts[0].grad)[:, off + nu:])
 
 
+# Every weight gradient of the train step at 512^2, (g's height = width,
+# the sources' channels, co): the stem, enc0 conv1, dec3 conv0 (skip, up)
+# and conv1; tier 2's enc1 conv0 and conv1, dec2 conv0 (skip1, up2) and conv1
+TRAIN_WGRADS = [(510, (1,), 64), (508, (64,), 64), (326, (64, 64), 64), (324, (64,), 64),
+                (252, (64,), 128), (250, (128,), 128), (166, (128, 128), 128),
+                (164, (128,), 128)]
+
+
+def _blocks_per_chunk(cis, co):
+    slices = 1 if cis == (1,) else sum(-(-c // KT.WGRAD_CHANNELS) for c in cis)
+    return slices * (co // 64)
+
+
 def test_wgrad_chunks_fill_one_wave():
     """The split-K chunk count of every weight gradient of the train step
-    at 512^2 (tier 1 and tier 2): its blocks fit the H100's resident two
-    per SM in one wave and fill at least 96% of it. Tier 1's counts are the
-    earlier rounding-up ones (every one divides the wave); tier 2's dec2
-    conv0 (ci 256, co 128) gets 16 chunks, where rounding up gave 17, a
-    272-block launch with a tail wave."""
-    wave = KT.WGRAD_BLOCKS_PER_SM * 132
-    # (g's height = width, ci, co): stem, enc0 conv1, dec3 conv0 and conv1;
-    # enc1 conv0 and conv1, dec2 conv0 and conv1
-    shapes = [(510, 1, 64), (508, 64, 64), (326, 128, 64), (324, 64, 64),
-              (252, 64, 128), (250, 128, 128), (166, 256, 128), (164, 128, 128)]
-    for n, ci, co in shapes:
-        per_chunk = max(1, ci // 32) * (co // 64)
-        chunks = KT.wgrad_chunks(4, n, n, ci, co, 132)
-        assert 0.96 * wave <= chunks * per_chunk <= wave, (n, ci, co, chunks)
-    assert KT.wgrad_chunks(4, 166, 166, 256, 128, 132) == 16
-    assert KT.wgrad_chunks(1, 3, 3, 64, 64, 132) == 1  # one tile: one chunk
+    at 512^2 (tier 1 and tier 2): its blocks fit one wave of the H100's
+    132 SMs (the wgmma kernel one block per SM, the stem's FMA kernel two)
+    and fill at least 96% of it. dec2 conv0 (two 128-channel sources, co
+    128: 8 blocks a chunk) gets 16 chunks, where rounding up would give 17
+    and a tail wave; the stem keeps its 264."""
+    for n, cis, co in TRAIN_WGRADS:
+        per_sm = KT.WGRAD_STEM_BLOCKS_PER_SM if cis == (1,) else KT.WGRAD_BLOCKS_PER_SM
+        chunks = KT.wgrad_chunks(4, n, n, cis, co, 132)
+        assert 0.96 * per_sm * 132 <= chunks * _blocks_per_chunk(cis, co) <= per_sm * 132, \
+            (n, cis, co, chunks)
+    assert KT.wgrad_chunks(4, 166, 166, (128, 128), 128, 132) == 16
+    assert KT.wgrad_chunks(4, 510, 510, (1,), 64, 132) == 264
+    assert KT.wgrad_chunks(1, 3, 3, (64,), 64, 132) == 1  # one tile: one chunk
+    # 32-channel sources take a 64-channel slice each (the copy zero-fills)
+    assert KT.wgrad_chunks(1, 9, 40, (32, 32), 64, 132) == 9  # 3 x 3 tiles
+
+
+@pytest.mark.parametrize("variant", sorted(wgrad_variants.PATCHES))
+def test_wgrad_variants_patch_the_source(variant):
+    """ops/kernels/wgrad_variants.py builds its A/B variants by replacing
+    lines of csrc/conv3x3_wgrad.cu: each line it replaces is there exactly
+    once, and a variant's geometry keeps the shared-memory limit."""
+    text = (build.CSRC / "conv3x3_wgrad.cu").read_text()
+    for old, new in wgrad_variants.PATCHES[variant]:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    stages = wgrad_variants.PYTHON.get(variant, {}).get("WGRAD_STAGES", KT.WGRAD_STAGES)
+    assert f"constexpr int STAGES = {stages};" in text
+
+
+@pytest.mark.parametrize("n,cis,co", [s for s in TRAIN_WGRADS if s[1] != (1,)])
+def test_wgrad_ring_fits_shared_memory(n, cis, co):
+    """The wgmma kernel's ring at each train shape it runs: its dynamic
+    shared memory (8 stages of a 4x16-pixel g tile and a 6x18-pixel x
+    window, 1 KB aligned, plus the mbarriers; 181,376 bytes) within the
+    232,448 bytes an H100 block can use, its blocks per SM within the SM's
+    228 KB, and every block's range of tiles long enough to fill the ring."""
+    smem = KT.wgrad_smem_bytes()
+    assert smem == 1024 + 8 * (8192 + 14336) + 128 <= KT.SMEM_PER_BLOCK
+    assert KT.WGRAD_BLOCKS_PER_SM * (smem + 1024) <= 228 * 1024
+    th, tw = KT.WGRAD_TILE
+    tiles = 4 * -(-n // th) * -(-n // tw)
+    assert tiles // KT.wgrad_chunks(4, n, n, cis, co, 132) >= KT.WGRAD_STAGES

@@ -4,158 +4,287 @@
 // reads its skip at the crop offset, then the up tensor: channels
 // [0, s0.C) from s0 and [s0.C, s0.C + s1.C) from s1).
 //
-// Replaces the TPU kernels
-// unetseg_tpu/ops/pallas/conv3x3_train.py:conv3x3_phase2_dw (the train
-// step's stem, x (4,512,512,1), g (4,510,510,64); enc0 conv1 and dec3 conv1,
-// CI = CO = 64) and :conv3x3_dec0_dw (dec3 conv0: skip (4,508,508,64) read
-// at (90, 90), up (4,328,328,64), g (4,326,326,64) -> (64,128,3,3)).
+// Replaces four TPU kernels of unetseg_tpu/ops/pallas/conv3x3_train.py:
+// conv3x3_phase2_dw (the stem, enc0 conv1 and dec3 conv1), conv3x3_dec0_dw
+// (dec3 conv0: skip read at (90, 90)), conv3x3_dense_dw (tier 2's enc1 conv0
+// and conv1, dec2 conv1) and conv3x3_dec0_dense_dw (dec2 conv0: skip1 read
+// at (41, 41)). On NHWC the four are one function.
 //
 // A GEMM with M = CO, N = 9 taps x CI and a long K = B*Ho*Wo (1.03 M
-// pixels at enc0): 76 GFLOP against ~400 MB of reads, tensor-core bound.
-// The Pallas kernels carry one accumulator block across a sequential grid;
-// Hopper's blocks run in parallel, so K is split instead: block (chunk,
-// ci-slice, co-block) walks a fixed range of 8x16-pixel output tiles and
-// keeps its 64 x (9 x 32) partial sums in registers, then writes them to a
-// (chunk, CO, 9, CI) f32 scratch; a second kernel sums the chunks in a fixed
-// order into the OIHW result. No atomics, so results repeat bit for bit.
-// Per tile the block copies the g tile (128 pixels x 64 co) and the
-// (8+2)x(16+2) x-window (x 32 ci) into shared memory as they lie in device
-// memory, one pixel's channels per padded row (16-byte vectors, rows padded
-// so that eight rows hit distinct banks). K runs over pixels, so both mma
-// operands need pixel pairs in a register: ldmatrix.trans loads them
-// transposed straight from those rows, and since it takes one address per
-// pixel row, a tap's window shift (ky, kx) costs nothing. Eight warps, each
-// one m16 slice of CO x half of the 36 n8 tiles (tap, 8 channels), run
-// mma.m16n8k16 along a tile row of 16 pixels per K step. The staging is
-// not pipelined; instead the launch bounds cap registers at 128 so that two
-// blocks share an SM and one's copies overlap the other's mma (1.65x over
-// one block per SM on an H100, bit-identical: the summation order is
-// unchanged).
+// pixels at enc0 conv1). On an H100 SXM (989 TFLOP/s bf16 dense, 3.35
+// TB/s) operations bound it at 128 channels; at 64 channels (enc0 conv1:
+// 76 GFLOP against 265 MB of reads) bytes and operations take about the
+// same time. The Pallas kernels carry one accumulator block across a
+// sequential grid; Hopper's blocks run in parallel, so K is split: block
+// (chunk, ci slice, co block) walks a fixed range of 4x16-pixel output
+// tiles, down the columns of tiles (faster than along the rows at 64
+// channels, where each byte of x and g is read by one block only:
+// ops/kernels/wgrad_variants.py), and writes its 64 x (9 x 64)
+// partial sums to a (chunk, CO, 9, CI) f32 scratch; a second kernel sums
+// the chunks in a fixed order into the OIHW result. No atomics, so results
+// repeat bit for bit.
+//
+// The multi-channel kernel (CI a multiple of 32 per source, CO of 64):
+// - wgmma with both operands in shared memory. A = g^T is stored
+//   [pixel][co] and B = the x window [pixel][ci]: both MN-major, one
+//   128-byte row per pixel (64 channels), in the 128-byte swizzle. A block
+//   owns a 64-channel ci slice of one source (channels past the source's
+//   C are zero-filled and not written) and 64 output channels.
+// - An asynchronous ring of STAGES stages: one producer warp issues two
+//   TMA copies per stage (4-D NHWC tensor maps; g's 4x16-pixel tile and
+//   the 6x18-pixel x window at the crop offset), completion counted in
+//   bytes on the stage's "full" mbarrier. The copy's out-of-bounds zero
+//   fill takes the place of bounds checks; the crop offset is a box
+//   coordinate, so odd offsets cost nothing.
+// - Three consumer warpgroups, one per ky, each hold 64 co x (3 kx x 64
+//   ci) f32 accumulators (96 registers a thread). For a K step of 16
+//   pixels (tile row r) the warpgroup issues one wgmma.m64n192k16: A is the
+//   tile row, B starts at window pixel (r + ky, 0) and its three 64-column
+//   blocks (kx = 0, 1, 2) lie one 128-byte row apart (the descriptor's
+//   leading byte offset). One wgmma group stays in flight; each warp
+//   releases a stage on its "empty" mbarrier once the group that read it
+//   has completed.
+// - The tap shift: the descriptor of tap row (r + ky) starts off the 1 KB
+//   swizzle atom, at any 128-byte row. wgmma applies the 128-byte swizzle
+//   to the shared-memory address bits, as TMA wrote it, so the start needs
+//   no base offset (on an H100, setting the descriptor's base offset to
+//   the row's phase gave wrong sums). The alternative, three
+//   column-shifted copies of the window per stage so that every tap starts
+//   on an atom, moves 36 KB a stage instead of 13.5 KB.
+// Per stage and SM: 4.7 MFLOP against 21.5 KB of copies, ~0.6 us at the
+// tensor cores' peak, fed from L2 at ~35 GB/s an SM. The faults of the
+// mma.sync kernel this replaced: staging through registers with a barrier
+// before the mma (now TMA into a ring the producer keeps ahead), B reloaded
+// from shared memory per m16 slice (now wgmma reads both operands from
+// shared memory once per 64 rows of M), and mma.sync's rate (now wgmma's).
+// One block per SM: 416 threads at up to 152 registers; no setmaxnreg is
+// needed, the producer warp idles at the registers it was given.
 //
 // CI == 1 (the stem) has N = 9 only: a separate FMA kernel, thread per
 // output channel, four thread groups per block each over a quarter of the
 // tile's pixels, summed in shared memory in a fixed order.
+#include <cuda.h>
+
 #include "conv_mma.cuh"
 
 namespace {
 
-constexpr int WTH = 8, WTW = 16;          // output pixels per tile
-constexpr int WPIX = WTH * WTW;           // 128: K per tile
+// ------------------------------------------------------------- stem (CI 1)
+constexpr int WTH = 8, WTW = 16;          // output pixels per stem tile
+constexpr int WPIX = WTH * WTW;
 constexpr int WROWS = WTH + 2, WCOLS = WTW + 2;
-constexpr int WWIN = WROWS * WCOLS;       // 180 window pixels
-constexpr int WCI = 32;                   // input channels per block
-constexpr int GS_P = unet::NCO + 8;       // g row (one pixel): 72 bf16 = 144 B
-constexpr int XS_P = WCI + 8;             // x row (one pixel): 40 bf16 = 80 B
-constexpr int NT = 9 * WCI / 8;           // 36 n8 tiles (tap, 8 channels)
-constexpr int NT_W = NT / 2;              // 18 per warp
+constexpr int WWIN = WROWS * WCOLS;
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const __nv_bfloat16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void tile_origin(long long tile, int nty, int ntx,
+// Image b and origin of a tile, the tiles of an image in row-major order of
+// (nty, ntx) tiles of th x tw; with the roles of rows and columns swapped
+// the order goes down the columns.
+__device__ __forceinline__ void tile_origin(long long tile, int th, int tw, int nty, int ntx,
                                             int& b, int& y0, int& x0) {
   const long long per_b = (long long)nty * ntx;
   b = (int)(tile / per_b);
   const int r = (int)(tile % per_b);
-  y0 = (r / ntx) * WTH;
-  x0 = (r % ntx) * WTW;
+  y0 = (r / ntx) * th;
+  x0 = (r % ntx) * tw;
 }
 
-__global__ void __launch_bounds__(unet::THREADS, 2)
-wgrad_mma_kernel(unet::Src s0, unet::Src s1,
-                 const __nv_bfloat16* __restrict__ g, int B, int Ho, int Wo,
-                 int CO, int nchunks, float* __restrict__ partial) {
-  using namespace unet;
-  __shared__ __align__(16) __nv_bfloat16 gs[WPIX * GS_P];  // [pixel][co]
-  __shared__ __align__(16) __nv_bfloat16 xs[WWIN * XS_P];  // [pixel][ci]
+// ------------------------------------------------------ multi-channel wgmma
+constexpr int GT_H = 4, GT_W = 16;              // output pixels per tile: K = 64
+constexpr int WIN_H = GT_H + 2, WIN_W = GT_W + 2;
+constexpr int CSL = 64;                          // channels per ci slice / co block
+constexpr int ROW = CSL * 2;                     // one pixel's slice: 128 bytes
+constexpr int G_BYTES = GT_H * GT_W * ROW;       // 8192
+constexpr int X_BYTES = WIN_H * WIN_W * ROW;     // the 6x18 window: 13824
+constexpr int STAGES = 8;
+constexpr int X_SLOT = (X_BYTES + 1023) / 1024 * 1024;
+constexpr int STAGE_BYTES = G_BYTES + X_SLOT;
+constexpr int CONSUMERS = 3;                     // warpgroups, one per ky
+constexpr int MMA_THREADS = CONSUMERS * 128;
+constexpr int WG_THREADS = MMA_THREADS + 32;     // + the producer warp
+constexpr int NACC = 96;                         // 64 x 192 f32 over 128 threads
+constexpr int WG_SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+static_assert(WG_SMEM <= 232448, "stages exceed the 227 KB a block can use");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Waits until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// byte offset (MN-major: between 64-element blocks along N or M), stride
+// byte offset (between groups of 8 rows along K), all in 16-byte units. The
+// base offset stays 0: the swizzle pattern starts on a 1 KB boundary (the
+// TMA destination), and the start address may lie on any 128-byte row
+// after it.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
+         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 192, f32) += A (64 x 16) B (16 x 192), both MN-major in shared
+// memory (imm-trans-a = imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_192(float (&d)[NACC], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap gmap,
+                   const __grid_constant__ CUtensorMap xmap0,
+                   const __grid_constant__ CUtensorMap xmap1, int C0, int C1, int off_y,
+                   int off_x, int slices0, int B, int Ho, int Wo, int CO, int nchunks,
+                   float* __restrict__ partial) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // the swizzle's 1 KB atom
+  const uint32_t full0 = base + STAGES * STAGE_BYTES;          // full[s] at full0 + 8 s
+  const uint32_t empty0 = full0 + STAGES * 8;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, t = lane & 3;
-  const int lq = lane >> 3, li = lane & 7;  // ldmatrix: matrix, row
-  const int mt = warp & 3, nh = warp >> 2;
   const int chunk = blockIdx.x;
-  const int ci0 = blockIdx.y * WCI;
-  const int co0 = blockIdx.z * NCO;
-  const int CI = s0.C + s1.C;
-  const Src s = ci0 < s0.C ? s0 : s1;
-  const int cs = ci0 < s0.C ? ci0 : ci0 - s0.C;
-
-  const int nty = (Ho + WTH - 1) / WTH, ntx = (Wo + WTW - 1) / WTW;
+  const bool second = (int)blockIdx.y >= slices0;  // slice of s1
+  const int cs = ((int)blockIdx.y - (second ? slices0 : 0)) * CSL;  // channel in the source
+  const int co0 = blockIdx.z * CSL;
+  const int nty = (Ho + GT_H - 1) / GT_H, ntx = (Wo + GT_W - 1) / GT_W;
   const long long ntiles = (long long)B * nty * ntx;
   const long long t_begin = ntiles * chunk / nchunks;
-  const long long t_end = ntiles * (chunk + 1) / nchunks;
+  const int n = (int)(ntiles * (chunk + 1) / nchunks - t_begin);
 
-  float acc[NT_W][4];
-#pragma unroll
-  for (int j = 0; j < NT_W; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-
-  for (long long tile = t_begin; tile < t_end; ++tile) {
-    int b, y0, x0;
-    tile_origin(tile, nty, ntx, b, y0, x0);
-    // g tile -> gs[pixel][co]; pixels outside the output are zeros
-    for (int i = tid; i < WPIX * (NCO / 8); i += THREADS) {
-      const int v = i % (NCO / 8), pix = i / (NCO / 8);
-      const int oy = y0 + pix / WTW, ox = x0 + pix % WTW;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (oy < Ho && ox < Wo) {
-        const size_t off = ((size_t)b * Ho + oy) * Wo + ox;
-        val = *reinterpret_cast<const uint4*>(g + off * CO + co0 + v * 8);
-      }
-      *reinterpret_cast<uint4*>(gs + pix * GS_P + v * 8) = val;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, MMA_THREADS / 32);  // one arrive per consumer warp
     }
-    // x window -> xs[window pixel][ci]; outside the source: zeros
-    for (int i = tid; i < WWIN * (WCI / 8); i += THREADS) {
-      const int v = i % (WCI / 8), p = i / (WCI / 8);
-      const int iy = y0 + p / WCOLS + s.off_y, ix = x0 + p % WCOLS + s.off_x;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (iy < s.H && ix < s.W) {
-        const size_t off = ((size_t)b * s.H + iy) * s.W + ix;
-        val = *reinterpret_cast<const uint4*>(s.p + off * s.C + cs + v * 8);
-      }
-      *reinterpret_cast<uint4*>(xs + p * XS_P + v * 8) = val;
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-#pragma unroll 1
-    for (int r = 0; r < WTH; ++r) {  // K step: one tile row of 16 pixels
-      // A = g^T (co x pixel): matrices (pixels 0-7 | 8-15) x (co +0 | +8)
-      uint32_t a[4];
-      ldsm_x4_trans(a, gs + (r * WTW + (lq >> 1) * 8 + li) * GS_P + mt * 16 + (lq & 1) * 8);
-#pragma unroll
-      for (int j = 0; j < NT_W; j += 2) {
-        // B (pixel x ci) for n8 tiles j and j + 1, same tap: matrices
-        // (pixels 0-7 | 8-15) x (channels c8 | c8 + 1)
-        const int nt = nh * NT_W + j;
-        const int tap = nt >> 2, c8 = nt & 3;
-        const int ky = tap / 3, kx = tap % 3;
-        const int wp = (r + ky) * WCOLS + (lq & 1) * 8 + li + kx;
-        uint32_t bq[4];
-        ldsm_x4_trans(bq, xs + wp * XS_P + (c8 + (lq >> 1)) * 8);
-        mma_bf16_16816(acc[j], a, bq);
-        mma_bf16_16816(acc[j + 1], a, bq + 2);
+  if (tid >= MMA_THREADS) {  // the producer warp: one thread issues the copies
+    if (tid == MMA_THREADS) {
+      const CUtensorMap* xmap = second ? &xmap1 : &xmap0;
+      const int oy = second ? 0 : off_y, ox = second ? 0 : off_x;
+      for (int i = 0; i < n; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty0 + 8 * s, (i / STAGES - 1) & 1);
+        // down each column of tiles first: a window shares two rows with
+        // the one before it, which the copy then finds in L2
+        int b, y0, x0;
+        tile_origin(t_begin + i, GT_W, GT_H, ntx, nty, b, x0, y0);
+        const uint32_t full = full0 + 8 * s, gs = base + s * STAGE_BYTES;
+        mbar_expect_tx(full, G_BYTES + X_BYTES);
+        tma_load_4d(gs, &gmap, full, co0, x0, y0, b);
+        tma_load_4d(gs + G_BYTES, xmap, full, cs, x0 + ox, y0 + oy, b);
       }
     }
-    __syncthreads();
+    return;
   }
 
-  // partial[chunk][co][tap][ci], this block's (64 co) x (9 taps x 32 ci)
+  // ---- consumers: warpgroup ky
+  const int ky = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  float acc[NACC];
 #pragma unroll
-  for (int j = 0; j < NT_W; ++j) {
-    const int nt = nh * NT_W + j;
-    const int tap = nt >> 2, ci = ci0 + (nt & 3) * 8 + 2 * t;
-    const int co = co0 + mt * 16 + gq;
-    float* p0 = partial + (((size_t)chunk * CO + co) * 9 + tap) * CI + ci;
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(full0 + 8 * s, (i / STAGES) & 1);
+    const uint32_t gs = base + s * STAGE_BYTES, xs = gs + G_BYTES;
+    fence_regs(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int r = 0; r < GT_H; ++r) {
+      const uint64_t da = sw128_desc(gs + r * GT_W * ROW, 0, 8 * ROW);
+      // B: window row r + ky from column 0; block kx starts kx rows later
+      wgmma_192(acc, da, sw128_desc(xs + (r + ky) * WIN_W * ROW, ROW, 8 * ROW));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    fence_regs(acc);
+    if (i > 0) {  // the group before this one is done: release its stage
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (lane == 0) mbar_arrive(empty0 + 8 * ((i - 1) % STAGES));
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_regs(acc);
+
+  // partial[chunk][co][tap][ci]: accumulator 4j + h of this thread is row
+  // 16 warp + lane/4 (+8 for h >= 2), column 8j + 2 (lane % 4) + (h & 1),
+  // and column n is kx = n / 64, channel cs + n % 64 of the source
+  const int csrc = second ? C1 : C0, cbase = second ? C0 : 0, CI = C0 + C1;
+  const int co = co0 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < NACC / 4; ++j) {
+    const int c = cs + (j % 8) * 8 + 2 * (lane & 3);
+    if (c >= csrc) continue;
+    const int tap = ky * 3 + j / 8;
+    float* p0 = partial + (((size_t)chunk * CO + co) * 9 + tap) * CI + cbase + c;
     float* p1 = p0 + (size_t)8 * 9 * CI;  // co + 8
-    *reinterpret_cast<float2*>(p0) = make_float2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<float2*>(p1) = make_float2(acc[j][2], acc[j][3]);
+    *reinterpret_cast<float2*>(p0) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(p1) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
@@ -185,7 +314,7 @@ wgrad_stem_kernel(const __nv_bfloat16* __restrict__ x, int H, int W,
 
   for (long long tile = t_begin; tile < t_end; ++tile) {
     int b, y0, x0;
-    tile_origin(tile, nty, ntx, b, y0, x0);
+    tile_origin(tile, WTH, WTW, nty, ntx, b, y0, x0);
     for (int i = tid; i < WPIX * (NCO / 8); i += THREADS) {
       const int v = i % (NCO / 8), pix = i / (NCO / 8);
       const int oy = y0 + pix / WTW, ox = x0 + pix % WTW;
@@ -226,19 +355,84 @@ wgrad_stem_kernel(const __nv_bfloat16* __restrict__ x, int H, int W,
   }
 }
 
-// dw[co][ci][tap] = sum over chunks, in chunk order, of
-// partial[chunk][co][tap][ci]; threads walk the partial layout so the reads
-// coalesce.
-__global__ void wgrad_reduce_kernel(const float* __restrict__ partial,
-                                    int nchunks, int CO, int CI,
-                                    float* __restrict__ dw) {
+constexpr int RED_OUT = 32;  // outputs per reduce block
+
+// dw[co][ci][tap] = the sum over chunks of partial[chunk][co][tap][ci] in
+// an order fixed by nchunks alone: part q of PARTS (blockDim = 32 PARTS)
+// of an output sums chunks q, q + PARTS, ... into four running sums (four
+// loads in flight), then part 0 adds the parts in order. Neighbouring
+// threads read neighbouring outputs, so the reads coalesce.
+template <int PARTS>
+__global__ void __launch_bounds__(RED_OUT * PARTS)
+wgrad_reduce_kernel(const float* __restrict__ partial, int nchunks, int CO, int CI,
+                    float* __restrict__ dw) {
+  __shared__ float red[PARTS][RED_OUT];
   const int n = CO * 9 * CI;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float v = 0.f;
-  for (int c = 0; c < nchunks; ++c) v += partial[(size_t)c * n + i];
-  const int ci = i % CI, tap = (i / CI) % 9, co = i / (CI * 9);
-  dw[((size_t)co * CI + ci) * 9 + tap] = v;
+  const int o = threadIdx.x % RED_OUT, part = threadIdx.x / RED_OUT;
+  const int i = blockIdx.x * RED_OUT + o;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  if (i < n) {
+    const float* p = partial + i;
+    int c = part;
+    for (; c + 3 * PARTS < nchunks; c += 4 * PARTS) {
+      s0 += p[(size_t)c * n];
+      s1 += p[(size_t)(c + PARTS) * n];
+      s2 += p[(size_t)(c + 2 * PARTS) * n];
+      s3 += p[(size_t)(c + 3 * PARTS) * n];
+    }
+    for (; c < nchunks; c += PARTS) s0 += p[(size_t)c * n];
+  }
+  red[part][o] = (s0 + s1) + (s2 + s3);
+  __syncthreads();
+  if (part == 0 && i < n) {
+    float v = red[0][o];
+#pragma unroll
+    for (int q = 1; q < PARTS; ++q) v += red[q][o];
+    const int ci = i % CI, tap = (i / CI) % 9, co = i / (CI * 9);
+    dw[((size_t)co * CI + ci) * 9 + tap] = v;
+  }
+}
+
+// cuTensorMapEncodeTiled, resolved through the runtime so that the library
+// links against no driver library.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A 4-D map of a bf16 NHWC tensor (B, H, W, C) with boxes of 64 channels x
+// box_w x box_h pixels of one image, 128-byte swizzle, zeros outside.
+// Returns 0 or -(the CUresult).
+int nhwc_map(CUtensorMap* map, const void* p, int B, int H, int W, int C, int box_w,
+             int box_h) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)CSL, (cuuint32_t)box_w, (cuuint32_t)box_h, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
 }  // namespace
@@ -247,7 +441,9 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ partial,
 // (B,H1,W1,C1) at (0, 0), both bf16; g (B,Ho,Wo,CO) bf16; partial: f32
 // scratch of nchunks*CO*9*(C0+C1) -> dw (CO, C0+C1, 3, 3) f32. Needs
 // CO % 64 == 0 and either C0 == 1, C1 == 0 (the stem kernel) or C0 and C1
-// multiples of 32. Returns the first failing launch's CUDA error.
+// multiples of 32, 16-byte aligned contiguous tensors. Returns the first
+// failing launch's CUDA error, or -(the CUresult) of a failed tensor-map
+// encoding.
 extern "C" int conv3x3_wgrad_bf16(const void* x0, int H0, int W0, int C0,
                                   int off_y0, int off_x0, const void* x1,
                                   int H1, int W1, int C1, const void* g, int B,
@@ -261,17 +457,32 @@ extern "C" int conv3x3_wgrad_bf16(const void* x0, int H0, int W0, int C0,
         (const __nv_bfloat16*)x0, H0, W0, (const __nv_bfloat16*)g, B, Ho, Wo,
         CO, nchunks, (float*)partial);
   } else {
-    unet::Src s0{(const __nv_bfloat16*)x0, H0, W0, C0, off_y0, off_x0};
-    unet::Src s1{(const __nv_bfloat16*)x1, H1, W1, C1, 0, 0};
-    dim3 grid(nchunks, CI / WCI, CO / unet::NCO);
-    wgrad_mma_kernel<<<grid, unet::THREADS, 0, st>>>(
-        s0, s1, (const __nv_bfloat16*)g, B, Ho, Wo, CO, nchunks,
+    CUtensorMap gmap, xmap0, xmap1;
+    int e = nhwc_map(&gmap, g, B, Ho, Wo, CO, GT_W, GT_H);
+    if (e == 0) e = nhwc_map(&xmap0, x0, B, H0, W0, C0, WIN_W, WIN_H);
+    if (e == 0 && C1 > 0) e = nhwc_map(&xmap1, x1, B, H1, W1, C1, WIN_W, WIN_H);
+    if (e != 0) return e;
+    if (C1 == 0) xmap1 = xmap0;
+    const int slices0 = (C0 + CSL - 1) / CSL, slices1 = (C1 + CSL - 1) / CSL;
+    cudaError_t err = cudaFuncSetAttribute(
+        wgrad_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(nchunks, slices0 + slices1, CO / CSL);
+    wgrad_wgmma_kernel<<<grid, WG_THREADS, WG_SMEM, st>>>(
+        gmap, xmap0, xmap1, C0, C1, off_y0, off_x0, slices0, B, Ho, Wo, CO, nchunks,
         (float*)partial);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int n = CO * 9 * CI;
-  wgrad_reduce_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      (const float*)partial, nchunks, CO, CI, (float*)dw);
+  // parts per output: eight where each gets four chunks or more (at 16
+  // chunks, eight parts of two chunks were slower than four parts of four)
+  const dim3 rgrid((n + RED_OUT - 1) / RED_OUT);
+  if (nchunks >= 32)
+    wgrad_reduce_kernel<8><<<rgrid, RED_OUT * 8, 0, st>>>((const float*)partial, nchunks, CO,
+                                                          CI, (float*)dw);
+  else
+    wgrad_reduce_kernel<4><<<rgrid, RED_OUT * 4, 0, st>>>((const float*)partial, nchunks, CO,
+                                                          CI, (float*)dw);
   return (int)cudaGetLastError();
 }

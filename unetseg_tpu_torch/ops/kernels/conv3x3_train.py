@@ -58,7 +58,14 @@ from unetseg_tpu_torch.ops.kernels.conv3x3 import (
 )
 from unetseg_tpu_torch.ops.kernels.launches import counted
 
-WGRAD_BLOCKS_PER_SM = 2  # split-K chunks aim at this many blocks per SM
+# csrc/conv3x3_wgrad.cu's block geometry, mirrored for the split-K chunk
+# count and the shared-memory check (tests/test_torch_port_tier2_kernels.py).
+# The wgmma kernel: 4x16-pixel tiles, 64-channel ci slices and co blocks,
+# a ring of 8 stages (g tile + x window, each stage 1 KB aligned), one
+# block per SM. The stem's FMA kernel (ci == 1): 8x16 tiles, two per SM.
+WGRAD_TILE, WGRAD_CHANNELS, WGRAD_STAGES, WGRAD_BLOCKS_PER_SM = (4, 16), 64, 8, 1
+WGRAD_STEM_TILE, WGRAD_STEM_BLOCKS_PER_SM = (8, 16), 2
+SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory an H100 block can use
 
 
 # ------------------------------------------------------------ plain versions
@@ -105,17 +112,33 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def wgrad_chunks(bsz: int, ho: int, wo: int, ci: int, co: int, sm_count: int) -> int:
+def wgrad_smem_bytes() -> int:
+    """Dynamic shared memory of one wgmma block: 1 KB of alignment slack,
+    the stages (g's tile and the (th+2) x (tw+2) x window, 128 bytes a
+    pixel, each rounded up to 1 KB) and a full and an empty mbarrier per
+    stage."""
+    th, tw = WGRAD_TILE
+    row = 2 * WGRAD_CHANNELS
+    x_slot = -(-(th + 2) * (tw + 2) * row // 1024) * 1024
+    return 1024 + WGRAD_STAGES * (th * tw * row + x_slot) + 2 * WGRAD_STAGES * 8
+
+
+def wgrad_chunks(bsz: int, ho: int, wo: int, cis: tuple, co: int, sm_count: int) -> int:
     """Split-K chunks of one csrc/conv3x3_wgrad.cu launch over g (bsz, ho,
-    wo, co) and ci input channels: a chunk is one block per 32-channel
-    slice of ci (one for the stem, ci == 1) and per 64 output channels, and
-    the chunks fill one wave of WGRAD_BLOCKS_PER_SM blocks per SM. Rounding
-    up would leave a tail wave of a few blocks that doubles the time (17
-    chunks of 16 blocks at ci 256, co 128 made 272 blocks against 264
-    resident on an H100)."""
-    tiles = bsz * -(-ho // 8) * -(-wo // 16)
-    per_chunk = max(1, ci // 32) * (co // 64)
-    return max(1, min(tiles, WGRAD_BLOCKS_PER_SM * sm_count // per_chunk))
+    wo, co) and sources of `cis` channels each: a chunk is one block per
+    64-channel slice of each source (one for the stem, cis == (1,)) and per
+    64 output channels, and the chunks fill one wave of the kernel's blocks
+    per SM. Rounding up would leave a tail wave of a few blocks that
+    doubles the time (17 chunks of 16 blocks at ci 256, co 128 made 272
+    blocks against the 264 an H100 held at two blocks per SM)."""
+    if tuple(cis) == (1,):
+        (th, tw), per_sm, slices = WGRAD_STEM_TILE, WGRAD_STEM_BLOCKS_PER_SM, 1
+    else:
+        (th, tw), per_sm = WGRAD_TILE, WGRAD_BLOCKS_PER_SM
+        slices = sum(-(-c // WGRAD_CHANNELS) for c in cis)
+    tiles = bsz * -(-ho // th) * -(-wo // tw)
+    per_chunk = slices * (co // 64)
+    return max(1, min(tiles, per_sm * sm_count // per_chunk))
 
 
 def _wgrad_launch(name, s0, off0, s1, g):
@@ -133,7 +156,8 @@ def _wgrad_launch(name, s0, off0, s1, g):
         _check_act("x", s0)
         if s1 is not None:
             _check_act("up", s1)
-    nchunks = wgrad_chunks(bsz, ho, wo, ci, co, _sm_count(g.device.index or 0))
+    nchunks = wgrad_chunks(bsz, ho, wo, (c0, c1) if c1 else (c0,), co,
+                           _sm_count(g.device.index or 0))
     partial = torch.empty((nchunks, co, 9, ci), dtype=torch.float32, device=g.device)
     dw = torch.empty((co, ci, 3, 3), dtype=torch.float32, device=g.device)
     h1, w1 = (s1.shape[1], s1.shape[2]) if s1 is not None else (0, 0)

@@ -22,9 +22,14 @@ from unetseg_tpu_torch.ops.edt import BIG, edt_sq
 Mode = Literal["reference", "paper"]
 
 # The JAX package rounds the label count up to one of these static sizes
-# for jit; the port keeps the packing so its labels match, and the device
-# path drops the -1 padding before it computes anything.
+# for jit; the port keeps pack_labels so that its labels match, but the
+# dispatcher does not route through it: the device path takes any number
+# of instances and drops the -1 padding of packed labels.
 INSTANCE_BUCKETS = (32, 64, 128, 256)
+# Instances per batch of EDT planes: K planes of a 512^2 frame hold K MB
+# per f32 plane and edt_sq keeps several, so a frame's instances go through
+# in chunks of at most this many, merged into a running top-2.
+EDT_CHUNK = 256
 
 
 # --------------------------------------------------------------------- host
@@ -111,10 +116,13 @@ def weight_map_device(
     instance_mask: torch.Tensor, labels: torch.Tensor, w0: float = 10.0, sigma: float = 5.0,
 ) -> torch.Tensor:
     """The 'paper' weight map on the mask's device: exact per-instance
-    squared EDTs (ops/edt.py) of all the frame's instances as one batch, so
-    each EDT phase is one min-plus launch; the two smallest distances per
-    pixel by torch.topk; the separation term, off the cells. `labels` as
-    from pack_labels (-1 entries ignored). (H, W) -> (H, W) f32."""
+    squared EDTs (ops/edt.py) of the frame's instances in batches of at
+    most EDT_CHUNK, so each EDT phase is one min-plus launch per batch; the
+    two smallest distances per pixel by torch.topk, each batch's merged
+    with the pair so far (a min over the same values: the result does not
+    depend on the chunking); the separation term, off the cells. `labels`:
+    the instances' label values, any number; entries <= 0 are ignored (the
+    -1 padding of pack_labels). (H, W) -> (H, W) f32."""
     mask = instance_mask.to(torch.int32)
     h, w = mask.shape
     fg = mask > 0
@@ -128,10 +136,11 @@ def weight_map_device(
     labs = labels.to(device=mask.device, dtype=torch.int32)
     labs = labs[labs > 0]
     n_valid = int(labs.numel())
-    planes = [edt_sq(mask[None] == labs[:, None, None])] if n_valid else []
-    if n_valid < 2:  # absent instances never win the min
-        planes.append(torch.full((2 - n_valid, h, w), BIG, device=mask.device))
-    two = torch.topk(torch.cat(planes), 2, dim=0, largest=False).values
+    # the running pair starts at BIG: absent instances never win the min
+    two = torch.full((2, h, w), BIG, device=mask.device)
+    for i in range(0, n_valid, EDT_CHUNK):
+        planes = edt_sq(mask[None] == labs[i : i + EDT_CHUNK, None, None])
+        two = torch.topk(torch.cat([two, planes]), 2, dim=0, largest=False).values
     d1 = torch.sqrt(torch.clamp_max(two[0], BIG))
     d2 = torch.sqrt(torch.clamp_max(two[1], BIG))
     if n_valid < 1:
@@ -151,10 +160,11 @@ def weight_map(
 ) -> np.ndarray:
     """The preprocess command's dispatcher: the 'paper' map runs
     weight_map_device on `device` (the card unless the caller asks for the
-    CPU); the 'reference' formula has no device version and runs on the
-    host (scipy) whatever `device` says."""
+    CPU) with every instance of the frame; the 'reference' formula has no
+    device version and runs on the host (scipy) whatever `device` says."""
     if mode == "paper":
-        mask = torch.from_numpy(np.asarray(instance_mask).astype(np.int32)).to(device)
-        labels = torch.from_numpy(pack_labels(instance_mask)).to(device)
-        return weight_map_device(mask, labels, w0=w0, sigma=sigma).cpu().numpy()
+        m = np.asarray(instance_mask).astype(np.int32)
+        labels = torch.from_numpy(np.unique(m[m > 0])).to(device)
+        return weight_map_device(torch.from_numpy(m).to(device), labels, w0=w0,
+                                 sigma=sigma).cpu().numpy()
     return weight_map_np(instance_mask, w0=w0, sigma=sigma, mode=mode)
