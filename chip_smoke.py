@@ -6,16 +6,26 @@ toolkit: `python3 chip_smoke.py`. The phases run in order, each prints
 its own line, and any failure raises (non-zero exit):
 
 1. environment: torch, CUDA, nvcc, and the card's name and power limit;
-2. build the kernels of the nineteen wrappers from the eleven CUDA sources
+2. build the kernels of the nineteen wrappers from the twelve CUDA sources
    of unetseg_tpu_torch/csrc (one nvcc per source, in parallel) and print
-   ptxas's register and spill lines;
+   ptxas's register and spill lines and any wgmma serialization warning;
 3. serving-kernel parity at the serving path's full-width shapes (700^2
    tiles, base 64, batch 16): kernel on bf16 inputs against its plain
    version in fp32 (TF32 off) on the same values, plus both times; also
    the serving variants' kernels: enc0_fused, dec_tail, conv3x3_dense
    (tier-2 enc1 conv0, enc1 conv1 + pool, dec2 conv1), dec_conv0_dense
    (dec2 conv0 at offset 40) and conv3x3_cblock (the eleven middle convs
-   with output channels a multiple of 128);
+   with output channels a multiple of 128). Each case that runs the wgmma
+   forward (csrc/conv_fwd_wgmma.cu: every conv3x3_bias_relu, conv3x3_dense,
+   conv3x3_cblock, dec_conv0 and dec_conv0_dense case with more than one
+   input channel) also prints its kernel's and cuDNN's events and
+   torch.profiler device times, kernel / cuDNN, its share of the bound, the
+   launch plan's form (im2col or windowed) and tile fill, and the device
+   time of the mma.sync kernel that it replaced (K.conv3x3_mma_reference)
+   on the same tensors; two launches
+   at enc4 conv1 and at the dec3 entry must give the same bits, and the
+   fused enc0 and decoder tail equal the stem / head kernels chained with
+   the mma.sync conv bit for bit;
 4. serving path: Predictor.masks_tiled on 16 seeded synthetic 512^2 cell
    frames at full width, with seeded He-scaled weights, random BatchNorm
    statistics and a planted intensity path (see plant_intensity_path);
@@ -38,7 +48,8 @@ its own line, and any failure raises (non-zero exit):
    with relu=False (conv3x3_dense, dec_conv0_dense); same bound. Each
    multi-channel weight gradient also prints its fraction of the bound,
    cuDNN's time and the time of the mma.sync kernel that the wgmma kernel
-   replaced; two launches at enc0 conv1 must give the same bits;
+   replaced; two launches at enc0 conv1 must give the same bits; the
+   relu=False forwards print phase 3's wgmma lines;
 6. train path: make_train_step with the best recipe's options (Adam 3e-4,
    cosine, EMA 0.999, standardize, elastic 2000/20, gamma / illumination /
    noise) on 4 seeded synthetic 512^2 frames with instance labels and
@@ -49,7 +60,9 @@ its own line, and any failure raises (non-zero exit):
    plain path in bf16; times tier-1, tier-2 and plain bf16 steps the same
    number of times, rotating which goes first, and prints a torch.profiler
    table (top 10 operations) of three steps of each kernel path, with the
-   summed device time beside the mma.sync wgrad kernel's;
+   summed device time, the wgmma forward's part of it, and the step's
+   device time with the mma.sync forward in its place (phase 5's device
+   times of both at the step's cases);
 7. kernel parity of the weighted CE (forward and backward at batch 4,
    324^2 logits, C = 2 and 3, targets and weights read at the 512 -> 324
    crop) and the min-plus product ((32, 512, 512) with either operand
@@ -156,7 +169,7 @@ SOURCES = {
                           "unetseg_tpu/ops/pallas/conv3x3.py:377"),
     "tconv2x2_bias": ("unetseg_tpu_torch/csrc/tconv2x2_bias.cu",
                       "unetseg_tpu/ops/pallas/conv3x3.py:783"),
-    "dec_conv0": ("unetseg_tpu_torch/csrc/dec_conv0.cu",
+    "dec_conv0": ("unetseg_tpu_torch/csrc/conv_fwd_wgmma.cu",
                   "unetseg_tpu/ops/pallas/conv3x3.py:893"),
     "conv3x3_head": ("unetseg_tpu_torch/csrc/conv3x3_head.cu",
                      "unetseg_tpu/ops/pallas/conv3x3.py:540"),
@@ -173,11 +186,11 @@ SOURCES = {
     "weighted_ce_bwd": ("unetseg_tpu_torch/csrc/weighted_ce.cu",
                         "unetseg_tpu/ops/pallas/wce.py:76"),
     "minplus": ("unetseg_tpu_torch/csrc/minplus.cu", "unetseg_tpu/ops/pallas/minplus.py:47"),
-    "conv3x3_dense": ("unetseg_tpu_torch/csrc/conv3x3_bias_relu.cu",
+    "conv3x3_dense": ("unetseg_tpu_torch/csrc/conv_fwd_wgmma.cu",
                       "unetseg_tpu/ops/pallas/conv3x3.py:190"),
-    "dec_conv0_dense": ("unetseg_tpu_torch/csrc/dec_conv0.cu",
+    "dec_conv0_dense": ("unetseg_tpu_torch/csrc/conv_fwd_wgmma.cu",
                         "unetseg_tpu/ops/pallas/conv3x3.py:1170"),
-    "conv3x3_cblock": ("unetseg_tpu_torch/csrc/conv3x3_bias_relu.cu",
+    "conv3x3_cblock": ("unetseg_tpu_torch/csrc/conv_fwd_wgmma.cu",
                        "unetseg_tpu/ops/pallas/conv_cblock.py:118"),
     "enc0_fused": ("unetseg_tpu_torch/csrc/enc0_fused.cu", "unetseg_tpu/ops/pallas/conv3x3.py:663"),
     "dec_tail": ("unetseg_tpu_torch/csrc/dec_tail.cu", "unetseg_tpu/ops/pallas/conv3x3.py:1026"),
@@ -238,14 +251,23 @@ SAMPLER_ATOL = 1e-5
 GRAD_FACTOR, GRAD_FLOOR, LOSS_RTOL = 2.0, 1e-2, 1e-2
 TIMING_ROUNDS = 4  # timed runs of each train path, alternating which goes first
 # csrc/conv3x3_wgrad.cu's multi-channel kernel was mma.sync with unpipelined
-# staging before the wgmma ring; its ms at phase 5's cases and the steps'
-# summed device ms with it (this script, NVIDIA H100 80GB HBM3, 700.00 W),
-# printed beside the new ones
+# staging before the wgmma ring; its ms at phase 5's cases (this script,
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside the new ones
 MMA_SYNC_WGRAD_MS = {"wgrad_enc0_conv1": 0.520, "wgrad_dec3_conv1": 0.234,
                      "dec0_wgrad_dec3_conv0": 0.431, "dense_wgrad_enc1_conv0": 0.261,
                      "dense_wgrad_enc1_conv1": 0.488, "dense_wgrad_dec2_conv1": 0.232,
                      "dec0_dense_wgrad_dec2_conv0": 0.441}
-MMA_SYNC_STEP_DEVICE_MS = {"kernel": "30.99-31.15", "kernel_tier2": "33.35-33.70"}
+# the cases of phases 3 and 5 that run csrc/conv_fwd_wgmma.cu: these wrappers
+# with more than one input channel; the relu=False forwards of each train
+# step (tier 1: enc0 conv1, dec3 conv0 and conv1; tier 2 adds enc1 and dec2)
+FWD_KERNELS = ("conv3x3_bias_relu", "conv3x3_dense", "conv3x3_cblock", "dec_conv0",
+               "dec_conv0_dense")
+STEP_FWD = {"kernel": ("enc0_conv1_relu_false", "dec3_conv0_relu_false",
+                       "dec3_conv1_relu_false")}
+STEP_FWD["kernel_tier2"] = STEP_FWD["kernel"] + (
+    "enc1_conv0_dense_relu_false", "enc1_conv1_dense_relu_false", "dec2_conv0_dense_relu_false",
+    "dec2_conv1_dense_relu_false")
+FWD_DEVICE = {}  # case -> (wgmma kernel, mma.sync kernel) device ms, phases 3 and 5
 # the weighted CE against its plain version, max |k - ref| / max |ref|:
 # both are f32 with the same formula, apart in exp/log implementations and
 # operation order (~1e-7 relative); a confident pixel's gradient is a
@@ -275,22 +297,33 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, warmup=2):
-    """Summed device time of the kernels fn() launches, per call, from
+def device_times(fn, iters=20, warmup=2, tries=3):
+    """{kernel name: device ms per call} of the kernels fn() launches, from
     torch.profiler. For kernels of a few microseconds: CUDA events around
-    back-to-back launches time the host's launch rate instead."""
+    back-to-back launches time the host's launch rate instead. After many
+    sessions in one process the profiler can record no device activity: a
+    session without any is repeated, up to `tries` times, then fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    for _ in range(tries):
+        for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+        if sum(times.values()) > 0:
+            return times
+    raise RuntimeError(f"torch.profiler recorded no device time in {tries} sessions")
+
+
+def device_ms(fn, iters=20, warmup=2):
+    """Summed device time of the kernels fn() launches, per call."""
+    return sum(device_times(fn, iters, warmup).values())
 
 
 def compare(name, got, ref, slack=0.0):
@@ -478,13 +511,17 @@ def kernel_parity(sh, c=64):
         cases[f"cblock_{name}"] = (*cb, args, {}, conv_lib(*args),
                                    conv_ops(b, x.shape[1] - 2, x.shape[2] - 2, w.shape[1], w.shape[0]))
     run_cases(cases, stats, BATCH)
-    # the fused kernels sum and round in the chained kernels' order
-    chained = K.conv3x3_bias_relu(K.conv3x3_bias_relu(*stem), *enc0[1:], fuse_pool=True)
+    same_bits("wgmma forward at enc4 conv1 (cblock)", lambda: K.conv3x3_cblock(*mids["enc4c1"]))
+    same_bits("wgmma forward at the dec3 entry", lambda: K.dec_conv0(*dec0))
+    # the fused kernels sum and round in the order of the stem kernel, the
+    # mma.sync conv and the head kernel chained
+    chained = K.conv3x3_mma_reference(K.conv3x3_bias_relu(*stem), *enc0[1:], fuse_pool=True)
+    entry = K.conv3x3_mma_reference(dec0[0], *dec0[2:4], up=dec0[1], row_off=off, col_off=off)
     same = {"enc0_fused": all(map(torch.equal, K.enc0_fused(*fused0), chained)),
-            "dec_tail": torch.equal(K.dec_tail(*tail), K.conv3x3_head(K.dec_conv0(*dec0), *head[1:]))}
-    print(f"parity fused kernels equal to the chained kernels bit for bit: {same}", flush=True)
+            "dec_tail": torch.equal(K.dec_tail(*tail), K.conv3x3_head(entry, *head[1:]))}
+    print(f"parity fused kernels equal to the mma.sync chain bit for bit: {same}", flush=True)
     if not all(same.values()):
-        raise AssertionError(f"fused kernels differ from the chained kernels: {same}")
+        raise AssertionError(f"fused kernels differ from the mma.sync chain: {same}")
     return stats
 
 
@@ -536,8 +573,66 @@ def run_cases(cases, stats, batch):
                   f"(kernel / cuDNN {dev / lib_dev:.2f}); bound {bound:.4f} ms ({bound / ms:.1%} "
                   f"of the bound, {bound / dev:.1%} in device time, {ops / dev / 1e9:.0f} TFLOP/s); "
                   f"mma.sync kernel {prev:.3f} ms ({prev / ms:.2f}x)", flush=True)
+        if kname in FWD_KERNELS and args[0].shape[3] > 1:
+            fwd_line(case, kname, kernel, args, kw, lib, ms, lib_ms, bound, ops)
         st["max_abs_err"] = max(st["max_abs_err"], err)
         add_times(st, ms, plain_ms, lib_ms)
+
+
+def mma_sync_call(kname, args, kw):
+    """The mma.sync forward that the wgmma kernel replaced, on a case's
+    arguments (uncounted)."""
+    if kname.startswith("dec_conv0"):
+        skip, up, w, b, row_off, col_off = args
+        return lambda: K.conv3x3_mma_reference(skip, w, b, up=up, row_off=row_off,
+                                               col_off=col_off, **kw)
+    return lambda: K.conv3x3_mma_reference(*args, **kw)
+
+
+def fwd_line(case, kname, kernel, args, kw, lib, ms, lib_ms, bound, ops):
+    """A wgmma-forward case's line: events and device times of the kernel
+    and of cuDNN (the wrappers' and the library call's weight and bias
+    dtype copies left out of the device times), their ratio, the share of
+    the bound, the launch plan's tile fill, and the mma.sync kernel's device
+    time on the same tensors."""
+    def fn():
+        return kernel(*args, **kw)
+
+    mma = mma_sync_call(kname, args, kw)
+
+    def all_three():
+        fn(), lib(), mma()
+
+    # one profiler session, the three told apart by kernel name
+    times = device_times(all_three)
+    dev = sum(v for k, v in times.items() if "conv_fwd" in k)
+    mma_dev = sum(v for k, v in times.items() if "conv3x3_mma_kernel" in k)
+    lib_dev = sum(v for k, v in times.items() if "copy" not in k
+                  and "conv_fwd" not in k and "conv3x3_mma_kernel" not in k)
+    if min(dev, mma_dev, lib_dev) <= 0:
+        raise AssertionError(f"{case}: a kernel is missing from the profile: {sorted(times)}")
+    out = fn()
+    bsz, ho, wo, co = (out[0] if isinstance(out, tuple) else out).shape
+    plan = K.fwd_plan(bsz, ho, wo, co, torch.cuda.get_device_properties(0).multi_processor_count,
+                      pool=kw.get("fuse_pool", False),
+                      sources=2 if kname.startswith("dec_conv0") else 1)
+    FWD_DEVICE[case] = (dev, mma_dev)
+    print(f"fwd {case}: kernel {ms:.4f} ms, device {dev:.4f}; cuDNN {lib_ms:.4f}, device "
+          f"{lib_dev:.4f}; kernel / cuDNN {dev / lib_dev:.2f} in device time ({ms / lib_ms:.2f} "
+          f"by events); {bound / dev:.1%} of the bound in device time ({ops / dev / 1e9:.0f} "
+          f"TFLOP/s); {plan.mode} form, tile fill {plan.fill:.3f} (N {plan.n}, {plan.tiles} tiles "
+          f"on {plan.grid} blocks); mma.sync kernel device {mma_dev:.4f} ms "
+          f"({mma_dev / dev:.2f}x)", flush=True)
+
+
+def same_bits(name, fn):
+    """Two launches of fn on the same inputs give the same bits."""
+    first, again = fn(), fn()
+    torch.cuda.synchronize()
+    same = torch.equal(first, again)
+    print(f"repeatability {name}: two launches equal bit for bit: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
 
 
 def cell_frames(rs, n, size, labels=False):
@@ -1023,15 +1118,16 @@ def train_path(gpu):
     for name in ("kernel", "kernel_tier2"):
         print(f"profile of the {name} step:", flush=True)
         profile_step(steps[name], state, images, masks, wts, valid, gen, med[name],
-                     MMA_SYNC_STEP_DEVICE_MS[name])
+                     STEP_FWD[name])
     return launches, launches2
 
 
-def profile_step(step, state, images, masks, wts, valid, gen, step_ms, before, steps=3):
+def profile_step(step, state, images, masks, wts, valid, gen, step_ms, fwd_cases, steps=3):
     """torch.profiler over `steps` kernel-path train steps: device time by
-    operation (the sum beside `before`, the mma.sync wgrad kernel's), and
-    the device's idle share of the step time measured without the profiler
-    (`step_ms`), which slows the host down."""
+    operation, its sum, the wgmma forward's part of it, and the sum with
+    the mma.sync forward in its place (phase 5's device times at the step's
+    `fwd_cases`); the device's idle share of the step time measured without
+    the profiler (`step_ms`), which slows the host down."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1046,9 +1142,12 @@ def profile_step(step, state, images, masks, wts, valid, gen, step_ms, before, s
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     dev_total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    fwd = sum(e.self_device_time_total for e in kernels if "conv_fwd" in e.key) / 1e3 / steps
+    mma = dev_total + sum(FWD_DEVICE[c][1] - FWD_DEVICE[c][0] for c in fwd_cases)
     print(f"profile: {wall:.2f} ms wall per step with the profiler on, {step_ms:.2f} ms "
-          f"without; summed device kernel time {dev_total:.2f} ms per step (with the mma.sync "
-          f"wgrad kernel: {before} ms), idle share {1 - dev_total / step_ms:.3f} of the "
+          f"without; summed device kernel time {dev_total:.3f} ms per step, the wgmma forward "
+          f"{fwd:.3f} of it ({len(fwd_cases)} launches); with the mma.sync forward at phase 5's "
+          f"device times instead: {mma:.3f} ms; idle share {1 - dev_total / step_ms:.3f} of the "
           f"unprofiled step", flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=10), flush=True)
 
@@ -1316,7 +1415,8 @@ def main():
     t0 = time.perf_counter()
     info = build()
     regs = [ln.strip() for ln in info["log"].splitlines()
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln
+            or "Performance Loss" in ln]
     print(f"build: {info['seconds']:.1f} s nvcc ({time.perf_counter() - t0:.1f} s total), "
           f"{info['path']}", flush=True)
     for ln in regs:

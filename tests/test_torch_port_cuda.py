@@ -15,8 +15,16 @@ CI 1024 on a 6x6 input, the dense decoder entry at offset 41, the dense
 conv on both conv paths; the tier-2 train kernels: the dense dgrad with
 CI 64 out of CO 128 and CI 256, the dense wgrad at 128 -> 128 with ragged
 last tiles, the dense two-source wgrad at odd (41, 41) and even offsets,
-and the tier-2 Functions counting only under the dense wrappers; and the
-wrappers' refusals.
+and the tier-2 Functions counting only under the dense wrappers; the
+wgmma forward (csrc/conv_fwd_wgmma.cu) at the bottom of the U's widths
+(36/38/70 outputs at 512-1024 input channels), at 64, 128, 192 and 256
+output channels in its im2col and windowed forms, from 32- and
+96-channel sources, with the pool on odd sizes, relu=False and tiles that
+cross image edges, one tap at a time in both forms, from two sources
+(64+32, 128+128, 32+96) at odd offsets, with the
+same bits on a second launch; the uncounted mma.sync reference, to which
+the fused enc0 and decoder tail are held bit for bit; and the wrappers'
+refusals.
 
 Marked `cuda` and skipped without a card. The file imports no jax, so on a
 GPU machine it runs without the JAX package:
@@ -358,8 +366,8 @@ def _abs_conv(x, w):
 @pytest.mark.parametrize("b,h,w", [(1, 37, 45), (2, 22, 53), (1, 7, 9)])
 def test_enc0_fused(g, b, h, w):
     """Odd sizes under the pool (floor), batch 1, a single pooled pixel:
-    the chained kernels' bits, and the fp32 plain version within the
-    stem's rounding."""
+    the bits of the stem kernel chained with the mma.sync conv, and the
+    fp32 plain version within the stem's rounding."""
     x = _act(g, b, h, w, 1)
     w0, b0 = _w(g, 64, 1, 3, 3, fan=9 * 64), _b(g, 64)
     w1, b1 = _w(g, 64, 64, 3, 3, fan=9 * 64), _b(g, 64)
@@ -367,7 +375,9 @@ def test_enc0_fused(g, b, h, w):
     skip, pooled = K.enc0_fused(x, w0, b0, w1, b1)
     assert K.launch_counts()["enc0_fused"] == 1
     assert skip.shape == (b, h - 4, w - 4, 64) and pooled.shape == (b, (h - 4) // 2, (w - 4) // 2, 64)
-    c_skip, c_pool = K.conv3x3_bias_relu(K.conv3x3_bias_relu(x, w0, b0), w1, b1, fuse_pool=True)
+    # the stem kernel, then conv1 in the mma.sync order that enc0_fused sums in
+    c_skip, c_pool = K.conv3x3_mma_reference(K.conv3x3_bias_relu(x, w0, b0), w1, b1,
+                                             fuse_pool=True)
     torch.cuda.synchronize()
     assert torch.equal(skip, c_skip) and torch.equal(pooled, c_pool)
     r_skip, r_pool = K.enc0_fused_plain(x.float(), w0, b0, w1, b1)
@@ -378,8 +388,9 @@ def test_enc0_fused(g, b, h, w):
 
 @pytest.mark.parametrize("nc,row_off,col_off", [(1, 3, 5), (2, 5, 2), (3, 0, 7), (4, 1, 1)])
 def test_dec_tail(g, nc, row_off, col_off):
-    """Odd crop offsets, 1-4 classes, ragged tiles: the chained kernels'
-    bits, and the fp32 plain version within both roundings."""
+    """Odd crop offsets, 1-4 classes, ragged tiles: the bits of the
+    mma.sync decoder-entry conv chained with the head kernel, and the fp32
+    plain version within both roundings."""
     skip, up = _act(g, 2, 40, 38, 64), _act(g, 2, 27, 23, 64)
     w0, b0 = _w(g, 64, 128, 3, 3, fan=9 * 64), _b(g, 64)
     w1, b1 = _w(g, 64, 64, 3, 3, fan=9 * 64), _b(g, 64)
@@ -388,7 +399,8 @@ def test_dec_tail(g, nc, row_off, col_off):
     got = K.dec_tail(skip, up, w0, b0, w1, b1, kh, bh, row_off, col_off)
     assert K.launch_counts()["dec_tail"] == 1
     assert got.shape == (2, 23, 19, nc) and got.dtype == torch.float32
-    chained = K.conv3x3_head(K.dec_conv0(skip, up, w0, b0, row_off, col_off), w1, b1, kh, bh)
+    entry = K.conv3x3_mma_reference(skip, w0, b0, up=up, row_off=row_off, col_off=col_off)
+    chained = K.conv3x3_head(entry, w1, b1, kh, bh)
     torch.cuda.synchronize()
     assert torch.equal(got, chained)
     y = K.dec_conv0_plain(skip.float(), up.float(), w0, b0, row_off, col_off)
@@ -451,6 +463,101 @@ def test_variant_wrappers_raise_on_what_the_kernels_do_not_take(g):
         K.dec_tail(skip, up, w0, _b(g, 64), w64, _b(g, 64), _w(g, 2, 64, 1, 1, fan=2), _b(g, 2), 11, 0)
     with pytest.raises(ValueError, match="classes"):
         K.dec_tail(skip, up, w0, _b(g, 64), w64, _b(g, 64), _w(g, 5, 64, 1, 1, fan=2), _b(g, 5), 0, 0)
+
+
+# ------------------------------------------------ the wgmma forward conv
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,pool,relu", [
+    (2, 38, 38, 1024, 128, False, True),   # enc4c1's 36^2 outputs, 1024 channels (im2col)
+    (2, 40, 40, 512, 256, True, True),     # enc4c0's 38^2, N = 128 twice (windowed)
+    (1, 72, 72, 512, 64, True, True),      # dec0's 70^2, N = 64
+    (3, 11, 21, 64, 192, True, False),     # 192 = 3 x 64; 6 units an image; odd pool
+    (2, 21, 19, 96, 128, True, True),      # 96 channels: the second slice half zero-filled
+    (4, 10, 10, 32, 256, False, False),    # 32 channels (im2col), 64 pixels an image
+    (3, 11, 21, 96, 256, False, False),    # im2col: half-empty slice, tiles across images
+    (1, 9, 9, 64, 128, False, True),       # im2col: 49 pixels, one short tile
+    (2, 9, 13, 64, 64, False, True),       # N = 64 without the pool: windowed
+])
+def test_conv_fwd_wgmma_shapes(g, b, h, w, ci, co, pool, relu):
+    """The wgmma forward at the bottom of the U's widths (36, 38, 70 outputs
+    at 512-1024 input channels), every N choice (CO 64, 128, 192, 256), the
+    im2col form (one source, no pool, N = 128) and the windowed one, 32- and
+    96-channel sources, the pool on odd sizes, relu=False and tiles that
+    cross rows and image edges."""
+    x = _g(g, b, h, w, ci) if not relu else _act(g, b, h, w, ci)
+    wt, bias = _w(g, co, ci, 3, 3, fan=9 * co), _b(g, co)
+    K.reset_launch_counts()
+    got = K.conv3x3_bias_relu(x, wt, bias, fuse_pool=pool, relu=relu)
+    assert K.launch_counts() == _only(conv3x3_bias_relu=1)
+    ref = K.conv3x3_bias_relu_plain(x.float(), wt, bias, fuse_pool=pool, relu=relu)
+    for a, r in zip(got, ref) if pool else [(got, ref)]:
+        assert a.shape == r.shape and a.dtype == torch.bfloat16
+        _close(a, r)
+    if not relu:
+        assert bool(((got[0] if pool else got) < 0).any())
+
+
+@pytest.mark.parametrize("pool", [False, True])
+@pytest.mark.parametrize("tap", range(9))
+def test_conv_fwd_wgmma_each_tap(g, tap, pool):
+    """One tap at a time (the others' weights zero). With the pool (the
+    windowed form) each tap's A operand is the unit's window with its
+    descriptor start moved by (10 ky + kx) rows of 128 bytes, off the 1 KB
+    swizzle atom for most taps; without it (im2col) the tap is the copy's
+    (kx, ky) offset."""
+    x = _act(g, 2, 20, 27, 128)
+    wt, bias = _w(g, 128, 128, 3, 3, fan=9 * 128), _b(g, 128)
+    keep = torch.zeros(3, 3, device="cuda")
+    keep[tap // 3, tap % 3] = 1.0
+    wt = wt * keep
+    got = K.conv3x3_bias_relu(x, wt, bias, fuse_pool=pool, relu=False)
+    ref = K.conv3x3_bias_relu_plain(x.float(), wt, bias, fuse_pool=pool, relu=False)
+    for a, r in zip(got, ref) if pool else [(got, ref)]:
+        _close(a, r)
+
+
+@pytest.mark.parametrize("cis,ciu,co,row_off,col_off", [
+    (64, 32, 128, 5, 7), (128, 128, 192, 41, 39), (32, 96, 64, 0, 3),
+])
+def test_conv_fwd_wgmma_two_sources(g, cis, ciu, co, row_off, col_off):
+    """The decoder entry through the wgmma forward: 64+32 and 128+128
+    channels at odd crop offsets, slices past a source's channels, batch 2."""
+    skip, up = _act(g, 2, 62, 63, cis), _act(g, 2, 19, 22, ciu)
+    wt, bias = _w(g, co, cis + ciu, 3, 3, fan=9 * co), _b(g, co)
+    K.reset_launch_counts()
+    got = K.dec_conv0_dense(skip, up, wt, bias, row_off, col_off)
+    assert K.launch_counts() == _only(dec_conv0_dense=1)
+    _close(got, K.dec_conv0_plain(skip.float(), up.float(), wt, bias, row_off, col_off))
+
+
+def test_conv_fwd_wgmma_repeats_its_bits(g):
+    """No atomics, a fixed summation order: two launches give the same bits
+    (cblock at enc3's width, a two-source entry at an odd offset)."""
+    x = _act(g, 2, 30, 29, 256)
+    wt, bias = _w(g, 256, 256, 3, 3, fan=9 * 256), _b(g, 256)
+    assert torch.equal(K.conv3x3_cblock(x, wt, bias), K.conv3x3_cblock(x, wt, bias))
+    skip, up = _act(g, 2, 40, 40, 64), _act(g, 2, 27, 25, 64)
+    w0, b0 = _w(g, 64, 128, 3, 3, fan=9 * 64), _b(g, 64)
+    first, again = K.dec_conv0(skip, up, w0, b0, 7, 5), K.dec_conv0(skip, up, w0, b0, 7, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def test_conv3x3_mma_reference(g):
+    """The uncounted mma.sync forward against the plain version, with one
+    source and the pool, and with two at an odd offset."""
+    x = _act(g, 2, 21, 18, 64)
+    wt, bias = _w(g, 128, 64, 3, 3, fan=9 * 128), _b(g, 128)
+    K.reset_launch_counts()
+    y, pooled = K.conv3x3_mma_reference(x, wt, bias, fuse_pool=True)
+    for a, r in zip((y, pooled), K.conv3x3_bias_relu_plain(x.float(), wt, bias, fuse_pool=True)):
+        _close(a, r)
+    skip, up = _act(g, 1, 33, 31, 64), _act(g, 1, 20, 18, 32)
+    w0, b0 = _w(g, 64, 96, 3, 3, fan=9 * 64), _b(g, 64)
+    got = K.conv3x3_mma_reference(skip, w0, b0, relu=False, up=up, row_off=5, col_off=7)
+    _close(got, K.dec_conv0_plain(skip.float(), up.float(), w0, b0, 5, 7, relu=False))
+    assert K.launch_counts() == _only()
 
 
 # ------------------------------------------------------ tier-2 train kernels

@@ -10,11 +10,10 @@
 // conv3x3_cblock wrapper (the middle convs with CO % 128 == 0). The TPU
 // needed three kernels for three layouts; on NHWC they are one function.
 //
-// CI >= 32 (enc0 conv1, 64 -> 64 channels at 696^2 outputs): about 36 GFLOP
-// per 700^2 tile against 124 MB of traffic, so tensor-core bound; it runs
-// the implicit GEMM of conv_mma.cuh, and the pool rides its epilogue, read
-// from the shared output tile, so the skip is written once and never
-// re-read.
+// CI >= 32 (enc0 conv1, 64 -> 64 channels at 696^2 outputs, up to enc4's
+// 1024 -> 1024): the implicit GEMM on wgmma fed by a TMA ring of
+// conv_fwd_wgmma.cu, the pool in its epilogue, so the skip is written once
+// and never re-read.
 //
 // CI == 1 (the stem, 1 -> 64 channels): 0.56 GFLOP against a 62 MB output
 // per tile, so bound by the output write. No padding of CI to a tile:
@@ -23,7 +22,13 @@
 // 16-byte vectors; the 8 threads of one pixel write its 128 contiguous
 // bytes. With fuse_pool the quad's max is written too (full quads only:
 // odd sizes floor).
-#include "conv_mma.cuh"
+//
+// conv3x3_mma_reference_bf16 keeps the mma.sync implicit GEMM of
+// conv_mma.cuh that the multi-channel path ran before (one or two sources,
+// the pool): enc0_fused.cu and dec_tail.cu sum in its order, so the tests
+// and chip_smoke.py hold them to it bit for bit, and chip_smoke.py times it
+// beside the wgmma kernel. No path launches it.
+#include "conv_fwd_wgmma.cuh"
 
 namespace {
 
@@ -133,7 +138,21 @@ extern "C" int conv3x3_bias_relu_bf16(const void* x, const void* w,
   }
   unet::Src s0{(const __nv_bfloat16*)x, H, W, CI, 0, 0};
   unet::Src s1{nullptr, 0, 0, 0, 0, 0};
-  return unet::launch_conv3x3_mma<unet::MODE_STORE>(
-      s0, s1, w, bias, relu, B, Ho, Wo, CO, y, pooled, nullptr, nullptr, 0,
-      nullptr, stream);
+  return unet::launch_conv_fwd_wgmma(s0, s1, w, bias, relu, B, Ho, Wo, CO, y, pooled, stream);
+}
+
+// The mma.sync forward: s0 (B,H0,W0,C0) read at (off_y, off_x) and, when
+// C1 > 0, s1 (B,H1,W1,C1) at (0, 0), bf16; w (CO,3,3,C0+C1) bf16, bias
+// (CO,) f32 -> y (B,Ho,Wo,CO) bf16 and, when pooled is not null, its 2x2
+// max-pool. Returns the launch's CUDA error.
+extern "C" int conv3x3_mma_reference_bf16(const void* s0, int H0, int W0, int C0, int off_y,
+                                          int off_x, const void* s1, int H1, int W1, int C1,
+                                          const void* w, const void* bias, void* y,
+                                          void* pooled, int B, int Ho, int Wo, int CO,
+                                          int relu, void* stream) {
+  unet::Src a{(const __nv_bfloat16*)s0, H0, W0, C0, off_y, off_x};
+  unet::Src b{(const __nv_bfloat16*)s1, H1, W1, C1, 0, 0};
+  return unet::launch_conv3x3_mma<unet::MODE_STORE>(a, b, w, bias, relu, B, Ho, Wo, CO, y,
+                                                    pooled, nullptr, nullptr, 0, nullptr,
+                                                    stream);
 }

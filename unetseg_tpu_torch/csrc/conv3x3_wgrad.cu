@@ -63,11 +63,12 @@
 // CI == 1 (the stem) has N = 9 only: a separate FMA kernel, thread per
 // output channel, four thread groups per block each over a quarter of the
 // tile's pixels, summed in shared memory in a fixed order.
-#include <cuda.h>
-
 #include "conv_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 // ------------------------------------------------------------- stem (CI 1)
 constexpr int WTH = 8, WTW = 16;          // output pixels per stem tile
@@ -90,7 +91,7 @@ __device__ __forceinline__ void tile_origin(long long tile, int th, int tw, int 
 // ------------------------------------------------------ multi-channel wgmma
 constexpr int GT_H = 4, GT_W = 16;              // output pixels per tile: K = 64
 constexpr int WIN_H = GT_H + 2, WIN_W = GT_W + 2;
-constexpr int CSL = 64;                          // channels per ci slice / co block
+constexpr int CSL = SLICE;                       // channels per ci slice / co block
 constexpr int ROW = CSL * 2;                     // one pixel's slice: 128 bytes
 constexpr int G_BYTES = GT_H * GT_W * ROW;       // 8192
 constexpr int X_BYTES = WIN_H * WIN_W * ROW;     // the 6x18 window: 13824
@@ -102,64 +103,7 @@ constexpr int MMA_THREADS = CONSUMERS * 128;
 constexpr int WG_THREADS = MMA_THREADS + 32;     // + the producer warp
 constexpr int NACC = 96;                         // 64 x 192 f32 over 128 threads
 constexpr int WG_SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
-static_assert(WG_SMEM <= 232448, "stages exceed the 227 KB a block can use");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Waits until the barrier's phase of this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// byte offset (MN-major: between 64-element blocks along N or M), stride
-// byte offset (between groups of 8 rows along K), all in 16-byte units. The
-// base offset stays 0: the swizzle pattern starts on a 1 KB boundary (the
-// TMA destination), and the start address may lie on any 128-byte row
-// after it.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
-         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | (uint64_t)1 << 62;
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+static_assert(WG_SMEM <= SMEM_PER_BLOCK, "stages exceed the 227 KB a block can use");
 
 // D (64 x 192, f32) += A (64 x 16) B (16 x 192), both MN-major in shared
 // memory (imm-trans-a = imm-trans-b = 1).
@@ -391,48 +335,6 @@ wgrad_reduce_kernel(const float* __restrict__ partial, int nchunks, int CO, int 
     const int ci = i % CI, tap = (i / CI) % 9, co = i / (CI * 9);
     dw[((size_t)co * CI + ci) * 9 + tap] = v;
   }
-}
-
-// cuTensorMapEncodeTiled, resolved through the runtime so that the library
-// links against no driver library.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// A 4-D map of a bf16 NHWC tensor (B, H, W, C) with boxes of 64 channels x
-// box_w x box_h pixels of one image, 128-byte swizzle, zeros outside.
-// Returns 0 or -(the CUresult).
-int nhwc_map(CUtensorMap* map, const void* p, int B, int H, int W, int C, int box_w,
-             int box_h) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)CSL, (cuuint32_t)box_w, (cuuint32_t)box_h, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
 }  // namespace

@@ -1,0 +1,566 @@
+// conv_fwd_wgmma: the forward valid 3x3 convolution as an implicit GEMM on
+// wgmma, fed by a TMA ring: y = act(conv3x3(concat(crop(s0), s1)) + bias)
+// in bf16, optionally with its 2x2 max-pool.
+//
+// Replaces, behind the wrappers of ops/kernels/conv3x3.py, the multi-channel
+// forward of five TPU kernels (unetseg_tpu/ops/pallas/): conv3x3.py:377
+// conv3x3_phase2 with CI >= 32 (enc0 conv1 + pool when serving, enc0 conv1
+// and dec3 conv1 with relu=False in the train step; wrapper
+// conv3x3_bias_relu), conv3x3.py:190 conv3x3_lanes (conv3x3_dense),
+// conv_cblock.py:118 conv3x3_cblock (conv3x3_cblock), conv3x3.py:893
+// dec_conv0_phase2 (dec_conv0) and conv3x3.py:1170 dec_conv0_lanes
+// (dec_conv0_dense). On NHWC the five are one function; the C entries of
+// conv3x3_bias_relu.cu and dec_conv0.cu launch it.
+//
+// GEMM view: M = output pixels, N = output channels, K = 9 taps x CI.
+// On an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) bytes bound enc0 conv1 (571
+// GFLOP over 2.2 GB per 16 tiles of 700^2), just above its operations, and
+// operations bound every conv from 128 channels on. What bounds the kernel
+// (chip_smoke.py and ops/kernels/fwd_variants.py, H100 80GB HBM3 at
+// 700 W): at 64 output channels (N = 64) each wgmma.m64n64k16 reads 4 KB of
+// shared memory per 32 clocks of tensor work, all of an SM's 128 bytes a
+// clock, and a tile of one 64-channel slice is nine stages between a
+// pipeline fill and an epilogue: enc0 conv1 + pool runs at 430 TFLOP/s,
+// half its bound. From 128 channels on the ring runs at 600-800 TFLOP/s;
+// at 1024 channels (enc4, 36^2 outputs) the windowed 8x8 units fill 0.81
+// of their tiles, which the im2col form does not waste.
+//
+// Two forms, one ring design. One producer warp issues TMA copies into
+// mbarrier rings; two consumer warpgroups of two m64 units each issue
+// wgmma.m64nNk16 with both operands K-major in the 128-byte swizzle (64
+// channels = one 128-byte row a pixel); N = 128 output channels a block,
+// 64 where 128 does not divide CO. Each (tap, 64-channel slice) stage is 4
+// x 2 wgmmas; one group stays in flight, and a stage is released on its
+// "empty" mbarrier (one arrive per consumer warp) once the group that read
+// it has completed. The B tile of a (tap, slice) is a box of a 3-D (CO, 9,
+// CI) view of the OHWI weights, so a slice past CI (32- and 96-channel
+// sources) reads zeros, not the next tap. A persistent grid of one block
+// per SM walks the tiles (unit group, N block), N blocks fastest; the
+// producer runs ahead into the next tile while the consumers store this one.
+// - im2col form (one source, no pool, N = 128): a unit is 64 consecutive output
+//   pixels, a tile 256 across rows and images, so no width wastes rows.
+//   Per (tap, slice) a stage holds the tile's 256 x 64 A, copied by TMA's
+//   im2col mode (bounding box: the output positions; the tap is the copy's
+//   (kx, ky) offset), and the weight tile. It copies 9x the window's A bytes
+//   and runs faster all the same: 0.63-0.69x the windowed time at enc4c1,
+//   0.80x at enc4c0, 0.84-0.86x at dec0c1, 0.89-0.96x at 128-512 channels
+//   (fwd_variants.py "window").
+// - windowed form (the fused pool, whose 2x2 windows span two output rows;
+//   two sources): a unit is 8x8 output pixels, each core matrix (8 rows of
+//   A) the 8 pixels of one output row; units consecutive in (image, unit
+//   row, unit column) order. Per slice of one source a window stage holds
+//   each unit's 10x10-pixel window (4-D NHWC map; the crop offset is a box
+//   coordinate, the copy's zero fill covers image edges), shared by the 9
+//   taps; the weights have their own, deeper ring. The tap is a descriptor
+//   offset: A for tap (ky, kx) is the window with its start moved by (10 ky
+//   + kx) x 128 bytes and a stride byte offset of 10 x 128. wgmma swizzles
+//   on the address bits as TMA wrote them, so a start on any 128-byte row
+//   needs no base offset (the card tests hold every tap alone against the
+//   plain version).
+// - Epilogue: bias, ReLU when relu, rounded to bf16 into a 16-pixel x
+//   64-channel shared tile per consumer warp, 64 channels at a time, then
+//   stored as whole 128-byte pixel rows of 16-byte vectors, and the 2x2
+//   pool from the same tile (windowed units hold two output rows a warp;
+//   unit origins are even; odd sizes floor). Channel pairs stored straight
+//   from the registers, 16 bytes of each of 8 pixels a warp instruction,
+//   took 1.2-1.7x the time at 64-256 channels (PERF.md).
+//
+// The five faults of the mma.sync kernel it replaces (conv_mma.cuh): (1)
+// mma.sync m16n8k16 -> wgmma m64nNk16; (2) 256 threads staging through
+// registers between two barriers -> TMA into rings the producer keeps
+// ahead; (3) 64 output channels a block, the window re-staged CO/64 times,
+// 36 KB of weights a 32-channel step -> 128 channels a block, a window per
+// 64-channel slice shared by 9 taps (windowed) or one A tile per tap for
+// 256 pixels (im2col); (4) a fixed 16x16 tile, 56-73% fill at 36-82 ->
+// 256 consecutive pixels (im2col) or 8x8 units in a list (81-100%); (5)
+// fragments reloaded from shared memory per k16 -> wgmma reads both
+// operands from shared memory once per m64.
+#include "conv_fwd_wgmma.cuh"
+
+#include "hopper.cuh"
+
+namespace {
+
+using namespace hopper;
+
+constexpr int UNIT = 8;                          // output pixels per unit side
+constexpr int WIN = UNIT + 2;                    // window pixels per unit side
+constexpr int ROW = SLICE * 2;                   // one pixel's slice: 128 bytes
+constexpr int WIN_BYTES = WIN * WIN * ROW;       // 12800
+constexpr int WIN_SLOT = (WIN_BYTES + 1023) / 1024 * 1024;
+constexpr int CONSUMERS = 2;                     // warpgroups
+constexpr int FWD_THREADS = CONSUMERS * 128 + 32;  // + the producer warp
+constexpr int UPW = 2;                           // units a consumer warpgroup
+constexpr int EPI_ROWS = 16;                     // A rows a consumer warp holds
+constexpr int EPI_BYTES = CONSUMERS * 4 * EPI_ROWS * ROW;  // a warp's 16 x 64 bf16 each
+
+// Shared memory of a configuration: 1 KB alignment slack, the window and
+// weight stages, the epilogue's tiles, a full and an empty mbarrier per
+// stage.
+constexpr int fwd_smem(int n, int wst, int bst) {
+  return 1024 + wst * CONSUMERS * UPW * WIN_SLOT + bst * n * ROW + EPI_BYTES +
+         2 * (wst + bst) * 8;
+}
+
+// D (64 x 64, f32) += A (64 x 16) B (16 x 64), both K-major in shared
+// memory (imm-trans-a = imm-trans-b = 0).
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16) B (16 x 128), both K-major in shared
+// memory (imm-trans-a = imm-trans-b = 0).
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_n(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 128) wgmma_n128(d, da, db);
+  else wgmma_n64(d, da, db);
+}
+
+// Image b and origin (uy, ux) of unit ui, units in (image, row, column) order.
+__device__ __forceinline__ void unit_origin(int ui, int nuy, int nux, int& b, int& uy, int& ux) {
+  const int per_b = nuy * nux;
+  b = ui / per_b;
+  const int r = ui - b * per_b;
+  uy = (r / nux) * UNIT;
+  ux = (r % nux) * UNIT;
+}
+
+// What a consumer thread of conv_fwd_kernel reads besides its accumulators.
+struct Consumer {
+  uint32_t base, bbase, wfull0, wempty0, bfull0, bempty0;
+  uint8_t* etile;  // this warp's 16 x 64 bf16 epilogue tile
+  int slices, units, nuy, nux, nb, Ho, Wo, CO, relu, wg, warp, lane, npix;
+  const float* bias;
+  __nv_bfloat16* y;
+  __nv_bfloat16* pooled;
+};
+
+// The ring loop of one tile into acc; the ring counters wi (window stages)
+// and bi (weight stages) run on across tiles.
+template <int N, int WST, int BST>
+__device__ __forceinline__ void mainloop(float (&acc)[UPW][N / 2], const Consumer& f, int& wi,
+                                         int& bi) {
+  constexpr int W_STAGE = CONSUMERS * UPW * WIN_SLOT, B_STAGE = N * ROW;
+#pragma unroll
+  for (int u = 0; u < UPW; ++u)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[u][i] = 0.f;
+  for (int s = 0; s < f.slices; ++s) {
+    const int ws = wi % WST;
+    mbar_wait(f.wfull0 + 8 * ws, (wi / WST) & 1);
+    const uint32_t wbase = f.base + ws * W_STAGE + f.wg * UPW * WIN_SLOT;
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int bs = bi % BST;
+      mbar_wait(f.bfull0 + 8 * bs, (bi / BST) & 1);
+      const uint32_t a0 = wbase + ((tap / 3) * WIN + tap % 3) * ROW;
+      const uint32_t b0 = f.bbase + bs * B_STAGE;
+#pragma unroll
+      for (int u = 0; u < UPW; ++u) fence_regs(acc[u]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // k16 steps: 32 bytes along the 128-byte row
+        const uint64_t db = sw128_desc(b0 + kk * 32, 16, 8 * ROW);
+#pragma unroll
+        for (int u = 0; u < UPW; ++u)
+          wgmma_n<N>(acc[u], sw128_desc(a0 + u * WIN_SLOT + kk * 32, 16, WIN * ROW), db);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int u = 0; u < UPW; ++u) fence_regs(acc[u]);
+      if (s > 0 || tap > 0) {  // the group before this one is done: release its stages
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (f.lane == 0) {
+          mbar_arrive(f.bempty0 + 8 * ((bi - 1) % BST));
+          if (tap == 0) mbar_arrive(f.wempty0 + 8 * ((wi - 1) % WST));
+        }
+      }
+      ++bi;
+    }
+    ++wi;
+  }
+}
+
+// Waits for the tile's last group and releases its stages.
+template <int WST, int BST>
+__device__ __forceinline__ void drain(const Consumer& f, int wi, int bi) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  if (f.lane == 0) {
+    mbar_arrive(f.bempty0 + 8 * ((bi - 1) % BST));
+    mbar_arrive(f.wempty0 + 8 * ((wi - 1) % WST));
+  }
+}
+
+// Epilogue of tile t. Accumulator 4j + h of this thread is A row 16 warp +
+// g (+8 for h >= 2): unit pixel (2 warp (+1), g); column 8j + 2q + (h & 1).
+// Per 64 of the N columns, the warp rounds its 16 rows into its own shared
+// tile (16-byte chunks swizzled by row: conflict-free both ways), then
+// stores whole 128-byte pixel rows and their 2x2 pool.
+// With LINEAR a unit is 64 consecutive output pixels (the im2col kernel's
+// rows, across rows and images) and there is no pool.
+template <int N, bool LINEAR = false>
+__device__ __forceinline__ void epilogue(float (&acc)[UPW][N / 2], const Consumer& f, int t) {
+  const int n0 = (t % f.nb) * N, grp = t / f.nb;
+  const int g = f.lane >> 2, q = f.lane & 3;
+#pragma unroll
+  for (int u = 0; u < UPW; ++u) fence_regs(acc[u]);
+#pragma unroll
+  for (int u = 0; u < UPW; ++u) {
+    const int ui = grp * CONSUMERS * UPW + f.wg * UPW + u;
+    if (ui >= f.units) continue;
+    int b = 0, uy = 0, ux = 0;
+    if (!LINEAR) unit_origin(ui, f.nuy, f.nux, b, uy, ux);
+#pragma unroll
+    for (int h = 0; h < N / SLICE; ++h) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = h * 8 + jj;
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(f.bias + n0 + 8 * j + 2 * q));
+        const float* a = acc[u] + 4 * j;
+        const __nv_bfloat162 h0 = __floats2bfloat162_rn(unet::act(a[0] + bb.x, f.relu),
+                                                        unet::act(a[1] + bb.y, f.relu));
+        const __nv_bfloat162 h1 = __floats2bfloat162_rn(unet::act(a[2] + bb.x, f.relu),
+                                                        unet::act(a[3] + bb.y, f.relu));
+        uint8_t* e = f.etile + g * ROW + ((jj ^ g) << 4) + 4 * q;
+        *reinterpret_cast<__nv_bfloat162*>(e) = h0;             // row g
+        *reinterpret_cast<__nv_bfloat162*>(e + 8 * ROW) = h1;   // row g + 8
+      }
+      __syncwarp();
+      // row r of the tile is unit pixel (2 warp + r / 8, r % 8); lanes
+      // 8i..8i+7 store one pixel's 128 bytes
+#pragma unroll
+      for (int i = f.lane; i < EPI_ROWS * 8; i += 32) {
+        const int r = i >> 3, c = i & 7;
+        const uint4 v = *reinterpret_cast<const uint4*>(f.etile + r * ROW + ((c ^ (r & 7)) << 4));
+        if (LINEAR) {
+          const int pix = ui * 64 + EPI_ROWS * f.warp + r;
+          if (pix < f.npix)
+            *reinterpret_cast<uint4*>(f.y + (size_t)pix * f.CO + n0 + h * SLICE + 8 * c) = v;
+          continue;
+        }
+        const int oy = uy + 2 * f.warp + (r >> 3), ox = ux + (r & 7);
+        if (oy < f.Ho && ox < f.Wo)
+          *reinterpret_cast<uint4*>(f.y + (((size_t)b * f.Ho + oy) * f.Wo + ox) * f.CO + n0 +
+                                    h * SLICE + 8 * c) = v;
+      }
+      // pooled pixel (warp, lane / 8) of the unit, chunk lane % 8
+      if (!LINEAR && f.pooled != nullptr) {
+        const int p = f.lane >> 3, c = f.lane & 7;
+        const int py = uy / 2 + f.warp, px = ux / 2 + p;
+        if (py < f.Ho / 2 && px < f.Wo / 2) {
+          uint4 m = *reinterpret_cast<const uint4*>(f.etile + 2 * p * ROW + ((c ^ (2 * p)) << 4));
+          __nv_bfloat162* mv = reinterpret_cast<__nv_bfloat162*>(&m);
+#pragma unroll
+          for (int k = 1; k < 4; ++k) {
+            const int r = 2 * p + (k & 1) + 8 * (k >> 1);
+            uint4 o = *reinterpret_cast<const uint4*>(f.etile + r * ROW + ((c ^ (r & 7)) << 4));
+            const __nv_bfloat162* ov = reinterpret_cast<const __nv_bfloat162*>(&o);
+#pragma unroll
+            for (int v = 0; v < 4; ++v) mv[v] = __hmax2(mv[v], ov[v]);
+          }
+          const size_t pix = ((size_t)b * (f.Ho / 2) + py) * (f.Wo / 2) + px;
+          *reinterpret_cast<uint4*>(f.pooled + pix * f.CO + n0 + h * SLICE + 8 * c) = m;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <int N, int WST, int BST>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+conv_fwd_kernel(const __grid_constant__ CUtensorMap xmap0,
+                const __grid_constant__ CUtensorMap xmap1,
+                const __grid_constant__ CUtensorMap wmap, int C0, int off_y, int off_x,
+                int slices0, int slices, const float* __restrict__ bias, int relu, int B,
+                int Ho, int Wo, int CO, __nv_bfloat16* __restrict__ y,
+                __nv_bfloat16* __restrict__ pooled) {
+  constexpr int UPB = CONSUMERS * UPW;
+  constexpr int W_STAGE = UPB * WIN_SLOT, B_STAGE = N * ROW;
+  constexpr int NACC = N / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // the swizzle's 1 KB atom
+  const uint32_t bbase = base + WST * W_STAGE, ebase = bbase + BST * B_STAGE;
+  const uint32_t wfull0 = ebase + EPI_BYTES, wempty0 = wfull0 + 8 * WST;
+  const uint32_t bfull0 = wempty0 + 8 * WST, bempty0 = bfull0 + 8 * BST;
+
+  const int tid = threadIdx.x;
+  const int nux = (Wo + UNIT - 1) / UNIT, nuy = (Ho + UNIT - 1) / UNIT;
+  const int units = B * nuy * nux;
+  const int nb = CO / N;
+  const int ntiles = (units + UPB - 1) / UPB * nb;
+
+  if (tid == 0) {
+    for (int s = 0; s < WST; ++s) {
+      mbar_init(wfull0 + 8 * s, 1);
+      mbar_init(wempty0 + 8 * s, CONSUMERS * 4);  // one arrive per consumer warp
+    }
+    for (int s = 0; s < BST; ++s) {
+      mbar_init(bfull0 + 8 * s, 1);
+      mbar_init(bempty0 + 8 * s, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS * 128) {  // the producer warp: one thread issues the copies
+    if (tid == CONSUMERS * 128) {
+      int wi = 0, bi = 0;
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const int n0 = (t % nb) * N, grp = t / nb;
+        for (int s = 0; s < slices; ++s) {
+          const bool second = s >= slices0;
+          const CUtensorMap* xmap = second ? &xmap1 : &xmap0;
+          const int cs = (second ? s - slices0 : s) * SLICE;  // channel in the source
+          const int ci0 = second ? C0 + cs : cs;               // channel in the weights
+          const int oy = second ? 0 : off_y, ox = second ? 0 : off_x;
+          const int ws = wi % WST;
+          if (wi >= WST) mbar_wait(wempty0 + 8 * ws, (wi / WST - 1) & 1);
+          mbar_expect_tx(wfull0 + 8 * ws, UPB * WIN_BYTES);
+          for (int u = 0; u < UPB; ++u) {
+            // the last group's missing units load a real unit and store nothing
+            const int ui = min(grp * UPB + u, units - 1);
+            int b, uy, ux;
+            unit_origin(ui, nuy, nux, b, uy, ux);
+            tma_load_4d(base + ws * W_STAGE + u * WIN_SLOT, xmap, wfull0 + 8 * ws, cs, ux + ox,
+                        uy + oy, b);
+          }
+          ++wi;
+          for (int tap = 0; tap < 9; ++tap) {
+            const int bs = bi % BST;
+            if (bi >= BST) mbar_wait(bempty0 + 8 * bs, (bi / BST - 1) & 1);
+            mbar_expect_tx(bfull0 + 8 * bs, B_STAGE);
+            tma_load_3d(bbase + bs * B_STAGE, &wmap, bfull0 + 8 * bs, ci0, tap, n0);
+            ++bi;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns units wg * UPW .. wg * UPW + UPW - 1
+  const int wg = tid >> 7, warp = (tid >> 5) & 3;
+  const Consumer f{base, bbase, wfull0, wempty0, bfull0, bempty0,
+                   smem_raw + (ebase - smem_u32(smem_raw)) + (wg * 4 + warp) * EPI_ROWS * ROW,
+                   slices, units, nuy, nux, nb, Ho, Wo, CO, relu, wg, warp, tid & 31,
+                   B * Ho * Wo, bias, y, pooled};
+  // One set of accumulators, and the two warpgroups in step. A second set
+  // for N = 64, with a tile's epilogue between the next tile's first wgmma
+  // group and its wait, made ptxas serialize the wgmma groups (its C7518
+  // warning) and took 1.9x the time; starting the second warpgroup 2 or 4
+  // weight stages behind the first, so that their epilogues do not
+  // coincide, changed nothing (PERF.md).
+  float acc[UPW][NACC];
+  int wi = 0, bi = 0;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    mainloop<N, WST, BST>(acc, f, wi, bi);
+    drain<WST, BST>(f, wi, bi);
+    epilogue<N>(acc, f, t);
+  }
+}
+
+// The im2col form (one source, no pool; see the note at the top).
+template <int N, int ST>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+conv_fwd_im2col_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap, int slices,
+                       const float* __restrict__ bias, int relu, int B, int Ho, int Wo, int CO,
+                       __nv_bfloat16* __restrict__ y) {
+  constexpr int UPB = CONSUMERS * UPW, MT = UPB * 64;
+  constexpr int A_BYTES = MT * ROW, STAGE = A_BYTES + N * ROW, NACC = N / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t ebase = base + ST * STAGE, full0 = ebase + EPI_BYTES, empty0 = full0 + 8 * ST;
+  const int tid = threadIdx.x;
+  const int npix = B * Ho * Wo, units = (npix + 63) / 64, nb = CO / N;
+  const int ntiles = (units + UPB - 1) / UPB * nb;
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS * 128) {
+    if (tid == CONSUMERS * 128) {
+      int i = 0;
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const int n0 = (t % nb) * N, p0 = (t / nb) * MT;
+        const int w0 = p0 % Wo, h0 = (p0 / Wo) % Ho, b0 = p0 / (Ho * Wo);
+        for (int s = 0; s < slices; ++s) {
+          for (int tap = 0; tap < 9; ++tap, ++i) {
+            const int st = i % ST;
+            if (i >= ST) mbar_wait(empty0 + 8 * st, (i / ST - 1) & 1);
+            mbar_expect_tx(full0 + 8 * st, STAGE);
+            tma_load_im2col_4d(base + st * STAGE, &xmap, full0 + 8 * st, s * SLICE, w0, h0, b0,
+                               (uint16_t)(tap % 3), (uint16_t)(tap / 3));
+            tma_load_3d(base + st * STAGE + A_BYTES, &wmap, full0 + 8 * st, s * SLICE, tap, n0);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7, warp = (tid >> 5) & 3;
+  const Consumer f{base, 0, 0, 0, 0, 0,
+                   smem_raw + (ebase - smem_u32(smem_raw)) + (wg * 4 + warp) * EPI_ROWS * ROW,
+                   slices, units, 0, 0, nb, Ho, Wo, CO, relu, wg, warp, tid & 31, npix,
+                   bias, y, nullptr};
+  float acc[UPW][NACC];
+  int i = 0;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+#pragma unroll
+    for (int u = 0; u < UPW; ++u)
+#pragma unroll
+      for (int k = 0; k < NACC; ++k) acc[u][k] = 0.f;
+    for (int k = 0; k < 9 * slices; ++k, ++i) {
+      const int st = i % ST;
+      mbar_wait(full0 + 8 * st, (i / ST) & 1);
+      const uint32_t a0 = base + st * STAGE + wg * UPW * 64 * ROW;
+      const uint32_t b0 = base + st * STAGE + A_BYTES;
+#pragma unroll
+      for (int u = 0; u < UPW; ++u) fence_regs(acc[u]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = sw128_desc(b0 + kk * 32, 16, 8 * ROW);
+#pragma unroll
+        for (int u = 0; u < UPW; ++u)
+          wgmma_n<N>(acc[u], sw128_desc(a0 + u * 64 * ROW + kk * 32, 16, 8 * ROW), db);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int u = 0; u < UPW; ++u) fence_regs(acc[u]);
+      if (k > 0) {
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (f.lane == 0) mbar_arrive(empty0 + 8 * ((i - 1) % ST));
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    if (f.lane == 0) mbar_arrive(empty0 + 8 * ((i - 1) % ST));
+    epilogue<N, true>(acc, f, t);
+  }
+}
+
+// Dynamic shared memory of the im2col form: its stages, the epilogue's
+// tiles and a full and an empty mbarrier per stage.
+constexpr int im2col_smem(int n, int st) {
+  return 1024 + st * (CONSUMERS * UPW * 64 * ROW + n * ROW) + EPI_BYTES + 2 * st * 8;
+}
+
+template <int N, int ST>
+int launch_im2col(unet::Src s0, const CUtensorMap& wmap, int slices, const float* bias, int relu,
+                  int B, int Ho, int Wo, int CO, __nv_bfloat16* y, int sms, cudaStream_t st) {
+  constexpr int smem = im2col_smem(N, ST);
+  static_assert(smem <= SMEM_PER_BLOCK, "stages exceed the 227 KB a block can use");
+  CUtensorMap xmap;
+  const int e = nhwc_im2col_map(&xmap, s0.p, B, s0.H, s0.W, s0.C, CONSUMERS * UPW * 64);
+  if (e != 0) return e;
+  auto kernel = conv_fwd_im2col_kernel<N, ST>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long units = ((long long)B * Ho * Wo + 63) / 64;
+  const long long tiles = (units + CONSUMERS * UPW - 1) / (CONSUMERS * UPW) * (CO / N);
+  kernel<<<(int)(tiles < sms ? tiles : sms), FWD_THREADS, smem, st>>>(
+      xmap, wmap, slices, bias, relu, B, Ho, Wo, CO, y);
+  return (int)cudaGetLastError();
+}
+
+template <int N, int WST, int BST>
+int launch(const CUtensorMap& xmap0, const CUtensorMap& xmap1, const CUtensorMap& wmap, int C0,
+           int off_y, int off_x, int slices0, int slices, const float* bias, int relu, int B,
+           int Ho, int Wo, int CO, __nv_bfloat16* y, __nv_bfloat16* pooled, int sms,
+           cudaStream_t st) {
+  constexpr int smem = fwd_smem(N, WST, BST);
+  static_assert(smem <= SMEM_PER_BLOCK, "stages exceed the 227 KB a block can use");
+  auto kernel = conv_fwd_kernel<N, WST, BST>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long units = (long long)B * ((Ho + UNIT - 1) / UNIT) * ((Wo + UNIT - 1) / UNIT);
+  const long long tiles = (units + CONSUMERS * UPW - 1) / (CONSUMERS * UPW) * (CO / N);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  kernel<<<grid, FWD_THREADS, smem, st>>>(xmap0, xmap1, wmap, C0, off_y, off_x, slices0, slices,
+                                          bias, relu, B, Ho, Wo, CO, y, pooled);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+namespace unet {
+
+int launch_conv_fwd_wgmma(Src s0, Src s1, const void* w, const void* bias, int relu, int B,
+                          int Ho, int Wo, int CO, void* y, void* pooled, void* stream) {
+  const int CI = s0.C + s1.C;
+  CUtensorMap xmap0, xmap1, wmap;
+  int e = nhwc_map(&xmap0, s0.p, B, s0.H, s0.W, s0.C, WIN, WIN);
+  if (e == 0 && s1.C > 0) e = nhwc_map(&xmap1, s1.p, B, s1.H, s1.W, s1.C, WIN, WIN);
+  if (e == 0) {  // the OHWI weights as (CO, 9, CI): a box is one tap's N x 64 tile
+    const cuuint64_t dims[3] = {(cuuint64_t)CI, 9, (cuuint64_t)CO};
+    const cuuint64_t strides[2] = {(cuuint64_t)CI * 2, (cuuint64_t)9 * CI * 2};
+    const cuuint32_t box[3] = {(cuuint32_t)SLICE, 1, (cuuint32_t)(CO % 128 == 0 ? 128 : 64)};
+    e = bf16_map(&wmap, w, 3, dims, strides, box);
+  }
+  if (e != 0) return e;
+  if (s1.C == 0) xmap1 = xmap0;
+  const int slices0 = (s0.C + SLICE - 1) / SLICE;
+  const int slices = slices0 + (s1.C + SLICE - 1) / SLICE;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const float* b = (const float*)bias;
+  __nv_bfloat16* yo = (__nv_bfloat16*)y;
+  __nv_bfloat16* po = (__nv_bfloat16*)pooled;
+  cudaStream_t st = (cudaStream_t)stream;
+  // one source, no pool, N = 128: the im2col form (a 2x2 pool window spans
+  // two output rows, Wo pixels apart, so it needs the windowed units; at
+  // N = 64 the im2col form measured 0-4% slower than the windowed one)
+  if (s1.C == 0 && pooled == nullptr && CO % 128 == 0)
+    return launch_im2col<128, 4>(s0, wmap, slices, b, relu, B, Ho, Wo, CO, yo, sms, st);
+  if (CO % 128 != 0)
+    return launch<64, 2, 13>(xmap0, xmap1, wmap, s0.C, s0.off_y, s0.off_x, slices0, slices, b, relu,
+                            B, Ho, Wo, CO, yo, po, sms, st);
+  return launch<128, 2, 6>(xmap0, xmap1, wmap, s0.C, s0.off_y, s0.off_x, slices0, slices, b, relu,
+                           B, Ho, Wo, CO, yo, po, sms, st);
+}
+
+}  // namespace unet

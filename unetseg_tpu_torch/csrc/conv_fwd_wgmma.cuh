@@ -1,0 +1,21 @@
+// The forward implicit-GEMM 3x3 convolution on wgmma fed by a TMA ring
+// (conv_fwd_wgmma.cu): the multi-channel path of conv3x3_bias_relu.cu
+// (conv3x3_bias_relu, conv3x3_dense, conv3x3_cblock) and dec_conv0.cu
+// (dec_conv0, dec_conv0_dense).
+#pragma once
+
+#include "conv_mma.cuh"
+
+namespace unet {
+
+// y (B, Ho, Wo, CO) = act(conv3x3(concat(s0 at (s0.off_y, s0.off_x), s1)) +
+// bias) in bf16, and its 2x2 max-pool (B, Ho/2, Wo/2, CO) when pooled is
+// not null; act is ReLU when relu, else the identity. s0.C and s1.C
+// multiples of 32 (s1.C may be 0; s1 is read at (0, 0)), CO a multiple of
+// 64, weights (CO, 3, 3, s0.C + s1.C) bf16, bias (CO,) f32, 16-byte aligned
+// contiguous tensors. Returns the launch's CUDA error, or -(the CUresult)
+// of a failed tensor-map encoding.
+int launch_conv_fwd_wgmma(Src s0, Src s1, const void* w, const void* bias, int relu, int B,
+                          int Ho, int Wo, int CO, void* y, void* pooled, void* stream);
+
+}  // namespace unet

@@ -11,13 +11,13 @@
 // (B,262,262,128)).
 //
 // About 40 GFLOP per 700^2 tile (K = 9 x 128) against ~140 MB of traffic, so
-// tensor-core bound. It runs the implicit GEMM of conv_mma.cuh with two
-// source pointers: the K loop first walks the skip's channels, read at the
-// crop offset (any offset, odd ones included), then the up tensor's, with
-// the weight's input channels split the same way (skip first, as the
-// trained concat-conv kernel orders them). The crop and the concat cost no
-// device-memory traffic at all.
-#include "conv_mma.cuh"
+// tensor-core bound. It runs the implicit GEMM of conv_fwd_wgmma.cu with two
+// sources: the K loop first walks the skip's 64-channel slices, copied at
+// the crop offset (a TMA box coordinate: any offset, odd ones included),
+// then the up tensor's, with the weight's input channels split the same way
+// (skip first, as the trained concat-conv kernel orders them). The crop and
+// the concat cost no device-memory traffic at all.
+#include "conv_fwd_wgmma.cuh"
 
 // skip (B,Hs,Ws,CIs), up (B,Hu,Wu,CIu) bf16; w (CO,3,3,CIs+CIu) bf16;
 // bias (CO,) f32 -> y (B,Hu-2,Wu-2,CO) bf16. Returns the launch's CUDA error.
@@ -27,7 +27,6 @@ extern "C" int dec_conv0_bf16(const void* skip, int Hs, int Ws, int CIs,
                               void* y, int B, int CO, int relu, void* stream) {
   unet::Src s0{(const __nv_bfloat16*)skip, Hs, Ws, CIs, row_off, col_off};
   unet::Src s1{(const __nv_bfloat16*)up, Hu, Wu, CIu, 0, 0};
-  return unet::launch_conv3x3_mma<unet::MODE_STORE>(
-      s0, s1, w, bias, relu, B, Hu - 2, Wu - 2, CO, y, nullptr, nullptr,
-      nullptr, 0, nullptr, stream);
+  return unet::launch_conv_fwd_wgmma(s0, s1, w, bias, relu, B, Hu - 2, Wu - 2, CO, y, nullptr,
+                                     stream);
 }

@@ -37,6 +37,7 @@ SIGNATURES = {
     "minplus_f32": [P, L, P, L, P, I, I, I, I, P],
     "conv3x3_bias_relu_bf16": [P, P, P, P, P, I, I, I, I, I, I, P],
     "dec_conv0_bf16": [P, I, I, I, I, I, P, I, I, I, P, P, P, I, I, I, P],
+    "conv3x3_mma_reference_bf16": [P, I, I, I, I, I, P, I, I, I, P, P, P, P, I, I, I, I, I, P],
     "conv3x3_head_bf16": [P, P, P, P, P, P, I, I, I, I, I, P],
     "enc0_fused_bf16": [P, P, P, P, P, P, P, I, I, I, P],
     "dec_tail_bf16": [P, I, I, I, I, I, P, I, I, I, P, P, P, P, P, P, I, P, I, P],

@@ -31,12 +31,22 @@ kernel's counterpart counts its launches apart:
 | dec_conv0_dense    | csrc/dec_conv0.cu           | conv3x3.py:dec_conv0_lanes           | dec_conv0_plain         |
 | conv3x3_head       | csrc/conv3x3_head.cu        | conv3x3.py:conv3x3_head_phase2       | conv3x3_head_plain      |
 | dec_tail           | csrc/dec_tail.cu            | conv3x3.py:dec_tail_phase2           | dec_tail_plain          |
+
+With more than one input channel, conv3x3_bias_relu, conv3x3_dense,
+conv3x3_cblock, dec_conv0 and dec_conv0_dense launch csrc/conv_fwd_wgmma.cu
+(wgmma fed by a TMA ring, in an im2col form for one source without the
+pool at N = 128 and a windowed form otherwise); `fwd_plan` mirrors its
+launch plan. `conv3x3_mma_reference` runs the mma.sync implicit GEMM that
+they launched before (csrc/conv_mma.cuh), which the fused enc0_fused and
+dec_tail kernels still sum like: uncounted, on no path, for the card's
+bit-for-bit checks and timings.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -50,6 +60,93 @@ from unetseg_tpu_torch.ops.kernels.launches import (  # noqa: F401 (re-exported)
 
 MAX_HEAD_CLASSES = 4  # csrc/conv_mma.cuh MAX_NC
 CBLOCK_CO = 128  # conv_cblock.py asserts CO % 128 == 0
+
+# csrc/conv_fwd_wgmma.cu's launch plan, mirrored for the CPU geometry tests
+# (tests/test_torch_port_fwd_geometry.py). N output channels a block: 128
+# where it divides CO, else 64; two consumer warpgroups of two m64 units;
+# a 16 x 64 bf16 epilogue tile per consumer warp; one block per SM, a
+# persistent grid of at most one block per SM. Two forms:
+# - "im2col" (one source, no pool, N = 128): a unit is 64 consecutive
+#   output pixels, a tile 256 across rows and images; per (tap, slice) a
+#   stage of the tile's 256 x 64-channel A and the N x 64 weight tile;
+# - "window" (the pool, two sources, or N = 64): a unit is 8x8 output
+#   pixels with a 10x10-pixel window of 64 channels (128 bytes a pixel,
+#   1 KB aligned); window stages per slice, weight stages per (tap, slice).
+FWD_UNIT, FWD_WIN, FWD_SLICE, FWD_CONSUMERS, FWD_UPW = 8, 10, 64, 2, 2
+FWD_WIN_SLOT = -(-FWD_WIN * FWD_WIN * 2 * FWD_SLICE // 1024) * 1024
+FWD_EPI_BYTES = FWD_CONSUMERS * 4 * 16 * 2 * FWD_SLICE
+FWD_STAGES = {64: (2, 13), 128: (2, 6)}  # window: (window stages, weight stages)
+FWD_IM2COL_STAGES = 4  # at N = 128
+SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory an H100 block can use
+
+
+class FwdPlan(NamedTuple):
+    mode: str  # "im2col" or "window"
+    n: int  # output channels a block
+    stages: Tuple[int, ...]  # window: (window, weight) stages; im2col: (stages,)
+    smem: int  # dynamic shared memory bytes of a block
+    units: int  # m64 units over all images (64 pixels or 8x8 pixels)
+    tiles: int  # (group of four units, N block) tiles
+    grid: int  # blocks of the persistent grid
+    fill: float  # output pixels / pixels the tiles compute
+
+
+def fwd_smem_bytes(n: int, mode: str = "window") -> int:
+    """1 KB of alignment slack, the stages, the epilogue tiles and a full
+    and an empty mbarrier per stage. A window stage holds one 1 KB-aligned
+    window per unit, a weight stage n rows of 128 bytes; an im2col stage
+    holds 256 pixels of 128 bytes and the n x 64 weight tile."""
+    row = 2 * FWD_SLICE
+    if mode == "im2col":
+        st = FWD_IM2COL_STAGES
+        return (1024 + st * (FWD_CONSUMERS * FWD_UPW * 64 * row + n * row) + FWD_EPI_BYTES
+                + 2 * st * 8)
+    wst, bst = FWD_STAGES[n]
+    return (1024 + wst * FWD_CONSUMERS * FWD_UPW * FWD_WIN_SLOT + bst * n * row
+            + FWD_EPI_BYTES + 2 * (wst + bst) * 8)
+
+
+def fwd_plan(bsz: int, ho: int, wo: int, co: int, sm_count: int, pool: bool = False,
+             sources: int = 1) -> FwdPlan:
+    """The launch plan of csrc/conv_fwd_wgmma.cu for outputs (bsz, ho, wo,
+    co) from `sources` inputs, with or without the fused 2x2 pool."""
+    n = 128 if co % 128 == 0 else 64
+    upb = FWD_CONSUMERS * FWD_UPW
+    if sources == 1 and not pool and n == 128:
+        units = -(-bsz * ho * wo // 64)
+        tiles = -(-units // upb) * (co // n)
+        return FwdPlan("im2col", n, (FWD_IM2COL_STAGES,), fwd_smem_bytes(n, "im2col"), units,
+                       tiles, min(tiles, sm_count), bsz * ho * wo / (-(-units // upb) * upb * 64))
+    units = bsz * -(-ho // FWD_UNIT) * -(-wo // FWD_UNIT)
+    tiles = -(-units // upb) * (co // n)
+    return FwdPlan("window", n, FWD_STAGES[n], fwd_smem_bytes(n), units, tiles,
+                   min(tiles, sm_count), bsz * ho * wo / (units * FWD_UNIT * FWD_UNIT))
+
+
+def fwd_tile_units(plan: FwdPlan, bsz: int, ho: int, wo: int) -> List[np.ndarray]:
+    """Per block of the plan's grid, its tiles' units in the kernel's
+    order: block i walks tiles i, i + grid, ...; tile t is N block t % nb
+    of unit group t // nb; units past the last are dropped (the kernel
+    computes them and stores nothing). Rows (tile, b, uy, ux, n0) of 8x8
+    units for "window", (tile, first pixel, n0) of 64-pixel units for
+    "im2col"."""
+    upb = FWD_CONSUMERS * FWD_UPW
+    nb = plan.tiles // -(-plan.units // upb)
+    out = []
+    for blk in range(plan.grid):
+        t = np.arange(blk, plan.tiles, plan.grid)
+        ui = ((t // nb)[:, None] * upb + np.arange(upb)[None, :]).ravel()
+        tt = np.repeat(t, upb)
+        keep = ui < plan.units
+        ui, tt = ui[keep], tt[keep]
+        if plan.mode == "im2col":
+            out.append(np.stack([tt, ui * 64, (tt % nb) * plan.n], axis=1))
+            continue
+        nuy, nux = -(-ho // FWD_UNIT), -(-wo // FWD_UNIT)
+        b, r = np.divmod(ui, nuy * nux)
+        out.append(np.stack([tt, b, (r // nux) * FWD_UNIT, (r % nux) * FWD_UNIT,
+                             (tt % nb) * plan.n], axis=1))
+    return out
 
 
 # ------------------------------------------------------------ plain versions
@@ -214,6 +311,42 @@ def _launch_dec_conv0(name, skip, up, w, b, row_off, col_off, relu):
     )
     _raise_on(err, name)
     return y
+
+
+def conv3x3_mma_reference(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, fuse_pool: bool = False,
+    relu: bool = True, up: Optional[torch.Tensor] = None, row_off: int = 0, col_off: int = 0,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The mma.sync forward (csrc/conv_mma.cuh) on CUDA tensors, uncounted:
+    conv3x3_bias_relu's function for x alone (CI % 32 == 0), dec_conv0's
+    with `up` (x is the skip, read at (row_off, col_off)). The summation
+    order of enc0_fused and dec_tail; no serving or train path calls it."""
+    if x.device.type != "cuda":
+        raise RuntimeError("conv3x3_mma_reference runs the mma.sync kernel: CUDA tensors only")
+    bsz, hs, ws, c0 = x.shape
+    c1 = 0 if up is None else up.shape[3]
+    co = w.shape[0]
+    if tuple(w.shape) != (co, c0 + c1, 3, 3) or tuple(b.shape) != (co,):
+        raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} do not fit the inputs")
+    if up is None:
+        _check_act("x", x)
+        ho, wo = hs - 2, ws - 2
+    else:
+        _check_crop(x, up, row_off, col_off)
+        ho, wo = up.shape[1] - 2, up.shape[2] - 2
+    _check_co(co)
+    y = torch.empty((bsz, ho, wo, co), dtype=x.dtype, device=x.device)
+    pooled = (torch.empty((bsz, ho // 2, wo // 2, co), dtype=x.dtype, device=x.device)
+              if fuse_pool else None)
+    wk, bk = _ohwi(w), _f32(b)
+    err = library().conv3x3_mma_reference_bf16(
+        x.data_ptr(), hs, ws, c0, row_off, col_off,
+        None if up is None else up.data_ptr(), *(up.shape[1:4] if up is not None else (0, 0, 0)),
+        wk.data_ptr(), bk.data_ptr(), y.data_ptr(), pooled.data_ptr() if fuse_pool else None,
+        bsz, ho, wo, co, int(relu), _stream(x),
+    )
+    _raise_on(err, "conv3x3_mma_reference")
+    return (y, pooled) if fuse_pool else y
 
 
 # ----------------------------------------------------------------- wrappers
