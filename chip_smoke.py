@@ -22,17 +22,25 @@ its own line, and any failure raises (non-zero exit):
    torch.profiler device times, kernel / cuDNN, its share of the bound, the
    launch plan's form (im2col or windowed) and tile fill, and the device
    time of the mma.sync kernel that it replaced (K.conv3x3_mma_reference)
-   on the same tensors; two launches
-   at enc4 conv1 and at the dec3 entry must give the same bits, and the
-   fused enc0 and decoder tail equal the stem / head kernels chained with
-   the mma.sync conv bit for bit;
+   on the same tensors. The head conv (the wgmma forward's head variant)
+   and the tconv (a streaming wgmma GEMM) print one line each: events and
+   device time, the device time of the mma.sync kernel each replaced on
+   the same tensors (K.conv3x3_mma_reference with the head,
+   K.tconv2x2_mma_reference), the library's (the head: cuDNN conv + bias,
+   ReLU and the 1x1 conv, three calls; the tconv: F.conv_transpose2d with
+   its bias), the share of the bound and, for the head, the tile fill; two
+   launches at enc4 conv1, at the dec3 entry, of the head and of the tconv
+   must give the same bits, and the fused enc0 and decoder tail equal the
+   stem kernel and the mma.sync conv (and mma.sync head) chained, bit for
+   bit;
 4. serving path: Predictor.masks_tiled on 16 seeded synthetic 512^2 cell
    frames at full width, with seeded He-scaled weights, random BatchNorm
    statistics and a planted intensity path (see plant_intensity_path);
    checks the uint8 masks, that its four kernels launched exactly as
    before (2, 1, 1, 1 per forward chunk), finite logits, and >= 0.999
    pixel agreement with the plain fp32 forward on the card, and times it
-   with CUDA events;
+   with CUDA events beside the plain bf16 forward and the MPix/s recorded
+   with the mma.sync head and tconv;
 4b. serving variants: Predictor.masks_tiled on the same frames with (a)
    tier2, (b) fused_enc0 with dec_fuse="tail", (c) cblock=("all",), (d)
    all three; checks each one's uint8 masks, finite
@@ -48,8 +56,10 @@ its own line, and any failure raises (non-zero exit):
    with relu=False (conv3x3_dense, dec_conv0_dense); same bound. Each
    multi-channel weight gradient also prints its fraction of the bound,
    cuDNN's time and the time of the mma.sync kernel that the wgmma kernel
-   replaced; two launches at enc0 conv1 must give the same bits; the
-   relu=False forwards print phase 3's wgmma lines;
+   replaced, the stem's (CI = 1, an FMA kernel) its device time beside
+   cuDNN's; two launches at enc0 conv1 must give the same bits; the
+   relu=False forwards print phase 3's wgmma lines, and the tconv at the
+   train step's up3 (4, 164, 164, 128) prints phase 3's tconv line;
 6. train path: make_train_step with the best recipe's options (Adam 3e-4,
    cosine, EMA 0.999, standardize, elastic 2000/20, gamma / illumination /
    noise) on 4 seeded synthetic 512^2 frames with instance labels and
@@ -171,7 +181,7 @@ SOURCES = {
                       "unetseg_tpu/ops/pallas/conv3x3.py:783"),
     "dec_conv0": ("unetseg_tpu_torch/csrc/conv_fwd_wgmma.cu",
                   "unetseg_tpu/ops/pallas/conv3x3.py:893"),
-    "conv3x3_head": ("unetseg_tpu_torch/csrc/conv3x3_head.cu",
+    "conv3x3_head": ("unetseg_tpu_torch/csrc/conv_fwd_wgmma.cu",
                      "unetseg_tpu/ops/pallas/conv3x3.py:540"),
     "conv3x3_dgrad": ("unetseg_tpu_torch/csrc/conv3x3_dgrad.cu",
                       "unetseg_tpu/ops/pallas/conv3x3_train.py:74"),
@@ -268,6 +278,18 @@ STEP_FWD["kernel_tier2"] = STEP_FWD["kernel"] + (
     "enc1_conv0_dense_relu_false", "enc1_conv1_dense_relu_false", "dec2_conv0_dense_relu_false",
     "dec2_conv1_dense_relu_false")
 FWD_DEVICE = {}  # case -> (wgmma kernel, mma.sync kernel) device ms, phases 3 and 5
+# the head conv and the tconv on wgmma: per wrapper, the profiler's name of
+# its kernel and of the mma.sync kernel it replaced (the uncounted
+# reference entry), and what the library line times
+REDESIGNED = {"conv3x3_head": ("conv_fwd_kernel", "conv3x3_mma_kernel",
+                               "cuDNN conv + bias, ReLU, 1x1 conv: three calls"),
+              "tconv2x2_bias": ("tconv2x2_wgmma_kernel", "tconv2x2_mma_kernel",
+                                "F.conv_transpose2d with bias")}
+# Predictor.masks_tiled with the mma.sync head and tconv, this script's
+# phase 4 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): printed beside
+# the run's own
+MMA_SYNC_SERVING_MPIX = (147.45, 149.94)
+GPU = ""  # nvidia-smi's name and power limit, set by main()
 # the weighted CE against its plain version, max |k - ref| / max |ref|:
 # both are f32 with the same formula, apart in exp/log implementations and
 # operation order (~1e-7 relative); a confident pixel's gradient is a
@@ -513,12 +535,15 @@ def kernel_parity(sh, c=64):
     run_cases(cases, stats, BATCH)
     same_bits("wgmma forward at enc4 conv1 (cblock)", lambda: K.conv3x3_cblock(*mids["enc4c1"]))
     same_bits("wgmma forward at the dec3 entry", lambda: K.dec_conv0(*dec0))
+    same_bits("wgmma head conv at dec3 conv1", lambda: K.conv3x3_head(*head))
+    same_bits("wgmma tconv at up3", lambda: K.tconv2x2_bias(*up3))
     # the fused kernels sum and round in the order of the stem kernel, the
-    # mma.sync conv and the head kernel chained
+    # mma.sync conv and the mma.sync head chained
     chained = K.conv3x3_mma_reference(K.conv3x3_bias_relu(*stem), *enc0[1:], fuse_pool=True)
     entry = K.conv3x3_mma_reference(dec0[0], *dec0[2:4], up=dec0[1], row_off=off, col_off=off)
+    mma_head = K.conv3x3_mma_reference(entry, *head[1:3], k_head=head[3], b_head=head[4])
     same = {"enc0_fused": all(map(torch.equal, K.enc0_fused(*fused0), chained)),
-            "dec_tail": torch.equal(K.dec_tail(*tail), K.conv3x3_head(entry, *head[1:]))}
+            "dec_tail": torch.equal(K.dec_tail(*tail), mma_head)}
     print(f"parity fused kernels equal to the mma.sync chain bit for bit: {same}", flush=True)
     if not all(same.values()):
         raise AssertionError(f"fused kernels differ from the mma.sync chain: {same}")
@@ -573,8 +598,24 @@ def run_cases(cases, stats, batch):
                   f"(kernel / cuDNN {dev / lib_dev:.2f}); bound {bound:.4f} ms ({bound / ms:.1%} "
                   f"of the bound, {bound / dev:.1%} in device time, {ops / dev / 1e9:.0f} TFLOP/s); "
                   f"mma.sync kernel {prev:.3f} ms ({prev / ms:.2f}x)", flush=True)
+        if case == "wgrad_stem":
+            # the CI = 1 FMA kernel and its split-K reduction, beside cuDNN,
+            # in device time: at ~0.16 ms events over back-to-back calls
+            # can time the host
+            times = device_times(lambda: (kernel(*args, **kw), lib()))
+            ours = {k: v for k, v in times.items() if "wgrad_stem_kernel" in k
+                    or "wgrad_reduce_kernel" in k}
+            dev = sum(ours.values())
+            lib_dev = sum(v for k, v in times.items() if k not in ours and "copy" not in k)
+            print(f"wgrad {case} (FMA kernel, CI = 1): kernel {ms:.4f} ms, cuDNN {lib_ms:.4f} ms "
+                  f"by events; device time kernel {dev:.4f} ms (its kernels: "
+                  f"{', '.join(f'{k.split('::')[-1][:18]} {v:.4f}' for k, v in ours.items())}), "
+                  f"cuDNN {lib_dev:.4f} ms (kernel / cuDNN {dev / lib_dev:.2f}); bound "
+                  f"{bound:.4f} ms ({bound / dev:.1%} in device time) on {GPU}", flush=True)
         if kname in FWD_KERNELS and args[0].shape[3] > 1:
             fwd_line(case, kname, kernel, args, kw, lib, ms, lib_ms, bound, ops)
+        if kname in REDESIGNED:
+            redesigned_line(case, kname, kernel, args, ms, ops, n_bytes)
         st["max_abs_err"] = max(st["max_abs_err"], err)
         add_times(st, ms, plain_ms, lib_ms)
 
@@ -623,6 +664,56 @@ def fwd_line(case, kname, kernel, args, kw, lib, ms, lib_ms, bound, ops):
           f"TFLOP/s); {plan.mode} form, tile fill {plan.fill:.3f} (N {plan.n}, {plan.tiles} tiles "
           f"on {plan.grid} blocks); mma.sync kernel device {mma_dev:.4f} ms "
           f"({mma_dev / dev:.2f}x)", flush=True)
+
+
+def redesigned_line(case, kname, kernel, args, ms, ops, n_bytes):
+    """The head conv's or the tconv's line: events and device time of the
+    kernel, of the mma.sync kernel it replaced and of the library on the
+    same tensors (one profiler session, told apart by kernel name; the
+    wrappers' weight copies left out), the bound and its share, and for
+    the head the launch plan's tile fill."""
+    mine, old, lib_name = REDESIGNED[kname]
+    if kname == "conv3x3_head":
+        x, w, b, kh, bh = args
+        wb, bb, khb, bhb = bf(w), bf(b), bf(kh), bf(bh)
+
+        def lib():
+            return F.conv2d(F.relu(F.conv2d(to_nchw(x), wb, bb)), khb, bhb)
+
+        def mma():
+            return K.conv3x3_mma_reference(x, w, b, k_head=kh, b_head=bh)
+    else:
+        x, w, b = args
+        wb, bb = bf(w), bf(b)
+
+        def lib():
+            return F.conv_transpose2d(to_nchw(x), wb, bb, stride=2)
+
+        def mma():
+            return K.tconv2x2_mma_reference(x, w, b)
+
+    lib_ms = cuda_ms(lib)
+    times = device_times(lambda: (kernel(*args), mma(), lib()))
+    dev = sum(v for k, v in times.items() if mine in k)
+    mma_dev = sum(v for k, v in times.items() if old in k)
+    lib_dev = sum(v for k, v in times.items() if "copy" not in k and mine not in k and old not in k)
+    if min(dev, mma_dev, lib_dev) <= 0:
+        raise AssertionError(f"{case}: a kernel is missing from the profile: {sorted(times)}")
+    t_ops, t_bytes = ops / PEAK_BF16 * 1e3, n_bytes / HBM_BPS * 1e3
+    bound, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    fill = ""
+    if kname == "conv3x3_head":
+        bsz, h, wd, _ = x.shape
+        plan = K.fwd_plan(bsz, h - 2, wd - 2, 64,
+                          torch.cuda.get_device_properties(0).multi_processor_count, head=True)
+        fill = f"; tile fill {plan.fill:.3f} ({plan.tiles} tiles on {plan.grid} blocks)"
+    print(f"{kname} {case}: kernel {ms:.4f} ms, device {dev:.4f}; mma.sync kernel device "
+          f"{mma_dev:.4f} ({mma_dev / dev:.2f}x the kernel); library ({lib_name}) {lib_ms:.4f} ms, "
+          f"device {lib_dev:.4f} (kernel / library {dev / lib_dev:.2f} in device time); bound "
+          f"{bound:.4f} ms by {by} ({ops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB): "
+          f"{bound / dev:.1%} of it in device time, {bound / ms:.1%} by events "
+          f"({ops / dev / 1e9:.0f} TFLOP/s, {n_bytes / dev / 1e6:.0f} GB/s){fill}; on {GPU}",
+          flush=True)
 
 
 def same_bits(name, fn):
@@ -764,7 +855,9 @@ def main_path(gpu):
     mpix = FRAMES * SIZE * SIZE / 1e6 / (ms / 1e3)
     print(f"main path: {ms:.2f} ms per {FRAMES} frames = {mpix:.2f} MPix/s "
           f"(plain bf16 forward: {plain_ms:.2f} ms = "
-          f"{FRAMES * SIZE * SIZE / 1e6 / (plain_ms / 1e3):.2f} MPix/s) on {gpu}", flush=True)
+          f"{FRAMES * SIZE * SIZE / 1e6 / (plain_ms / 1e3):.2f} MPix/s; recorded with the mma.sync "
+          f"head and tconv: {MMA_SYNC_SERVING_MPIX[0]:.2f}-{MMA_SYNC_SERVING_MPIX[1]:.2f} MPix/s) "
+          f"on {gpu}", flush=True)
     return launches, dict(pred=pred, variables=variables, frames=frames, ref_masks=plain["fp32"])
 
 
@@ -879,6 +972,7 @@ def train_kernel_parity(stats, c=64):
 
     skip, up, b_dec0 = act(b, e0, e0, c), act(b, u, u, c), bias(c)
     cat = torch.cat([skip[:, off:off + u, off:off + u], up], -1)
+    up3 = (act(b, u // 2, u // 2, 2 * c), he(g, 2 * c, c, 2, 2, fan_out=4 * c), bias(c))
     g_dec0 = grad(b, u - 2, u - 2, c)
     cases = {
         "dgrad_enc0_conv1": (*dg, *dgrad(grad(b, s - 4, s - 4, c), w64)),
@@ -900,6 +994,9 @@ def train_kernel_parity(stats, c=64):
             lambda: F.conv2d(to_nchw(cat), bf(w128), bf(b_dec0)),
             (conv_ops(b, u - 2, u - 2, 2 * c, c), nbytes(*crop_read(skip, up, off, w128, b_dec0)))),
         "dec3_conv1_relu_false": (*fw, *fwd(act(b, u - 2, u - 2, c), w64, bias(c))),
+        "up3_train": ("tconv2x2_bias", K.tconv2x2_bias, K.tconv2x2_bias_plain, up3,
+                      lambda: F.conv_transpose2d(to_nchw(up3[0]), bf(up3[1]), bf(up3[2]), stride=2),
+                      conv_ops(b, u // 2, u // 2, 2 * c, c, taps=4)),
     }
     # tier 2: enc1 on the pooled enc0 (254^2, 64 -> 128 -> 128), dec2 on
     # up2 (168^2) and skip1 (250^2) read at (41, 41), 256 -> 128 -> 128
@@ -1406,8 +1503,9 @@ def loop_path(gpu):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
+    global GPU
     gpu = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
-    gpu = gpu.splitlines()[0]
+    gpu = GPU = gpu.splitlines()[0]
     nvcc = run([nvcc_path(), "--version"]).splitlines()[-1]
     print(f"env: torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc {nvcc}, "
           f"device {torch.cuda.get_device_name(0)} ({gpu})", flush=True)

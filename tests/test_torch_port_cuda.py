@@ -23,8 +23,12 @@ output channels in its im2col and windowed forms, from 32- and
 cross image edges, one tap at a time in both forms, from two sources
 (64+32, 128+128, 32+96) at odd offsets, with the
 same bits on a second launch; the uncounted mma.sync reference, to which
-the fused enc0 and decoder tail are held bit for bit; and the wrappers'
-refusals.
+the fused enc0 and decoder tail are held bit for bit (the head through its
+MODE_HEAD); the head conv on the wgmma forward's head variant at 1-4
+classes and ragged sizes; the streaming wgmma tconv with each (dy, dx) tap
+alone at CO 128, ragged pixel counts, 32-, 96- and 256-channel inputs and
+three column groups, and its mma.sync reference; both new kernels with the
+same bits on a second launch; and the wrappers' refusals.
 
 Marked `cuda` and skipped without a card. The file imports no jax, so on a
 GPU machine it runs without the JAX package:
@@ -389,8 +393,9 @@ def test_enc0_fused(g, b, h, w):
 @pytest.mark.parametrize("nc,row_off,col_off", [(1, 3, 5), (2, 5, 2), (3, 0, 7), (4, 1, 1)])
 def test_dec_tail(g, nc, row_off, col_off):
     """Odd crop offsets, 1-4 classes, ragged tiles: the bits of the
-    mma.sync decoder-entry conv chained with the head kernel, and the fp32
-    plain version within both roundings."""
+    mma.sync decoder-entry conv chained with the mma.sync head (the
+    uncounted reference, whose order dec_tail sums in), and the fp32 plain
+    version within both roundings."""
     skip, up = _act(g, 2, 40, 38, 64), _act(g, 2, 27, 23, 64)
     w0, b0 = _w(g, 64, 128, 3, 3, fan=9 * 64), _b(g, 64)
     w1, b1 = _w(g, 64, 64, 3, 3, fan=9 * 64), _b(g, 64)
@@ -400,7 +405,7 @@ def test_dec_tail(g, nc, row_off, col_off):
     assert K.launch_counts()["dec_tail"] == 1
     assert got.shape == (2, 23, 19, nc) and got.dtype == torch.float32
     entry = K.conv3x3_mma_reference(skip, w0, b0, up=up, row_off=row_off, col_off=col_off)
-    chained = K.conv3x3_head(entry, w1, b1, kh, bh)
+    chained = K.conv3x3_mma_reference(entry, w1, b1, k_head=kh, b_head=bh)
     torch.cuda.synchronize()
     assert torch.equal(got, chained)
     y = K.dec_conv0_plain(skip.float(), up.float(), w0, b0, row_off, col_off)
@@ -634,3 +639,109 @@ def test_tier2_functions_count_under_the_dense_wrappers(g):
     _close(skip.grad[:, 5:25, 7:26], dcat[..., :128])
     assert not skip.grad[:, :5].any() and not skip.grad[:, 25:].any()
     _close(up.grad, dcat[..., 128:])
+
+
+# ------------------------------------ the head conv and the tconv on wgmma
+
+
+def _head_case(g, b, h, w, nc):
+    x = _act(g, b, h, w, 64)
+    wt, bias = _w(g, 64, 64, 3, 3, fan=9 * 64), _b(g, 64)
+    return x, wt, bias, _w(g, nc, 64, 1, 1, fan=nc), _b(g, nc)
+
+
+def _head_slack(x, wt, bias, kh):
+    a = K.conv3x3_bias_relu_plain(x.float(), wt, bias)
+    return HEAD_SLACK * to_nhwc(torch.nn.functional.conv2d(to_nchw(a).abs(), kh.abs()))
+
+
+@pytest.mark.parametrize("nc,b,h,w", [(1, 2, 25, 21), (2, 1, 10, 10), (3, 3, 11, 30),
+                                      (4, 2, 20, 13), (2, 1, 43, 9)])
+def test_conv3x3_head_wgmma(g, nc, b, h, w):
+    """The head variant of the wgmma forward at 1-4 classes: ragged 8x8
+    units on both edges (23 x 19 logits), one unit, units across images, a
+    last group short of units; f32 logits within the head's slack."""
+    x, wt, bias, kh, bh = _head_case(g, b, h, w, nc)
+    K.reset_launch_counts()
+    got = K.conv3x3_head(x, wt, bias, kh, bh)
+    assert K.launch_counts() == _only(conv3x3_head=1)
+    assert got.shape == (b, h - 2, w - 2, nc) and got.dtype == torch.float32
+    _close(got, K.conv3x3_head_plain(x.float(), wt, bias, kh, bh), _head_slack(x, wt, bias, kh))
+
+
+def test_conv3x3_head_mma_reference(g):
+    """The uncounted mma.sync head (MODE_HEAD) against the plain version,
+    and its refusals."""
+    x, wt, bias, kh, bh = _head_case(g, 2, 27, 23, 3)
+    K.reset_launch_counts()
+    got = K.conv3x3_mma_reference(x, wt, bias, k_head=kh, b_head=bh)
+    assert K.launch_counts() == _only()
+    _close(got, K.conv3x3_head_plain(x.float(), wt, bias, kh, bh), _head_slack(x, wt, bias, kh))
+    with pytest.raises(ValueError, match="both"):
+        K.conv3x3_mma_reference(x, wt, bias, k_head=kh)
+    with pytest.raises(ValueError, match="no pool"):
+        K.conv3x3_mma_reference(x, wt, bias, fuse_pool=True, k_head=kh, b_head=bh)
+
+
+@pytest.mark.parametrize("tap", range(4))
+def test_tconv2x2_each_tap(g, tap):
+    """One (dy, dx) tap at a time (the other taps' weights zero) at CO 128
+    (two column groups, the weights streamed), ragged 11 x 13 input: each
+    tap's columns land on output pixels (2r + dy, 2j + dx) only."""
+    x = _act(g, 2, 11, 13, 64)
+    wt, bias = _w(g, 64, 128, 2, 2, fan=4 * 128), _b(g, 128)
+    keep = torch.zeros(2, 2, device="cuda")
+    keep[tap // 2, tap % 2] = 1.0
+    wt = wt * keep
+    got = K.tconv2x2_bias(x, wt, bias)
+    ref = K.tconv2x2_bias_plain(x.float(), wt, bias)
+    _close(got, ref)
+    dy, dx = tap // 2, tap % 2
+    off = torch.ones(2, 2, dtype=torch.bool)
+    off[dy, dx] = False
+    rest = got.float().reshape(2, 11, 2, 13, 2, 128).permute(0, 1, 3, 2, 4, 5)[:, :, :, off]
+    assert torch.equal(rest, bias.to(torch.bfloat16).float().expand_as(rest))
+
+
+@pytest.mark.parametrize("b,h,w,ci,co", [
+    (1, 1, 1, 32, 64),      # one pixel: one tile of 128 rows, 127 past the end
+    (3, 7, 9, 128, 64),     # 189 pixels: a second tile of 61, resident weights
+    (2, 13, 21, 64, 192),   # three column groups: weights streamed
+    (1, 9, 15, 256, 64),    # four slices, more than the two weight stages: streamed
+    (4, 16, 8, 96, 64),     # 96 channels: the second slice half zero-filled
+    (2, 40, 33, 128, 64),   # ten tiles over rows and images
+])
+def test_tconv2x2_shapes(g, b, h, w, ci, co):
+    """The streaming wgmma tconv at ragged pixel counts, 32/96/256 input
+    channels, 64 and 192 output channels; one launch, counted."""
+    x = _act(g, b, h, w, ci)
+    wt, bias = _w(g, ci, co, 2, 2, fan=4 * co), _b(g, co)
+    K.reset_launch_counts()
+    got = K.tconv2x2_bias(x, wt, bias)
+    assert K.launch_counts() == _only(tconv2x2_bias=1)
+    assert got.shape == (b, 2 * h, 2 * w, co) and got.dtype == torch.bfloat16
+    _close(got, K.tconv2x2_bias_plain(x.float(), wt, bias))
+
+
+def test_tconv2x2_mma_reference(g):
+    """The uncounted mma.sync tconv against the plain version."""
+    x = _act(g, 2, 13, 21, 128)
+    wt, bias = _w(g, 128, 64, 2, 2, fan=4 * 64), _b(g, 64)
+    K.reset_launch_counts()
+    got = K.tconv2x2_mma_reference(x, wt, bias)
+    assert K.launch_counts() == _only()
+    _close(got, K.tconv2x2_bias_plain(x.float(), wt, bias))
+
+
+def test_head_and_tconv_repeat_their_bits(g):
+    """No atomics, a fixed summation order: two launches of the head
+    variant and of the tconv give the same bits."""
+    x, wt, bias, kh, bh = _head_case(g, 2, 30, 27, 2)
+    first, again = K.conv3x3_head(x, wt, bias, kh, bh), K.conv3x3_head(x, wt, bias, kh, bh)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    x = _act(g, 3, 17, 19, 128)
+    wt, bias = _w(g, 128, 64, 2, 2, fan=4 * 64), _b(g, 64)
+    first, again = K.tconv2x2_bias(x, wt, bias), K.tconv2x2_bias(x, wt, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)

@@ -4,8 +4,10 @@ tiles of 700^2) and the train step (batch 4 at 512^2) launch it with, in
 its two forms (im2col for one source without the pool, windowed 8x8 units
 otherwise): the ring fits a block's shared memory, the N tiles cover the
 output channels exactly, the units of the persistent grid cover every
-output pixel once per N block, and the tile fill the plan predicts. CPU
-only: the kernel itself is held to its plain version by
+output pixel once per N block, and the tile fill the plan predicts; the
+head variant (conv3x3_head: windowed, N = 64, the 1x1 weights in shared
+memory) at the serving path's 516^2 logits and at ragged sizes. CPU only:
+the kernel itself is held to its plain version by
 tests/test_torch_port_cuda.py on the card.
 """
 
@@ -193,22 +195,61 @@ def test_fwd_plan_tiles_and_grid(b, side, co, pool, sources, tiles, grid):
     assert (plan.tiles, plan.grid) == (tiles, grid)
 
 
-def test_mma_reference_needs_the_card():
-    """conv3x3_mma_reference runs the mma.sync kernel only: a CPU tensor
-    raises instead of running a plain version."""
+@pytest.mark.parametrize("head", [False, True])
+def test_mma_reference_needs_the_card(head):
+    """conv3x3_mma_reference runs the mma.sync kernel only, with or without
+    the head: a CPU tensor raises instead of running a plain version."""
     x = torch.zeros(1, 6, 6, 32, dtype=torch.bfloat16)
+    kw = {"k_head": torch.zeros(2, 64, 1, 1), "b_head": torch.zeros(2)} if head else {}
     with pytest.raises(RuntimeError, match="CUDA tensors only"):
-        K.conv3x3_mma_reference(x, torch.zeros(64, 32, 3, 3), torch.zeros(64))
+        K.conv3x3_mma_reference(x, torch.zeros(64, 32, 3, 3), torch.zeros(64), **kw)
+
+
+# ------------------------------------------------------------ the head variant
+
+
+@pytest.mark.parametrize("b,ho,wo", [(16, 516, 516), (2, 23, 19), (1, 5, 70), (3, 9, 11),
+                                     (1, 1, 1)])
+def test_head_plan_covers_every_logit_pixel(b, ho, wo):
+    """The head variant's plan (windowed 8x8 units, N = 64, one N block)
+    puts every logit pixel in exactly one unit: the serving path's 16 x
+    516^2, ragged units on both edges, a last group short of units, one
+    pixel."""
+    plan = K.fwd_plan(b, ho, wo, 64, SMS, head=True)
+    assert (plan.mode, plan.n, plan.stages) == ("window", 64, K.FWD_STAGES[64])
+    _, count = _pixel_counts(plan, b, ho, wo, 64)
+    assert (count == 1).all()
+    assert plan.grid == min(plan.tiles, SMS)
+
+
+def test_head_plan_fits_shared_memory():
+    """The head variant's ring, epilogue tiles and its MAX_HEAD_CLASSES x 64
+    f32 head weights fit a block, 1 KB more than the plain N = 64 ring; at
+    the serving path's 516^2 logits the 8x8 units fill 0.985 of 65 x 65
+    units an image."""
+    plan = K.fwd_plan(16, 516, 516, 64, SMS, head=True)
+    assert plan.smem == K.fwd_smem_bytes(64) + K.MAX_HEAD_CLASSES * 64 * 4
+    assert plan.smem <= K.SMEM_PER_BLOCK
+    assert plan.units == 16 * 65 * 65 and plan.tiles == 16900
+    assert plan.fill == pytest.approx((516 / 520) ** 2)
+    with pytest.raises(ValueError, match="head variant"):
+        K.fwd_plan(16, 516, 516, 128, SMS, head=True)
 
 
 @pytest.mark.parametrize("variant", sorted(fwd_variants.PATCHES))
 def test_fwd_variants_patch_the_source(variant):
     """ops/kernels/fwd_variants.py builds its A/B variants by replacing
-    lines of csrc/conv_fwd_wgmma.cu: each line it replaces is there exactly
-    once, and the launches it patches name configurations the plan mirrors."""
-    text = (build.CSRC / "conv_fwd_wgmma.cu").read_text()
+    lines of csrc/conv_fwd_wgmma.cu (or of the file SOURCE_OF names): each
+    line it replaces is there exactly once, and the launches it patches
+    name configurations the plans mirror."""
+    src = fwd_variants.SOURCE_OF.get(variant, "conv_fwd_wgmma.cu")
+    text = (build.CSRC / src).read_text()
     for old, _ in fwd_variants.PATCHES[variant]:
         assert text.count(old) == 1, old
+    text = (build.CSRC / "conv_fwd_wgmma.cu").read_text()
+    tconv = (build.CSRC / "tconv2x2_bias.cu").read_text()
+    assert f"constexpr int AST = {K.TCONV_STAGES[0]}, WST = {K.TCONV_STAGES[1]};" in tconv
+    assert f"MT = {K.TCONV_MT};" in tconv and f"NG = {K.TCONV_NG};" in tconv
     for n, (wst, bst) in K.FWD_STAGES.items():
         assert f"launch<{n}, {wst}, {bst}>(" in text
     assert f"launch_im2col<128, {K.FWD_IM2COL_STAGES}>(" in text

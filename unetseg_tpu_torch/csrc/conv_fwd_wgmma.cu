@@ -10,7 +10,9 @@
 // conv_cblock.py:118 conv3x3_cblock (conv3x3_cblock), conv3x3.py:893
 // dec_conv0_phase2 (dec_conv0) and conv3x3.py:1170 dec_conv0_lanes
 // (dec_conv0_dense). On NHWC the five are one function; the C entries of
-// conv3x3_bias_relu.cu and dec_conv0.cu launch it.
+// conv3x3_bias_relu.cu and dec_conv0.cu launch it. With the 1x1 head in
+// its epilogue it also replaces conv3x3.py:540 conv3x3_head_phase2 (entry
+// conv3x3_head.cu).
 //
 // GEMM view: M = output pixels, N = output channels, K = 9 taps x CI.
 // On an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) bytes bound enc0 conv1 (571
@@ -57,6 +59,18 @@
 //   on the address bits as TMA wrote them, so a start on any 128-byte row
 //   needs no base offset (the card tests hold every tap alone against the
 //   plain version).
+// - Head variant (conv3x3_head, the last decoder conv with the 1x1
+//   classifier: 64 -> 64 channels at 516^2 when serving): the windowed
+//   form at N = 64 as a template instantiation of its own (HEAD), its
+//   epilogue rounding bias + ReLU to bf16 into the warp's tile as below and
+//   then running the 1x1 head on it in f32 (head_rows): only nc f32 logits
+//   a pixel reach device memory. Its nine weight taps (one 64-channel
+//   slice) fit the weight stages: they are copied once per block and stay
+//   resident instead of streaming through the ring every tile (11% faster
+//   at 16 x 516^2, fwd_variants.py "head_streamed"). Replaces the mma.sync
+//   MODE_HEAD of conv_mma.cuh, which restaged the 9-tap weight slice of a
+//   16x16 tile every 32 channels between two barriers (22% of its
+//   operations bound).
 // - Epilogue: bias, ReLU when relu, rounded to bf16 into a 16-pixel x
 //   64-channel shared tile per consumer warp, 64 channels at a time, then
 //   stored as whole 128-byte pixel rows of 16-byte vectors, and the 2x2
@@ -94,61 +108,24 @@ constexpr int UPW = 2;                           // units a consumer warpgroup
 constexpr int EPI_ROWS = 16;                     // A rows a consumer warp holds
 constexpr int EPI_BYTES = CONSUMERS * 4 * EPI_ROWS * ROW;  // a warp's 16 x 64 bf16 each
 
+constexpr int HEAD_BYTES = unet::MAX_NC * SLICE * 4;  // the head variant's f32 1x1 weights
+
 // Shared memory of a configuration: 1 KB alignment slack, the window and
 // weight stages, the epilogue's tiles, a full and an empty mbarrier per
-// stage.
-constexpr int fwd_smem(int n, int wst, int bst) {
+// stage, and the head variant's 1x1 weights.
+constexpr int fwd_smem(int n, int wst, int bst, bool head = false) {
   return 1024 + wst * CONSUMERS * UPW * WIN_SLOT + bst * n * ROW + EPI_BYTES +
-         2 * (wst + bst) * 8;
+         2 * (wst + bst) * 8 + (head ? HEAD_BYTES : 0);
 }
 
-// D (64 x 64, f32) += A (64 x 16) B (16 x 64), both K-major in shared
-// memory (imm-trans-a = imm-trans-b = 0).
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// D (64 x 128, f32) += A (64 x 16) B (16 x 128), both K-major in shared
-// memory (imm-trans-a = imm-trans-b = 0).
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_n(float (&d)[N / 2], uint64_t da, uint64_t db) {
-  if constexpr (N == 128) wgmma_n128(d, da, db);
-  else wgmma_n64(d, da, db);
-}
+// The 1x1 head of the head variant: nc <= MAX_NC classes, weights (nc, 64)
+// f32 holding bf16 values, bias (nc,) f32, logits (B, Ho, Wo, nc) f32.
+struct Head {
+  const float* w;
+  const float* b;
+  float* logits;
+  int nc;
+};
 
 // Image b and origin (uy, ux) of unit ui, units in (image, row, column) order.
 __device__ __forceinline__ void unit_origin(int ui, int nuy, int nux, int& b, int& uy, int& ux) {
@@ -167,6 +144,7 @@ struct Consumer {
   const float* bias;
   __nv_bfloat16* y;
   __nv_bfloat16* pooled;
+  bool resident;  // weight stage s * 9 + tap holds (tap, slice s) for good
 };
 
 // The ring loop of one tile into acc; the ring counters wi (window stages)
@@ -185,8 +163,8 @@ __device__ __forceinline__ void mainloop(float (&acc)[UPW][N / 2], const Consume
     const uint32_t wbase = f.base + ws * W_STAGE + f.wg * UPW * WIN_SLOT;
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
-      const int bs = bi % BST;
-      mbar_wait(f.bfull0 + 8 * bs, (bi / BST) & 1);
+      const int bs = f.resident ? s * 9 + tap : bi % BST;
+      mbar_wait(f.bfull0 + 8 * bs, f.resident ? 0 : (bi / BST) & 1);
       const uint32_t a0 = wbase + ((tap / 3) * WIN + tap % 3) * ROW;
       const uint32_t b0 = f.bbase + bs * B_STAGE;
 #pragma unroll
@@ -205,7 +183,7 @@ __device__ __forceinline__ void mainloop(float (&acc)[UPW][N / 2], const Consume
       if (s > 0 || tap > 0) {  // the group before this one is done: release its stages
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
         if (f.lane == 0) {
-          mbar_arrive(f.bempty0 + 8 * ((bi - 1) % BST));
+          if (!f.resident) mbar_arrive(f.bempty0 + 8 * ((bi - 1) % BST));
           if (tap == 0) mbar_arrive(f.wempty0 + 8 * ((wi - 1) % WST));
         }
       }
@@ -220,8 +198,49 @@ template <int WST, int BST>
 __device__ __forceinline__ void drain(const Consumer& f, int wi, int bi) {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   if (f.lane == 0) {
-    mbar_arrive(f.bempty0 + 8 * ((bi - 1) % BST));
+    if (!f.resident) mbar_arrive(f.bempty0 + 8 * ((bi - 1) % BST));
     mbar_arrive(f.wempty0 + 8 * ((wi - 1) % WST));
+  }
+}
+
+// The head variant's epilogue of one unit's 16 rows in this warp's tile
+// (bias, ReLU and bf16 rounding done): lane (half, r) = (lane / 16, lane %
+// 16) takes row r's channels 32 half .. 32 half + 31 (a quarter warp reads
+// eight rows' 16-byte chunks: no bank conflict) against the head weights
+// in shared memory (one address per quarter warp: a broadcast), f32
+// products and sums; a shuffle adds the two halves and half 0 writes the
+// pixel's nc logits. The 64-channel activation is never stored.
+__device__ __forceinline__ void head_rows(const Consumer& f, const Head& hd, const float* hw,
+                                          int b, int uy, int ux) {
+  const int r = f.lane & 15, half = f.lane >> 4;
+  float l[unet::MAX_NC];
+#pragma unroll
+  for (int n = 0; n < unet::MAX_NC; ++n) l[n] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int c = 4 * half + k;  // channels 8c .. 8c + 7
+    const uint4 v = *reinterpret_cast<const uint4*>(f.etile + r * ROW + ((c ^ (r & 7)) << 4));
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float2 a0 = __bfloat1622float2(a2[2 * e]), a1 = __bfloat1622float2(a2[2 * e + 1]);
+#pragma unroll
+      for (int n = 0; n < unet::MAX_NC; ++n) {
+        if (n < hd.nc) {
+          const float4 w = *reinterpret_cast<const float4*>(hw + n * SLICE + 8 * c + 4 * e);
+          l[n] = fmaf(a1.y, w.w, fmaf(a1.x, w.z, fmaf(a0.y, w.y, fmaf(a0.x, w.x, l[n]))));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < unet::MAX_NC; ++n) l[n] += __shfl_xor_sync(0xffffffffu, l[n], 16);
+  const int oy = uy + 2 * f.warp + (r >> 3), ox = ux + (r & 7);
+  if (half == 0 && oy < f.Ho && ox < f.Wo) {
+    float* out = hd.logits + (((size_t)b * f.Ho + oy) * f.Wo + ox) * hd.nc;
+#pragma unroll
+    for (int n = 0; n < unet::MAX_NC; ++n)
+      if (n < hd.nc) out[n] = l[n] + __ldg(hd.b + n);
   }
 }
 
@@ -231,9 +250,12 @@ __device__ __forceinline__ void drain(const Consumer& f, int wi, int bi) {
 // tile (16-byte chunks swizzled by row: conflict-free both ways), then
 // stores whole 128-byte pixel rows and their 2x2 pool.
 // With LINEAR a unit is 64 consecutive output pixels (the im2col kernel's
-// rows, across rows and images) and there is no pool.
-template <int N, bool LINEAR = false>
-__device__ __forceinline__ void epilogue(float (&acc)[UPW][N / 2], const Consumer& f, int t) {
+// rows, across rows and images) and there is no pool. With HEAD (N = 64)
+// the rounded tile goes through the 1x1 head (head_rows) instead of being
+// stored.
+template <int N, bool LINEAR = false, bool HEAD = false>
+__device__ __forceinline__ void epilogue(float (&acc)[UPW][N / 2], const Consumer& f, int t,
+                                         const Head& hd = Head{}, const float* hw = nullptr) {
   const int n0 = (t % f.nb) * N, grp = t / f.nb;
   const int g = f.lane >> 2, q = f.lane & 3;
 #pragma unroll
@@ -260,40 +282,45 @@ __device__ __forceinline__ void epilogue(float (&acc)[UPW][N / 2], const Consume
         *reinterpret_cast<__nv_bfloat162*>(e + 8 * ROW) = h1;   // row g + 8
       }
       __syncwarp();
-      // row r of the tile is unit pixel (2 warp + r / 8, r % 8); lanes
-      // 8i..8i+7 store one pixel's 128 bytes
+      if constexpr (HEAD) {
+        head_rows(f, hd, hw, b, uy, ux);
+      } else {
+        // row r of the tile is unit pixel (2 warp + r / 8, r % 8); lanes
+        // 8i..8i+7 store one pixel's 128 bytes
 #pragma unroll
-      for (int i = f.lane; i < EPI_ROWS * 8; i += 32) {
-        const int r = i >> 3, c = i & 7;
-        const uint4 v = *reinterpret_cast<const uint4*>(f.etile + r * ROW + ((c ^ (r & 7)) << 4));
-        if (LINEAR) {
-          const int pix = ui * 64 + EPI_ROWS * f.warp + r;
-          if (pix < f.npix)
-            *reinterpret_cast<uint4*>(f.y + (size_t)pix * f.CO + n0 + h * SLICE + 8 * c) = v;
-          continue;
-        }
-        const int oy = uy + 2 * f.warp + (r >> 3), ox = ux + (r & 7);
-        if (oy < f.Ho && ox < f.Wo)
-          *reinterpret_cast<uint4*>(f.y + (((size_t)b * f.Ho + oy) * f.Wo + ox) * f.CO + n0 +
-                                    h * SLICE + 8 * c) = v;
-      }
-      // pooled pixel (warp, lane / 8) of the unit, chunk lane % 8
-      if (!LINEAR && f.pooled != nullptr) {
-        const int p = f.lane >> 3, c = f.lane & 7;
-        const int py = uy / 2 + f.warp, px = ux / 2 + p;
-        if (py < f.Ho / 2 && px < f.Wo / 2) {
-          uint4 m = *reinterpret_cast<const uint4*>(f.etile + 2 * p * ROW + ((c ^ (2 * p)) << 4));
-          __nv_bfloat162* mv = reinterpret_cast<__nv_bfloat162*>(&m);
-#pragma unroll
-          for (int k = 1; k < 4; ++k) {
-            const int r = 2 * p + (k & 1) + 8 * (k >> 1);
-            uint4 o = *reinterpret_cast<const uint4*>(f.etile + r * ROW + ((c ^ (r & 7)) << 4));
-            const __nv_bfloat162* ov = reinterpret_cast<const __nv_bfloat162*>(&o);
-#pragma unroll
-            for (int v = 0; v < 4; ++v) mv[v] = __hmax2(mv[v], ov[v]);
+        for (int i = f.lane; i < EPI_ROWS * 8; i += 32) {
+          const int r = i >> 3, c = i & 7;
+          const uint4 v =
+              *reinterpret_cast<const uint4*>(f.etile + r * ROW + ((c ^ (r & 7)) << 4));
+          if (LINEAR) {
+            const int pix = ui * 64 + EPI_ROWS * f.warp + r;
+            if (pix < f.npix)
+              *reinterpret_cast<uint4*>(f.y + (size_t)pix * f.CO + n0 + h * SLICE + 8 * c) = v;
+            continue;
           }
-          const size_t pix = ((size_t)b * (f.Ho / 2) + py) * (f.Wo / 2) + px;
-          *reinterpret_cast<uint4*>(f.pooled + pix * f.CO + n0 + h * SLICE + 8 * c) = m;
+          const int oy = uy + 2 * f.warp + (r >> 3), ox = ux + (r & 7);
+          if (oy < f.Ho && ox < f.Wo)
+            *reinterpret_cast<uint4*>(f.y + (((size_t)b * f.Ho + oy) * f.Wo + ox) * f.CO + n0 +
+                                      h * SLICE + 8 * c) = v;
+        }
+        // pooled pixel (warp, lane / 8) of the unit, chunk lane % 8
+        if (!LINEAR && f.pooled != nullptr) {
+          const int p = f.lane >> 3, c = f.lane & 7;
+          const int py = uy / 2 + f.warp, px = ux / 2 + p;
+          if (py < f.Ho / 2 && px < f.Wo / 2) {
+            uint4 m = *reinterpret_cast<const uint4*>(f.etile + 2 * p * ROW + ((c ^ (2 * p)) << 4));
+            __nv_bfloat162* mv = reinterpret_cast<__nv_bfloat162*>(&m);
+#pragma unroll
+            for (int k = 1; k < 4; ++k) {
+              const int r = 2 * p + (k & 1) + 8 * (k >> 1);
+              uint4 o = *reinterpret_cast<const uint4*>(f.etile + r * ROW + ((c ^ (r & 7)) << 4));
+              const __nv_bfloat162* ov = reinterpret_cast<const __nv_bfloat162*>(&o);
+#pragma unroll
+              for (int v = 0; v < 4; ++v) mv[v] = __hmax2(mv[v], ov[v]);
+            }
+            const size_t pix = ((size_t)b * (f.Ho / 2) + py) * (f.Wo / 2) + px;
+            *reinterpret_cast<uint4*>(f.pooled + pix * f.CO + n0 + h * SLICE + 8 * c) = m;
+          }
         }
       }
       __syncwarp();
@@ -301,14 +328,14 @@ __device__ __forceinline__ void epilogue(float (&acc)[UPW][N / 2], const Consume
   }
 }
 
-template <int N, int WST, int BST>
+template <int N, int WST, int BST, bool HEAD = false>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 conv_fwd_kernel(const __grid_constant__ CUtensorMap xmap0,
                 const __grid_constant__ CUtensorMap xmap1,
                 const __grid_constant__ CUtensorMap wmap, int C0, int off_y, int off_x,
                 int slices0, int slices, const float* __restrict__ bias, int relu, int B,
                 int Ho, int Wo, int CO, __nv_bfloat16* __restrict__ y,
-                __nv_bfloat16* __restrict__ pooled) {
+                __nv_bfloat16* __restrict__ pooled, const Head hd) {
   constexpr int UPB = CONSUMERS * UPW;
   constexpr int W_STAGE = UPB * WIN_SLOT, B_STAGE = N * ROW;
   constexpr int NACC = N / 2;
@@ -317,12 +344,16 @@ conv_fwd_kernel(const __grid_constant__ CUtensorMap xmap0,
   const uint32_t bbase = base + WST * W_STAGE, ebase = bbase + BST * B_STAGE;
   const uint32_t wfull0 = ebase + EPI_BYTES, wempty0 = wfull0 + 8 * WST;
   const uint32_t bfull0 = wempty0 + 8 * WST, bempty0 = bfull0 + 8 * BST;
+  float* hw = reinterpret_cast<float*>(smem_raw + (bempty0 + 8 * BST - smem_u32(smem_raw)));
 
   const int tid = threadIdx.x;
   const int nux = (Wo + UNIT - 1) / UNIT, nuy = (Ho + UNIT - 1) / UNIT;
   const int units = B * nuy * nux;
   const int nb = CO / N;
   const int ntiles = (units + UPB - 1) / UPB * nb;
+  // the head variant (one N block): its weight taps fit the weight stages
+  // and are copied once, not once a tile
+  const bool resident = HEAD && nb == 1 && slices * 9 <= BST;
 
   if (tid == 0) {
     for (int s = 0; s < WST; ++s) {
@@ -335,10 +366,17 @@ conv_fwd_kernel(const __grid_constant__ CUtensorMap xmap0,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (HEAD)
+    for (int i = tid; i < hd.nc * SLICE; i += FWD_THREADS) hw[i] = hd.w[i];
   __syncthreads();
 
   if (tid >= CONSUMERS * 128) {  // the producer warp: one thread issues the copies
     if (tid == CONSUMERS * 128) {
+      if (resident)
+        for (int i = 0; i < slices * 9; ++i) {
+          mbar_expect_tx(bfull0 + 8 * i, B_STAGE);
+          tma_load_3d(bbase + i * B_STAGE, &wmap, bfull0 + 8 * i, (i / 9) * SLICE, i % 9, 0);
+        }
       int wi = 0, bi = 0;
       for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
         const int n0 = (t % nb) * N, grp = t / nb;
@@ -360,7 +398,7 @@ conv_fwd_kernel(const __grid_constant__ CUtensorMap xmap0,
                         uy + oy, b);
           }
           ++wi;
-          for (int tap = 0; tap < 9; ++tap) {
+          for (int tap = 0; tap < 9 && !resident; ++tap) {
             const int bs = bi % BST;
             if (bi >= BST) mbar_wait(bempty0 + 8 * bs, (bi / BST - 1) & 1);
             mbar_expect_tx(bfull0 + 8 * bs, B_STAGE);
@@ -378,7 +416,7 @@ conv_fwd_kernel(const __grid_constant__ CUtensorMap xmap0,
   const Consumer f{base, bbase, wfull0, wempty0, bfull0, bempty0,
                    smem_raw + (ebase - smem_u32(smem_raw)) + (wg * 4 + warp) * EPI_ROWS * ROW,
                    slices, units, nuy, nux, nb, Ho, Wo, CO, relu, wg, warp, tid & 31,
-                   B * Ho * Wo, bias, y, pooled};
+                   B * Ho * Wo, bias, y, pooled, resident};
   // One set of accumulators, and the two warpgroups in step. A second set
   // for N = 64, with a tile's epilogue between the next tile's first wgmma
   // group and its wait, made ptxas serialize the wgmma groups (its C7518
@@ -390,7 +428,7 @@ conv_fwd_kernel(const __grid_constant__ CUtensorMap xmap0,
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
     mainloop<N, WST, BST>(acc, f, wi, bi);
     drain<WST, BST>(f, wi, bi);
-    epilogue<N>(acc, f, t);
+    epilogue<N, false, HEAD>(acc, f, t, hd, hw);
   }
 }
 
@@ -443,7 +481,7 @@ conv_fwd_im2col_kernel(const __grid_constant__ CUtensorMap xmap,
   const Consumer f{base, 0, 0, 0, 0, 0,
                    smem_raw + (ebase - smem_u32(smem_raw)) + (wg * 4 + warp) * EPI_ROWS * ROW,
                    slices, units, 0, 0, nb, Ho, Wo, CO, relu, wg, warp, tid & 31, npix,
-                   bias, y, nullptr};
+                   bias, y, nullptr, false};
   float acc[UPW][NACC];
   int i = 0;
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
@@ -504,22 +542,38 @@ int launch_im2col(unet::Src s0, const CUtensorMap& wmap, int slices, const float
   return (int)cudaGetLastError();
 }
 
-template <int N, int WST, int BST>
+template <int N, int WST, int BST, bool HEAD = false>
 int launch(const CUtensorMap& xmap0, const CUtensorMap& xmap1, const CUtensorMap& wmap, int C0,
            int off_y, int off_x, int slices0, int slices, const float* bias, int relu, int B,
            int Ho, int Wo, int CO, __nv_bfloat16* y, __nv_bfloat16* pooled, int sms,
-           cudaStream_t st) {
-  constexpr int smem = fwd_smem(N, WST, BST);
+           cudaStream_t st, const Head& hd = Head{}) {
+  constexpr int smem = fwd_smem(N, WST, BST, HEAD);
   static_assert(smem <= SMEM_PER_BLOCK, "stages exceed the 227 KB a block can use");
-  auto kernel = conv_fwd_kernel<N, WST, BST>;
+  auto kernel = conv_fwd_kernel<N, WST, BST, HEAD>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const long long units = (long long)B * ((Ho + UNIT - 1) / UNIT) * ((Wo + UNIT - 1) / UNIT);
   const long long tiles = (units + CONSUMERS * UPW - 1) / (CONSUMERS * UPW) * (CO / N);
   const int grid = (int)(tiles < sms ? tiles : sms);
   kernel<<<grid, FWD_THREADS, smem, st>>>(xmap0, xmap1, wmap, C0, off_y, off_x, slices0, slices,
-                                          bias, relu, B, Ho, Wo, CO, y, pooled);
+                                          bias, relu, B, Ho, Wo, CO, y, pooled, hd);
   return (int)cudaGetLastError();
+}
+
+// The OHWI weights (CO, 3, 3, CI) as a (CO, 9, CI) map: a box is one tap's
+// N x 64 tile, N = 128 where it divides CO, else 64.
+int weight_map(CUtensorMap* wmap, const void* w, int CI, int CO) {
+  const cuuint64_t dims[3] = {(cuuint64_t)CI, 9, (cuuint64_t)CO};
+  const cuuint64_t strides[2] = {(cuuint64_t)CI * 2, (cuuint64_t)9 * CI * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)SLICE, 1, (cuuint32_t)(CO % 128 == 0 ? 128 : 64)};
+  return bf16_map(wmap, w, 3, dims, strides, box);
+}
+
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
 }
 
 }  // namespace
@@ -530,23 +584,15 @@ int launch_conv_fwd_wgmma(Src s0, Src s1, const void* w, const void* bias, int r
                           int Ho, int Wo, int CO, void* y, void* pooled, void* stream) {
   const int CI = s0.C + s1.C;
   CUtensorMap xmap0, xmap1, wmap;
+  int sms = 0;
   int e = nhwc_map(&xmap0, s0.p, B, s0.H, s0.W, s0.C, WIN, WIN);
   if (e == 0 && s1.C > 0) e = nhwc_map(&xmap1, s1.p, B, s1.H, s1.W, s1.C, WIN, WIN);
-  if (e == 0) {  // the OHWI weights as (CO, 9, CI): a box is one tap's N x 64 tile
-    const cuuint64_t dims[3] = {(cuuint64_t)CI, 9, (cuuint64_t)CO};
-    const cuuint64_t strides[2] = {(cuuint64_t)CI * 2, (cuuint64_t)9 * CI * 2};
-    const cuuint32_t box[3] = {(cuuint32_t)SLICE, 1, (cuuint32_t)(CO % 128 == 0 ? 128 : 64)};
-    e = bf16_map(&wmap, w, 3, dims, strides, box);
-  }
+  if (e == 0) e = weight_map(&wmap, w, CI, CO);
+  if (e == 0) e = sm_count(&sms);
   if (e != 0) return e;
   if (s1.C == 0) xmap1 = xmap0;
   const int slices0 = (s0.C + SLICE - 1) / SLICE;
   const int slices = slices0 + (s1.C + SLICE - 1) / SLICE;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
   const float* b = (const float*)bias;
   __nv_bfloat16* yo = (__nv_bfloat16*)y;
   __nv_bfloat16* po = (__nv_bfloat16*)pooled;
@@ -561,6 +607,22 @@ int launch_conv_fwd_wgmma(Src s0, Src s1, const void* w, const void* bias, int r
                             B, Ho, Wo, CO, yo, po, sms, st);
   return launch<128, 2, 6>(xmap0, xmap1, wmap, s0.C, s0.off_y, s0.off_x, slices0, slices, b, relu,
                            B, Ho, Wo, CO, yo, po, sms, st);
+}
+
+int launch_conv_head_wgmma(Src s0, const void* w, const void* bias, const void* head_w,
+                           const void* head_b, int nc, int B, int Ho, int Wo, void* logits,
+                           void* stream) {
+  CUtensorMap xmap, wmap;
+  int sms = 0;
+  int e = nhwc_map(&xmap, s0.p, B, s0.H, s0.W, s0.C, WIN, WIN);
+  if (e == 0) e = weight_map(&wmap, w, s0.C, SLICE);
+  if (e == 0) e = sm_count(&sms);
+  if (e != 0) return e;
+  const int slices = (s0.C + SLICE - 1) / SLICE;
+  const Head hd{(const float*)head_w, (const float*)head_b, (float*)logits, nc};
+  return launch<64, 2, 13, true>(xmap, xmap, wmap, s0.C, 0, 0, slices, slices,
+                                 (const float*)bias, 1, B, Ho, Wo, SLICE, nullptr, nullptr, sms,
+                                 (cudaStream_t)stream, hd);
 }
 
 }  // namespace unet

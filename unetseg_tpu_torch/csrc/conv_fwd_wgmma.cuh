@@ -1,7 +1,7 @@
 // The forward implicit-GEMM 3x3 convolution on wgmma fed by a TMA ring
 // (conv_fwd_wgmma.cu): the multi-channel path of conv3x3_bias_relu.cu
-// (conv3x3_bias_relu, conv3x3_dense, conv3x3_cblock) and dec_conv0.cu
-// (dec_conv0, dec_conv0_dense).
+// (conv3x3_bias_relu, conv3x3_dense, conv3x3_cblock), dec_conv0.cu
+// (dec_conv0, dec_conv0_dense) and conv3x3_head.cu (conv3x3_head).
 #pragma once
 
 #include "conv_mma.cuh"
@@ -17,5 +17,13 @@ namespace unet {
 // of a failed tensor-map encoding.
 int launch_conv_fwd_wgmma(Src s0, Src s1, const void* w, const void* bias, int relu, int B,
                           int Ho, int Wo, int CO, void* y, void* pooled, void* stream);
+
+// logits (B, Ho, Wo, nc) f32 = the 1x1 head (head_w (nc, 64) f32 holding
+// bf16 values, head_b (nc,) f32; 1 <= nc <= MAX_NC) over ReLU(conv3x3(s0)
+// + bias) rounded to bf16, s0 read at (0, 0); 64 output channels, weights
+// (64, 3, 3, s0.C) bf16, bias (64,) f32. Returns as launch_conv_fwd_wgmma.
+int launch_conv_head_wgmma(Src s0, const void* w, const void* bias, const void* head_w,
+                           const void* head_b, int nc, int B, int Ho, int Wo, void* logits,
+                           void* stream);
 
 }  // namespace unet

@@ -35,11 +35,16 @@ kernel's counterpart counts its launches apart:
 With more than one input channel, conv3x3_bias_relu, conv3x3_dense,
 conv3x3_cblock, dec_conv0 and dec_conv0_dense launch csrc/conv_fwd_wgmma.cu
 (wgmma fed by a TMA ring, in an im2col form for one source without the
-pool at N = 128 and a windowed form otherwise); `fwd_plan` mirrors its
-launch plan. `conv3x3_mma_reference` runs the mma.sync implicit GEMM that
-they launched before (csrc/conv_mma.cuh), which the fused enc0_fused and
-dec_tail kernels still sum like: uncounted, on no path, for the card's
-bit-for-bit checks and timings.
+pool at N = 128 and a windowed form otherwise), and conv3x3_head its
+windowed form at N = 64 with the 1x1 head in the epilogue; `fwd_plan`
+mirrors its launch plan. `conv3x3_mma_reference` runs the mma.sync
+implicit GEMM that they launched before (csrc/conv_mma.cuh), with the head
+when given one, which the fused enc0_fused and dec_tail kernels still sum
+like: uncounted, on no path, for the card's bit-for-bit checks and
+timings. tconv2x2_bias launches a streaming wgmma GEMM with resident
+weights (csrc/tconv2x2_bias.cu); `tconv_plan` and `tconv_store_offsets`
+mirror its tiles and its pixel-shuffle stores, and `tconv2x2_mma_reference`
+runs the mma.sync kernel it replaced, uncounted, for the card's timings.
 """
 
 from __future__ import annotations
@@ -77,7 +82,16 @@ FWD_WIN_SLOT = -(-FWD_WIN * FWD_WIN * 2 * FWD_SLICE // 1024) * 1024
 FWD_EPI_BYTES = FWD_CONSUMERS * 4 * 16 * 2 * FWD_SLICE
 FWD_STAGES = {64: (2, 13), 128: (2, 6)}  # window: (window stages, weight stages)
 FWD_IM2COL_STAGES = 4  # at N = 128
+FWD_HEAD_BYTES = MAX_HEAD_CLASSES * FWD_SLICE * 4  # the head variant's f32 1x1 weights
 SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory an H100 block can use
+
+# csrc/tconv2x2_bias.cu's launch plan: tiles of TCONV_MT consecutive input
+# pixels x TCONV_NG of the GEMM's 4 CO columns ((dy, dx, co) order), two
+# consumer warpgroups of 64 pixels, an A ring of TCONV_STAGES[0] stages of
+# 128 pixels x 64 channels, a weight ring of TCONV_STAGES[1] stages of 256
+# columns x 64 channels (resident where one column group has at most that
+# many slices), a 16 x 64 bf16 epilogue tile per consumer warp.
+TCONV_MT, TCONV_NG, TCONV_STAGES = 128, 256, (4, 2)
 
 
 class FwdPlan(NamedTuple):
@@ -91,11 +105,12 @@ class FwdPlan(NamedTuple):
     fill: float  # output pixels / pixels the tiles compute
 
 
-def fwd_smem_bytes(n: int, mode: str = "window") -> int:
+def fwd_smem_bytes(n: int, mode: str = "window", head: bool = False) -> int:
     """1 KB of alignment slack, the stages, the epilogue tiles and a full
-    and an empty mbarrier per stage. A window stage holds one 1 KB-aligned
-    window per unit, a weight stage n rows of 128 bytes; an im2col stage
-    holds 256 pixels of 128 bytes and the n x 64 weight tile."""
+    and an empty mbarrier per stage (and the head variant's 1x1 weights).
+    A window stage holds one 1 KB-aligned window per unit, a weight stage
+    n rows of 128 bytes; an im2col stage holds 256 pixels of 128 bytes and
+    the n x 64 weight tile."""
     row = 2 * FWD_SLICE
     if mode == "im2col":
         st = FWD_IM2COL_STAGES
@@ -103,14 +118,17 @@ def fwd_smem_bytes(n: int, mode: str = "window") -> int:
                 + 2 * st * 8)
     wst, bst = FWD_STAGES[n]
     return (1024 + wst * FWD_CONSUMERS * FWD_UPW * FWD_WIN_SLOT + bst * n * row
-            + FWD_EPI_BYTES + 2 * (wst + bst) * 8)
+            + FWD_EPI_BYTES + 2 * (wst + bst) * 8 + (FWD_HEAD_BYTES if head else 0))
 
 
 def fwd_plan(bsz: int, ho: int, wo: int, co: int, sm_count: int, pool: bool = False,
-             sources: int = 1) -> FwdPlan:
+             sources: int = 1, head: bool = False) -> FwdPlan:
     """The launch plan of csrc/conv_fwd_wgmma.cu for outputs (bsz, ho, wo,
-    co) from `sources` inputs, with or without the fused 2x2 pool."""
+    co) from `sources` inputs, with or without the fused 2x2 pool; `head`
+    is conv3x3_head's variant (co 64: windowed, the logits of (ho, wo))."""
     n = 128 if co % 128 == 0 else 64
+    if head and (co != 64 or pool or sources != 1):
+        raise ValueError("the head variant has one source, no pool and 64 channels")
     upb = FWD_CONSUMERS * FWD_UPW
     if sources == 1 and not pool and n == 128:
         units = -(-bsz * ho * wo // 64)
@@ -119,8 +137,47 @@ def fwd_plan(bsz: int, ho: int, wo: int, co: int, sm_count: int, pool: bool = Fa
                        tiles, min(tiles, sm_count), bsz * ho * wo / (-(-units // upb) * upb * 64))
     units = bsz * -(-ho // FWD_UNIT) * -(-wo // FWD_UNIT)
     tiles = -(-units // upb) * (co // n)
-    return FwdPlan("window", n, FWD_STAGES[n], fwd_smem_bytes(n), units, tiles,
+    return FwdPlan("window", n, FWD_STAGES[n], fwd_smem_bytes(n, head=head), units, tiles,
                    min(tiles, sm_count), bsz * ho * wo / (units * FWD_UNIT * FWD_UNIT))
+
+
+class TconvPlan(NamedTuple):
+    nb: int  # column groups of TCONV_NG
+    slices: int  # 64-channel slices of CI
+    resident: bool  # the weights loaded once per block
+    mtiles: int  # tiles of TCONV_MT input pixels
+    tiles: int  # (pixel tile, column group) tiles
+    grid: int  # blocks of the persistent grid
+    smem: int  # dynamic shared memory bytes of a block
+
+
+def tconv_plan(bsz: int, h: int, w: int, ci: int, co: int, sm_count: int) -> TconvPlan:
+    """The launch plan of csrc/tconv2x2_bias.cu for x (bsz, h, w, ci) and
+    co output channels: block i walks tiles i, i + grid, ...; tile t is
+    column group t % nb of pixel tile t // nb."""
+    nb, slices = 4 * co // TCONV_NG, -(-ci // FWD_SLICE)
+    mtiles = -(-bsz * h * w // TCONV_MT)
+    ast, wst = TCONV_STAGES
+    row = 2 * FWD_SLICE
+    smem = (1024 + ast * TCONV_MT * row + wst * TCONV_NG * row + FWD_EPI_BYTES
+            + 2 * (ast + wst) * 8)
+    return TconvPlan(nb, slices, nb == 1 and slices <= wst, mtiles, mtiles * nb,
+                     min(mtiles * nb, sm_count), smem)
+
+
+def tconv_store_offsets(bsz: int, h: int, w: int, co: int) -> np.ndarray:
+    """(B h w, 4 co / 64) int64: where csrc/tconv2x2_bias.cu's epilogue
+    stores GEMM row p (input pixel (b, r, j)) and its 64 columns 64 k ..
+    64 k + 63: the flat offset in y (bsz, 2h, 2w, co) of those 64
+    contiguous channels, output pixel (2r + dy, 2j) plus `off` channels
+    (the columns' (dy, dx, co) order puts dx co + co there)."""
+    p = np.arange(bsz * h * w, dtype=np.int64)[:, None]
+    col = np.arange(0, 4 * co, FWD_SLICE, dtype=np.int64)[None, :]
+    b, rem = np.divmod(p, h * w)
+    r, j = np.divmod(rem, w)
+    dy = col // (2 * co)
+    off = col - dy * 2 * co
+    return ((b * 2 * h + 2 * r + dy) * 2 * w + 2 * j) * co + off
 
 
 def fwd_tile_units(plan: FwdPlan, bsz: int, ho: int, wo: int) -> List[np.ndarray]:
@@ -242,6 +299,14 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.float().contiguous()
 
 
+def _tconv_weights(w: torch.Tensor) -> torch.Tensor:
+    """(CI, CO, 2, 2) -> contiguous bf16 (4 CO, CI), GEMM column (2 dy +
+    dx) CO + co: the (dy, dx, co) order that makes 2 CO columns of one dy
+    one contiguous run of output pixels (2r + dy, 2j) and (2r + dy, 2j + 1)."""
+    ci, co = w.shape[0], w.shape[1]
+    return w.to(torch.bfloat16).permute(2, 3, 1, 0).reshape(4 * co, ci).contiguous()
+
+
 def _head(k_head: torch.Tensor, b_head: torch.Tensor, co: int):
     """The head's (NC, CO) kernel as bf16-rounded f32 values, and its bias."""
     nc = k_head.shape[0]
@@ -316,13 +381,23 @@ def _launch_dec_conv0(name, skip, up, w, b, row_off, col_off, relu):
 def conv3x3_mma_reference(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, fuse_pool: bool = False,
     relu: bool = True, up: Optional[torch.Tensor] = None, row_off: int = 0, col_off: int = 0,
+    k_head: Optional[torch.Tensor] = None, b_head: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The mma.sync forward (csrc/conv_mma.cuh) on CUDA tensors, uncounted:
     conv3x3_bias_relu's function for x alone (CI % 32 == 0), dec_conv0's
-    with `up` (x is the skip, read at (row_off, col_off)). The summation
-    order of enc0_fused and dec_tail; no serving or train path calls it."""
+    with `up` (x is the skip, read at (row_off, col_off)), conv3x3_head's
+    with `k_head` and `b_head` (its MODE_HEAD: x alone, CO == 64, ReLU, no
+    pool). The summation order of enc0_fused and dec_tail; no serving or
+    train path calls it."""
     if x.device.type != "cuda":
         raise RuntimeError("conv3x3_mma_reference runs the mma.sync kernel: CUDA tensors only")
+    if (k_head is None) != (b_head is None):
+        raise ValueError("the head needs both k_head and b_head")
+    if k_head is not None:
+        if up is not None or fuse_pool or not relu:
+            raise ValueError("the mma.sync head takes x alone, with the ReLU and no pool")
+        return _launch_head("conv3x3_mma_reference", "conv3x3_head_mma_reference_bf16", x, w, b,
+                            k_head, b_head)
     bsz, hs, ws, c0 = x.shape
     c1 = 0 if up is None else up.shape[3]
     co = w.shape[0]
@@ -347,6 +422,55 @@ def conv3x3_mma_reference(
     )
     _raise_on(err, "conv3x3_mma_reference")
     return (y, pooled) if fuse_pool else y
+
+
+def _launch_head(name, entry, x, w, b, k_head, b_head):
+    """A head kernel (C entry `entry` of csrc/conv3x3_head.cu) on CUDA
+    tensors; the caller counts the launch."""
+    bsz, h, wd, ci = x.shape
+    co = w.shape[0]
+    if tuple(w.shape) != (co, ci, 3, 3) or tuple(b.shape) != (co,):
+        raise ValueError("head conv weights do not fit x")
+    kh, bh = _head(k_head, b_head, co)
+    _check_act("x", x)
+    _check_co(co, exact=64)
+    if h < 3 or wd < 3:
+        raise ValueError(f"input {h}x{wd} too small for a valid 3x3 conv")
+    logits = torch.empty((bsz, h - 2, wd - 2, kh.shape[0]), dtype=torch.float32, device=x.device)
+    wk, bk = _ohwi(w), _f32(b)
+    err = getattr(library(), entry)(
+        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), kh.data_ptr(), bh.data_ptr(),
+        logits.data_ptr(), bsz, h, wd, ci, kh.shape[0], _stream(x),
+    )
+    _raise_on(err, name)
+    return logits
+
+
+def _launch_tconv(name, entry, x, w, b):
+    """A tconv kernel (C entry `entry` of csrc/tconv2x2_bias.cu) on CUDA
+    tensors; the caller counts the launch."""
+    bsz, h, wd, ci = x.shape
+    co = w.shape[1]
+    if tuple(w.shape) != (ci, co, 2, 2) or tuple(b.shape) != (co,):
+        raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} do not fit x {tuple(x.shape)}")
+    _check_act("x", x)
+    _check_co(co)
+    y = torch.empty((bsz, 2 * h, 2 * wd, co), dtype=x.dtype, device=x.device)
+    wk, bk = _tconv_weights(w), _f32(b)
+    err = getattr(library(), entry)(
+        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(), bsz, h, wd, ci, co, _stream(x),
+    )
+    _raise_on(err, name)
+    return y
+
+
+def tconv2x2_mma_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """tconv2x2_bias's function through the mma.sync kernel that the wgmma
+    GEMM replaced (csrc/tconv2x2_bias.cu), on CUDA tensors, uncounted: no
+    serving or train path calls it."""
+    if x.device.type != "cuda":
+        raise RuntimeError("tconv2x2_mma_reference runs the mma.sync kernel: CUDA tensors only")
+    return _launch_tconv("tconv2x2_mma_reference", "tconv2x2_mma_reference_bf16", x, w, b)
 
 
 # ----------------------------------------------------------------- wrappers
@@ -443,21 +567,7 @@ def tconv2x2_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
     (torch ConvTranspose2d layout), b (CO,) -> (B,2h,2w,CO)."""
     if _on_cpu(x, w, b):
         return tconv2x2_bias_plain(x, w, b)
-    bsz, h, wd, ci = x.shape
-    co = w.shape[1]
-    if tuple(w.shape) != (ci, co, 2, 2) or tuple(b.shape) != (co,):
-        raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} do not fit x {tuple(x.shape)}")
-    _check_act("x", x)
-    _check_co(co)
-    y = torch.empty((bsz, 2 * h, 2 * wd, co), dtype=x.dtype, device=x.device)
-    # (CI, CO, dy, dx) -> (dy*2+dx, CO, CI)
-    wk = w.to(torch.bfloat16).permute(2, 3, 1, 0).reshape(4, co, ci).contiguous()
-    bk = _f32(b)
-    err = library().tconv2x2_bias_bf16(
-        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(),
-        bsz, h, wd, ci, co, _stream(x),
-    )
-    _raise_on(err, "tconv2x2_bias")
+    y = _launch_tconv("tconv2x2_bias", "tconv2x2_bias_bf16", x, w, b)
     tconv2x2_bias.launches += 1
     return y
 
@@ -508,20 +618,7 @@ def conv3x3_head(
     unfused path stores and reads them. The kernel needs CO == 64."""
     if _on_cpu(x, w, b, k_head, b_head):
         return conv3x3_head_plain(x, w, b, k_head, b_head)
-    bsz, h, wd, ci = x.shape
-    co = w.shape[0]
-    if tuple(w.shape) != (co, ci, 3, 3) or tuple(b.shape) != (co,):
-        raise ValueError("head conv weights do not fit x")
-    kh, bh = _head(k_head, b_head, co)
-    _check_act("x", x)
-    _check_co(co, exact=64)
-    logits = torch.empty((bsz, h - 2, wd - 2, kh.shape[0]), dtype=torch.float32, device=x.device)
-    wk, bk = _ohwi(w), _f32(b)
-    err = library().conv3x3_head_bf16(
-        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), kh.data_ptr(), bh.data_ptr(),
-        logits.data_ptr(), bsz, h, wd, ci, kh.shape[0], _stream(x),
-    )
-    _raise_on(err, "conv3x3_head")
+    logits = _launch_head("conv3x3_head", "conv3x3_head_bf16", x, w, b, k_head, b_head)
     conv3x3_head.launches += 1
     return logits
 

@@ -1,22 +1,31 @@
-"""A/B of csrc/conv_fwd_wgmma.cu's design choices on the card.
+"""A/B of the wgmma kernels' design choices on the card: the forward conv
+(csrc/conv_fwd_wgmma.cu) and, with --new, its head variant and the tconv
+(csrc/tconv2x2_bias.cu).
 
-Each variant is the source with a few lines replaced, built into a library
-of its own under unetseg_tpu_torch/build/variants/ and run in a process of
-its own: parity with the plain version at small edge-case shapes (a
-variant that skips work reports its error and is not held to it), then the
-wgmma kernel's torch.profiler device time at serving shapes (16 tiles of
-700^2) from 64 to 1024 channels and at the train step's one-source
-64-channel convs (batch 4 at 512^2).
+Each variant is the sources with a few lines of one file replaced, built
+into a library of its own under unetseg_tpu_torch/build/variants/ and run
+in a process of its own: parity with the plain version at small edge-case
+shapes (a variant that skips work reports its error and is not held to
+it), then the kernel's torch.profiler device time at serving shapes (16
+tiles of 700^2) from 64 to 1024 channels and at the train step's
+one-source 64-channel convs (batch 4 at 512^2); with --new instead the
+head conv at 16 x 516^2 logits and the tconv at the serving and train
+steps' up3.
 
-    python3 -m unetseg_tpu_torch.ops.kernels.fwd_variants [variant ...]
+    python3 -m unetseg_tpu_torch.ops.kernels.fwd_variants [--new] [variant ...]
 
 Variants: "source" (as it is); "nostore" (the epilogue computes but
 stores nothing: what the stores cost); "wst3" (three window stages and
 three weight stages at N = 128 instead of two and six); "n64wst3" (N = 64
 with three window stages and six weight stages instead of two and
 thirteen); "window" (the windowed 8x8 units for every conv, instead of
-the im2col form for one source without the pool at N = 128). The default
-runs source, window, source, window.
+the im2col form for one source without the pool at N = 128);
+"head_streamed" (the head's weight taps through the ring every tile
+instead of resident); "tconv_ast2" .. "tconv_ast8" (2, 3, 6 or 8 A stages
+instead of four); "tconv_plainst" (the tconv's output stores without the
+streaming hint, st.global instead of st.global.cs). The default runs
+source, window, source, window; with --new, source, the four A depths,
+tconv_plainst, head_streamed, source.
 """
 
 from __future__ import annotations
@@ -37,25 +46,37 @@ PATCHES = {
     "wst3": [("return launch<128, 2, 6>(", "return launch<128, 3, 3>(")],
     "n64wst3": [("return launch<64, 2, 13>(", "return launch<64, 3, 6>(")],
     "window": [("  if (s1.C == 0 && pooled == nullptr && CO % 128 == 0)\n", "  if (false)\n")],
+    "head_streamed": [("const bool resident = HEAD && nb == 1 && slices * 9 <= BST;",
+                       "const bool resident = false;")],
+    "tconv_plainst": [
+        ("__stcs(reinterpret_cast<uint4*>(y + (long long)obase[k] * SLICE + shift), v);",
+         "*reinterpret_cast<uint4*>(y + (long long)obase[k] * SLICE + shift) = v;")],
+    **{f"tconv_ast{n}": [("constexpr int AST = 4, WST = 2;", f"constexpr int AST = {n}, WST = 2;")]
+       for n in (2, 3, 6, 8)},
 }
+# the source file a variant patches, where not conv_fwd_wgmma.cu
+SOURCE_OF = {k: "tconv2x2_bias.cu" for k in PATCHES if k.startswith("tconv_")}
 DEFAULT = ["source", "window", "source", "window"]
+DEFAULT_NEW = ["source", "tconv_ast8", "tconv_ast3", "tconv_ast6", "tconv_ast2", "tconv_plainst",
+               "head_streamed", "source"]
 
 
-def main(names):
-    for name in names or DEFAULT:
+def main(names, new=False):
+    names = names or (DEFAULT_NEW if new else DEFAULT)
+    for name in names:
         if name not in PATCHES:
             raise SystemExit(f"unknown variant {name!r}; variants: {sorted(PATCHES)}")
-    for name in names or DEFAULT:
+    for name in names:
         t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", MODULE, "--one", name], cwd=REPO,
-                             capture_output=True, text=True, timeout=300)
+        res = subprocess.run([sys.executable, "-m", MODULE, "--new" if new else "--conv", name],
+                             cwd=REPO, capture_output=True, text=True, timeout=300)
         print(f"variant {name}: rc {res.returncode}, {time.perf_counter() - t0:.1f} s", flush=True)
         print(res.stdout, end="", flush=True)
         if res.returncode:
             print(res.stderr[-3000:], flush=True)
 
 
-def run_variant(name):
+def run_variant(name, new=False):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -65,7 +86,7 @@ def run_variant(name):
     root = B.BUILD_ROOT / "variants" / f"fwd_{name}"
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(B.CSRC, root / "csrc")
-    src = root / "csrc" / "conv_fwd_wgmma.cu"
+    src = root / "csrc" / SOURCE_OF.get(name, "conv_fwd_wgmma.cu")
     text = src.read_text()
     for old, new in PATCHES[name]:
         if old not in text:
@@ -93,7 +114,7 @@ def run_variant(name):
         torch.cuda.synchronize()
         return ((got.float() - ref).abs() / (1e-2 + 1e-2 * ref.abs())).max().item()
 
-    def device(fn, iters=10):
+    def device(fn, iters=10, kernel="conv_fwd"):
         for _ in range(3):  # the profiler can record nothing after many sessions
             for _ in range(2):
                 fn()
@@ -103,11 +124,13 @@ def run_variant(name):
                     fn()
                 torch.cuda.synchronize()
             ms = sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and "conv_fwd" in e.key) / 1e3 / iters
+                     if e.device_type == DeviceType.CUDA and kernel in e.key) / 1e3 / iters
             if ms > 0:
                 return ms
         raise RuntimeError("torch.profiler recorded no device time in three sessions")
 
+    if new:
+        return time_new(name, act, weights, worst, device)
     edge = []
     for b, h, w, ci, co in [(2, 21, 19, 96, 128), (3, 11, 21, 64, 192), (2, 38, 38, 512, 256)]:
         x, (wt, bias) = act(b, h, w, ci), weights(co, ci)
@@ -149,8 +172,55 @@ def run_variant(name):
         torch.cuda.empty_cache()
 
 
+def time_new(name, act, weights, worst, device):
+    """The head conv and the tconv: edge-case parity, then device time at
+    the serving path's dec3 conv1 + head (16 x 518^2 x 64 -> 516^2 x 2
+    logits) and up3 (16 x 260^2 x 128 -> 520^2 x 64), and the train step's
+    up3 (4 x 164^2 x 128)."""
+    import torch
+
+    from unetseg_tpu_torch.ops.kernels import conv3x3 as K
+
+    def head_args(b, h, w, nc=2):
+        wt, bias = weights(64, 64)
+        kh = (torch.randn(nc, 64, 1, 1, device="cuda") * 0.5).to(torch.bfloat16).float()
+        return act(b, h, w, 64), wt, bias, kh, 0.1 * torch.randn(nc, device="cuda")
+
+    def tconv_args(b, h, w, ci=128, co=64):
+        wt = (torch.randn(ci, co, 2, 2, device="cuda") * (2.0 / (4 * co)) ** 0.5)
+        return act(b, h, w, ci), wt.to(torch.bfloat16).float(), 0.1 * torch.randn(co, device="cuda")
+
+    edge = []
+    for b, h, w in [(2, 25, 21), (1, 10, 10)]:
+        x, wt, bias, kh, bh = head_args(b, h, w)
+        a = K.conv3x3_bias_relu_plain(x.float(), wt, bias)
+        ref = K.conv3x3_head_plain(x.float(), wt, bias, kh, bh)
+        slack = 2.0**-8 * torch.nn.functional.conv2d(a.permute(0, 3, 1, 2).abs(), kh.abs())
+        err = (K.conv3x3_head(x, wt, bias, kh, bh) - ref).abs()
+        edge.append((err / (1e-2 + 1e-2 * ref.abs() + slack.permute(0, 2, 3, 1))).max().item())
+    for b, h, w, ci, co in [(3, 7, 9, 128, 64), (2, 13, 21, 64, 192)]:
+        x, wt, bias = tconv_args(b, h, w, ci, co)
+        edge.append(worst(K.tconv2x2_bias(x, wt, bias), K.tconv2x2_bias_plain(x.float(), wt, bias)))
+    print(f"variant {name}: edge cases worst err/bound {max(edge):.4f}", flush=True)
+
+    args = head_args(16, 518, 518)
+    dev = device(lambda: K.conv3x3_head(*args))
+    flop = 2 * 16 * 516 * 516 * 64 * (64 * 9 + 2)
+    print(f"variant {name} head: device {dev:.4f} ms ({flop / dev / 1e9:.0f} TFLOP/s)", flush=True)
+    del args
+    for shape, (b, h) in {"up3": (16, 260), "up3_train": (4, 164)}.items():
+        x, wt, bias = tconv_args(b, h, h)
+        dev = device(lambda: K.tconv2x2_bias(x, wt, bias), kernel="tconv2x2_wgmma")
+        n_bytes = b * h * h * 128 * 2 + b * 4 * h * h * 64 * 2
+        print(f"variant {name} {shape}: device {dev:.4f} ms ({n_bytes / dev / 1e6:.0f} GB/s)",
+              flush=True)
+    torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        run_variant(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] in ("--conv", "--new"):
+        run_variant(sys.argv[2], new=sys.argv[1] == "--new")
+    elif sys.argv[1:2] == ["--new"]:
+        main(sys.argv[2:], new=True)
     else:
         main(sys.argv[1:])
