@@ -28,11 +28,15 @@ its own line, and any failure raises (non-zero exit):
    the same tensors (K.conv3x3_mma_reference with the head,
    K.tconv2x2_mma_reference), the library's (the head: cuDNN conv + bias,
    ReLU and the 1x1 conv, three calls; the tconv: F.conv_transpose2d with
-   its bias), the share of the bound and, for the head, the tile fill; two
-   launches at enc4 conv1, at the dec3 entry, of the head and of the tconv
-   must give the same bits, and the fused enc0 and decoder tail equal the
-   stem kernel and the mma.sync conv (and mma.sync head) chained, bit for
-   bit;
+   its bias), the share of the bound and, for the head, the tile fill; the
+   stem (the row kernel, CI = 1) prints the same line: its events and
+   device time, the device time of the FMA kernel it replaced
+   (K.stem_fma_reference) and of cuDNN's conv + bias on the same tensors,
+   the share of its bytes bound, and whether its bits equal the FMA
+   kernel's (a miss fails); two launches at enc4 conv1, at the dec3 entry,
+   of the head and of the tconv must give the same bits, and the fused
+   enc0 and decoder tail equal the stem kernel and the mma.sync conv (and
+   mma.sync head) chained, bit for bit;
 4. serving path: Predictor.masks_tiled on 16 seeded synthetic 512^2 cell
    frames at full width, with seeded He-scaled weights, random BatchNorm
    statistics and a planted intensity path (see plant_intensity_path);
@@ -58,8 +62,13 @@ its own line, and any failure raises (non-zero exit):
    cuDNN's time and the time of the mma.sync kernel that the wgmma kernel
    replaced, the stem's (CI = 1, an FMA kernel) its device time beside
    cuDNN's; two launches at enc0 conv1 must give the same bits; the
-   relu=False forwards print phase 3's wgmma lines, and the tconv at the
-   train step's up3 (4, 164, 164, 128) prints phase 3's tconv line;
+   relu=False forwards print phase 3's wgmma lines, the tconv at the
+   train step's up3 (4, 164, 164, 128) phase 3's tconv line and the train
+   stem (relu=False) phase 3's stem line; each of the seven dgrads (tier
+   1's three, tier 2's four; the wgmma forward's kernels on g read at
+   (-2, -2)) prints the same line with the mma.sync dgrad it replaced
+   (KT.conv3x3_dgrad_mma_reference) and conv2d_input beside it, its
+   plan's form, and must give the same bits on two launches;
 6. train path: make_train_step with the best recipe's options (Adam 3e-4,
    cosine, EMA 0.999, standardize, elastic 2000/20, gamma / illumination /
    noise) on 4 seeded synthetic 512^2 frames with instance labels and
@@ -70,9 +79,9 @@ its own line, and any failure raises (non-zero exit):
    plain path in bf16; times tier-1, tier-2 and plain bf16 steps the same
    number of times, rotating which goes first, and prints a torch.profiler
    table (top 10 operations) of three steps of each kernel path, with the
-   summed device time, the wgmma forward's part of it, and the step's
-   device time with the mma.sync forward in its place (phase 5's device
-   times of both at the step's cases);
+   summed device time, the wgmma forward's and the dgrad's parts of it,
+   and the step's device time with the mma.sync forward or the mma.sync
+   dgrad in their place (phase 5's device times at the step's cases);
 7. kernel parity of the weighted CE (forward and backward at batch 4,
    324^2 logits, C = 2 and 3, targets and weights read at the 512 -> 324
    crop) and the min-plus product ((32, 512, 512) with either operand
@@ -183,7 +192,7 @@ SOURCES = {
                   "unetseg_tpu/ops/pallas/conv3x3.py:893"),
     "conv3x3_head": ("unetseg_tpu_torch/csrc/conv_fwd_wgmma.cu",
                      "unetseg_tpu/ops/pallas/conv3x3.py:540"),
-    "conv3x3_dgrad": ("unetseg_tpu_torch/csrc/conv3x3_dgrad.cu",
+    "conv3x3_dgrad": ("unetseg_tpu_torch/csrc/conv_fwd_wgmma.cu",
                       "unetseg_tpu/ops/pallas/conv3x3_train.py:74"),
     "conv3x3_wgrad": ("unetseg_tpu_torch/csrc/conv3x3_wgrad.cu",
                       "unetseg_tpu/ops/pallas/conv3x3_train.py:197"),
@@ -204,7 +213,7 @@ SOURCES = {
                        "unetseg_tpu/ops/pallas/conv_cblock.py:118"),
     "enc0_fused": ("unetseg_tpu_torch/csrc/enc0_fused.cu", "unetseg_tpu/ops/pallas/conv3x3.py:663"),
     "dec_tail": ("unetseg_tpu_torch/csrc/dec_tail.cu", "unetseg_tpu/ops/pallas/conv3x3.py:1026"),
-    "conv3x3_dense_dgrad": ("unetseg_tpu_torch/csrc/conv3x3_dgrad.cu",
+    "conv3x3_dense_dgrad": ("unetseg_tpu_torch/csrc/conv_fwd_wgmma.cu",
                             "unetseg_tpu/ops/pallas/conv3x3_train.py:266"),
     "conv3x3_dense_wgrad": ("unetseg_tpu_torch/csrc/conv3x3_wgrad.cu",
                             "unetseg_tpu/ops/pallas/conv3x3_train.py:370"),
@@ -278,13 +287,25 @@ STEP_FWD["kernel_tier2"] = STEP_FWD["kernel"] + (
     "enc1_conv0_dense_relu_false", "enc1_conv1_dense_relu_false", "dec2_conv0_dense_relu_false",
     "dec2_conv1_dense_relu_false")
 FWD_DEVICE = {}  # case -> (wgmma kernel, mma.sync kernel) device ms, phases 3 and 5
-# the head conv and the tconv on wgmma: per wrapper, the profiler's name of
-# its kernel and of the mma.sync kernel it replaced (the uncounted
-# reference entry), and what the library line times
+# the redesigned kernels (the head conv and the tconv on wgmma, the dgrad
+# on the wgmma forward's kernels, the stem's row kernel): per kind, the
+# profiler's name of its kernel and of the kernel it replaced (the
+# uncounted reference entry), and what the library line times
 REDESIGNED = {"conv3x3_head": ("conv_fwd_kernel", "conv3x3_mma_kernel",
                                "cuDNN conv + bias, ReLU, 1x1 conv: three calls"),
               "tconv2x2_bias": ("tconv2x2_wgmma_kernel", "tconv2x2_mma_kernel",
-                                "F.conv_transpose2d with bias")}
+                                "F.conv_transpose2d with bias"),
+              "dgrad": ("conv_dgrad", "conv3x3_mma_kernel", "conv2d_input"),
+              "stem": ("stem_rows_kernel", "stem_fma_kernel", "cuDNN conv + bias")}
+DGRAD_KERNELS = ("conv3x3_dgrad", "conv3x3_dense_dgrad")
+# the dgrads of each train step (tier 1: enc0 conv1, dec3 conv1 and conv0;
+# tier 2 adds enc1 and dec2), and their (wgmma, mma.sync) device ms from
+# phase 5
+STEP_DGRAD = {"kernel": ("dgrad_enc0_conv1", "dgrad_dec3_conv1", "dgrad_dec3_conv0")}
+STEP_DGRAD["kernel_tier2"] = STEP_DGRAD["kernel"] + (
+    "dense_dgrad_enc1_conv0", "dense_dgrad_enc1_conv1", "dense_dgrad_dec2_conv0",
+    "dense_dgrad_dec2_conv1")
+DGRAD_DEVICE = {}
 # Predictor.masks_tiled with the mma.sync head and tconv, this script's
 # phase 4 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): printed beside
 # the run's own
@@ -614,8 +635,9 @@ def run_cases(cases, stats, batch):
                   f"{bound:.4f} ms ({bound / dev:.1%} in device time) on {GPU}", flush=True)
         if kname in FWD_KERNELS and args[0].shape[3] > 1:
             fwd_line(case, kname, kernel, args, kw, lib, ms, lib_ms, bound, ops)
-        if kname in REDESIGNED:
-            redesigned_line(case, kname, kernel, args, ms, ops, n_bytes)
+        kind = redesign_of(kname, args)
+        if kind is not None:
+            redesigned_line(case, kind, kernel, args, kw, ms, ops, n_bytes)
         st["max_abs_err"] = max(st["max_abs_err"], err)
         add_times(st, ms, plain_ms, lib_ms)
 
@@ -666,14 +688,30 @@ def fwd_line(case, kname, kernel, args, kw, lib, ms, lib_ms, bound, ops):
           f"({mma_dev / dev:.2f}x)", flush=True)
 
 
-def redesigned_line(case, kname, kernel, args, ms, ops, n_bytes):
-    """The head conv's or the tconv's line: events and device time of the
-    kernel, of the mma.sync kernel it replaced and of the library on the
-    same tensors (one profiler session, told apart by kernel name; the
-    wrappers' weight copies left out), the bound and its share, and for
-    the head the launch plan's tile fill."""
-    mine, old, lib_name = REDESIGNED[kname]
-    if kname == "conv3x3_head":
+def redesign_of(kname, args):
+    """The REDESIGNED kind of a case, or None: the head and the tconv by
+    wrapper, both dgrad wrappers, the stem (conv3x3_bias_relu or
+    conv3x3_dense on one input channel)."""
+    if kname in ("conv3x3_head", "tconv2x2_bias"):
+        return kname
+    if kname in DGRAD_KERNELS:
+        return "dgrad"
+    if kname in ("conv3x3_bias_relu", "conv3x3_dense") and args[0].shape[3] == 1:
+        return "stem"
+    return None
+
+
+def redesigned_line(case, kind, kernel, args, kw, ms, ops, n_bytes):
+    """A redesigned kernel's line (the head conv, the tconv, a dgrad, the
+    stem): events and device time of the kernel, of the kernel it replaced
+    and of the library on the same tensors (one profiler session, told
+    apart by kernel name; the wrappers' and the library's weight copies
+    and flips left out), the bound and its share, for the head the launch
+    plan's tile fill, for a dgrad its plan's form, for the stem whether its
+    bits equal the FMA kernel's (a miss fails)."""
+    mine, old, lib_name = REDESIGNED[kind]
+    extra = ""
+    if kind == "conv3x3_head":
         x, w, b, kh, bh = args
         wb, bb, khb, bhb = bf(w), bf(b), bf(kh), bf(bh)
 
@@ -682,7 +720,12 @@ def redesigned_line(case, kname, kernel, args, ms, ops, n_bytes):
 
         def mma():
             return K.conv3x3_mma_reference(x, w, b, k_head=kh, b_head=bh)
-    else:
+
+        bsz, h, wd, _ = x.shape
+        plan = K.fwd_plan(bsz, h - 2, wd - 2, 64,
+                          torch.cuda.get_device_properties(0).multi_processor_count, head=True)
+        extra = f"; tile fill {plan.fill:.3f} ({plan.tiles} tiles on {plan.grid} blocks)"
+    elif kind == "tconv2x2_bias":
         x, w, b = args
         wb, bb = bf(w), bf(b)
 
@@ -691,28 +734,62 @@ def redesigned_line(case, kname, kernel, args, ms, ops, n_bytes):
 
         def mma():
             return K.tconv2x2_mma_reference(x, w, b)
+    elif kind == "dgrad":
+        gr, w = args
+        wb = bf(w)
+        bsz, hg, wg, _ = gr.shape
+        ci = w.shape[1]
+
+        def lib():
+            return torch.nn.grad.conv2d_input((bsz, ci, hg + 2, wg + 2), wb, to_nchw(gr))
+
+        def mma():
+            return KT.conv3x3_dgrad_mma_reference(gr, w)
+
+        plan = KT.dgrad_plan(bsz, hg, wg, ci,
+                             torch.cuda.get_device_properties(0).multi_processor_count)
+        extra = (f"; {plan.mode} form, N {plan.n}, tile fill {plan.fill:.3f} ({plan.tiles} tiles "
+                 f"on {plan.grid} blocks)")
+    else:
+        x, w, b = args
+        wb, bb = bf(w), bf(b)
+
+        def lib():
+            return F.conv2d(to_nchw(x), wb, bb)
+
+        def mma():
+            return K.stem_fma_reference(x, w, b, **kw)
+
+        first, ref = kernel(*args, **kw), mma()
+        torch.cuda.synchronize()
+        same = torch.equal(first, ref)
+        del first, ref
+        bsz, h, wd, _ = x.shape
+        plan = K.stem_plan(bsz, h - 2, wd - 2, w.shape[0],
+                           torch.cuda.get_device_properties(0).multi_processor_count)
+        extra = (f"; {plan.strips} strips on {plan.grid} blocks; bits equal the FMA kernel's: "
+                 f"{same}")
+        if not same:
+            raise AssertionError(f"{case}: the stem's row kernel differs from the FMA kernel")
 
     lib_ms = cuda_ms(lib)
-    times = device_times(lambda: (kernel(*args), mma(), lib()))
+    times = device_times(lambda: (kernel(*args, **kw), mma(), lib()))
     dev = sum(v for k, v in times.items() if mine in k)
     mma_dev = sum(v for k, v in times.items() if old in k)
-    lib_dev = sum(v for k, v in times.items() if "copy" not in k and mine not in k and old not in k)
+    lib_dev = sum(v for k, v in times.items()
+                  if "copy" not in k and "flip" not in k and mine not in k and old not in k)
     if min(dev, mma_dev, lib_dev) <= 0:
         raise AssertionError(f"{case}: a kernel is missing from the profile: {sorted(times)}")
+    if kind == "dgrad":
+        DGRAD_DEVICE[case] = (dev, mma_dev)
     t_ops, t_bytes = ops / PEAK_BF16 * 1e3, n_bytes / HBM_BPS * 1e3
     bound, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-    fill = ""
-    if kname == "conv3x3_head":
-        bsz, h, wd, _ = x.shape
-        plan = K.fwd_plan(bsz, h - 2, wd - 2, 64,
-                          torch.cuda.get_device_properties(0).multi_processor_count, head=True)
-        fill = f"; tile fill {plan.fill:.3f} ({plan.tiles} tiles on {plan.grid} blocks)"
-    print(f"{kname} {case}: kernel {ms:.4f} ms, device {dev:.4f}; mma.sync kernel device "
+    print(f"{kind} {case}: kernel {ms:.4f} ms, device {dev:.4f}; replaced kernel device "
           f"{mma_dev:.4f} ({mma_dev / dev:.2f}x the kernel); library ({lib_name}) {lib_ms:.4f} ms, "
           f"device {lib_dev:.4f} (kernel / library {dev / lib_dev:.2f} in device time); bound "
           f"{bound:.4f} ms by {by} ({ops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB): "
           f"{bound / dev:.1%} of it in device time, {bound / ms:.1%} by events "
-          f"({ops / dev / 1e9:.0f} TFLOP/s, {n_bytes / dev / 1e6:.0f} GB/s){fill}; on {GPU}",
+          f"({ops / dev / 1e9:.0f} TFLOP/s, {n_bytes / dev / 1e6:.0f} GB/s){extra}; on {GPU}",
           flush=True)
 
 
@@ -1041,6 +1118,9 @@ def train_kernel_parity(stats, c=64):
     for k, v in cases.items():  # the relu flag rides in the kwargs slot
         cases[k] = (*v[:4], nr if k.endswith("relu_false") else {}, *v[4:])
     run_cases(cases, stats, b)
+    for case, (kname, kernel, _, args, *_) in cases.items():
+        if kname in DGRAD_KERNELS:  # no atomics, a fixed summation order
+            same_bits(f"dgrad {case}", lambda kernel=kernel, args=args: kernel(*args))
     # split-K sums its chunks in a fixed order: a second launch repeats the bits
     x_rep, g_rep = cases["wgrad_enc0_conv1"][3]
     first, again = KT.conv3x3_wgrad(x_rep, g_rep), KT.conv3x3_wgrad(x_rep, g_rep)
@@ -1215,16 +1295,18 @@ def train_path(gpu):
     for name in ("kernel", "kernel_tier2"):
         print(f"profile of the {name} step:", flush=True)
         profile_step(steps[name], state, images, masks, wts, valid, gen, med[name],
-                     STEP_FWD[name])
+                     STEP_FWD[name], STEP_DGRAD[name])
     return launches, launches2
 
 
-def profile_step(step, state, images, masks, wts, valid, gen, step_ms, fwd_cases, steps=3):
+def profile_step(step, state, images, masks, wts, valid, gen, step_ms, fwd_cases, dgrad_cases,
+                 steps=3):
     """torch.profiler over `steps` kernel-path train steps: device time by
-    operation, its sum, the wgmma forward's part of it, and the sum with
-    the mma.sync forward in its place (phase 5's device times at the step's
-    `fwd_cases`); the device's idle share of the step time measured without
-    the profiler (`step_ms`), which slows the host down."""
+    operation, its sum, the wgmma forward's and the dgrad's parts of it,
+    and the sum with the mma.sync forward or the mma.sync dgrad in their
+    place (phase 5's device times at the step's `fwd_cases` and
+    `dgrad_cases`); the device's idle share of the step time measured
+    without the profiler (`step_ms`), which slows the host down."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1240,12 +1322,15 @@ def profile_step(step, state, images, masks, wts, valid, gen, step_ms, fwd_cases
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     dev_total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     fwd = sum(e.self_device_time_total for e in kernels if "conv_fwd" in e.key) / 1e3 / steps
+    dgrad = sum(e.self_device_time_total for e in kernels if "conv_dgrad" in e.key) / 1e3 / steps
     mma = dev_total + sum(FWD_DEVICE[c][1] - FWD_DEVICE[c][0] for c in fwd_cases)
+    mma_dgrad = dev_total + sum(DGRAD_DEVICE[c][1] - DGRAD_DEVICE[c][0] for c in dgrad_cases)
     print(f"profile: {wall:.2f} ms wall per step with the profiler on, {step_ms:.2f} ms "
           f"without; summed device kernel time {dev_total:.3f} ms per step, the wgmma forward "
-          f"{fwd:.3f} of it ({len(fwd_cases)} launches); with the mma.sync forward at phase 5's "
-          f"device times instead: {mma:.3f} ms; idle share {1 - dev_total / step_ms:.3f} of the "
-          f"unprofiled step", flush=True)
+          f"{fwd:.3f} of it ({len(fwd_cases)} launches), the dgrad {dgrad:.3f} "
+          f"({len(dgrad_cases)} launches); with the mma.sync forward at phase 5's device times "
+          f"instead: {mma:.3f} ms, with the mma.sync dgrad instead: {mma_dgrad:.3f} ms; idle "
+          f"share {1 - dev_total / step_ms:.3f} of the unprofiled step", flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=10), flush=True)
 
 

@@ -28,7 +28,12 @@ MODE_HEAD); the head conv on the wgmma forward's head variant at 1-4
 classes and ragged sizes; the streaming wgmma tconv with each (dy, dx) tap
 alone at CO 128, ragged pixel counts, 32-, 96- and 256-channel inputs and
 three column groups, and its mma.sync reference; both new kernels with the
-same bits on a second launch; and the wrappers' refusals.
+same bits on a second launch; the dgrad on the wgmma forward's kernels
+through both wrappers at 64-, 128- and 256-channel dx from 1x1, 2x3 and
+odd g at batch 1 and 4 (the same bits twice), and its uncounted mma.sync
+reference; the stem's row kernel bit for bit against the FMA kernel it
+replaced (the pool on odd and 1-row outputs, relu on and off, CO 128 and
+192, ragged strips); and the wrappers' refusals.
 
 Marked `cuda` and skipped without a card. The file imports no jax, so on a
 GPU machine it runs without the JAX package:
@@ -745,3 +750,75 @@ def test_head_and_tconv_repeat_their_bits(g):
     first, again = K.tconv2x2_bias(x, wt, bias), K.tconv2x2_bias(x, wt, bias)
     torch.cuda.synchronize()
     assert torch.equal(first, again)
+
+
+# ----------------------------------- the dgrad on the wgmma forward's ring
+
+
+@pytest.mark.parametrize("wrapper,b,hg,wg,co,ci", [
+    ("conv3x3_dgrad", 1, 1, 1, 64, 64), ("conv3x3_dgrad", 4, 2, 3, 64, 128),
+    ("conv3x3_dense_dgrad", 1, 2, 3, 128, 256), ("conv3x3_dgrad", 4, 13, 9, 64, 128),
+    ("conv3x3_dense_dgrad", 1, 37, 21, 128, 256), ("conv3x3_dense_dgrad", 4, 17, 30, 128, 64),
+    ("conv3x3_dense_dgrad", 1, 1, 1, 128, 128), ("conv3x3_dgrad", 4, 11, 6, 32, 256),
+])
+def test_dgrad_wgmma_shapes(g, wrapper, b, hg, wg, co, ci):
+    """Both dgrad wrappers on the wgmma forward's kernels: dx of 64
+    (windowed), 128 and 256 channels (im2col, its bounding box at (-2, -2)
+    .. (0, 0)) from a 1x1 g, a 2x3 g, odd sizes whose 256-pixel tiles
+    cross image edges, a 32-channel g, batch 1 and 4: held to the plain
+    version, one launch counted under the wrapper alone, the same bits on
+    a second launch."""
+    gr = _g(g, b, hg, wg, co)
+    wt = _w(g, co, ci, 3, 3, fan=9 * co)
+    fn = getattr(KT, wrapper)
+    K.reset_launch_counts()
+    got = fn(gr, wt)
+    assert K.launch_counts() == _only(**{wrapper: 1})
+    assert got.shape == (b, hg + 2, wg + 2, ci) and got.dtype == torch.bfloat16
+    _close(got, KT.conv3x3_dgrad_plain(gr.float(), wt))
+    again = fn(gr, wt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_dgrad_mma_reference(g):
+    """The mma.sync dgrad kept for timings: the same function, uncounted."""
+    gr = _g(g, 2, 13, 9, 64)
+    wt = _w(g, 64, 128, 3, 3, fan=9 * 64)
+    K.reset_launch_counts()
+    got = KT.conv3x3_dgrad_mma_reference(gr, wt)
+    assert K.launch_counts() == _only()
+    _close(got, KT.conv3x3_dgrad_plain(gr.float(), wt))
+
+
+# ------------------------------------------------- the stem's row kernel
+
+
+@pytest.mark.parametrize("b,h,w,co,pool,relu", [
+    (2, 37, 45, 64, True, True), (1, 20, 19, 128, False, True), (3, 9, 7, 64, True, False),
+    (1, 3, 3, 64, True, True), (2, 140, 300, 64, True, True), (1, 4, 131, 192, True, False),
+    (1, 35, 258, 64, False, False),
+])
+def test_stem_rows_equal_the_fma_kernel(g, b, h, w, co, pool, relu):
+    """The stem's row kernel against the FMA kernel it replaced, bit for
+    bit: the pool on odd sizes (floor) and on a 1-row output (no pooled
+    pixel), relu on and off, 64-192 output channels, outputs wider than
+    one 128-column strip with a ragged last one; one launch counted, none
+    for the reference; and the plain version within the bound."""
+    x = _act(g, b, h, w, 1)
+    wt, bias = _w(g, co, 1, 3, 3, fan=9 * co), _b(g, co)
+    K.reset_launch_counts()
+    got = K.conv3x3_bias_relu(x, wt, bias, fuse_pool=pool, relu=relu)
+    assert K.launch_counts() == _only(conv3x3_bias_relu=1)
+    ref = K.stem_fma_reference(x, wt, bias, fuse_pool=pool, relu=relu)
+    assert K.launch_counts() == _only(conv3x3_bias_relu=1)
+    torch.cuda.synchronize()
+    pairs = list(zip(got, ref)) if pool else [(got, ref)]
+    for a, r in pairs:
+        assert a.shape == r.shape and torch.equal(a, r)
+    # F.max_pool2d refuses a 1x1 map: the 1-row case's pool is held to the
+    # FMA kernel's (empty) bits above
+    pool_plain = pool and h > 3 and w > 3
+    plain = K.conv3x3_bias_relu_plain(x.float(), wt, bias, fuse_pool=pool_plain, relu=relu)
+    for a, r in zip(got, plain) if pool_plain else [(got[0] if pool else got, plain)]:
+        _close(a, r)

@@ -3,27 +3,49 @@
 // i.e. the valid 3x3 conv of g zero-padded by 2 on each side with the
 // kernel flipped in (ky, kx) and CI <-> CO transposed.
 //
-// Replaces the TPU kernel
-// unetseg_tpu/ops/pallas/conv3x3_train.py:conv3x3_phase2_dx (the train
-// step's enc0 conv1, g (4,508,508,64) -> dx (4,510,510,64); dec3 conv1,
-// (4,324,324,64) -> (4,326,326,64); dec3 conv0, (4,326,326,64) -> the
-// concat gradient (4,328,328,128)).
+// Replaces the TPU kernels unetseg_tpu/ops/pallas/conv3x3_train.py:74
+// conv3x3_phase2_dx (the train step's enc0 conv1, g (4,508,508,64) -> dx
+// (4,510,510,64); dec3 conv1, (4,324,324,64) -> (4,326,326,64); dec3
+// conv0, (4,326,326,64) -> the concat gradient (4,328,328,128)) and :266
+// conv3x3_dense_dx (tier 2: g of 128 channels into dx of 64, 128 or 256).
 //
-// About 2 * 9 * 64 * 64 FLOP per dx pixel (76 GFLOP at enc0) against
-// ~265 MB of traffic, so tensor-core bound like the forward conv. It runs
-// the forward's implicit GEMM (conv_mma.cuh) unchanged: g is the source,
-// read at offset (-2, -2), and the window loader's zero fill for rows and
-// columns outside g stands in for the pad, which is never materialised.
-// The flipped, transposed kernel is a 74 KB re-layout done by the wrapper.
-// No bias, no ReLU, bf16 store with f32 accumulation.
-#include "conv_mma.cuh"
+// 2 * 9 * CO * CI FLOP per dx pixel (76 GFLOP at enc0) against ~265 MB of
+// traffic: on an H100 (989 TFLOP/s bf16, 3.35 TB/s) bytes bound the
+// 64-channel cases by a hair and operations the rest, like the forward
+// convs of the same widths. So it runs the forward's wgmma kernels
+// (conv_fwd_wgmma.cu, under the names conv_dgrad_kernel and
+// conv_dgrad_im2col_kernel): g is the source, read at (-2, -2); the TMA
+// copies zero-fill every row and column outside g, which stands in for the
+// pad, never materialised, and the outputs past g's far edges (dx is 2
+// larger each way) are units like any other, their stores masked. dx with
+// 64 channels takes the windowed form at N = 64, 128 and 256 channels the
+// im2col form at N = 128, its bounding box moved to (-2, -2) .. (0, 0).
+// No bias (instantiations of their own without it, so the forward's
+// epilogue is untouched), no ReLU, bf16 store with f32 accumulation. The
+// flipped, transposed kernel is a 74 KB re-layout done by the wrapper: wt
+// (CI, 3, 3, CO) is the forward's OHWI layout with O = dx channels and I
+// = g channels.
+//
+// conv3x3_dgrad_mma_reference_bf16 keeps the mma.sync implicit GEMM of
+// conv_mma.cuh that the dgrad ran before (16x16 tiles, 64 channels a
+// block, staging through registers): uncounted, on no path, timed beside
+// the wgmma kernels by chip_smoke.py.
+#include "conv_fwd_wgmma.cuh"
 
 // g (B,Hg,Wg,CO) bf16; wt (CI,3,3,CO) bf16, wt[ci,ky,kx,co] =
 // w[co,ci,2-ky,2-kx] -> dx (B,Hg+2,Wg+2,CI) bf16. Needs CO % 32 == 0 and
-// CI % 64 == 0. Returns the launch's CUDA error.
+// CI % 64 == 0. Returns the launch's CUDA error, or -(the CUresult) of a
+// failed tensor-map encoding.
 extern "C" int conv3x3_dgrad_bf16(const void* g, const void* wt, void* dx,
                                   int B, int Hg, int Wg, int CO, int CI,
                                   void* stream) {
+  return unet::launch_conv_dgrad_wgmma(g, B, Hg, Wg, CO, wt, CI, dx, stream);
+}
+
+// The same function through the mma.sync kernel (conv_mma.cuh).
+extern "C" int conv3x3_dgrad_mma_reference_bf16(const void* g, const void* wt, void* dx,
+                                                int B, int Hg, int Wg, int CO, int CI,
+                                                void* stream) {
   unet::Src s0{(const __nv_bfloat16*)g, Hg, Wg, CO, -2, -2};
   unet::Src s1{nullptr, 0, 0, 0, 0, 0};
   return unet::launch_conv3x3_mma<unet::MODE_STORE>(

@@ -12,7 +12,10 @@
 // (dec_conv0_dense). On NHWC the five are one function; the C entries of
 // conv3x3_bias_relu.cu and dec_conv0.cu launch it. With the 1x1 head in
 // its epilogue it also replaces conv3x3.py:540 conv3x3_head_phase2 (entry
-// conv3x3_head.cu).
+// conv3x3_head.cu), and on the output gradient read at (-2, -2) with no
+// bias the input gradients conv3x3_train.py:74 conv3x3_phase2_dx and :266
+// conv3x3_dense_dx (entry conv3x3_dgrad.cu; kernels conv_dgrad_kernel and
+// conv_dgrad_im2col_kernel, the same code under names of their own).
 //
 // GEMM view: M = output pixels, N = output channels, K = 9 taps x CI.
 // On an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) bytes bound enc0 conv1 (571
@@ -42,9 +45,11 @@
 // - im2col form (one source, no pool, N = 128): a unit is 64 consecutive output
 //   pixels, a tile 256 across rows and images, so no width wastes rows.
 //   Per (tap, slice) a stage holds the tile's 256 x 64 A, copied by TMA's
-//   im2col mode (bounding box: the output positions; the tap is the copy's
-//   (kx, ky) offset), and the weight tile. It copies 9x the window's A bytes
-//   and runs faster all the same: 0.63-0.69x the windowed time at enc4c1,
+//   im2col mode (bounding box: the output positions moved by the source's
+//   offset, so the dgrad's (-2, -2) reads zeros past g's edges; the tap is
+//   the copy's (kx, ky) offset), and the weight tile. It copies 9x the
+//   window's A bytes and runs faster all the same: 0.63-0.69x the windowed
+//   time at enc4c1,
 //   0.80x at enc4c0, 0.84-0.86x at dec0c1, 0.89-0.96x at 128-512 channels
 //   (fwd_variants.py "window").
 // - windowed form (the fused pool, whose 2x2 windows span two output rows;
@@ -252,8 +257,10 @@ __device__ __forceinline__ void head_rows(const Consumer& f, const Head& hd, con
 // With LINEAR a unit is 64 consecutive output pixels (the im2col kernel's
 // rows, across rows and images) and there is no pool. With HEAD (N = 64)
 // the rounded tile goes through the 1x1 head (head_rows) instead of being
-// stored.
-template <int N, bool LINEAR = false, bool HEAD = false>
+// stored. Without BIAS (the input gradient) nothing is added: the
+// epilogue adds -0.0f, the exact identity of f32 addition, which the
+// compiler drops.
+template <int N, bool LINEAR = false, bool HEAD = false, bool BIAS = true>
 __device__ __forceinline__ void epilogue(float (&acc)[UPW][N / 2], const Consumer& f, int t,
                                          const Head& hd = Head{}, const float* hw = nullptr) {
   const int n0 = (t % f.nb) * N, grp = t / f.nb;
@@ -271,7 +278,9 @@ __device__ __forceinline__ void epilogue(float (&acc)[UPW][N / 2], const Consume
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const int j = h * 8 + jj;
-        const float2 bb = __ldg(reinterpret_cast<const float2*>(f.bias + n0 + 8 * j + 2 * q));
+        const float2 bb =
+            BIAS ? __ldg(reinterpret_cast<const float2*>(f.bias + n0 + 8 * j + 2 * q))
+                 : make_float2(-0.f, -0.f);
         const float* a = acc[u] + 4 * j;
         const __nv_bfloat162 h0 = __floats2bfloat162_rn(unet::act(a[0] + bb.x, f.relu),
                                                         unet::act(a[1] + bb.y, f.relu));
@@ -328,14 +337,15 @@ __device__ __forceinline__ void epilogue(float (&acc)[UPW][N / 2], const Consume
   }
 }
 
-template <int N, int WST, int BST, bool HEAD = false>
-__global__ void __launch_bounds__(FWD_THREADS, 1)
-conv_fwd_kernel(const __grid_constant__ CUtensorMap xmap0,
-                const __grid_constant__ CUtensorMap xmap1,
-                const __grid_constant__ CUtensorMap wmap, int C0, int off_y, int off_x,
-                int slices0, int slices, const float* __restrict__ bias, int relu, int B,
-                int Ho, int Wo, int CO, __nv_bfloat16* __restrict__ y,
-                __nv_bfloat16* __restrict__ pooled, const Head hd) {
+// The windowed form's block (see the note at the top); the tensor maps are
+// the kernel's __grid_constant__ parameters. BIAS as in epilogue.
+template <int N, int WST, int BST, bool HEAD, bool BIAS>
+__device__ __forceinline__ void fwd_block(const CUtensorMap& xmap0, const CUtensorMap& xmap1,
+                                          const CUtensorMap& wmap, int C0, int off_y, int off_x,
+                                          int slices0, int slices, const float* __restrict__ bias,
+                                          int relu, int B, int Ho, int Wo, int CO,
+                                          __nv_bfloat16* __restrict__ y,
+                                          __nv_bfloat16* __restrict__ pooled, const Head& hd) {
   constexpr int UPB = CONSUMERS * UPW;
   constexpr int W_STAGE = UPB * WIN_SLOT, B_STAGE = N * ROW;
   constexpr int NACC = N / 2;
@@ -428,17 +438,44 @@ conv_fwd_kernel(const __grid_constant__ CUtensorMap xmap0,
   for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
     mainloop<N, WST, BST>(acc, f, wi, bi);
     drain<WST, BST>(f, wi, bi);
-    epilogue<N, false, HEAD>(acc, f, t, hd, hw);
+    epilogue<N, false, HEAD, BIAS>(acc, f, t, hd, hw);
   }
 }
 
-// The im2col form (one source, no pool; see the note at the top).
-template <int N, int ST>
+template <int N, int WST, int BST, bool HEAD = false>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
-conv_fwd_im2col_kernel(const __grid_constant__ CUtensorMap xmap,
-                       const __grid_constant__ CUtensorMap wmap, int slices,
-                       const float* __restrict__ bias, int relu, int B, int Ho, int Wo, int CO,
-                       __nv_bfloat16* __restrict__ y) {
+conv_fwd_kernel(const __grid_constant__ CUtensorMap xmap0,
+                const __grid_constant__ CUtensorMap xmap1,
+                const __grid_constant__ CUtensorMap wmap, int C0, int off_y, int off_x,
+                int slices0, int slices, const float* __restrict__ bias, int relu, int B,
+                int Ho, int Wo, int CO, __nv_bfloat16* __restrict__ y,
+                __nv_bfloat16* __restrict__ pooled, const Head hd) {
+  fwd_block<N, WST, BST, HEAD, true>(xmap0, xmap1, wmap, C0, off_y, off_x, slices0, slices, bias,
+                                     relu, B, Ho, Wo, CO, y, pooled, hd);
+}
+
+// The same block without the bias under the input gradient's own name, so
+// that a profile tells the dgrad (conv3x3_dgrad.cu) from the forward convs.
+template <int N, int WST, int BST>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+conv_dgrad_kernel(const __grid_constant__ CUtensorMap xmap0,
+                  const __grid_constant__ CUtensorMap xmap1,
+                  const __grid_constant__ CUtensorMap wmap, int C0, int off_y, int off_x,
+                  int slices0, int slices, const float* __restrict__ bias, int relu, int B,
+                  int Ho, int Wo, int CO, __nv_bfloat16* __restrict__ y,
+                  __nv_bfloat16* __restrict__ pooled, const Head hd) {
+  fwd_block<N, WST, BST, false, false>(xmap0, xmap1, wmap, C0, off_y, off_x, slices0, slices, bias,
+                                       relu, B, Ho, Wo, CO, y, pooled, hd);
+}
+
+// The im2col form's block (one source read at (off_y, off_x), no pool; see
+// the note at the top). BIAS as in epilogue.
+template <int N, int ST, bool BIAS>
+__device__ __forceinline__ void im2col_block(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                                             int slices, int off_y, int off_x,
+                                             const float* __restrict__ bias, int relu, int B,
+                                             int Ho, int Wo, int CO,
+                                             __nv_bfloat16* __restrict__ y) {
   constexpr int UPB = CONSUMERS * UPW, MT = UPB * 64;
   constexpr int A_BYTES = MT * ROW, STAGE = A_BYTES + N * ROW, NACC = N / 2;
   extern __shared__ uint8_t smem_raw[];
@@ -467,8 +504,8 @@ conv_fwd_im2col_kernel(const __grid_constant__ CUtensorMap xmap,
             const int st = i % ST;
             if (i >= ST) mbar_wait(empty0 + 8 * st, (i / ST - 1) & 1);
             mbar_expect_tx(full0 + 8 * st, STAGE);
-            tma_load_im2col_4d(base + st * STAGE, &xmap, full0 + 8 * st, s * SLICE, w0, h0, b0,
-                               (uint16_t)(tap % 3), (uint16_t)(tap / 3));
+            tma_load_im2col_4d(base + st * STAGE, &xmap, full0 + 8 * st, s * SLICE, w0 + off_x,
+                               h0 + off_y, b0, (uint16_t)(tap % 3), (uint16_t)(tap / 3));
             tma_load_3d(base + st * STAGE + A_BYTES, &wmap, full0 + 8 * st, s * SLICE, tap, n0);
           }
         }
@@ -514,8 +551,26 @@ conv_fwd_im2col_kernel(const __grid_constant__ CUtensorMap xmap,
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     if (f.lane == 0) mbar_arrive(empty0 + 8 * ((i - 1) % ST));
-    epilogue<N, true>(acc, f, t);
+    epilogue<N, true, false, BIAS>(acc, f, t);
   }
+}
+
+template <int N, int ST>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+conv_fwd_im2col_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap, int slices, int off_y, int off_x,
+                       const float* __restrict__ bias, int relu, int B, int Ho, int Wo, int CO,
+                       __nv_bfloat16* __restrict__ y) {
+  im2col_block<N, ST, true>(xmap, wmap, slices, off_y, off_x, bias, relu, B, Ho, Wo, CO, y);
+}
+
+template <int N, int ST>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+conv_dgrad_im2col_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap wmap, int slices, int off_y,
+                         int off_x, const float* __restrict__ bias, int relu, int B, int Ho,
+                         int Wo, int CO, __nv_bfloat16* __restrict__ y) {
+  im2col_block<N, ST, false>(xmap, wmap, slices, off_y, off_x, bias, relu, B, Ho, Wo, CO, y);
 }
 
 // Dynamic shared memory of the im2col form: its stages, the epilogue's
@@ -524,32 +579,38 @@ constexpr int im2col_smem(int n, int st) {
   return 1024 + st * (CONSUMERS * UPW * 64 * ROW + n * ROW) + EPI_BYTES + 2 * st * 8;
 }
 
+// dgrad: the kernel under the input gradient's name, without the bias.
 template <int N, int ST>
 int launch_im2col(unet::Src s0, const CUtensorMap& wmap, int slices, const float* bias, int relu,
-                  int B, int Ho, int Wo, int CO, __nv_bfloat16* y, int sms, cudaStream_t st) {
+                  int B, int Ho, int Wo, int CO, __nv_bfloat16* y, int sms, cudaStream_t st,
+                  bool dgrad) {
   constexpr int smem = im2col_smem(N, ST);
   static_assert(smem <= SMEM_PER_BLOCK, "stages exceed the 227 KB a block can use");
   CUtensorMap xmap;
-  const int e = nhwc_im2col_map(&xmap, s0.p, B, s0.H, s0.W, s0.C, CONSUMERS * UPW * 64);
+  const int e = nhwc_im2col_map(&xmap, s0.p, B, s0.H, s0.W, s0.C, CONSUMERS * UPW * 64, s0.off_y,
+                                s0.off_x, Ho, Wo);
   if (e != 0) return e;
-  auto kernel = conv_fwd_im2col_kernel<N, ST>;
+  auto kernel = dgrad ? conv_dgrad_im2col_kernel<N, ST> : conv_fwd_im2col_kernel<N, ST>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const long long units = ((long long)B * Ho * Wo + 63) / 64;
   const long long tiles = (units + CONSUMERS * UPW - 1) / (CONSUMERS * UPW) * (CO / N);
   kernel<<<(int)(tiles < sms ? tiles : sms), FWD_THREADS, smem, st>>>(
-      xmap, wmap, slices, bias, relu, B, Ho, Wo, CO, y);
+      xmap, wmap, slices, s0.off_y, s0.off_x, bias, relu, B, Ho, Wo, CO, y);
   return (int)cudaGetLastError();
 }
 
+// dgrad: the kernel under the input gradient's name, without the bias
+// (not with HEAD).
 template <int N, int WST, int BST, bool HEAD = false>
 int launch(const CUtensorMap& xmap0, const CUtensorMap& xmap1, const CUtensorMap& wmap, int C0,
            int off_y, int off_x, int slices0, int slices, const float* bias, int relu, int B,
            int Ho, int Wo, int CO, __nv_bfloat16* y, __nv_bfloat16* pooled, int sms,
-           cudaStream_t st, const Head& hd = Head{}) {
+           cudaStream_t st, bool dgrad, const Head& hd = Head{}) {
   constexpr int smem = fwd_smem(N, WST, BST, HEAD);
   static_assert(smem <= SMEM_PER_BLOCK, "stages exceed the 227 KB a block can use");
   auto kernel = conv_fwd_kernel<N, WST, BST, HEAD>;
+  if (dgrad && !HEAD) kernel = conv_dgrad_kernel<N, WST, BST>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const long long units = (long long)B * ((Ho + UNIT - 1) / UNIT) * ((Wo + UNIT - 1) / UNIT);
@@ -576,12 +637,16 @@ int sm_count(int* sms) {
   return (int)err;
 }
 
-}  // namespace
-
-namespace unet {
-
-int launch_conv_fwd_wgmma(Src s0, Src s1, const void* w, const void* bias, int relu, int B,
-                          int Ho, int Wo, int CO, void* y, void* pooled, void* stream) {
+// Both forms behind one rule: one source, no pool and N = 128 take the
+// im2col form (a 2x2 pool window spans two output rows, Wo pixels apart,
+// so it needs the windowed units; at N = 64 the im2col form measured 0-4%
+// slower than the windowed one), the rest the windowed form. The source's
+// offset reaches either: the windowed copies start at the unit's origin
+// plus the offset, the im2col map's bounding box and copies are moved by
+// it. dgrad launches the same code without the bias under the input
+// gradient's names.
+int route(unet::Src s0, unet::Src s1, const void* w, const void* bias, int relu, int B, int Ho,
+          int Wo, int CO, void* y, void* pooled, void* stream, bool dgrad) {
   const int CI = s0.C + s1.C;
   CUtensorMap xmap0, xmap1, wmap;
   int sms = 0;
@@ -597,16 +662,29 @@ int launch_conv_fwd_wgmma(Src s0, Src s1, const void* w, const void* bias, int r
   __nv_bfloat16* yo = (__nv_bfloat16*)y;
   __nv_bfloat16* po = (__nv_bfloat16*)pooled;
   cudaStream_t st = (cudaStream_t)stream;
-  // one source, no pool, N = 128: the im2col form (a 2x2 pool window spans
-  // two output rows, Wo pixels apart, so it needs the windowed units; at
-  // N = 64 the im2col form measured 0-4% slower than the windowed one)
   if (s1.C == 0 && pooled == nullptr && CO % 128 == 0)
-    return launch_im2col<128, 4>(s0, wmap, slices, b, relu, B, Ho, Wo, CO, yo, sms, st);
+    return launch_im2col<128, 4>(s0, wmap, slices, b, relu, B, Ho, Wo, CO, yo, sms, st, dgrad);
   if (CO % 128 != 0)
     return launch<64, 2, 13>(xmap0, xmap1, wmap, s0.C, s0.off_y, s0.off_x, slices0, slices, b, relu,
-                            B, Ho, Wo, CO, yo, po, sms, st);
+                             B, Ho, Wo, CO, yo, po, sms, st, dgrad);
   return launch<128, 2, 6>(xmap0, xmap1, wmap, s0.C, s0.off_y, s0.off_x, slices0, slices, b, relu,
-                           B, Ho, Wo, CO, yo, po, sms, st);
+                           B, Ho, Wo, CO, yo, po, sms, st, dgrad);
+}
+
+}  // namespace
+
+namespace unet {
+
+int launch_conv_fwd_wgmma(Src s0, Src s1, const void* w, const void* bias, int relu, int B,
+                          int Ho, int Wo, int CO, void* y, void* pooled, void* stream) {
+  return route(s0, s1, w, bias, relu, B, Ho, Wo, CO, y, pooled, stream, false);
+}
+
+int launch_conv_dgrad_wgmma(const void* g, int B, int Hg, int Wg, int CO, const void* wt, int CI,
+                            void* dx, void* stream) {
+  const Src none{nullptr, 0, 0, 0, 0, 0};
+  const Src src{(const __nv_bfloat16*)g, Hg, Wg, CO, -2, -2};
+  return route(src, none, wt, nullptr, 0, B, Hg + 2, Wg + 2, CI, dx, nullptr, stream, true);
 }
 
 int launch_conv_head_wgmma(Src s0, const void* w, const void* bias, const void* head_w,
@@ -622,7 +700,7 @@ int launch_conv_head_wgmma(Src s0, const void* w, const void* bias, const void* 
   const Head hd{(const float*)head_w, (const float*)head_b, (float*)logits, nc};
   return launch<64, 2, 13, true>(xmap, xmap, wmap, s0.C, 0, 0, slices, slices,
                                  (const float*)bias, 1, B, Ho, Wo, SLICE, nullptr, nullptr, sms,
-                                 (cudaStream_t)stream, hd);
+                                 (cudaStream_t)stream, false, hd);
 }
 
 }  // namespace unet

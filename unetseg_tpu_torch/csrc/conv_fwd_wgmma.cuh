@@ -1,7 +1,8 @@
 // The forward implicit-GEMM 3x3 convolution on wgmma fed by a TMA ring
 // (conv_fwd_wgmma.cu): the multi-channel path of conv3x3_bias_relu.cu
 // (conv3x3_bias_relu, conv3x3_dense, conv3x3_cblock), dec_conv0.cu
-// (dec_conv0, dec_conv0_dense) and conv3x3_head.cu (conv3x3_head).
+// (dec_conv0, dec_conv0_dense), conv3x3_head.cu (conv3x3_head) and
+// conv3x3_dgrad.cu (conv3x3_dgrad, conv3x3_dense_dgrad).
 #pragma once
 
 #include "conv_mma.cuh"
@@ -12,11 +13,19 @@ namespace unet {
 // bias) in bf16, and its 2x2 max-pool (B, Ho/2, Wo/2, CO) when pooled is
 // not null; act is ReLU when relu, else the identity. s0.C and s1.C
 // multiples of 32 (s1.C may be 0; s1 is read at (0, 0)), CO a multiple of
-// 64, weights (CO, 3, 3, s0.C + s1.C) bf16, bias (CO,) f32, 16-byte aligned
-// contiguous tensors. Returns the launch's CUDA error, or -(the CUresult)
-// of a failed tensor-map encoding.
+// 64, weights (CO, 3, 3, s0.C + s1.C) bf16, bias (CO,) f32, 16-byte
+// aligned contiguous tensors. Returns the launch's CUDA error, or -(the
+// CUresult) of a failed tensor-map encoding.
 int launch_conv_fwd_wgmma(Src s0, Src s1, const void* w, const void* bias, int relu, int B,
                           int Ho, int Wo, int CO, void* y, void* pooled, void* stream);
+
+// dx (B, Hg + 2, Wg + 2, CI) bf16 = the input gradient of a valid 3x3
+// conv: the forward's kernels under their dgrad names on g (B, Hg, Wg, CO)
+// bf16 read at (-2, -2), no bias, no ReLU; wt (CI, 3, 3, CO) bf16 the
+// flipped, transposed weights, wt[ci, ky, kx, co] = w[co, ci, 2 - ky, 2 -
+// kx]. CO a multiple of 32, CI of 64. Returns as launch_conv_fwd_wgmma.
+int launch_conv_dgrad_wgmma(const void* g, int B, int Hg, int Wg, int CO, const void* wt, int CI,
+                            void* dx, void* stream);
 
 // logits (B, Ho, Wo, nc) f32 = the 1x1 head (head_w (nc, 64) f32 holding
 // bf16 values, head_b (nc,) f32; 1 <= nc <= MAX_NC) over ReLU(conv3x3(s0)

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the TMA/wgmma kernels
-// (conv3x3_wgrad.cu, conv_fwd_wgmma.cu, tconv2x2_bias.cu): mbarriers, TMA
-// tensor copies, the NHWC tensor-map encoder, wgmma shared-memory
-// descriptors, the m64n64k16 / m64n128k16 products and the register fence
-// around asynchronous wgmma groups.
+// (conv3x3_wgrad.cu, conv_fwd_wgmma.cu, tconv2x2_bias.cu and the stem of
+// conv3x3_bias_relu.cu): mbarriers, TMA tensor copies into and out of
+// shared memory, the tensor-map encoders, wgmma shared-memory descriptors,
+// the m64n64k16 / m64n128k16 products and the register fence around
+// asynchronous wgmma groups.
 #pragma once
 
 #include <cuda.h>
@@ -45,6 +46,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   }
 }
 
+// A tile copy's first element along the innermost dimension must sit on
+// a 16-byte boundary (an H100 raises an illegal instruction otherwise).
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1) {
   asm volatile(
@@ -70,6 +82,42 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// TMA store of a 4-D box from shared memory (128-byte aligned) into the
+// map's tensor at (c0, c1, c2, c3); the parts of the box outside the
+// tensor are not written. Joins the thread's open bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Closes the thread's open bulk group (the TMA stores issued since the last).
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of the thread's bulk groups have not finished
+// reading their shared memory (their sources may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of the thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's ordinary shared-memory writes before later reads
+// of the same memory by the TMA unit (the async proxy).
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // im2col copy of a 4-D NHWC map: the map's pixelsPerColumn pixels from
@@ -198,19 +246,24 @@ inline EncodeIm2col encode_im2col() {
   return fn;
 }
 
-// An im2col map of a bf16 NHWC tensor (B, H, W, C) for a valid 3x3 conv:
-// a copy brings `pixels` consecutive output pixels (across rows and images)
-// x 64 channels, each pixel read at its output position plus the copy's
-// (kx, ky) offsets; 128-byte swizzle, zeros outside. Returns 0 or -(the
-// CUresult).
+// An im2col map of a bf16 NHWC tensor (B, H, W, C) for a valid 3x3 conv
+// with (Ho, Wo) outputs, output pixel (y, x) reading the tensor at (y +
+// off_y + ky, x + off_x + kx): a copy brings `pixels` consecutive output
+// pixels (across rows and images) x 64 channels, the copy's coordinates
+// the first pixel's (x + off_x, y + off_y) and its offsets the tap's (kx,
+// ky); 128-byte swizzle, zeros outside the tensor. The bounding box spans
+// [off, off + Wo) x [off, off + Ho): corners (off_x, off_y) and (off_x +
+// Wo - W, off_y + Ho - H), which a 4-D map takes in [-128, 127] (the
+// forward: (0, 0) and (-2, -2); the input gradient: (-2, -2) and (0, 0)).
+// Returns 0 or -(the CUresult).
 inline int nhwc_im2col_map(CUtensorMap* map, const void* p, int B, int H, int W, int C,
-                           int pixels) {
+                           int pixels, int off_y, int off_x, int Ho, int Wo) {
   EncodeIm2col enc = encode_im2col();
   if (enc == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
                                  (cuuint64_t)H * W * C * 2};
-  const int lower[2] = {0, 0}, upper[2] = {-2, -2};  // (w, h): output positions only
+  const int lower[2] = {off_x, off_y}, upper[2] = {off_x + Wo - W, off_y + Ho - H};  // (w, h)
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims,
                          strides, lower, upper, SLICE, (cuuint32_t)pixels, elem,
@@ -220,29 +273,30 @@ inline int nhwc_im2col_map(CUtensorMap* map, const void* p, int B, int H, int W,
 }
 
 // A bf16 tensor map of `rank` dims (innermost first, byte strides of dims
-// 1.. in `strides`), 128-byte swizzle, zeros outside. Returns 0 or -(the
-// CUresult).
+// 1.. in `strides`), 128-byte swizzle unless `swizzle` says otherwise,
+// zeros outside. Returns 0 or -(the CUresult).
 inline int bf16_map(CUtensorMap* map, const void* p, int rank, const cuuint64_t* dims,
-                    const cuuint64_t* strides, const cuuint32_t* box) {
+                    const cuuint64_t* strides, const cuuint32_t* box,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return -(int)CUDA_ERROR_NOT_FOUND;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
 // A 4-D map of a bf16 NHWC tensor (B, H, W, C) with boxes of 64 channels x
-// box_w x box_h pixels of one image. Returns 0 or -(the CUresult).
+// box_w x box_h pixels of one image, 128-byte swizzle unless `swizzle`
+// says otherwise. Returns 0 or -(the CUresult).
 inline int nhwc_map(CUtensorMap* map, const void* p, int B, int H, int W, int C, int box_w,
-                    int box_h) {
+                    int box_h, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
                                  (cuuint64_t)H * W * C * 2};
   const cuuint32_t box[4] = {(cuuint32_t)SLICE, (cuuint32_t)box_w, (cuuint32_t)box_h, 1};
-  return bf16_map(map, p, 4, dims, strides, box);
+  return bf16_map(map, p, 4, dims, strides, box, swizzle);
 }
 
 }  // namespace hopper

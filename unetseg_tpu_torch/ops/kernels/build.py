@@ -45,6 +45,8 @@ SIGNATURES = {
     "tconv2x2_bias_bf16": [P, P, P, P, I, I, I, I, I, P],
     "tconv2x2_mma_reference_bf16": [P, P, P, P, I, I, I, I, I, P],
     "conv3x3_dgrad_bf16": [P, P, P, I, I, I, I, I, P],
+    "conv3x3_dgrad_mma_reference_bf16": [P, P, P, I, I, I, I, I, P],
+    "stem_fma_reference_bf16": [P, P, P, P, P, I, I, I, I, I, P],
     "conv3x3_wgrad_bf16": [P, I, I, I, I, I, P, I, I, I, P, I, I, I, I, I, P, P, P],
     "sample_displaced_f32": [P, P, P, P, I, I, I, P, P, P],
 }

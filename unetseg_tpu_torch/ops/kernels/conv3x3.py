@@ -32,6 +32,13 @@ kernel's counterpart counts its launches apart:
 | conv3x3_head       | csrc/conv3x3_head.cu        | conv3x3.py:conv3x3_head_phase2       | conv3x3_head_plain      |
 | dec_tail           | csrc/dec_tail.cu            | conv3x3.py:dec_tail_phase2           | dec_tail_plain          |
 
+With one input channel (the stem), conv3x3_bias_relu and conv3x3_dense
+launch a row-streaming FMA kernel (csrc/conv3x3_bias_relu.cu): strips of
+two output rows through shared memory, written by TMA tensor stores;
+`stem_plan` and `stem_strips` mirror its launch, and
+`stem_fma_reference` runs the FMA kernel it replaced, uncounted, for the
+card's bit-for-bit checks and timings.
+
 With more than one input channel, conv3x3_bias_relu, conv3x3_dense,
 conv3x3_cblock, dec_conv0 and dec_conv0_dense launch csrc/conv_fwd_wgmma.cu
 (wgmma fed by a TMA ring, in an im2col form for one source without the
@@ -125,7 +132,9 @@ def fwd_plan(bsz: int, ho: int, wo: int, co: int, sm_count: int, pool: bool = Fa
              sources: int = 1, head: bool = False) -> FwdPlan:
     """The launch plan of csrc/conv_fwd_wgmma.cu for outputs (bsz, ho, wo,
     co) from `sources` inputs, with or without the fused 2x2 pool; `head`
-    is conv3x3_head's variant (co 64: windowed, the logits of (ho, wo))."""
+    is conv3x3_head's variant (co 64: windowed, the logits of (ho, wo)).
+    A source's offset (the dgrad reads g at (-2, -2)) changes no form: the
+    im2col map's bounding box moves with it."""
     n = 128 if co % 128 == 0 else 64
     if head and (co != 64 or pool or sources != 1):
         raise ValueError("the head variant has one source, no pool and 64 channels")
@@ -139,6 +148,75 @@ def fwd_plan(bsz: int, ho: int, wo: int, co: int, sm_count: int, pool: bool = Fa
     tiles = -(-units // upb) * (co // n)
     return FwdPlan("window", n, FWD_STAGES[n], fwd_smem_bytes(n, head=head), units, tiles,
                    min(tiles, sm_count), bsz * ho * wo / (units * FWD_UNIT * FWD_UNIT))
+
+
+# csrc/conv3x3_bias_relu.cu's stem (CI == 1) launch plan: a strip is two
+# output rows x STEM_SW columns of one 64-channel block (a TMA store box of
+# 64 x STEM_SW x 2, the pool's 64 x STEM_SW / 2 x 1); its four input rows
+# of STEM_IN values each, copied from the 16-byte boundary at or before
+# the row's first value, sit STEM_IN_ROW bytes apart; STEM_TILES output
+# (and, when pooled, pool) tiles, two input stages; up to
+# STEM_BLOCKS_PER_SM blocks of 256 threads per SM, as many as fit.
+STEM_SW, STEM_TILES, STEM_BLOCKS_PER_SM, TMA_BOX_MAX = 128, 2, 3, 256
+STEM_IN = STEM_SW + 16
+STEM_IN_ROW = -(-STEM_IN * 2 // 128) * 128
+SM_SHARED = 233_472  # shared memory of an H100 SM, 1 KB of it reserved per block
+
+
+class StemPlan(NamedTuple):
+    nq: int  # quad rows: output rows 2 qy, 2 qy + 1
+    nseg: int  # column segments of STEM_SW
+    ncb: int  # 64-channel blocks
+    strips: int  # (image, quad row, segment, channel block)
+    per_sm: int  # blocks resident on an SM
+    grid: int  # blocks of the persistent grid
+    smem: int  # dynamic shared memory bytes of a block
+
+
+def stem_smem_bytes(co: int, pool: bool = False) -> int:
+    """1 KB of alignment slack, the output tiles (2 x STEM_SW pixels x 128
+    bytes each), the pool tiles when pooled, two input stages of four rows,
+    the f32 weights (9 x co) and bias (co), two mbarriers."""
+    tile, ptile = 2 * STEM_SW * 128, STEM_SW // 2 * 128
+    return (1024 + STEM_TILES * (tile + (ptile if pool else 0)) + 2 * 4 * STEM_IN_ROW
+            + 10 * co * 4 + 16)
+
+
+def stem_plan(bsz: int, ho: int, wo: int, co: int, sm_count: int, pool: bool = False) -> StemPlan:
+    """The launch plan of the stem's row kernel for outputs (bsz, ho, wo,
+    co): as many blocks per SM as the shared memory holds, up to
+    STEM_BLOCKS_PER_SM (the kernel asks the occupancy API, which also
+    counts registers: 72 a thread on an H100, not the limit at three
+    blocks); block i walks strips i, i + grid, ..."""
+    nq, nseg, ncb = -(-ho // 2), -(-wo // STEM_SW), co // 64
+    strips = bsz * nq * nseg * ncb
+    smem = stem_smem_bytes(co, pool)
+    per_sm = max(1, min(STEM_BLOCKS_PER_SM, SM_SHARED // (smem + 1024)))
+    return StemPlan(nq, nseg, ncb, strips, per_sm, min(strips, per_sm * sm_count), smem)
+
+
+def stem_strips(plan: StemPlan) -> List[np.ndarray]:
+    """Per block of the plan's grid, its strips in the kernel's order: rows
+    (b, qy, c0, cb), strip i in (image, quad row, column segment, channel
+    block) order. The strip's store box covers output rows 2 qy, 2 qy + 1
+    and columns c0 .. c0 + STEM_SW - 1 of channels 64 cb .. 64 cb + 63,
+    clipped to the output; its pool box pooled row qy, columns c0 / 2 ..
+    c0 / 2 + STEM_SW / 2 - 1."""
+    out = []
+    for blk in range(plan.grid):
+        i = np.arange(blk, plan.strips, plan.grid)
+        i, cb = np.divmod(i, plan.ncb)
+        i, seg = np.divmod(i, plan.nseg)
+        b, qy = np.divmod(i, plan.nq)
+        out.append(np.stack([b, qy, seg * STEM_SW, cb], axis=1))
+    return out
+
+
+def im2col_corners(h: int, w: int, ho: int, wo: int, off_y: int, off_x: int):
+    """The bounding box of csrc/hopper.cuh nhwc_im2col_map for a source (h,
+    w) read at (off_y, off_x) by (ho, wo) outputs: ((lower w, lower h),
+    (upper w, upper h)), the box spanning [lower, dim + upper) in each."""
+    return (off_x, off_y), (off_x + wo - w, off_y + ho - h)
 
 
 class TconvPlan(NamedTuple):
@@ -462,6 +540,36 @@ def _launch_tconv(name, entry, x, w, b):
     )
     _raise_on(err, name)
     return y
+
+
+def stem_fma_reference(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, fuse_pool: bool = False, relu: bool = True,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The stem (x with one channel) through the FMA kernel that the row
+    kernel replaced (csrc/conv3x3_bias_relu.cu), on CUDA tensors,
+    uncounted: conv3x3_bias_relu's function and bits; no serving or train
+    path calls it."""
+    if x.device.type != "cuda":
+        raise RuntimeError("stem_fma_reference runs the FMA kernel: CUDA tensors only")
+    bsz, h, wd, ci = x.shape
+    co = w.shape[0]
+    if ci != 1 or tuple(w.shape) != (co, 1, 3, 3) or tuple(b.shape) != (co,):
+        raise ValueError(f"stem weight {tuple(w.shape)} / bias {tuple(b.shape)} do not fit x "
+                         f"{tuple(x.shape)}")
+    _check_act("x", x, channels_multiple=1)
+    _check_co(co)
+    if h < 3 or wd < 3:
+        raise ValueError(f"input {h}x{wd} too small for a valid 3x3 conv")
+    y = torch.empty((bsz, h - 2, wd - 2, co), dtype=x.dtype, device=x.device)
+    pooled = (torch.empty((bsz, (h - 2) // 2, (wd - 2) // 2, co), dtype=x.dtype, device=x.device)
+              if fuse_pool else None)
+    wk, bk = _ohwi(w), _f32(b)
+    err = library().stem_fma_reference_bf16(
+        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(),
+        pooled.data_ptr() if fuse_pool else None, bsz, h, wd, co, int(relu), _stream(x),
+    )
+    _raise_on(err, "stem_fma_reference")
+    return (y, pooled) if fuse_pool else y
 
 
 def tconv2x2_mma_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,13 @@ them (counterpart of unetseg_tpu/ops/pallas/conv3x3_train.py).
 | conv3x3_dense_wgrad      | csrc/conv3x3_wgrad.cu               | conv3x3_dense_dw                                     |
 | conv3x3_dec0_dense_wgrad | csrc/conv3x3_wgrad.cu (two sources) | conv3x3_dec0_dense_dw                                |
 
+Both dgrad wrappers launch the wgmma forward's kernels (csrc/
+conv_fwd_wgmma.cu under the names conv_dgrad_kernel and
+conv_dgrad_im2col_kernel) on g read at (-2, -2) with the flipped,
+transposed weights of `dgrad_weights`; `dgrad_plan` is their launch plan.
+`conv3x3_dgrad_mma_reference` runs the mma.sync kernel they launched
+before, uncounted, for the card's timings.
+
 The TPU needed one kernel per layout (2-phase lanes for tier 1, dense
 lanes for tier 2's enc1 and dec2); on NHWC the two layouts' gradients are
 one function each, so the dense wrappers launch the same CUDA kernels and
@@ -54,6 +61,7 @@ from unetseg_tpu_torch.ops.kernels.conv3x3 import (
     conv3x3_dense,
     dec_conv0,
     dec_conv0_dense,
+    fwd_plan,
     tconv2x2_bias,
 )
 from unetseg_tpu_torch.ops.kernels.launches import counted
@@ -87,10 +95,27 @@ def conv3x3_dec0_wgrad_plain(skip, up, g, row_off, col_off):
     return conv3x3_wgrad_plain(torch.cat([crop, up], dim=-1), g)
 
 
+def dgrad_weights(w: torch.Tensor) -> torch.Tensor:
+    """(CO, CI, 3, 3) -> contiguous bf16 wt (CI, 3, 3, CO), wt[ci, ky, kx,
+    co] = w[co, ci, 2-ky, 2-kx]: flipped, CI <-> CO. The forward's OHWI
+    layout with O = dx channels and I = g channels, so the dgrad is the
+    forward conv of g read at (-2, -2) with these weights."""
+    return w.to(torch.bfloat16).flip(2, 3).permute(1, 2, 3, 0).contiguous()
+
+
+def dgrad_plan(bsz: int, hg: int, wg: int, ci: int, sm_count: int):
+    """The launch plan of csrc/conv3x3_dgrad.cu for g (bsz, hg, wg, .) and
+    ci dx channels: the wgmma forward's (ops/kernels/conv3x3.py fwd_plan)
+    for one source without the pool over the (hg + 2, wg + 2) outputs; the
+    source's (-2, -2) offset changes no form."""
+    return fwd_plan(bsz, hg + 2, wg + 2, ci, sm_count)
+
+
 # ------------------------------------------------------------------ launches
-def _launch_dgrad(name, g, w):
-    """csrc/conv3x3_dgrad.cu on CUDA tensors, for the wrappers that launch
-    it; the caller counts the launch."""
+def _launch_dgrad(name, g, w, entry="conv3x3_dgrad_bf16"):
+    """A dgrad kernel (C entry `entry` of csrc/conv3x3_dgrad.cu) on CUDA
+    tensors, for the wrappers that launch it; the caller counts the
+    launch."""
     bsz, hg, wg, co = g.shape
     ci = w.shape[1]
     if tuple(w.shape) != (co, ci, 3, 3):
@@ -98,13 +123,21 @@ def _launch_dgrad(name, g, w):
     _check_act("g", g)
     _check_co(ci)
     dx = torch.empty((bsz, hg + 2, wg + 2, ci), dtype=g.dtype, device=g.device)
-    # wt[ci, ky, kx, co] = w[co, ci, 2-ky, 2-kx]: flipped, CI <-> CO
-    wt = w.to(torch.bfloat16).flip(2, 3).permute(1, 2, 3, 0).contiguous()
-    err = library().conv3x3_dgrad_bf16(
+    wt = dgrad_weights(w)
+    err = getattr(library(), entry)(
         g.data_ptr(), wt.data_ptr(), dx.data_ptr(), bsz, hg, wg, co, ci, _stream(g),
     )
     _raise_on(err, name)
     return dx
+
+
+def conv3x3_dgrad_mma_reference(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """conv3x3_dgrad's function through the mma.sync kernel that the wgmma
+    kernels replaced (csrc/conv3x3_dgrad.cu), on CUDA tensors, uncounted:
+    no train path calls it."""
+    if g.device.type != "cuda":
+        raise RuntimeError("conv3x3_dgrad_mma_reference runs the mma.sync kernel: CUDA tensors only")
+    return _launch_dgrad("conv3x3_dgrad_mma_reference", g, w, "conv3x3_dgrad_mma_reference_bf16")
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,8 @@
 """A/B of the wgmma kernels' design choices on the card: the forward conv
-(csrc/conv_fwd_wgmma.cu) and, with --new, its head variant and the tconv
-(csrc/tconv2x2_bias.cu).
+(csrc/conv_fwd_wgmma.cu); with --new, its head variant and the tconv
+(csrc/tconv2x2_bias.cu); with --dgrad-stem, the input gradient on the
+forward's kernels (csrc/conv3x3_dgrad.cu) and the stem's row kernel
+(csrc/conv3x3_bias_relu.cu).
 
 Each variant is the sources with a few lines of one file replaced, built
 into a library of its own under unetseg_tpu_torch/build/variants/ and run
@@ -10,9 +12,13 @@ it), then the kernel's torch.profiler device time at serving shapes (16
 tiles of 700^2) from 64 to 1024 channels and at the train step's
 one-source 64-channel convs (batch 4 at 512^2); with --new instead the
 head conv at 16 x 516^2 logits and the tconv at the serving and train
-steps' up3.
+steps' up3; with --dgrad-stem the dgrad at the seven train-step cases
+(tier 1's three, tier 2's four) beside the mma.sync dgrad it replaced,
+and the stem at the serving (16 x 700^2) and train (4 x 512^2) shapes
+beside the FMA kernel it replaced, after edge-case parity (the stem bit
+for bit against that kernel).
 
-    python3 -m unetseg_tpu_torch.ops.kernels.fwd_variants [--new] [variant ...]
+    python3 -m unetseg_tpu_torch.ops.kernels.fwd_variants [--new | --dgrad-stem] [variant ...]
 
 Variants: "source" (as it is); "nostore" (the epilogue computes but
 stores nothing: what the stores cost); "wst3" (three window stages and
@@ -23,9 +29,17 @@ the im2col form for one source without the pool at N = 128);
 "head_streamed" (the head's weight taps through the ring every tile
 instead of resident); "tconv_ast2" .. "tconv_ast8" (2, 3, 6 or 8 A stages
 instead of four); "tconv_plainst" (the tconv's output stores without the
-streaming hint, st.global instead of st.global.cs). The default runs
-source, window, source, window; with --new, source, the four A depths,
-tconv_plainst, head_streamed, source.
+streaming hint, st.global instead of st.global.cs); "dgrad_window" (the
+dgrad's 128- and 256-channel dx through the windowed form at N = 128
+instead of the im2col form with its bounding box moved to (-2, -2));
+"stem_sw64" (strips of 64 columns instead of 128); "stem_2blk",
+"stem_1blk" (two or one block per SM instead of three); "stem_tiles3"
+(three output tiles instead of two, a store more in flight; two blocks
+then fit an SM). The
+default runs source, window, source, window; with --new, source, the four
+A depths, tconv_plainst, head_streamed, source; with --dgrad-stem,
+source, dgrad_window, stem_sw64, stem_2blk, stem_1blk, stem_tiles3,
+source, dgrad_window, stem_2blk.
 """
 
 from __future__ import annotations
@@ -53,22 +67,32 @@ PATCHES = {
          "*reinterpret_cast<uint4*>(y + (long long)obase[k] * SLICE + shift) = v;")],
     **{f"tconv_ast{n}": [("constexpr int AST = 4, WST = 2;", f"constexpr int AST = {n}, WST = 2;")]
        for n in (2, 3, 6, 8)},
+    "dgrad_window": [("  if (s1.C == 0 && pooled == nullptr && CO % 128 == 0)\n",
+                      "  if (s1.C == 0 && pooled == nullptr && CO % 128 == 0 && !dgrad)\n")],
+    "stem_sw64": [("constexpr int STEM_SW = 128;", "constexpr int STEM_SW = 64;")],
+    **{f"stem_{n}blk": [("constexpr int STEM_BLOCKS_PER_SM = 3;",
+                         f"constexpr int STEM_BLOCKS_PER_SM = {n};")] for n in (1, 2)},
+    "stem_tiles3": [("constexpr int STEM_TILES = 2;", "constexpr int STEM_TILES = 3;")],
 }
 # the source file a variant patches, where not conv_fwd_wgmma.cu
-SOURCE_OF = {k: "tconv2x2_bias.cu" for k in PATCHES if k.startswith("tconv_")}
+SOURCE_OF = {**{k: "tconv2x2_bias.cu" for k in PATCHES if k.startswith("tconv_")},
+             **{k: "conv3x3_bias_relu.cu" for k in PATCHES if k.startswith("stem_")}}
 DEFAULT = ["source", "window", "source", "window"]
 DEFAULT_NEW = ["source", "tconv_ast8", "tconv_ast3", "tconv_ast6", "tconv_ast2", "tconv_plainst",
                "head_streamed", "source"]
+DEFAULT_DGRAD_STEM = ["source", "dgrad_window", "stem_sw64", "stem_2blk", "stem_1blk",
+                      "stem_tiles3", "source", "dgrad_window", "stem_2blk"]
+MODES = {"--conv": DEFAULT, "--new": DEFAULT_NEW, "--dgrad-stem": DEFAULT_DGRAD_STEM}
 
 
-def main(names, new=False):
-    names = names or (DEFAULT_NEW if new else DEFAULT)
+def main(names, mode="--conv"):
+    names = names or MODES[mode]
     for name in names:
         if name not in PATCHES:
             raise SystemExit(f"unknown variant {name!r}; variants: {sorted(PATCHES)}")
     for name in names:
         t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", MODULE, "--new" if new else "--conv", name],
+        res = subprocess.run([sys.executable, "-m", MODULE, mode, name],
                              cwd=REPO, capture_output=True, text=True, timeout=300)
         print(f"variant {name}: rc {res.returncode}, {time.perf_counter() - t0:.1f} s", flush=True)
         print(res.stdout, end="", flush=True)
@@ -76,7 +100,7 @@ def main(names, new=False):
             print(res.stderr[-3000:], flush=True)
 
 
-def run_variant(name, new=False):
+def run_variant(name, mode="--conv"):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -129,8 +153,10 @@ def run_variant(name, new=False):
                 return ms
         raise RuntimeError("torch.profiler recorded no device time in three sessions")
 
-    if new:
+    if mode == "--new":
         return time_new(name, act, weights, worst, device)
+    if mode == "--dgrad-stem":
+        return time_dgrad_stem(name, act, weights, worst, device)
     edge = []
     for b, h, w, ci, co in [(2, 21, 19, 96, 128), (3, 11, 21, 64, 192), (2, 38, 38, 512, 256)]:
         x, (wt, bias) = act(b, h, w, ci), weights(co, ci)
@@ -217,10 +243,68 @@ def time_new(name, act, weights, worst, device):
     torch.cuda.empty_cache()
 
 
+def time_dgrad_stem(name, act, weights, worst, device):
+    """The dgrad and the stem: edge-case parity (the dgrad at 64-, 128- and
+    256-channel dx from tiny and odd g; the stem bit for bit against the
+    FMA kernel it replaced, with the pool on odd sizes and at CO 128),
+    then device time of the dgrad at the train step's seven cases and of
+    the stem at the serving and train shapes, each beside the kernel it
+    replaced on the same tensors."""
+    import torch
+
+    from unetseg_tpu_torch.models.shapes import unet_shapes
+    from unetseg_tpu_torch.ops.kernels import conv3x3 as K
+    from unetseg_tpu_torch.ops.kernels import conv3x3_train as KT
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def grad(*shape):
+        return (torch.rand(*shape, generator=g, device="cuda") - 0.5).to(torch.bfloat16)
+
+    edge, same = [], True
+    for b, hg, wg, co, ci in [(1, 1, 1, 64, 64), (4, 2, 3, 64, 128), (1, 2, 3, 128, 256),
+                              (4, 13, 9, 64, 128), (1, 37, 21, 128, 256), (2, 17, 30, 128, 64)]:
+        gr, (wt, _) = grad(b, hg, wg, co), weights(co, ci)
+        edge.append(worst(KT.conv3x3_dgrad(gr, wt), KT.conv3x3_dgrad_plain(gr.float(), wt)))
+    for b, h, w, co, pool, relu in [(2, 37, 45, 64, True, True), (3, 9, 7, 64, True, False),
+                                    (1, 20, 300, 128, True, True)]:
+        x, (wt, bias) = act(b, h, w, 1), weights(co, 1)
+        got = K.conv3x3_bias_relu(x, wt, bias, fuse_pool=pool, relu=relu)
+        ref = K.stem_fma_reference(x, wt, bias, fuse_pool=pool, relu=relu)
+        torch.cuda.synchronize()
+        same = same and all(map(torch.equal, got, ref))
+    print(f"variant {name}: edge cases worst err/bound {max(edge):.4f}, stem bits equal the FMA "
+          f"kernel's: {same}", flush=True)
+
+    sh = unet_shapes(512)
+    e0, u, d2 = sh.encoder[0], sh.crops[-1], sh.crops[-2]
+    p0 = e0 // 2
+    cases = {"enc0_conv1": (e0, 64, 64), "dec3_conv1": (u - 4, 64, 64),
+             "dec3_conv0": (u - 2, 64, 128), "dense_enc1_conv0": (p0 - 2, 128, 64),
+             "dense_enc1_conv1": (p0 - 4, 128, 128), "dense_dec2_conv0": (d2 - 2, 128, 256),
+             "dense_dec2_conv1": (d2 - 4, 128, 128)}
+    for case, (n, co, ci) in cases.items():
+        gr, (wt, _) = grad(4, n, n, co), weights(co, ci)
+        dev = device(lambda: KT.conv3x3_dgrad(gr, wt), kernel="conv_dgrad")
+        old = device(lambda: KT.conv3x3_dgrad_mma_reference(gr, wt), kernel="conv3x3_mma_kernel")
+        flop = 2 * 4 * n * n * ci * co * 9
+        print(f"variant {name} dgrad {case}: device {dev:.4f} ms ({flop / dev / 1e9:.0f} TFLOP/s), "
+              f"mma.sync {old:.4f} ms ({old / dev:.2f}x)", flush=True)
+    for shape, (b, h, relu) in {"stem_serving": (16, 700, True),
+                                "stem_train": (4, 512, False)}.items():
+        x, (wt, bias) = act(b, h, h, 1), weights(64, 1)
+        dev = device(lambda: K.conv3x3_bias_relu(x, wt, bias, relu=relu), kernel="stem_rows")
+        old = device(lambda: K.stem_fma_reference(x, wt, bias, relu=relu), kernel="stem_fma")
+        n_bytes = b * h * h * 2 + b * (h - 2) ** 2 * 64 * 2
+        print(f"variant {name} {shape}: device {dev:.4f} ms ({n_bytes / dev / 1e6:.0f} GB/s), FMA "
+              f"kernel {old:.4f} ms ({old / dev:.2f}x)", flush=True)
+        torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] in ("--conv", "--new"):
-        run_variant(sys.argv[2], new=sys.argv[1] == "--new")
-    elif sys.argv[1:2] == ["--new"]:
-        main(sys.argv[2:], new=True)
+    if len(sys.argv) == 3 and sys.argv[1] in MODES:
+        run_variant(sys.argv[2], mode=sys.argv[1])
+    elif sys.argv[1:2] and sys.argv[1] in MODES:
+        main(sys.argv[2:], mode=sys.argv[1])
     else:
         main(sys.argv[1:])
