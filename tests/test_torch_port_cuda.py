@@ -10,7 +10,10 @@ pixel counts, odd crop offsets, bf16 logits and three classes; the
 min-plus product at sizes off its 128-tile, K = 1 and both shared-operand
 patterns; the serving variants' kernels: the fused enc0 at odd sizes and
 batch 1, the fused decoder tail at odd crop offsets with 1-4 classes
-(both also bit for bit against the chained kernels), the cblock conv at
+and over several bands (bit for bit against the wgmma chain, its
+mma.sync reference against the mma.sync chain), the fused enc0 bit for
+bit against the chained kernels, the stem's TMA weight gradient at a 3 x
+3 g, rows off the 16-byte pitch and CO 128 (the same bits twice), the cblock conv at
 CI 1024 on a 6x6 input, the dense decoder entry at offset 41, the dense
 conv on both conv paths; the tier-2 train kernels: the dense dgrad with
 CI 64 out of CO 128 and CI 256, the dense wgrad at 128 -> 128 with ragged
@@ -209,6 +212,30 @@ def test_dec0_wgrad(g, row_off, col_off):
     _close_rel(got, ref)
 
 
+@pytest.mark.parametrize("b,h,w,co", [
+    (1, 5, 5, 64),      # one image, a 3 x 3 g: one tile, mostly past the edges
+    (2, 37, 83, 64),    # rows of 83 values: no 16-byte row pitch, every row offset
+    (3, 22, 141, 128),  # two 64-channel blocks, ragged last tile column
+    (1, 70, 67, 128),
+])
+def test_wgrad_stem_edges(g, b, h, w, co):
+    """The stem's TMA weight gradient (x with one channel) at edge shapes
+    against the plain version and the FMA kernel it replaced, with the same
+    bits on two launches."""
+    x = _act(g, b, h, w, 1)
+    gr = _g(g, b, h - 2, w - 2, co)
+    KT.conv3x3_wgrad.launches = 0
+    first, again = KT.conv3x3_wgrad(x, gr), KT.conv3x3_wgrad(x, gr)
+    old = KT.wgrad_stem_fma_reference(x, gr)
+    torch.cuda.synchronize()
+    assert KT.conv3x3_wgrad.launches == 2  # the reference is uncounted
+    assert first.shape == (co, 1, 3, 3) and first.dtype == torch.float32
+    assert torch.equal(first, again)
+    ref = KT.conv3x3_wgrad_plain(x.float(), gr.float())
+    _close_rel(first, ref)
+    _close_rel(old, ref)
+
+
 def test_wgrad_is_deterministic(g):
     """Two-pass split-K: the same inputs give the same bits."""
     x, gr = _act(g, 2, 66, 70, 64), _g(g, 2, 64, 68, 64)
@@ -395,29 +422,49 @@ def test_enc0_fused(g, b, h, w):
     _close(pooled, r_pool, to_nhwc(torch.nn.functional.max_pool2d(to_nchw(slack), 2)))
 
 
-@pytest.mark.parametrize("nc,row_off,col_off", [(1, 3, 5), (2, 5, 2), (3, 0, 7), (4, 1, 1)])
-def test_dec_tail(g, nc, row_off, col_off):
-    """Odd crop offsets, 1-4 classes, ragged tiles: the bits of the
-    mma.sync decoder-entry conv chained with the mma.sync head (the
-    uncounted reference, whose order dec_tail sums in), and the fp32 plain
-    version within both roundings."""
-    skip, up = _act(g, 2, 40, 38, 64), _act(g, 2, 27, 23, 64)
+def _dec_tail_case(g, nc, b, hs, ws, hu, wu, row_off, col_off):
+    """dec_tail on random inputs: the new kernel against the wgmma chain
+    dec_conv0 -> conv3x3_head bit for bit (the same slices, taps and k16
+    steps per pixel), dec_tail_mma_reference against the mma.sync chain bit
+    for bit, and the kernel against the fp32 plain version within both
+    roundings."""
+    skip, up = _act(g, b, hs, ws, 64), _act(g, b, hu, wu, 64)
     w0, b0 = _w(g, 64, 128, 3, 3, fan=9 * 64), _b(g, 64)
     w1, b1 = _w(g, 64, 64, 3, 3, fan=9 * 64), _b(g, 64)
     kh, bh = _w(g, nc, 64, 1, 1, fan=nc), _b(g, nc)
     K.reset_launch_counts()
     got = K.dec_tail(skip, up, w0, b0, w1, b1, kh, bh, row_off, col_off)
     assert K.launch_counts()["dec_tail"] == 1
-    assert got.shape == (2, 23, 19, nc) and got.dtype == torch.float32
+    assert got.shape == (b, hu - 4, wu - 4, nc) and got.dtype == torch.float32
+    wgmma_chain = K.conv3x3_head(K.dec_conv0(skip, up, w0, b0, row_off, col_off), w1, b1, kh, bh)
+    old = K.dec_tail_mma_reference(skip, up, w0, b0, w1, b1, kh, bh, row_off, col_off)
     entry = K.conv3x3_mma_reference(skip, w0, b0, up=up, row_off=row_off, col_off=col_off)
-    chained = K.conv3x3_mma_reference(entry, w1, b1, k_head=kh, b_head=bh)
+    mma_chain = K.conv3x3_mma_reference(entry, w1, b1, k_head=kh, b_head=bh)
     torch.cuda.synchronize()
-    assert torch.equal(got, chained)
+    assert K.launch_counts()["dec_tail"] == 1  # the reference is uncounted
+    assert torch.equal(got, wgmma_chain)
+    assert torch.equal(old, mma_chain)
     y = K.dec_conv0_plain(skip.float(), up.float(), w0, b0, row_off, col_off)
     a = K.conv3x3_bias_relu_plain(y, w1, b1)
     slack = HEAD_SLACK * _abs_conv(a, kh) + ROUND * _abs_conv(_abs_conv(y, w1), kh)
     _close(got, K.dec_tail_plain(skip.float(), up.float(), w0, b0, w1, b1, kh, bh, row_off,
                                  col_off), slack)
+
+
+@pytest.mark.parametrize("nc,row_off,col_off", [(1, 3, 5), (2, 5, 2), (3, 0, 7), (4, 1, 1)])
+def test_dec_tail(g, nc, row_off, col_off):
+    """Odd crop offsets, 1-4 classes, one band ragged in both directions (23
+    x 19 logits: 3 column steps, each block one step, all but the first of
+    a band starting with a prime step)."""
+    _dec_tail_case(g, nc, 2, 40, 38, 27, 23, row_off, col_off)
+
+
+def test_dec_tail_bands(g):
+    """Several bands and more steps than SMs: 196 x 199 logits are 7 bands
+    (the last 16 rows) of 26 column steps, 182 steps, so blocks walk two
+    steps across band seams, some from a prime step; the last step's
+    columns and the last band's rows run past the image."""
+    _dec_tail_case(g, 2, 1, 212, 215, 200, 203, 5, 7)
 
 
 def test_conv3x3_cblock_deep(g):

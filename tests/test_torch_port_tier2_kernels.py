@@ -183,17 +183,17 @@ def _blocks_per_chunk(cis, co):
 def test_wgrad_chunks_fill_one_wave():
     """The split-K chunk count of every weight gradient of the train step
     at 512^2 (tier 1 and tier 2): its blocks fit one wave of the H100's
-    132 SMs (the wgmma kernel one block per SM, the stem's FMA kernel two)
+    132 SMs (the wgmma kernel and the stem's TMA kernel one block per SM)
     and fill at least 96% of it. dec2 conv0 (two 128-channel sources, co
     128: 8 blocks a chunk) gets 16 chunks, where rounding up would give 17
-    and a tail wave; the stem keeps its 264."""
+    and a tail wave; the stem gets 132."""
     for n, cis, co in TRAIN_WGRADS:
         per_sm = KT.WGRAD_STEM_BLOCKS_PER_SM if cis == (1,) else KT.WGRAD_BLOCKS_PER_SM
         chunks = KT.wgrad_chunks(4, n, n, cis, co, 132)
         assert 0.96 * per_sm * 132 <= chunks * _blocks_per_chunk(cis, co) <= per_sm * 132, \
             (n, cis, co, chunks)
     assert KT.wgrad_chunks(4, 166, 166, (128, 128), 128, 132) == 16
-    assert KT.wgrad_chunks(4, 510, 510, (1,), 64, 132) == 264
+    assert KT.wgrad_chunks(4, 510, 510, (1,), 64, 132) == 132
     assert KT.wgrad_chunks(1, 3, 3, (64,), 64, 132) == 1  # one tile: one chunk
     # 32-channel sources take a 64-channel slice each (the copy zero-fills)
     assert KT.wgrad_chunks(1, 9, 40, (32, 32), 64, 132) == 9  # 3 x 3 tiles

@@ -60,9 +60,37 @@
 // One block per SM: 416 threads at up to 152 registers; no setmaxnreg is
 // needed, the producer warp idles at the registers it was given.
 //
-// CI == 1 (the stem) has N = 9 only: a separate FMA kernel, thread per
-// output channel, four thread groups per block each over a quarter of the
-// tile's pixels, summed in shared memory in a fixed order.
+// CI == 1 (the stem: x (4,512,512,1), g (4,510,510,64) in the train step)
+// is the product dw[co, tap] = sum_p g[p, co] x[p + tap]: M = 64 output
+// channels, N = 9 taps, K = 1.04 M pixels, 1.2 GFLOP against 135 MB of
+// reads, nearly all of them g: bound by bytes (0.040 ms at 3.35 TB/s). The
+// TMA kernel (wgrad_stem_tma_kernel) streams g and hides the arithmetic
+// under the copies:
+// - One producer warp fills a ring of ST_STAGES stages. A stage is one
+//   tile of ST_H x ST_W g pixels x 64 channels (a 4-D NHWC box, 128 bytes a
+//   pixel, 128-byte swizzle, zeros past the edges) and the tile's ST_H + 2
+//   x rows (128-byte aligned in shared memory, as a tensor copy's
+//   destination must be), each by a 1-D copy of the flat input from the
+//   16-byte boundary at or before the row's first value (a copy that starts
+//   off the boundary is an illegal instruction on an H100); a row that runs
+//   past its image's edge reads the next row or zeros and meets only zero g.
+// - Four consumer warps, one per tile row, run mma.sync m16n8k16 on each
+//   16-pixel K step: A = g^T (64 co x 16 pixels) by four ldmatrix.x4.trans
+//   from the swizzled tile, B = the step's 16 x 16 im2col of x (nine taps,
+//   seven zero columns) built in registers straight from the staged rows,
+//   4 + 4 two-byte loads a thread. Per 16 pixels x 64 channels a warp
+//   issues 4 ldmatrix, at most 8 loads and 8 mma: the 2.1 GFLOP of padded
+//   tensor work is a few microseconds of the card's rate, far under the
+//   copies. wgmma.m64n16k16 would issue fewer instructions still; mma.sync
+//   keeps the B operand in registers and needs no second shared layout.
+// - A persistent grid of one block per SM over whole-wave split-K chunks
+//   (ops/kernels/conv3x3_train.py wgrad_chunks); at the end the four warps'
+//   sums meet in shared memory in a fixed order, and the reduce kernel
+//   below sums the chunks: the same bits on every launch.
+// What it replaced, kept as wgrad_stem_fma_reference_bf16 (uncounted, for
+// chip_smoke.py's timings): an FMA kernel, thread per output channel,
+// staging 8x16-pixel tiles through registers between two barriers and
+// issuing ten shared loads per nine FMAs (27% of the bytes bound).
 #include "conv_mma.cuh"
 #include "hopper.cuh"
 
@@ -71,6 +99,24 @@ namespace {
 using namespace hopper;
 
 // ------------------------------------------------------------- stem (CI 1)
+constexpr int ST_H = 4, ST_W = 64;        // g pixels per TMA stem tile
+constexpr int ST_PIX = ST_H * ST_W;
+constexpr int ST_G_BYTES = ST_PIX * SLICE * 2;  // 64 channels, 128 bytes a pixel
+// x values a staged row: from the 16-byte boundary at or before the tile's
+// first input value, so >= 7 + ST_W + 2, a multiple of 8
+constexpr int ST_XIN = ST_W + 16;
+// a staged row's bytes: a tensor copy's shared destination is 128-byte aligned
+constexpr int ST_XROW = (ST_XIN * 2 + 127) / 128 * 128;
+constexpr int ST_X_BYTES = (ST_H + 2) * ST_XIN * 2;  // what the copies bring
+constexpr int ST_STAGE = ST_G_BYTES + ((ST_H + 2) * ST_XROW + 1023) / 1024 * 1024;
+constexpr int ST_STAGES = 6;
+constexpr int ST_WARPS = ST_H;                       // consumer warps, one per tile row
+constexpr int ST_THREADS = ST_WARPS * 32 + 32;       // + the producer warp
+constexpr int ST_RED_BYTES = ST_WARPS * 64 * 9 * 4;  // the warps' sums
+constexpr int ST_SMEM = 1024 + ST_STAGES * ST_STAGE + ST_RED_BYTES + 2 * ST_STAGES * 8;
+static_assert(ST_SMEM <= SMEM_PER_BLOCK, "stem stages exceed the 227 KB a block can use");
+
+// The FMA kernel it replaced (wgrad_stem_fma_reference_bf16).
 constexpr int WTH = 8, WTW = 16;          // output pixels per stem tile
 constexpr int WPIX = WTH * WTW;
 constexpr int WROWS = WTH + 2, WCOLS = WTW + 2;
@@ -235,7 +281,7 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap gmap,
 constexpr int STEM_PARTS = unet::THREADS / unet::NCO;  // 4 pixel groups
 
 __global__ void __launch_bounds__(unet::THREADS)
-wgrad_stem_kernel(const __nv_bfloat16* __restrict__ x, int H, int W,
+wgrad_stem_fma_kernel(const __nv_bfloat16* __restrict__ x, int H, int W,
                   const __nv_bfloat16* __restrict__ g, int B, int Ho, int Wo,
                   int CO, int nchunks, float* __restrict__ partial) {
   using namespace unet;
@@ -299,6 +345,152 @@ wgrad_stem_kernel(const __nv_bfloat16* __restrict__ x, int H, int W,
   }
 }
 
+// Four 8x8 bf16 matrices of shared memory, transposed, into the mma.sync
+// fragment registers: thread 8i + r gives row r of matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// Two bf16 values as one mma.sync operand register (a in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b) {
+  return (uint32_t)*reinterpret_cast<const unsigned short*>(a) |
+         (uint32_t)*reinterpret_cast<const unsigned short*>(b) << 16;
+}
+
+// Flat index of the first x value of staged row r of the tile at (b, y0,
+// x0): input row y0 + r of image b from column x0 (past the last row of the
+// image it runs on into the next image, or past the input's end).
+__device__ __forceinline__ int stem_x_start(int b, int y0, int x0, int r, int H, int W) {
+  return (b * H + y0 + r) * W + x0;
+}
+
+// The stem's weight gradient (see the note at the top). gmap: g (B, Ho,
+// Wo, CO) with boxes of 64 channels x ST_W x ST_H; xmap: x as a flat 1-D
+// bf16 map, box ST_XIN. partial[chunk][co][tap] f32.
+__global__ void __launch_bounds__(ST_THREADS, 1)
+wgrad_stem_tma_kernel(const __grid_constant__ CUtensorMap gmap,
+                      const __grid_constant__ CUtensorMap xmap, int H, int W, int B, int Ho,
+                      int Wo, int CO, int nchunks, float* __restrict__ partial) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle's 1 KB atom
+  const uint32_t full0 = base + ST_STAGES * ST_STAGE + ST_RED_BYTES;
+  const uint32_t empty0 = full0 + 8 * ST_STAGES;
+  uint8_t* sbase = smem_raw + (base - raw);
+  float* red = reinterpret_cast<float*>(sbase + ST_STAGES * ST_STAGE);  // [warp][co][tap]
+
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.x;
+  const int co0 = blockIdx.z * SLICE;
+  const int nty = (Ho + ST_H - 1) / ST_H, ntx = (Wo + ST_W - 1) / ST_W;
+  const long long ntiles = (long long)B * nty * ntx;
+  const long long t_begin = ntiles * chunk / nchunks;
+  const int n = (int)(ntiles * (chunk + 1) / nchunks - t_begin);
+
+  if (tid == 0) {
+    for (int s = 0; s < ST_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, ST_WARPS);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= ST_WARPS * 32) {  // the producer warp: one thread issues the copies
+    if (tid == ST_WARPS * 32) {
+      for (int i = 0; i < n; ++i) {
+        const int s = i % ST_STAGES;
+        if (i >= ST_STAGES) mbar_wait(empty0 + 8 * s, (i / ST_STAGES - 1) & 1);
+        int b, y0, x0;
+        tile_origin(t_begin + i, ST_H, ST_W, nty, ntx, b, y0, x0);
+        const uint32_t full = full0 + 8 * s, gs = base + s * ST_STAGE;
+        mbar_expect_tx(full, ST_G_BYTES + ST_X_BYTES);
+        tma_load_4d(gs, &gmap, full, co0, x0, y0, b);
+        for (int r = 0; r < ST_H + 2; ++r)
+          tma_load_1d(gs + ST_G_BYTES + r * ST_XROW, &xmap, full,
+                      stem_x_start(b, y0, x0, r, H, W) & ~7);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warp w takes row w of every tile
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;  // this lane's ldmatrix matrix and row
+  // B columns: n8 tile 0 holds taps 0..7 (this lane's column g is tap g),
+  // n8 tile 1 tap 8 in column 0 (lanes 0..3) and zeros
+  const int ky = g / 3, kx = g % 3;
+  float acc[4][2][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) acc[m][j][h] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i % ST_STAGES;
+    mbar_wait(full0 + 8 * s, (i / ST_STAGES) & 1);
+    int b, y0, x0;
+    tile_origin(t_begin + i, ST_H, ST_W, nty, ntx, b, y0, x0);
+    const uint32_t gs = base + s * ST_STAGE;
+    const __nv_bfloat16* xs =
+        reinterpret_cast<const __nv_bfloat16*>(sbase + s * ST_STAGE + ST_G_BYTES);
+    // the staged rows of taps g and 8; a row's first value sits at (start & 7)
+    constexpr int XR = ST_XROW / 2;  // bf16 values a staged row
+    const __nv_bfloat16* xa =
+        xs + (warp + ky) * XR + (stem_x_start(b, y0, x0, warp + ky, H, W) & 7) + kx;
+    const __nv_bfloat16* x8 =
+        xs + (warp + 2) * XR + (stem_x_start(b, y0, x0, warp + 2, H, W) & 7) + 2;
+#pragma unroll
+    for (int st = 0; st < ST_W / 16; ++st) {
+      const int k0 = st * 16 + 2 * q;  // B rows 2q, 2q + 1 and 2q + 8, 2q + 9
+      uint32_t b0[2], b1[2];
+      b0[0] = pack_bf16(xa + k0, xa + k0 + 1);
+      b0[1] = pack_bf16(xa + k0 + 8, xa + k0 + 9);
+      b1[0] = g == 0 ? pack_bf16(x8 + k0, x8 + k0 + 1) : 0u;
+      b1[1] = g == 0 ? pack_bf16(x8 + k0 + 8, x8 + k0 + 9) : 0u;
+      // A = g^T: matrix mi is channels 16m + 8 (mi & 1) .. + 7 of pixels
+      // 8 (mi >> 1) .. + 7 of the step; pixel k's 16-byte chunk c sits at
+      // c ^ (k & 7) (the 128-byte swizzle)
+      const int k = warp * ST_W + st * 16 + mr + 8 * (mi >> 1);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int c = 2 * m + (mi & 1);
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, gs + k * 128 + ((c ^ (k & 7)) << 4));
+        unet::mma_bf16_16816(acc[m][0], a, b0);
+        unet::mma_bf16_16816(acc[m][1], a, b1);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+
+  // accumulator h of (m, j) is channel 16m + g (+8 for h >= 2), tap 8j +
+  // 2q + (h & 1); the warps' sums meet in a fixed order
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int tap = 8 * j + 2 * q + (h & 1), co = 16 * m + g + 8 * (h >> 1);
+        if (tap < 9) red[(warp * SLICE + co) * 9 + tap] = acc[m][j][h];
+      }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(ST_WARPS * 32) : "memory");
+  for (int o = tid; o < SLICE * 9; o += ST_WARPS * 32) {
+    float v = red[o];
+#pragma unroll
+    for (int w = 1; w < ST_WARPS; ++w) v += red[w * SLICE * 9 + o];
+    partial[((size_t)chunk * CO + co0) * 9 + o] = v;  // o = co * 9 + tap
+  }
+}
+
 constexpr int RED_OUT = 32;  // outputs per reduce block
 
 // dw[co][ci][tap] = the sum over chunks of partial[chunk][co][tap][ci] in
@@ -337,6 +529,36 @@ wgrad_reduce_kernel(const float* __restrict__ partial, int nchunks, int CO, int 
   }
 }
 
+// The two-pass sum of the chunks' partials into dw (CO, CI, 3, 3).
+int launch_reduce(const float* partial, int nchunks, int CO, int CI, float* dw, cudaStream_t st) {
+  const int n = CO * 9 * CI;
+  // parts per output: eight where each gets four chunks or more (at 16
+  // chunks, eight parts of two chunks were slower than four parts of four)
+  const dim3 rgrid((n + RED_OUT - 1) / RED_OUT);
+  if (nchunks >= 32)
+    wgrad_reduce_kernel<8><<<rgrid, RED_OUT * 8, 0, st>>>(partial, nchunks, CO, CI, dw);
+  else
+    wgrad_reduce_kernel<4><<<rgrid, RED_OUT * 4, 0, st>>>(partial, nchunks, CO, CI, dw);
+  return (int)cudaGetLastError();
+}
+
+int launch_stem(const void* x, int H, int W, const void* g, int B, int Ho, int Wo, int CO,
+                int nchunks, float* partial, cudaStream_t st) {
+  CUtensorMap gmap, xmap;
+  int e = nhwc_map(&gmap, g, B, Ho, Wo, CO, ST_W, ST_H);
+  const cuuint64_t xdim[1] = {(cuuint64_t)B * H * W}, xstride[1] = {0};
+  const cuuint32_t xbox[1] = {(cuuint32_t)ST_XIN};
+  if (e == 0) e = bf16_map(&xmap, x, 1, xdim, xstride, xbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e != 0) return e;
+  cudaError_t err = cudaFuncSetAttribute(wgrad_stem_tma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, ST_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(nchunks, 1, CO / SLICE);
+  wgrad_stem_tma_kernel<<<grid, ST_THREADS, ST_SMEM, st>>>(gmap, xmap, H, W, B, Ho, Wo, CO,
+                                                          nchunks, partial);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // s0 (B,H0,W0,C0) read at (off_y0, off_x0) and, when C1 > 0, s1
@@ -354,10 +576,8 @@ extern "C" int conv3x3_wgrad_bf16(const void* x0, int H0, int W0, int C0,
   cudaStream_t st = (cudaStream_t)stream;
   const int CI = C0 + C1;
   if (C0 == 1 && C1 == 0) {
-    dim3 grid(nchunks, 1, CO / unet::NCO);
-    wgrad_stem_kernel<<<grid, unet::THREADS, 0, st>>>(
-        (const __nv_bfloat16*)x0, H0, W0, (const __nv_bfloat16*)g, B, Ho, Wo,
-        CO, nchunks, (float*)partial);
+    const int e = launch_stem(x0, H0, W0, g, B, Ho, Wo, CO, nchunks, (float*)partial, st);
+    if (e != 0) return e;
   } else {
     CUtensorMap gmap, xmap0, xmap1;
     int e = nhwc_map(&gmap, g, B, Ho, Wo, CO, GT_W, GT_H);
@@ -373,18 +593,25 @@ extern "C" int conv3x3_wgrad_bf16(const void* x0, int H0, int W0, int C0,
     wgrad_wgmma_kernel<<<grid, WG_THREADS, WG_SMEM, st>>>(
         gmap, xmap0, xmap1, C0, C1, off_y0, off_x0, slices0, B, Ho, Wo, CO, nchunks,
         (float*)partial);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
+  return launch_reduce((const float*)partial, nchunks, CO, CI, (float*)dw, st);
+}
+
+// The stem's weight gradient through the FMA kernel that the TMA kernel
+// replaced: x (B,H,W,1), g (B,H-2,W-2,CO) bf16; partial: f32 scratch of
+// nchunks*CO*9 -> dw (CO, 1, 3, 3) f32. Returns the first failing launch's
+// CUDA error.
+extern "C" int wgrad_stem_fma_reference_bf16(const void* x, int H, int W, const void* g, int B,
+                                             int CO, int nchunks, void* partial, void* dw,
+                                             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 grid(nchunks, 1, CO / unet::NCO);
+  wgrad_stem_fma_kernel<<<grid, unet::THREADS, 0, st>>>(
+      (const __nv_bfloat16*)x, H, W, (const __nv_bfloat16*)g, B, H - 2, W - 2, CO, nchunks,
+      (float*)partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int n = CO * 9 * CI;
-  // parts per output: eight where each gets four chunks or more (at 16
-  // chunks, eight parts of two chunks were slower than four parts of four)
-  const dim3 rgrid((n + RED_OUT - 1) / RED_OUT);
-  if (nchunks >= 32)
-    wgrad_reduce_kernel<8><<<rgrid, RED_OUT * 8, 0, st>>>((const float*)partial, nchunks, CO,
-                                                          CI, (float*)dw);
-  else
-    wgrad_reduce_kernel<4><<<rgrid, RED_OUT * 4, 0, st>>>((const float*)partial, nchunks, CO,
-                                                          CI, (float*)dw);
-  return (int)cudaGetLastError();
+  return launch_reduce((const float*)partial, nchunks, CO, 1, (float*)dw, st);
 }

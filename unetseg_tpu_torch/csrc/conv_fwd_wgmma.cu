@@ -15,7 +15,10 @@
 // conv3x3_head.cu), and on the output gradient read at (-2, -2) with no
 // bias the input gradients conv3x3_train.py:74 conv3x3_phase2_dx and :266
 // conv3x3_dense_dx (entry conv3x3_dgrad.cu; kernels conv_dgrad_kernel and
-// conv_dgrad_im2col_kernel, the same code under names of their own).
+// conv_dgrad_im2col_kernel, the same code under names of their own). Its
+// rings and epilogues, with conv0's tile kept in shared memory and conv1
+// and the head after it, also replace conv3x3.py:1026 dec_tail_phase2
+// (entry dec_tail.cu, kernel dec_tail_kernel).
 //
 // GEMM view: M = output pixels, N = output channels, K = 9 taps x CI.
 // On an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) bytes bound enc0 conv1 (571
@@ -76,6 +79,9 @@
 //   MODE_HEAD of conv_mma.cuh, which restaged the 9-tap weight slice of a
 //   16x16 tile every 32 channels between two barriers (22% of its
 //   operations bound).
+// - Fused decoder tail (dec_tail_kernel, entry dec_tail.cu): conv0, conv1
+//   and the head in one kernel, conv0's tile kept in shared memory; the
+//   product transposed (M = channels, N = pixels): its note below.
 // - Epilogue: bias, ReLU when relu, rounded to bf16 into a 16-pixel x
 //   64-channel shared tile per consumer warp, 64 channels at a time, then
 //   stored as whole 128-byte pixel rows of 16-byte vectors, and the 2x2
@@ -214,9 +220,11 @@ __device__ __forceinline__ void drain(const Consumer& f, int wi, int bi) {
 // eight rows' 16-byte chunks: no bank conflict) against the head weights
 // in shared memory (one address per quarter warp: a broadcast), f32
 // products and sums; a shuffle adds the two halves and half 0 writes the
-// pixel's nc logits. The 64-channel activation is never stored.
+// pixel's nc logits, where the pixel lies in rows [0, y_end) and columns
+// [x_begin, Wo) (the fused tail's band edges). The 64-channel activation
+// is never stored.
 __device__ __forceinline__ void head_rows(const Consumer& f, const Head& hd, const float* hw,
-                                          int b, int uy, int ux) {
+                                          int b, int uy, int ux, int y_end, int x_begin = 0) {
   const int r = f.lane & 15, half = f.lane >> 4;
   float l[unet::MAX_NC];
 #pragma unroll
@@ -241,7 +249,7 @@ __device__ __forceinline__ void head_rows(const Consumer& f, const Head& hd, con
 #pragma unroll
   for (int n = 0; n < unet::MAX_NC; ++n) l[n] += __shfl_xor_sync(0xffffffffu, l[n], 16);
   const int oy = uy + 2 * f.warp + (r >> 3), ox = ux + (r & 7);
-  if (half == 0 && oy < f.Ho && ox < f.Wo) {
+  if (half == 0 && oy < y_end && ox >= x_begin && ox < f.Wo) {
     float* out = hd.logits + (((size_t)b * f.Ho + oy) * f.Wo + ox) * hd.nc;
 #pragma unroll
     for (int n = 0; n < unet::MAX_NC; ++n)
@@ -292,7 +300,7 @@ __device__ __forceinline__ void epilogue(float (&acc)[UPW][N / 2], const Consume
       }
       __syncwarp();
       if constexpr (HEAD) {
-        head_rows(f, hd, hw, b, uy, ux);
+        head_rows(f, hd, hw, b, uy, ux, f.Ho);
       } else {
         // row r of the tile is unit pixel (2 warp + r / 8, r % 8); lanes
         // 8i..8i+7 store one pixel's 128 bytes
@@ -671,6 +679,314 @@ int route(unet::Src s0, unet::Src s1, const void* w, const void* bias, int relu,
                            B, Ho, Wo, CO, yo, po, sms, st, dgrad);
 }
 
+// ------------------------------------------------------- the fused decoder tail
+// dec_tail_kernel: conv0 = ReLU(conv3x3(concat(crop(skip), up)) + b0)
+// rounded to bf16, conv1 = ReLU(conv3x3(conv0) + b1) rounded to bf16 and the
+// 1x1 head in f32, in one kernel (entry dec_tail.cu); conv0 never leaves
+// shared memory. A band is TB_OUT logits rows (TB_ROWS = TB_OUT + 2 conv0
+// rows, 16 a consumer warpgroup) walked TB_STEP columns a step: a step
+// computes conv0 for TB_ROWS rows x TB_STEP new columns, keeps the two
+// columns before them from the step before (the "carry"), and conv1 + head
+// for TB_ROWS rows x TB_STEP logits columns, of which the first TB_OUT rows
+// are stored.
+// - The product is transposed: M = the 64 output channels (the (tap,
+//   slice) weight tile as A, K-major), N = the warpgroup's 16 rows x 8
+//   columns of pixels (B, K-major: each core matrix one row's 8 pixels,
+//   rows TB_PITCH pixels apart by the stride byte offset; the tap is a
+//   descriptor offset), one wgmma.m64n128k16 per k16 step. Per 64 x 128 x
+//   16 it reads 6 KB of shared memory, where the windowed form of the
+//   other convs (M = pixels, two 8x8 units a warpgroup, N = 64 channels)
+//   reads 8 KB for the same work. Built in the windowed form, the tail
+//   took 1.93-1.94 ms against 1.51-1.54 at 16 x 516^2 (PERF.md).
+// - conv0 reads, per 64-channel slice of the skip (at its crop offset, a
+//   box coordinate) and of up, one (TB_ROWS + 2) x TB_PITCH window stage,
+//   shared by both warpgroups and the nine taps; its (tap, slice) weight
+//   tiles and conv1's nine taps stream through one weight ring (conv1's
+//   73.7 KB would not fit beside the windows, conv0's tile and the ring).
+// - conv0's epilogue rounds bias + ReLU to bf16 and writes it transposed
+//   (stmatrix .trans) into the shared tile h (TB_ROWS + 2 rows of TB_PITCH
+//   pixels, 128 bytes a pixel, 16-byte chunk c of pixel P at c ^ (P & 7):
+//   the 128-byte swizzle TMA would have written), columns 2..9; columns
+//   0..1 are the previous step's 8..9, copied first. conv1's B for tap
+//   (ky, kx) starts at h pixel (16 wg + ky) x TB_PITCH + kx. Rows past
+//   TB_ROWS and the carry of a band's first step are never written: they
+//   feed only logits that are not stored.
+// - conv1's epilogue writes the rounded activation of the warpgroup's 128
+//   pixels transposed into its tile, then runs the head variant's
+//   head_rows on it. Only nc f32 logits a pixel reach device memory.
+// - Every sum runs in the order of the chain dec_conv0 -> conv3x3_head
+//   (the same slices, taps and k16 steps; the tensor core sums a k16 step
+//   the same way for either operand order), and the epilogues do the
+//   chain's arithmetic, so the logits equal the chain's bit for bit (the
+//   card tests and chip_smoke.py check it).
+// - A persistent grid of one block per SM: the steps in (image, band,
+//   column step) order are cut into one contiguous range per block; a
+//   range that starts inside a band first computes conv0 of the step before
+//   (a "prime" step, no conv1) for its carry. The producer warp runs ahead
+//   into the next step's windows and weights while the consumers run an
+//   epilogue.
+// Recompute: conv0 computes TB_ROWS rows per TB_OUT logits rows (1.067x),
+// 1.12x with the image's edge and the prime steps at 16 x 516^2
+// (ops/kernels/conv3x3.py dec_tail_plan mirrors the walk).
+constexpr int TB_OUT = 30, TB_ROWS = TB_OUT + 2, TB_STEP = UNIT, TB_PITCH = TB_STEP + 2;
+constexpr int TB_UNITS = TB_ROWS / UNIT;                     // 4 m64 units a step
+constexpr int TB_WIN_BYTES = (TB_ROWS + 2) * TB_PITCH * ROW;  // 43520
+constexpr int TB_WIN_SLOT = (TB_WIN_BYTES + 1023) / 1024 * 1024;
+constexpr int TB_H_BYTES = (TB_ROWS + 2) * TB_PITCH * ROW;
+constexpr int TB_WST = 2, TB_BST = 8;        // window and weight stages
+constexpr int TB_B_STAGE = SLICE * ROW;     // one (tap, slice) tile: 8 KB
+// the head's activation tiles: a warpgroup's 128 pixels
+constexpr int TB_EPI_BYTES = CONSUMERS * 2 * UNIT * UNIT * ROW;
+constexpr int TB_SMEM = 1024 + TB_WST * TB_WIN_SLOT + TB_BST * TB_B_STAGE + TB_H_BYTES +
+                        TB_EPI_BYTES + 2 * (TB_WST + TB_BST) * 8 + HEAD_BYTES;
+static_assert(TB_SMEM <= SMEM_PER_BLOCK, "the tail's stages exceed the 227 KB a block can use");
+static_assert(TB_UNITS == CONSUMERS * UPW, "two units a consumer warpgroup");
+static_assert((TB_WST * TB_WIN_SLOT + TB_BST * TB_B_STAGE) % 1024 == 0, "h on a 1 KB atom");
+
+// Image, band and column step of step t, steps in (image, band, step) order.
+__device__ __forceinline__ void tail_step(int t, int nbands, int nj, int& b, int& band, int& j) {
+  j = t % nj;
+  band = (t / nj) % nbands;
+  b = t / (nj * nbands);
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+}
+
+// Four 8x8 bf16 matrices from the mma fragment registers (thread: row
+// lane / 4, columns 2 (lane % 4), +1) into shared memory transposed:
+// thread 8i + k gives the address of matrix i's stored row k (its column k).
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// bias + ReLU of two accumulators, rounded to bf16 and packed (a low).
+__device__ __forceinline__ uint32_t relu_bf16x2(float a, float b, float bias) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(unet::act(a + bias, 1), unet::act(b + bias, 1));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The transposed form's epilogue of a warpgroup's 64 channels x 128
+// pixels: accumulator 4j + i of this thread is channel 16 warp + g (+8 for
+// i >= 2), pixel 8j + 2q + (i & 1) (row j of the warpgroup's 16, column 2q
+// (+1)); bias + ReLU rounded to bf16, and through stmatrix .trans each
+// pixel's 16-byte chunk of 8 channels to pixel(j, column) of a 128-byte-row
+// tile, chunk c at c ^ (pixel & 7).
+template <typename PixelOf>
+__device__ __forceinline__ void store_transposed(const float (&acc)[64], const float* bias,
+                                                 uint32_t tile, int warp, int lane,
+                                                 PixelOf pixel) {
+  const int g = lane >> 2, mi = lane >> 3, k = lane & 7;
+  const float blo = __ldg(bias + 16 * warp + g), bhi = __ldg(bias + 16 * warp + g + 8);
+  const int c = 2 * warp + (mi & 1);
+#pragma unroll
+  for (int j = 0; j < 16; j += 2) {
+    const uint32_t r[4] = {relu_bf16x2(acc[4 * j], acc[4 * j + 1], blo),
+                           relu_bf16x2(acc[4 * j + 2], acc[4 * j + 3], bhi),
+                           relu_bf16x2(acc[4 * j + 4], acc[4 * j + 5], blo),
+                           relu_bf16x2(acc[4 * j + 6], acc[4 * j + 7], bhi)};
+    const int pix = pixel(j + (mi >> 1), k);
+    stmatrix_x4_trans(tile + pix * ROW + ((c ^ (pix & 7)) << 4), r);
+  }
+}
+
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+dec_tail_kernel(const __grid_constant__ CUtensorMap xmap0,
+                const __grid_constant__ CUtensorMap xmap1,
+                const __grid_constant__ CUtensorMap w0map,
+                const __grid_constant__ CUtensorMap w1map,
+                int C0, int off_y, int off_x, int slices0, int slices,
+                const float* __restrict__ bias0, const float* __restrict__ bias1, int B, int Ho,
+                int Wo, int nbands, int nj, const Head hd) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle's 1 KB atom
+  const uint32_t bbase = base + TB_WST * TB_WIN_SLOT;
+  const uint32_t hbase = bbase + TB_BST * TB_B_STAGE;
+  const uint32_t ebase = hbase + TB_H_BYTES;
+  const uint32_t wfull0 = ebase + TB_EPI_BYTES, wempty0 = wfull0 + 8 * TB_WST;
+  const uint32_t bfull0 = wempty0 + 8 * TB_WST, bempty0 = bfull0 + 8 * TB_BST;
+  float* hw = reinterpret_cast<float*>(smem_raw + (bempty0 + 8 * TB_BST - raw));
+  uint8_t* hs = smem_raw + (hbase - raw);
+
+  const int tid = threadIdx.x;
+  const int total = B * nbands * nj;
+  const int t_begin = (int)((long long)total * blockIdx.x / gridDim.x);
+  const int t_end = (int)((long long)total * (blockIdx.x + 1) / gridDim.x);
+  int b0_, band0_, j0_;
+  tail_step(t_begin, nbands, nj, b0_, band0_, j0_);
+  const int prime = t_begin < t_end && j0_ > 0;  // conv0 of the step before, for the carry
+
+  if (tid == 0) {
+    for (int s = 0; s < TB_WST; ++s) {
+      mbar_init(wfull0 + 8 * s, 1);
+      mbar_init(wempty0 + 8 * s, CONSUMERS * 4);  // one arrive per consumer warp
+    }
+    for (int s = 0; s < TB_BST; ++s) {
+      mbar_init(bfull0 + 8 * s, 1);
+      mbar_init(bempty0 + 8 * s, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < hd.nc * SLICE; i += FWD_THREADS) hw[i] = hd.w[i];
+  __syncthreads();
+
+  if (tid >= CONSUMERS * 128) {  // the producer warp: one thread issues the copies
+    if (tid == CONSUMERS * 128) {
+      int wi = 0, bi = 0;
+      const auto weight = [&](const CUtensorMap* map, int ci0, int tap) {
+        const int bs = bi % TB_BST;
+        if (bi >= TB_BST) mbar_wait(bempty0 + 8 * bs, (bi / TB_BST - 1) & 1);
+        mbar_expect_tx(bfull0 + 8 * bs, TB_B_STAGE);
+        tma_load_3d(bbase + bs * TB_B_STAGE, map, bfull0 + 8 * bs, ci0, tap, 0);
+        ++bi;
+      };
+      for (int t = t_begin - prime; t < t_end; ++t) {
+        int b, band, j;
+        tail_step(t < t_begin ? t_begin : t, nbands, nj, b, band, j);
+        if (t < t_begin) --j;  // the prime step
+        for (int s = 0; s < slices; ++s) {
+          const bool second = s >= slices0;
+          const int cs = (second ? s - slices0 : s) * SLICE;  // channel in the source
+          const int oy = second ? 0 : off_y, ox = second ? 0 : off_x;
+          const int ws = wi % TB_WST;
+          if (wi >= TB_WST) mbar_wait(wempty0 + 8 * ws, (wi / TB_WST - 1) & 1);
+          mbar_expect_tx(wfull0 + 8 * ws, TB_WIN_BYTES);
+          tma_load_4d(base + ws * TB_WIN_SLOT, second ? &xmap1 : &xmap0, wfull0 + 8 * ws, cs,
+                      j * TB_STEP + ox, band * TB_OUT + oy, b);
+          ++wi;
+          for (int tap = 0; tap < 9; ++tap) weight(&w0map, second ? C0 + cs : cs, tap);
+        }
+        if (t >= t_begin)
+          for (int tap = 0; tap < 9; ++tap) weight(&w1map, 0, tap);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows 16 wg .. 16 wg + 15 of the band
+  // (units 2 wg, 2 wg + 1), warp w of it channels 16w .. 16w + 15
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  Consumer f{};  // head_rows' view: f.warp 0, the etile set per pass
+  f.Ho = Ho;
+  f.Wo = Wo;
+  f.lane = lane;
+  // the offset of this warpgroup's first row in a window or in h
+  const uint32_t a_unit0 = (uint32_t)(UPW * wg * UNIT * TB_PITCH * ROW);
+  const uint32_t etw = ebase + wg * 2 * UNIT * UNIT * ROW;  // the head's tile
+  float acc[64];
+  int wi = 0, bi = 0;
+
+  // one wgmma group: the warpgroup's two units x 4 k16 steps on weight
+  // stage bi; the group before it is done after, and its stages released
+  const auto group = [&](uint32_t a0, bool release_prev, bool window_prev) {
+    const int bs = bi % TB_BST;
+    mbar_wait(bfull0 + 8 * bs, (bi / TB_BST) & 1);
+    const uint32_t b0 = bbase + bs * TB_B_STAGE;
+    fence_regs(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // the 16 rows' 8-pixel runs as N, TB_PITCH pixels apart
+      wgmma_n128(acc, sw128_desc(b0 + kk * 32, 16, 8 * ROW),
+                 sw128_desc(a0 + kk * 32, 16, TB_PITCH * ROW));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    fence_regs(acc);
+    if (release_prev) {
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (lane == 0) {
+        mbar_arrive(bempty0 + 8 * ((bi - 1) % TB_BST));
+        if (window_prev) mbar_arrive(wempty0 + 8 * ((wi - 1) % TB_WST));
+      }
+    }
+    ++bi;
+  };
+  // the last group of a conv: wait for it, release its stages
+  const auto drain = [&](bool window) {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(acc);
+    if (lane == 0) {
+      mbar_arrive(bempty0 + 8 * ((bi - 1) % TB_BST));
+      if (window) mbar_arrive(wempty0 + 8 * ((wi - 1) % TB_WST));
+    }
+  };
+  const auto zero = [&]() {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  };
+
+  for (int t = t_begin - prime; t < t_end; ++t) {
+    int b, band, j;
+    tail_step(t < t_begin ? t_begin : t, nbands, nj, b, band, j);
+    if (t < t_begin) --j;
+
+    // conv0 over the window stages
+    zero();
+    for (int s = 0; s < slices; ++s) {
+      const int ws = wi % TB_WST;
+      mbar_wait(wfull0 + 8 * ws, (wi / TB_WST) & 1);
+      const uint32_t wbase = base + ws * TB_WIN_SLOT + a_unit0;
+#pragma unroll 1
+      for (int tap = 0; tap < 9; ++tap)
+        group(wbase + ((tap / 3) * TB_PITCH + tap % 3) * ROW, s > 0 || tap > 0, tap == 0);
+      ++wi;
+    }
+    drain(true);
+
+    // conv1 of the step before has read h (every consumer passed its drain)
+    consumers_sync();
+    // the carry of this warp's channels (chunks 2 warp, 2 warp + 1) in the
+    // warpgroup's 16 rows: columns 8, 9 -> 0, 1; then conv0's epilogue into
+    // columns 2..9
+    uint4 v[2];
+    int pd[2], cd[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = lane + 32 * e, row = UPW * wg * UNIT + (i >> 2);
+      const int c = 2 * warp + (i & 1), ps = row * TB_PITCH + TB_STEP + ((i >> 1) & 1);
+      v[e] = *reinterpret_cast<const uint4*>(hs + ps * ROW + ((c ^ (ps & 7)) << 4));
+      pd[e] = ps - TB_STEP;
+      cd[e] = c;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      *reinterpret_cast<uint4*>(hs + pd[e] * ROW + ((cd[e] ^ (pd[e] & 7)) << 4)) = v[e];
+    __syncwarp();
+    store_transposed(acc, bias0, hbase, warp, lane, [&](int row, int col) {
+      return (UPW * wg * UNIT + row) * TB_PITCH + 2 + col;
+    });
+    fence_proxy_async_shared();  // the generic writes of h before wgmma reads them
+    consumers_sync();
+    if (t < t_begin) continue;  // the prime step: conv0 only
+
+    // conv1 from h over the nine weight stages
+    zero();
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap)
+      group(hbase + a_unit0 + ((tap / 3) * TB_PITCH + tap % 3) * ROW, tap > 0, false);
+    drain(false);
+
+    const int y0 = band * TB_OUT, y_end = min(y0 + TB_OUT, Ho);
+    // the activation of the warpgroup's 128 pixels into its tile, then the
+    // head: warp w takes pixels 32w .. 32w + 31, 16 (two rows) a pass
+    store_transposed(acc, bias1, etw, warp, lane,
+                     [](int row, int col) { return row * UNIT + col; });
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      f.etile = smem_raw + (etw - raw) + (32 * warp + 16 * pass) * ROW;
+      head_rows(f, hd, hw, b, y0 + UPW * wg * UNIT + 4 * warp + 2 * pass, j * TB_STEP - 2,
+                y_end);
+    }
+  }
+}
+
 }  // namespace
 
 namespace unet {
@@ -701,6 +1017,33 @@ int launch_conv_head_wgmma(Src s0, const void* w, const void* bias, const void* 
   return launch<64, 2, 13, true>(xmap, xmap, wmap, s0.C, 0, 0, slices, slices,
                                  (const float*)bias, 1, B, Ho, Wo, SLICE, nullptr, nullptr, sms,
                                  (cudaStream_t)stream, false, hd);
+}
+
+int launch_dec_tail_wgmma(Src s0, Src s1, const void* w0, const void* b0, const void* w1,
+                          const void* b1, const void* head_w, const void* head_b, int nc, int B,
+                          int Ho, int Wo, void* logits, void* stream) {
+  CUtensorMap xmap0, xmap1, w0map, w1map;
+  int sms = 0;
+  int e = nhwc_map(&xmap0, s0.p, B, s0.H, s0.W, s0.C, TB_PITCH, TB_ROWS + 2);
+  if (e == 0) e = nhwc_map(&xmap1, s1.p, B, s1.H, s1.W, s1.C, TB_PITCH, TB_ROWS + 2);
+  if (e == 0) e = weight_map(&w0map, w0, s0.C + s1.C, SLICE);
+  if (e == 0) e = weight_map(&w1map, w1, SLICE, SLICE);
+  if (e == 0) e = sm_count(&sms);
+  if (e != 0) return e;
+  cudaError_t err =
+      cudaFuncSetAttribute(dec_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TB_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int slices0 = (s0.C + SLICE - 1) / SLICE;
+  const int slices = slices0 + (s1.C + SLICE - 1) / SLICE;
+  const int nbands = (Ho + TB_OUT - 1) / TB_OUT;
+  const int nj = (Wo + 2 + TB_STEP - 1) / TB_STEP;  // step j stores logits columns 8j - 2 .. 8j + 5
+  const long long steps = (long long)B * nbands * nj;
+  const int grid = (int)(steps < sms ? steps : sms);
+  const Head hd{(const float*)head_w, (const float*)head_b, (float*)logits, nc};
+  dec_tail_kernel<<<grid, FWD_THREADS, TB_SMEM, (cudaStream_t)stream>>>(
+      xmap0, xmap1, w0map, w1map, s0.C, s0.off_y, s0.off_x, slices0, slices, (const float*)b0,
+      (const float*)b1, B, Ho, Wo, nbands, nj, hd);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace unet

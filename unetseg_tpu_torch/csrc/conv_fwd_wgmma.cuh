@@ -1,8 +1,9 @@
 // The forward implicit-GEMM 3x3 convolution on wgmma fed by a TMA ring
 // (conv_fwd_wgmma.cu): the multi-channel path of conv3x3_bias_relu.cu
 // (conv3x3_bias_relu, conv3x3_dense, conv3x3_cblock), dec_conv0.cu
-// (dec_conv0, dec_conv0_dense), conv3x3_head.cu (conv3x3_head) and
-// conv3x3_dgrad.cu (conv3x3_dgrad, conv3x3_dense_dgrad).
+// (dec_conv0, dec_conv0_dense), conv3x3_head.cu (conv3x3_head),
+// conv3x3_dgrad.cu (conv3x3_dgrad, conv3x3_dense_dgrad) and dec_tail.cu
+// (dec_tail).
 #pragma once
 
 #include "conv_mma.cuh"
@@ -34,5 +35,15 @@ int launch_conv_dgrad_wgmma(const void* g, int B, int Hg, int Wg, int CO, const 
 int launch_conv_head_wgmma(Src s0, const void* w, const void* bias, const void* head_w,
                            const void* head_b, int nc, int B, int Ho, int Wo, void* logits,
                            void* stream);
+
+// logits (B, Ho, Wo, nc) f32 = the 1x1 head over ReLU(conv3x3(c0) + b1)
+// rounded to bf16, c0 = ReLU(conv3x3(concat(s0 at (s0.off_y, s0.off_x),
+// s1)) + b0) rounded to bf16 and kept in shared memory (the fused decoder
+// tail); Ho = s1.H - 4, Wo = s1.W - 4; 64 output channels for both convs,
+// w0 (64, 3, 3, s0.C + s1.C), w1 (64, 3, 3, 64) bf16, head as
+// launch_conv_head_wgmma. Returns as launch_conv_fwd_wgmma.
+int launch_dec_tail_wgmma(Src s0, Src s1, const void* w0, const void* b0, const void* w1,
+                          const void* b1, const void* head_w, const void* head_b, int nc, int B,
+                          int Ho, int Wo, void* logits, void* stream);
 
 }  // namespace unet

@@ -8,8 +8,18 @@
 //
 // About 59 GFLOP per 700^2 tile against 71 MB of traffic (the skip's crop
 // and up read once, the logits written): tensor-core bound. The chained
-// kernels write conv0's 34 MB activation and read it again per tile. Here
-// a block owns a 16x16 tile of logits:
+// kernels write conv0's 34 MB activation and read it again per tile.
+//
+// dec_tail_bf16 launches dec_tail_kernel of conv_fwd_wgmma.cu (the
+// transposed wgmma product fed by a TMA ring, conv0's tile kept in shared
+// memory, bands of 30 logits rows walked 8 columns a step: the note
+// there), whose logits equal the wgmma chain dec_conv0 -> conv3x3_head bit
+// for bit.
+//
+// dec_tail_mma_reference_bf16 keeps the mma.sync kernel it replaced
+// (uncounted, on no path; chip_smoke.py times it beside the new kernel and
+// holds it to the mma.sync chain bit for bit): dec_tail_mma_kernel, whose
+// block owns a 16x16 tile of logits:
 //   1. conv0 over the (16+2)^2 pixels conv1 reads (a one-pixel halo,
 //      recomputed at tile seams: 1.27x conv0's work), its K loop staging
 //      32-channel slices of the (16+4)^2 windows of the skip (at the crop
@@ -21,11 +31,13 @@
 //   2. conv1 from that tile with conv_mma.cuh's tile loop;
 //   3. conv_mma.cuh's head epilogue: bias, ReLU, rounded to bf16, the 1x1
 //      head in f32 (NC <= MAX_NC).
-// Every sum runs in the chained kernels' order (32-channel slices, taps,
-// k16 steps), so the logits equal dec_conv0 then conv3x3_head bit for bit.
-// Shared memory: conv0's tile 46.7 KB, the windows 32 KB, a weight slice
-// 46 KB: one block (eight warps) per SM.
-#include "conv_mma.cuh"
+// Every sum runs in the mma.sync chained kernels' order (32-channel slices,
+// taps, k16 steps), so its logits equal conv3x3_mma_reference's entry conv
+// then its head bit for bit. Shared memory: conv0's tile 46.7 KB, the
+// windows 32 KB, a weight slice 46 KB: one block (eight warps) per SM; the
+// weights restaged every 32 channels between two barriers (221 KB per 256
+// logits), 15% of its operations bound.
+#include "conv_fwd_wgmma.cuh"
 
 namespace {
 
@@ -44,7 +56,7 @@ static_assert(TILE_BYTES + MAX_NC * NCO * 4 <= WIN_BYTES + W_SLICE * 2,
 static_assert(MTW == 3 && MT - 2 * WARPS <= WARPS, "three m16 tiles per warp");
 
 __global__ void __launch_bounds__(THREADS)
-dec_tail_kernel(Src s0, Src s1, const __nv_bfloat16* __restrict__ w0,
+dec_tail_mma_kernel(Src s0, Src s1, const __nv_bfloat16* __restrict__ w0,
                 const float* __restrict__ b0, const __nv_bfloat16* __restrict__ w1,
                 const float* __restrict__ b1, const float* __restrict__ head_w,
                 const float* __restrict__ head_b, int NC, int Ho, int Wo,
@@ -156,22 +168,35 @@ dec_tail_kernel(Src s0, Src s1, const __nv_bfloat16* __restrict__ w0,
 // (64,) f32; w1 (64,3,3,64) bf16, b1 (64,) f32; head_w (NC,64) f32
 // (bf16-rounded values), head_b (NC,) f32 -> logits (B,Hu-4,Wu-4,NC) f32.
 // Returns the launch's CUDA error.
-extern "C" int dec_tail_bf16(const void* skip, int Hs, int Ws, int CIs,
+extern "C" int dec_tail_mma_reference_bf16(const void* skip, int Hs, int Ws, int CIs,
                              int row_off, int col_off, const void* up, int Hu,
                              int Wu, int CIu, const void* w0, const void* b0,
                              const void* w1, const void* b1, const void* head_w,
                              const void* head_b, int NC, void* logits, int B,
                              void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      dec_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TAIL_SMEM);
+      dec_tail_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TAIL_SMEM);
   if (err != cudaSuccess) return (int)err;
   unet::Src s0{(const __nv_bfloat16*)skip, Hs, Ws, CIs, row_off, col_off};
   unet::Src s1{(const __nv_bfloat16*)up, Hu, Wu, CIu, 0, 0};
   const int Ho = Hu - 4, Wo = Wu - 4;
   dim3 grid((Wo + unet::TW - 1) / unet::TW, (Ho + unet::TH - 1) / unet::TH, B);
-  dec_tail_kernel<<<grid, unet::THREADS, TAIL_SMEM, (cudaStream_t)stream>>>(
+  dec_tail_mma_kernel<<<grid, unet::THREADS, TAIL_SMEM, (cudaStream_t)stream>>>(
       s0, s1, (const __nv_bfloat16*)w0, (const float*)b0,
       (const __nv_bfloat16*)w1, (const float*)b1, (const float*)head_w,
       (const float*)head_b, NC, Ho, Wo, (float*)logits);
   return (int)cudaGetLastError();
+}
+
+// The same function through dec_tail_kernel (conv_fwd_wgmma.cu). Returns
+// the launch's CUDA error, or -(the CUresult) of a failed tensor-map
+// encoding.
+extern "C" int dec_tail_bf16(const void* skip, int Hs, int Ws, int CIs, int row_off, int col_off,
+                             const void* up, int Hu, int Wu, int CIu, const void* w0,
+                             const void* b0, const void* w1, const void* b1, const void* head_w,
+                             const void* head_b, int NC, void* logits, int B, void* stream) {
+  unet::Src s0{(const __nv_bfloat16*)skip, Hs, Ws, CIs, row_off, col_off};
+  unet::Src s1{(const __nv_bfloat16*)up, Hu, Wu, CIu, 0, 0};
+  return unet::launch_dec_tail_wgmma(s0, s1, w0, b0, w1, b1, head_w, head_b, NC, B, Hu - 4,
+                                     Wu - 4, logits, stream);
 }

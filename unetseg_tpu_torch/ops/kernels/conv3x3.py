@@ -46,12 +46,17 @@ pool at N = 128 and a windowed form otherwise), and conv3x3_head its
 windowed form at N = 64 with the 1x1 head in the epilogue; `fwd_plan`
 mirrors its launch plan. `conv3x3_mma_reference` runs the mma.sync
 implicit GEMM that they launched before (csrc/conv_mma.cuh), with the head
-when given one, which the fused enc0_fused and dec_tail kernels still sum
+when given one, which enc0_fused and dec_tail_mma_reference still sum
 like: uncounted, on no path, for the card's bit-for-bit checks and
 timings. tconv2x2_bias launches a streaming wgmma GEMM with resident
 weights (csrc/tconv2x2_bias.cu); `tconv_plan` and `tconv_store_offsets`
 mirror its tiles and its pixel-shuffle stores, and `tconv2x2_mma_reference`
 runs the mma.sync kernel it replaced, uncounted, for the card's timings.
+dec_tail launches the wgmma forward's fused-tail kernel (bands of 30
+logits rows walked 8 columns a step, conv0's tile kept in shared memory);
+`dec_tail_plan` and `dec_tail_steps` mirror its walk, and
+`dec_tail_mma_reference` runs the mma.sync kernel it replaced, uncounted,
+for the card's bit-for-bit checks and timings.
 """
 
 from __future__ import annotations
@@ -99,6 +104,67 @@ SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory an H100 block can use
 # columns x 64 channels (resident where one column group has at most that
 # many slices), a 16 x 64 bf16 epilogue tile per consumer warp.
 TCONV_MT, TCONV_NG, TCONV_STAGES = 128, 256, (4, 2)
+
+
+# csrc/conv_fwd_wgmma.cu's fused decoder tail (dec_tail_kernel): bands of
+# TAIL_OUT logits rows (TAIL_OUT + 2 conv0 rows, 16 a consumer warpgroup)
+# walked TAIL_STEP columns a step; a step's conv0 window and h tile are
+# TAIL_OUT + 4 rows of TAIL_STEP + 2 pixels. Ring: TAIL_STAGES = (window
+# stages, weight stages of one 64 x 64 (tap, slice) tile); conv1's taps
+# stream through the weight ring. The transposed product's head tile: a
+# warpgroup's 128 pixels of 128 bytes. One block per SM, each a contiguous
+# range of the steps in (image, band, column step) order.
+TAIL_OUT, TAIL_STEP, TAIL_STAGES = 30, 8, (2, 8)
+TAIL_EPI_BYTES = FWD_CONSUMERS * 2 * TAIL_STEP * TAIL_STEP * 2 * FWD_SLICE
+
+
+class TailPlan(NamedTuple):
+    nbands: int  # bands of TAIL_OUT logits rows
+    nj: int  # column steps a band: step j stores logits columns 8j - 2 .. 8j + 5
+    steps: int  # (image, band, step) steps
+    grid: int  # blocks of the persistent grid
+    smem: int  # dynamic shared memory bytes of a block
+    recompute: float  # conv0 pixels computed (prime steps included) / conv0 pixels needed
+
+
+def dec_tail_smem_bytes() -> int:
+    """1 KB of alignment slack, the window stages (TAIL_OUT + 4 rows of
+    TAIL_STEP + 2 pixels, 128 bytes a pixel, each rounded up to 1 KB), the
+    weight stages (64 x 128 bytes), the h tile (as a window), the head's
+    activation tiles, a full and an empty mbarrier per stage, the head's f32
+    weights."""
+    win = (TAIL_OUT + 4) * (TAIL_STEP + 2) * 2 * FWD_SLICE
+    wst, bst = TAIL_STAGES
+    return (1024 + wst * -(-win // 1024) * 1024 + bst * FWD_SLICE * 2 * FWD_SLICE + win
+            + TAIL_EPI_BYTES + 2 * (wst + bst) * 8 + FWD_HEAD_BYTES)
+
+
+def dec_tail_plan(bsz: int, ho: int, wo: int, sm_count: int) -> TailPlan:
+    """The launch plan of dec_tail_kernel for logits (bsz, ho, wo, .)."""
+    nbands, nj = -(-ho // TAIL_OUT), -(-(wo + 2) // TAIL_STEP)
+    steps = bsz * nbands * nj
+    grid = min(steps, sm_count)
+    primes = sum(1 for blk in range(grid) if (steps * blk // grid) % nj)
+    computed = (steps + primes) * (TAIL_OUT + 2) * TAIL_STEP
+    return TailPlan(nbands, nj, steps, grid, dec_tail_smem_bytes(),
+                    computed / (bsz * (ho + 2) * (wo + 2)))
+
+
+def dec_tail_steps(plan: TailPlan) -> List[np.ndarray]:
+    """Per block of the plan's grid, its steps in the kernel's order as rows
+    (b, band, j, stores): a range that starts inside a band begins with the
+    step before it (stores 0: conv0 only, the carry's two columns)."""
+    out = []
+    for blk in range(plan.grid):
+        t = np.arange(plan.steps * blk // plan.grid, plan.steps * (blk + 1) // plan.grid)
+        j = t % plan.nj
+        band = (t // plan.nj) % plan.nbands
+        b = t // (plan.nj * plan.nbands)
+        rows = np.stack([b, band, j, np.ones_like(t)], axis=1)
+        if len(t) and j[0] > 0:
+            rows = np.concatenate([[[b[0], band[0], j[0] - 1, 0]], rows])
+        out.append(rows)
+    return out
 
 
 class FwdPlan(NamedTuple):
@@ -731,20 +797,9 @@ def conv3x3_head(
     return logits
 
 
-@counted
-def dec_tail(
-    skip: torch.Tensor, up: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
-    w1: torch.Tensor, b1: torch.Tensor, k_head: torch.Tensor, b_head: torch.Tensor,
-    row_off: int, col_off: int,
-) -> torch.Tensor:
-    """The decoder tail in one kernel: dec_conv0 (skip read at (row_off,
-    col_off)), its output rounded to up's dtype, then conv3x3_head.
-
-    skip (B,Hs,Ws,CIs), up (B,Hu,Wu,CIu), w0 (CO,CIs+CIu,3,3), w1
-    (CO,CO,3,3), b0 and b1 (CO,), k_head (NC,CO,1,1), b_head (NC,) -> f32
-    logits (B,Hu-4,Wu-4,NC). The kernel needs CO == 64."""
-    if _on_cpu(skip, up, w0, b0, w1, b1, k_head, b_head):
-        return dec_tail_plain(skip, up, w0, b0, w1, b1, k_head, b_head, row_off, col_off)
+def _launch_tail(name, entry, skip, up, w0, b0, w1, b1, k_head, b_head, row_off, col_off):
+    """A decoder-tail kernel (C entry `entry` of csrc/dec_tail.cu) on CUDA
+    tensors; the caller counts the launch."""
     bsz, hs, ws, cis = skip.shape
     _, hu, wu, ciu = up.shape
     co = w0.shape[0]
@@ -760,11 +815,45 @@ def dec_tail(
     logits = torch.empty((bsz, hu - 4, wu - 4, kh.shape[0]), dtype=torch.float32,
                          device=up.device)
     w0k, w1k, b0k, b1k = _ohwi(w0), _ohwi(w1), _f32(b0), _f32(b1)
-    err = library().dec_tail_bf16(
+    err = getattr(library(), entry)(
         skip.data_ptr(), hs, ws, cis, row_off, col_off, up.data_ptr(), hu, wu, ciu,
         w0k.data_ptr(), b0k.data_ptr(), w1k.data_ptr(), b1k.data_ptr(),
         kh.data_ptr(), bh.data_ptr(), kh.shape[0], logits.data_ptr(), bsz, _stream(up),
     )
-    _raise_on(err, "dec_tail")
+    _raise_on(err, name)
+    return logits
+
+
+def dec_tail_mma_reference(
+    skip: torch.Tensor, up: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+    w1: torch.Tensor, b1: torch.Tensor, k_head: torch.Tensor, b_head: torch.Tensor,
+    row_off: int, col_off: int,
+) -> torch.Tensor:
+    """dec_tail's function through the mma.sync kernel that the wgmma kernel
+    replaced (csrc/dec_tail.cu), on CUDA tensors, uncounted: the bits of
+    conv3x3_mma_reference's entry conv chained with its head; no serving
+    path calls it."""
+    if up.device.type != "cuda":
+        raise RuntimeError("dec_tail_mma_reference runs the mma.sync kernel: CUDA tensors only")
+    return _launch_tail("dec_tail_mma_reference", "dec_tail_mma_reference_bf16", skip, up, w0, b0,
+                        w1, b1, k_head, b_head, row_off, col_off)
+
+
+@counted
+def dec_tail(
+    skip: torch.Tensor, up: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+    w1: torch.Tensor, b1: torch.Tensor, k_head: torch.Tensor, b_head: torch.Tensor,
+    row_off: int, col_off: int,
+) -> torch.Tensor:
+    """The decoder tail in one kernel: dec_conv0 (skip read at (row_off,
+    col_off)), its output rounded to up's dtype, then conv3x3_head.
+
+    skip (B,Hs,Ws,CIs), up (B,Hu,Wu,CIu), w0 (CO,CIs+CIu,3,3), w1
+    (CO,CO,3,3), b0 and b1 (CO,), k_head (NC,CO,1,1), b_head (NC,) -> f32
+    logits (B,Hu-4,Wu-4,NC). The kernel needs CO == 64."""
+    if _on_cpu(skip, up, w0, b0, w1, b1, k_head, b_head):
+        return dec_tail_plain(skip, up, w0, b0, w1, b1, k_head, b_head, row_off, col_off)
+    logits = _launch_tail("dec_tail", "dec_tail_bf16", skip, up, w0, b0, w1, b1, k_head, b_head,
+                          row_off, col_off)
     dec_tail.launches += 1
     return logits

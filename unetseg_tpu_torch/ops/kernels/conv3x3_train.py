@@ -15,7 +15,11 @@ conv_fwd_wgmma.cu under the names conv_dgrad_kernel and
 conv_dgrad_im2col_kernel) on g read at (-2, -2) with the flipped,
 transposed weights of `dgrad_weights`; `dgrad_plan` is their launch plan.
 `conv3x3_dgrad_mma_reference` runs the mma.sync kernel they launched
-before, uncounted, for the card's timings.
+before, uncounted, for the card's timings. The wgrad wrappers launch the
+split-K wgmma kernel of csrc/conv3x3_wgrad.cu, or for one input channel
+(the stem) its TMA + mma.sync kernel; `wgrad_chunks` and
+`wgrad_stem_tiles` mirror their split, and `wgrad_stem_fma_reference`
+runs the stem's FMA kernel it replaced, uncounted, for the card's timings.
 
 The TPU needed one kernel per layout (2-phase lanes for tier 1, dense
 lanes for tier 2's enc1 and dec2); on NHWC the two layouts' gradients are
@@ -47,6 +51,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from unetseg_tpu_torch.models.unet import to_nchw, to_nhwc
@@ -67,12 +72,18 @@ from unetseg_tpu_torch.ops.kernels.conv3x3 import (
 from unetseg_tpu_torch.ops.kernels.launches import counted
 
 # csrc/conv3x3_wgrad.cu's block geometry, mirrored for the split-K chunk
-# count and the shared-memory check (tests/test_torch_port_tier2_kernels.py).
-# The wgmma kernel: 4x16-pixel tiles, 64-channel ci slices and co blocks,
-# a ring of 8 stages (g tile + x window, each stage 1 KB aligned), one
-# block per SM. The stem's FMA kernel (ci == 1): 8x16 tiles, two per SM.
+# count and the shared-memory check (tests/test_torch_port_tier2_kernels.py,
+# tests/test_torch_port_wgrad_tail_plan.py). The wgmma kernel: 4x16-pixel
+# tiles, 64-channel ci slices and co blocks, a ring of 8 stages (g tile + x
+# window, each stage 1 KB aligned), one block per SM. The stem's TMA kernel
+# (ci == 1): tiles of 4 x 64 g pixels, a ring of 6 stages (the g tile and
+# the tile's 6 x rows of WGRAD_STEM_XIN values, 1 KB aligned), four
+# consumer warps, one block per SM. The FMA kernel it replaced (uncounted
+# wgrad_stem_fma_reference): 8x16 tiles, two blocks per SM.
 WGRAD_TILE, WGRAD_CHANNELS, WGRAD_STAGES, WGRAD_BLOCKS_PER_SM = (4, 16), 64, 8, 1
-WGRAD_STEM_TILE, WGRAD_STEM_BLOCKS_PER_SM = (8, 16), 2
+WGRAD_STEM_TILE, WGRAD_STEM_STAGES, WGRAD_STEM_BLOCKS_PER_SM = (4, 64), 6, 1
+WGRAD_STEM_XIN = WGRAD_STEM_TILE[1] + 16
+WGRAD_STEM_FMA_TILE, WGRAD_STEM_FMA_BLOCKS_PER_SM = (8, 16), 2
 SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory an H100 block can use
 
 
@@ -156,6 +167,34 @@ def wgrad_smem_bytes() -> int:
     return 1024 + WGRAD_STAGES * (th * tw * row + x_slot) + 2 * WGRAD_STAGES * 8
 
 
+def wgrad_stem_smem_bytes() -> int:
+    """Dynamic shared memory of one stem block: 1 KB of alignment slack,
+    the stages (the g tile at 128 bytes a pixel and the tile's th + 2 x rows
+    of WGRAD_STEM_XIN bf16 values, each row 128-byte aligned, rounded up to
+    1 KB), the four consumer
+    warps' 64 x 9 f32 sums, a full and an empty mbarrier per stage."""
+    th, tw = WGRAD_STEM_TILE
+    x_row = -(-WGRAD_STEM_XIN * 2 // 128) * 128  # a copy's destination is 128-byte aligned
+    x_slot = -(-(th + 2) * x_row // 1024) * 1024
+    return (1024 + WGRAD_STEM_STAGES * (th * tw * 2 * WGRAD_CHANNELS + x_slot)
+            + th * 64 * 9 * 4 + 2 * WGRAD_STEM_STAGES * 8)
+
+
+def wgrad_stem_tiles(bsz: int, ho: int, wo: int, nchunks: int) -> list:
+    """The stem kernel's split-K walk over g (bsz, ho, wo, .): per chunk
+    (block) its tiles in order as rows (b, y0, x0), tile i of the chunk
+    range [T c / n, T (c + 1) / n) in (image, tile row, tile column) order."""
+    th, tw = WGRAD_STEM_TILE
+    nty, ntx = -(-ho // th), -(-wo // tw)
+    ntiles = bsz * nty * ntx
+    out = []
+    for c in range(nchunks):
+        t = np.arange(ntiles * c // nchunks, ntiles * (c + 1) // nchunks)
+        b, r = np.divmod(t, nty * ntx)
+        out.append(np.stack([b, (r // ntx) * th, (r % ntx) * tw], axis=1))
+    return out
+
+
 def wgrad_chunks(bsz: int, ho: int, wo: int, cis: tuple, co: int, sm_count: int) -> int:
     """Split-K chunks of one csrc/conv3x3_wgrad.cu launch over g (bsz, ho,
     wo, co) and sources of `cis` channels each: a chunk is one block per
@@ -201,6 +240,39 @@ def _wgrad_launch(name, s0, off0, s1, g):
         _stream(g),
     )
     _raise_on(err, name)
+    return dw
+
+
+def wgrad_stem_fma_chunks(bsz: int, ho: int, wo: int, co: int, sm_count: int) -> int:
+    """Split-K chunks of the stem's FMA reference kernel over g (bsz, ho,
+    wo, co): its 8x16 tiles, one wave at two blocks per SM, as
+    `wgrad_chunks` plans the kernels the train step runs."""
+    (th, tw), per_sm = WGRAD_STEM_FMA_TILE, WGRAD_STEM_FMA_BLOCKS_PER_SM
+    tiles = bsz * -(-ho // th) * -(-wo // tw)
+    return max(1, min(tiles, per_sm * sm_count // (co // 64)))
+
+
+def wgrad_stem_fma_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The stem's weight gradient (x with one channel) through the FMA
+    kernel that the TMA kernel replaced (csrc/conv3x3_wgrad.cu), on CUDA
+    tensors, uncounted: conv3x3_wgrad's function; no train path calls it."""
+    if x.device.type != "cuda":
+        raise RuntimeError("wgrad_stem_fma_reference runs the FMA kernel: CUDA tensors only")
+    bsz, h, w, ci = x.shape
+    co = g.shape[3]
+    if ci != 1 or g.shape[0] != bsz or tuple(g.shape[1:3]) != (h - 2, w - 2):
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} do not fit the stem")
+    _check_act("x", x, channels_multiple=1)
+    _check_act("g", g)
+    _check_co(co)
+    nchunks = wgrad_stem_fma_chunks(bsz, h - 2, w - 2, co, _sm_count(g.device.index or 0))
+    partial = torch.empty((nchunks, co, 9, 1), dtype=torch.float32, device=g.device)
+    dw = torch.empty((co, 1, 3, 3), dtype=torch.float32, device=g.device)
+    err = library().wgrad_stem_fma_reference_bf16(
+        x.data_ptr(), h, w, g.data_ptr(), bsz, co, nchunks, partial.data_ptr(), dw.data_ptr(),
+        _stream(g),
+    )
+    _raise_on(err, "wgrad_stem_fma_reference")
     return dw
 
 

@@ -2,7 +2,8 @@
 (csrc/conv_fwd_wgmma.cu); with --new, its head variant and the tconv
 (csrc/tconv2x2_bias.cu); with --dgrad-stem, the input gradient on the
 forward's kernels (csrc/conv3x3_dgrad.cu) and the stem's row kernel
-(csrc/conv3x3_bias_relu.cu).
+(csrc/conv3x3_bias_relu.cu); with --tail, the fused decoder tail
+(dec_tail_kernel of csrc/conv_fwd_wgmma.cu).
 
 Each variant is the sources with a few lines of one file replaced, built
 into a library of its own under unetseg_tpu_torch/build/variants/ and run
@@ -16,9 +17,13 @@ steps' up3; with --dgrad-stem the dgrad at the seven train-step cases
 (tier 1's three, tier 2's four) beside the mma.sync dgrad it replaced,
 and the stem at the serving (16 x 700^2) and train (4 x 512^2) shapes
 beside the FMA kernel it replaced, after edge-case parity (the stem bit
-for bit against that kernel).
+for bit against that kernel); with --tail the tail at the serving shape
+(skip 16 x 696^2 read at (88, 88), up 16 x 520^2, 2 classes) beside the
+wgmma chain dec_conv0 -> conv3x3_head and the mma.sync tail it replaced,
+after edge-case parity (bit for bit against the chain, or the largest
+difference).
 
-    python3 -m unetseg_tpu_torch.ops.kernels.fwd_variants [--new | --dgrad-stem] [variant ...]
+    python3 -m unetseg_tpu_torch.ops.kernels.fwd_variants [--new | --dgrad-stem | --tail] [variant ...]
 
 Variants: "source" (as it is); "nostore" (the epilogue computes but
 stores nothing: what the stores cost); "wst3" (three window stages and
@@ -39,7 +44,7 @@ then fit an SM). The
 default runs source, window, source, window; with --new, source, the four
 A depths, tconv_plainst, head_streamed, source; with --dgrad-stem,
 source, dgrad_window, stem_sw64, stem_2blk, stem_1blk, stem_tiles3,
-source, dgrad_window, stem_2blk.
+source, dgrad_window, stem_2blk; with --tail, source.
 """
 
 from __future__ import annotations
@@ -82,7 +87,9 @@ DEFAULT_NEW = ["source", "tconv_ast8", "tconv_ast3", "tconv_ast6", "tconv_ast2",
                "head_streamed", "source"]
 DEFAULT_DGRAD_STEM = ["source", "dgrad_window", "stem_sw64", "stem_2blk", "stem_1blk",
                       "stem_tiles3", "source", "dgrad_window", "stem_2blk"]
-MODES = {"--conv": DEFAULT, "--new": DEFAULT_NEW, "--dgrad-stem": DEFAULT_DGRAD_STEM}
+DEFAULT_TAIL = ["source"]
+MODES = {"--conv": DEFAULT, "--new": DEFAULT_NEW, "--dgrad-stem": DEFAULT_DGRAD_STEM,
+         "--tail": DEFAULT_TAIL}
 
 
 def main(names, mode="--conv"):
@@ -157,6 +164,8 @@ def run_variant(name, mode="--conv"):
         return time_new(name, act, weights, worst, device)
     if mode == "--dgrad-stem":
         return time_dgrad_stem(name, act, weights, worst, device)
+    if mode == "--tail":
+        return time_tail(name, act, weights, device)
     edge = []
     for b, h, w, ci, co in [(2, 21, 19, 96, 128), (3, 11, 21, 64, 192), (2, 38, 38, 512, 256)]:
         x, (wt, bias) = act(b, h, w, ci), weights(co, ci)
@@ -299,6 +308,46 @@ def time_dgrad_stem(name, act, weights, worst, device):
         print(f"variant {name} {shape}: device {dev:.4f} ms ({n_bytes / dev / 1e6:.0f} GB/s), FMA "
               f"kernel {old:.4f} ms ({old / dev:.2f}x)", flush=True)
         torch.cuda.empty_cache()
+
+
+def time_tail(name, act, weights, device):
+    """The fused decoder tail: edge cases (one band at odd offsets; seven
+    bands of 26 steps) against the wgmma chain dec_conv0 -> conv3x3_head,
+    bit for bit or the largest difference, then device time at the serving
+    shape beside the chain and the mma.sync tail it replaced, on the same
+    tensors."""
+    import torch
+
+    from unetseg_tpu_torch.ops.kernels import conv3x3 as K
+
+    def tail_args(b, hs, ws, hu, wu, off_y, off_x, nc=2):
+        w0, b0 = weights(64, 128)
+        w1, b1 = weights(64, 64)
+        kh = (torch.randn(nc, 64, 1, 1, device="cuda") * 0.5).to(torch.bfloat16).float()
+        return (act(b, hs, ws, 64), act(b, hu, wu, 64), w0, b0, w1, b1, kh,
+                0.1 * torch.randn(nc, device="cuda"), off_y, off_x)
+
+    def chain(skip, up, w0, b0, w1, b1, kh, bh, off_y, off_x):
+        return K.conv3x3_head(K.dec_conv0(skip, up, w0, b0, off_y, off_x), w1, b1, kh, bh)
+
+    same, diff = True, 0.0
+    for shape in [(2, 40, 38, 27, 23, 3, 5), (1, 212, 215, 200, 203, 5, 7)]:
+        args = tail_args(*shape)
+        got, ref = K.dec_tail(*args), chain(*args)
+        torch.cuda.synchronize()
+        same = same and torch.equal(got, ref)
+        diff = max(diff, ((got - ref).abs().max() / ref.abs().max()).item())
+    print(f"variant {name}: edge cases equal the wgmma chain bit for bit: {same} (largest "
+          f"difference {diff:.3e} of the largest logit)", flush=True)
+    args = tail_args(16, 696, 696, 520, 520, 88, 88)
+    dev = device(lambda: K.dec_tail(*args), kernel="dec_tail_kernel")
+    chain_dev = device(lambda: chain(*args), kernel="conv_fwd")
+    old = device(lambda: K.dec_tail_mma_reference(*args), kernel="dec_tail_mma_kernel")
+    flop = 2 * 16 * (518 * 518 * 128 * 64 * 9 + 516 * 516 * 64 * (64 * 9 + 2))
+    print(f"variant {name} tail: device {dev:.4f} ms ({flop / dev / 1e9:.0f} TFLOP/s), wgmma "
+          f"chain {chain_dev:.4f} ms (tail / chain {dev / chain_dev:.3f}), mma.sync tail "
+          f"{old:.4f} ms ({old / dev:.2f}x)", flush=True)
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
