@@ -37,11 +37,15 @@ its own line, and any failure raises (non-zero exit):
    wgmma forward's source) prints the same line with the mma.sync tail it
    replaced (K.dec_tail_mma_reference) and the wgmma chain dec_conv0 ->
    conv3x3_head in place of the library, its walk and conv0's recompute
-   factor; two launches at enc4 conv1, at the dec3 entry, of the head and
-   of the tconv must give the same bits; the fused enc0 must equal the
-   stem kernel and the mma.sync conv chained, dec_tail the wgmma chain,
-   and dec_tail_mma_reference the mma.sync conv and head chained, each bit
-   for bit (any miss fails);
+   factor; the fused enc0 (enc0_fused_kernel of the same source) the same
+   line with the mma.sync enc0 it replaced (K.enc0_fused_mma_reference)
+   and the counted chain stem -> wgmma conv1 + pool in place of the
+   library, its walk, conv1's fill and the stem's recompute factor; two
+   launches at enc4 conv1, at the dec3 entry, of the head and of the tconv
+   must give the same bits; the fused enc0 must equal the stem kernel and
+   the wgmma conv chained, enc0_fused_mma_reference the stem kernel and
+   the mma.sync conv, dec_tail the wgmma chain, and dec_tail_mma_reference
+   the mma.sync conv and head chained, each bit for bit (any miss fails);
 4. serving path: Predictor.masks_tiled on 16 seeded synthetic 512^2 cell
    frames at full width, with seeded He-scaled weights, random BatchNorm
    statistics and a planted intensity path (see plant_intensity_path);
@@ -298,7 +302,7 @@ STEP_FWD["kernel_tier2"] = STEP_FWD["kernel"] + (
 FWD_DEVICE = {}  # case -> (wgmma kernel, mma.sync kernel) device ms, phases 3 and 5
 # the redesigned kernels (the head conv and the tconv on wgmma, the dgrad
 # on the wgmma forward's kernels, the stem's row kernel, the fused decoder
-# tail on the wgmma forward's machinery): per kind, the
+# tail and the fused enc0 on the wgmma forward's machinery): per kind, the
 # profiler's name of its kernel and of the kernel it replaced (the
 # uncounted reference entry), and what the library line times
 REDESIGNED = {"conv3x3_head": ("conv_fwd_kernel", "conv3x3_mma_kernel",
@@ -308,7 +312,10 @@ REDESIGNED = {"conv3x3_head": ("conv_fwd_kernel", "conv3x3_mma_kernel",
               "dgrad": ("conv_dgrad", "conv3x3_mma_kernel", "conv2d_input"),
               "stem": ("stem_rows_kernel", "stem_fma_kernel", "cuDNN conv + bias"),
               "dec_tail": ("dec_tail_kernel", "dec_tail_mma_kernel",
-                           "the wgmma chain dec_conv0 -> conv3x3_head: two kernels")}
+                           "the wgmma chain dec_conv0 -> conv3x3_head: two kernels"),
+              "enc0_fused": ("enc0_fused_kernel", "enc0_fused_mma_kernel",
+                             "the counted chain stem_rows_kernel -> wgmma conv1 + pool: two "
+                             "kernels")}
 DGRAD_KERNELS = ("conv3x3_dgrad", "conv3x3_dense_dgrad")
 # the dgrads of each train step (tier 1: enc0 conv1, dec3 conv1 and conv0;
 # tier 2 adds enc1 and dec2), and their (wgmma, mma.sync) device ms from
@@ -570,16 +577,22 @@ def kernel_parity(sh, c=64):
     same_bits("wgmma forward at the dec3 entry", lambda: K.dec_conv0(*dec0))
     same_bits("wgmma head conv at dec3 conv1", lambda: K.conv3x3_head(*head))
     same_bits("wgmma tconv at up3", lambda: K.tconv2x2_bias(*up3))
-    # enc0_fused sums and rounds in the order of the stem kernel and the
-    # mma.sync conv chained; dec_tail in the order of the wgmma chain
-    # dec_conv0 -> conv3x3_head, and the mma.sync tail it replaced in the
-    # order of the mma.sync conv and the mma.sync head chained
-    chained = K.conv3x3_mma_reference(K.conv3x3_bias_relu(*stem), *enc0[1:], fuse_pool=True)
+    # enc0_fused sums and rounds in the order of the counted chain, the stem
+    # kernel then the wgmma conv with the pool, and the mma.sync enc0 it
+    # replaced in the order of the stem kernel and the mma.sync conv;
+    # dec_tail in the order of the wgmma chain dec_conv0 -> conv3x3_head,
+    # and the mma.sync tail it replaced in the order of the mma.sync conv and
+    # the mma.sync head chained
+    stem_out = K.conv3x3_bias_relu(*stem)
+    chained = K.conv3x3_bias_relu(stem_out, *enc0[1:], fuse_pool=True)
+    mma_chained = K.conv3x3_mma_reference(stem_out, *enc0[1:], fuse_pool=True)
     entry = K.conv3x3_mma_reference(dec0[0], *dec0[2:4], up=dec0[1], row_off=off, col_off=off)
     mma_head = K.conv3x3_mma_reference(entry, *head[1:3], k_head=head[3], b_head=head[4])
     wgmma_chain = K.conv3x3_head(K.dec_conv0(*dec0), *head[1:])
-    same = {"enc0_fused == stem kernel + mma.sync conv":
+    same = {"enc0_fused == stem kernel + wgmma conv chain":
             all(map(torch.equal, K.enc0_fused(*fused0), chained)),
+            "enc0_fused_mma_reference == stem kernel + mma.sync chain":
+            all(map(torch.equal, K.enc0_fused_mma_reference(*fused0), mma_chained)),
             "dec_tail == wgmma chain": torch.equal(K.dec_tail(*tail), wgmma_chain),
             "dec_tail_mma_reference == mma.sync chain":
             torch.equal(K.dec_tail_mma_reference(*tail), mma_head)}
@@ -740,15 +753,16 @@ def fwd_line(case, kname, kernel, args, kw, lib, ms, lib_ms, bound, ops):
 def redesign_of(kname, args):
     """The REDESIGNED kind of a case, or None: the head and the tconv by
     wrapper, both dgrad wrappers, the stem (conv3x3_bias_relu or
-    conv3x3_dense on one input channel), the fused decoder tail."""
+    conv3x3_dense on one input channel), the fused decoder tail, the fused
+    enc0."""
     if kname in ("conv3x3_head", "tconv2x2_bias"):
         return kname
     if kname in DGRAD_KERNELS:
         return "dgrad"
     if kname in ("conv3x3_bias_relu", "conv3x3_dense") and args[0].shape[3] == 1:
         return "stem"
-    if kname == "dec_tail":
-        return "dec_tail"
+    if kname in ("dec_tail", "enc0_fused"):
+        return kname
     return None
 
 
@@ -761,7 +775,9 @@ def redesigned_line(case, kind, kernel, args, kw, ms, ops, n_bytes):
     stands in for the library), the bound and its share, for the head the
     launch plan's tile fill, for a dgrad its plan's form, for the stem
     whether its bits equal the FMA kernel's (a miss fails), for the tail
-    its walk and conv0's recompute factor."""
+    its walk and conv0's recompute factor, for the fused enc0 (the counted
+    chain it fuses standing in for the library) its walk, conv1's fill and
+    the stem's recompute factor."""
     mine, old, lib_name = REDESIGNED[kind]
     extra = ""
     if kind == "conv3x3_head":
@@ -803,6 +819,21 @@ def redesigned_line(case, kind, kernel, args, kw, ms, ops, n_bytes):
                              torch.cuda.get_device_properties(0).multi_processor_count)
         extra = (f"; {plan.mode} form, N {plan.n}, tile fill {plan.fill:.3f} ({plan.tiles} tiles "
                  f"on {plan.grid} blocks)")
+    elif kind == "enc0_fused":
+        x, w0, b0, w1, b1 = args
+
+        def lib():
+            return K.conv3x3_bias_relu(K.conv3x3_bias_relu(x, w0, b0), w1, b1, fuse_pool=True)
+
+        def mma():
+            return K.enc0_fused_mma_reference(*args)
+
+        bsz, h, wd, _ = x.shape
+        plan = K.enc0_fused_plan(bsz, h - 4, wd - 4,
+                                 torch.cuda.get_device_properties(0).multi_processor_count)
+        extra = (f"; bands of {K.ENC0_OUT} rows: {plan.nbands} bands x {plan.nj} steps = "
+                 f"{plan.steps} steps on {plan.grid} blocks, conv1 fill {plan.fill:.3f}, stem "
+                 f"recompute {plan.recompute:.3f}")
     elif kind == "dec_tail":
         skip, up, w0, b0, w1, b1, kh, bh, row_off, col_off = args
 

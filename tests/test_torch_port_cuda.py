@@ -8,11 +8,13 @@ sources at odd offsets and more split-K chunks than tiles, the sampler's reflect
 rounding ties at sizes off the 32-pixel grid; the weighted CE at ragged
 pixel counts, odd crop offsets, bf16 logits and three classes; the
 min-plus product at sizes off its 128-tile, K = 1 and both shared-operand
-patterns; the serving variants' kernels: the fused enc0 at odd sizes and
-batch 1, the fused decoder tail at odd crop offsets with 1-4 classes
-and over several bands (bit for bit against the wgmma chain, its
-mma.sync reference against the mma.sync chain), the fused enc0 bit for
-bit against the chained kernels, the stem's TMA weight gradient at a 3 x
+patterns; the serving variants' kernels: the fused enc0 at odd sizes,
+batch 1, one pooled row and over several bands and blocks (bit for bit
+against the stem kernel chained with the wgmma conv and pool, its
+mma.sync reference against the mma.sync chain), the fused decoder tail at
+odd crop offsets with 1-4 classes and over several bands (bit for bit
+against the wgmma chain, its mma.sync reference against the mma.sync
+chain), the stem's TMA weight gradient at a 3 x
 3 g, rows off the 16-byte pitch and CO 128 (the same bits twice), the cblock conv at
 CI 1024 on a 6x6 input, the dense decoder entry at offset 41, the dense
 conv on both conv paths; the tier-2 train kernels: the dense dgrad with
@@ -26,8 +28,8 @@ output channels in its im2col and windowed forms, from 32- and
 cross image edges, one tap at a time in both forms, from two sources
 (64+32, 128+128, 32+96) at odd offsets, with the
 same bits on a second launch; the uncounted mma.sync reference, to which
-the fused enc0 and decoder tail are held bit for bit (the head through its
-MODE_HEAD); the head conv on the wgmma forward's head variant at 1-4
+the fused kernels' mma.sync references are held bit for bit (the head
+through its MODE_HEAD); the head conv on the wgmma forward's head variant at 1-4
 classes and ragged sizes; the streaming wgmma tconv with each (dy, dx) tap
 alone at CO 128, ragged pixel counts, 32-, 96- and 256-channel inputs and
 three column groups, and its mma.sync reference; both new kernels with the
@@ -399,11 +401,17 @@ def _abs_conv(x, w):
     return to_nhwc(torch.nn.functional.conv2d(to_nchw(x).abs(), w.abs()))
 
 
-@pytest.mark.parametrize("b,h,w", [(1, 37, 45), (2, 22, 53), (1, 7, 9)])
+@pytest.mark.parametrize("b,h,w", [(1, 37, 45), (2, 22, 53), (1, 7, 9), (3, 75, 70),
+                                   (1, 101, 37), (2, 196, 200)])
 def test_enc0_fused(g, b, h, w):
-    """Odd sizes under the pool (floor), batch 1, a single pooled pixel:
-    the bits of the stem kernel chained with the mma.sync conv, and the
-    fp32 plain version within the stem's rounding."""
+    """Odd sizes under the pool (floor), batch 1, a single pooled row (7 x 9
+    -> 3 x 5), several bands (71 x 66 at batch 3: three bands, the last 7
+    rows, 81 steps; 97 x 33: four bands, the last one row, 20 steps), and
+    more steps than SMs (192 x 196 at batch 2: 300 steps, blocks walking two
+    or three across band and image seams on both h tiles): the bits of the
+    counted chain, the stem kernel then the wgmma conv with the pool, the
+    same bits on a second launch, and the fp32 plain version within the
+    stem's rounding."""
     x = _act(g, b, h, w, 1)
     w0, b0 = _w(g, 64, 1, 3, 3, fan=9 * 64), _b(g, 64)
     w1, b1 = _w(g, 64, 64, 3, 3, fan=9 * 64), _b(g, 64)
@@ -411,15 +419,34 @@ def test_enc0_fused(g, b, h, w):
     skip, pooled = K.enc0_fused(x, w0, b0, w1, b1)
     assert K.launch_counts()["enc0_fused"] == 1
     assert skip.shape == (b, h - 4, w - 4, 64) and pooled.shape == (b, (h - 4) // 2, (w - 4) // 2, 64)
-    # the stem kernel, then conv1 in the mma.sync order that enc0_fused sums in
-    c_skip, c_pool = K.conv3x3_mma_reference(K.conv3x3_bias_relu(x, w0, b0), w1, b1,
-                                             fuse_pool=True)
+    c_skip, c_pool = K.conv3x3_bias_relu(K.conv3x3_bias_relu(x, w0, b0), w1, b1, fuse_pool=True)
     torch.cuda.synchronize()
     assert torch.equal(skip, c_skip) and torch.equal(pooled, c_pool)
+    again = K.enc0_fused(x, w0, b0, w1, b1)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], skip) and torch.equal(again[1], pooled)
     r_skip, r_pool = K.enc0_fused_plain(x.float(), w0, b0, w1, b1)
     slack = ROUND * _abs_conv(K.conv3x3_bias_relu_plain(x.float(), w0, b0), w1)
     _close(skip, r_skip, slack)
     _close(pooled, r_pool, to_nhwc(torch.nn.functional.max_pool2d(to_nchw(slack), 2)))
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 37, 45), (1, 7, 9), (3, 75, 70)])
+def test_enc0_fused_mma_reference(g, b, h, w):
+    """The mma.sync kernel the wgmma kernel replaced: the bits of the stem
+    kernel chained with the mma.sync conv and its pool, and uncounted."""
+    x = _act(g, b, h, w, 1)
+    w0, b0 = _w(g, 64, 1, 3, 3, fan=9 * 64), _b(g, 64)
+    w1, b1 = _w(g, 64, 64, 3, 3, fan=9 * 64), _b(g, 64)
+    K.reset_launch_counts()
+    skip, pooled = K.enc0_fused_mma_reference(x, w0, b0, w1, b1)
+    assert K.launch_counts()["enc0_fused"] == 0
+    c_skip, c_pool = K.conv3x3_mma_reference(K.conv3x3_bias_relu(x, w0, b0), w1, b1,
+                                             fuse_pool=True)
+    torch.cuda.synchronize()
+    assert torch.equal(skip, c_skip) and torch.equal(pooled, c_pool)
+    with pytest.raises(RuntimeError, match="CUDA tensors only"):
+        K.enc0_fused_mma_reference(x.cpu(), w0.cpu(), b0.cpu(), w1.cpu(), b1.cpu())
 
 
 def _dec_tail_case(g, nc, b, hs, ws, hu, wu, row_off, col_off):

@@ -58,9 +58,9 @@
 //
 // conv3x3_mma_reference_bf16 keeps the mma.sync implicit GEMM of
 // conv_mma.cuh that the multi-channel path ran before (one or two sources,
-// the pool): enc0_fused.cu and dec_tail.cu sum in its order, so the tests
-// and chip_smoke.py hold them to it bit for bit, and chip_smoke.py times it
-// beside the wgmma kernel. No path launches it.
+// the pool): the mma.sync references of enc0_fused.cu and dec_tail.cu sum
+// in its order, so the tests and chip_smoke.py hold them to it bit for bit,
+// and chip_smoke.py times it beside the wgmma kernel. No path launches it.
 #include "conv_fwd_wgmma.cuh"
 
 #include "hopper.cuh"

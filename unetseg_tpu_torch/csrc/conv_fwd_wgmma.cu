@@ -18,7 +18,10 @@
 // conv_dgrad_im2col_kernel, the same code under names of their own). Its
 // rings and epilogues, with conv0's tile kept in shared memory and conv1
 // and the head after it, also replace conv3x3.py:1026 dec_tail_phase2
-// (entry dec_tail.cu, kernel dec_tail_kernel).
+// (entry dec_tail.cu, kernel dec_tail_kernel); the tail's transposed conv1
+// with resident weights, after a stem on the FMA units into a shared tile
+// and with the 2x2 pool from registers, replaces conv3x3.py:663
+// enc0_fused_phase2 (entry enc0_fused.cu, kernel enc0_fused_kernel).
 //
 // GEMM view: M = output pixels, N = output channels, K = 9 taps x CI.
 // On an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) bytes bound enc0 conv1 (571
@@ -82,6 +85,11 @@
 // - Fused decoder tail (dec_tail_kernel, entry dec_tail.cu): conv0, conv1
 //   and the head in one kernel, conv0's tile kept in shared memory; the
 //   product transposed (M = channels, N = pixels): its note below.
+// - Fused enc0 (enc0_fused_kernel, entry enc0_fused.cu): a stem warpgroup
+//   on the FMA units fills one of two shared h tiles while two consumer
+//   warpgroups run enc0 conv1 from the other as the tail's transposed
+//   product with its nine weight taps resident, the 2x2 pool from the
+//   accumulator registers, TMA tensor stores: its note below.
 // - Epilogue: bias, ReLU when relu, rounded to bf16 into a 16-pixel x
 //   64-channel shared tile per consumer warp, 64 channels at a time, then
 //   stored as whole 128-byte pixel rows of 16-byte vectors, and the 2x2
@@ -764,6 +772,28 @@ __device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, const uint32_t 
                : "memory");
 }
 
+// The transposed product's tap (ky, kx) = (tap / 3, tap % 3) as a descriptor
+// start in a tile of TB_PITCH-pixel rows, 128 bytes a pixel.
+__device__ __forceinline__ uint32_t tap_offset(int tap) {
+  return ((tap / 3) * TB_PITCH + tap % 3) * ROW;
+}
+
+// One tap of the transposed product: acc (64 channels x 128 pixels) += the
+// 64 x 64 weight tile of descriptor da (K-major, rows 128 bytes apart)
+// times the 16 rows x 8 pixels of descriptor db (K-major: each core matrix
+// one row's 8 pixels, rows TB_PITCH pixels apart), four k16 steps of
+// wgmma.m64n128k16; a k16 step moves both starts by 32 bytes, 2 in the
+// descriptor's 16-byte units. The caller fences and commits.
+__device__ __forceinline__ void tap_n128(float (&acc)[64], uint64_t da, uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_n128(acc, da + 2 * kk, db + 2 * kk);
+}
+
+__device__ __forceinline__ uint64_t weight_desc(uint32_t w) { return sw128_desc(w, 16, 8 * ROW); }
+__device__ __forceinline__ uint64_t pixel_desc(uint32_t px) {
+  return sw128_desc(px, 16, TB_PITCH * ROW);
+}
+
 // bias + ReLU of two accumulators, rounded to bf16 and packed (a low).
 __device__ __forceinline__ uint32_t relu_bf16x2(float a, float b, float bias) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(unet::act(a + bias, 1), unet::act(b + bias, 1));
@@ -773,25 +803,50 @@ __device__ __forceinline__ uint32_t relu_bf16x2(float a, float b, float bias) {
 // The transposed form's epilogue of a warpgroup's 64 channels x 128
 // pixels: accumulator 4j + i of this thread is channel 16 warp + g (+8 for
 // i >= 2), pixel 8j + 2q + (i & 1) (row j of the warpgroup's 16, column 2q
-// (+1)); bias + ReLU rounded to bf16, and through stmatrix .trans each
-// pixel's 16-byte chunk of 8 channels to pixel(j, column) of a 128-byte-row
-// tile, chunk c at c ^ (pixel & 7).
+// (+1)). pack_transposed rounds bias + ReLU to bf16: pk[2j] holds channel
+// 16 warp + g at row j, columns 2q (low) and 2q + 1, pk[2j + 1] the same
+// for channel + 8 (blo and bhi their biases).
+__device__ __forceinline__ void pack_transposed(const float (&acc)[64], float blo, float bhi,
+                                                uint32_t (&pk)[32]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    pk[2 * j] = relu_bf16x2(acc[4 * j], acc[4 * j + 1], blo);
+    pk[2 * j + 1] = relu_bf16x2(acc[4 * j + 2], acc[4 * j + 3], bhi);
+  }
+}
+
+// store_packed writes them through stmatrix .trans, each pixel's 16-byte
+// chunk of 8 channels to pixel(j, column) of a 128-byte-row tile, chunk c
+// at c ^ (pixel & 7); then rounded(j, r) sees r = pk[2j .. 2j + 3], rows j
+// and j + 1 (j even; the fused enc0's 2x2 pool).
+struct NoRounded {
+  __device__ void operator()(int, const uint32_t (&)[4]) const {}
+};
+
+template <typename PixelOf, typename Rounded = NoRounded>
+__device__ __forceinline__ void store_packed(const uint32_t (&pk)[32], uint32_t tile, int warp,
+                                             int lane, PixelOf pixel,
+                                             Rounded rounded = Rounded()) {
+  const int mi = lane >> 3, k = lane & 7;
+  const int c = 2 * warp + (mi & 1);
+#pragma unroll
+  for (int j = 0; j < 16; j += 2) {
+    const uint32_t r[4] = {pk[2 * j], pk[2 * j + 1], pk[2 * j + 2], pk[2 * j + 3]};
+    const int pix = pixel(j + (mi >> 1), k);
+    stmatrix_x4_trans(tile + pix * ROW + ((c ^ (pix & 7)) << 4), r);
+    rounded(j, r);
+  }
+}
+
+// Both, with the channels' biases from bias.
 template <typename PixelOf>
 __device__ __forceinline__ void store_transposed(const float (&acc)[64], const float* bias,
                                                  uint32_t tile, int warp, int lane,
                                                  PixelOf pixel) {
-  const int g = lane >> 2, mi = lane >> 3, k = lane & 7;
-  const float blo = __ldg(bias + 16 * warp + g), bhi = __ldg(bias + 16 * warp + g + 8);
-  const int c = 2 * warp + (mi & 1);
-#pragma unroll
-  for (int j = 0; j < 16; j += 2) {
-    const uint32_t r[4] = {relu_bf16x2(acc[4 * j], acc[4 * j + 1], blo),
-                           relu_bf16x2(acc[4 * j + 2], acc[4 * j + 3], bhi),
-                           relu_bf16x2(acc[4 * j + 4], acc[4 * j + 5], blo),
-                           relu_bf16x2(acc[4 * j + 6], acc[4 * j + 7], bhi)};
-    const int pix = pixel(j + (mi >> 1), k);
-    stmatrix_x4_trans(tile + pix * ROW + ((c ^ (pix & 7)) << 4), r);
-  }
+  const int g = lane >> 2;
+  uint32_t pk[32];
+  pack_transposed(acc, __ldg(bias + 16 * warp + g), __ldg(bias + 16 * warp + g + 8), pk);
+  store_packed(pk, tile, warp, lane, pixel);
 }
 
 __global__ void __launch_bounds__(FWD_THREADS, 1)
@@ -889,12 +944,7 @@ dec_tail_kernel(const __grid_constant__ CUtensorMap xmap0,
     const uint32_t b0 = bbase + bs * TB_B_STAGE;
     fence_regs(acc);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      // the 16 rows' 8-pixel runs as N, TB_PITCH pixels apart
-      wgmma_n128(acc, sw128_desc(b0 + kk * 32, 16, 8 * ROW),
-                 sw128_desc(a0 + kk * 32, 16, TB_PITCH * ROW));
-    }
+    tap_n128(acc, weight_desc(b0), pixel_desc(a0));
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     fence_regs(acc);
     if (release_prev) {
@@ -933,7 +983,7 @@ dec_tail_kernel(const __grid_constant__ CUtensorMap xmap0,
       const uint32_t wbase = base + ws * TB_WIN_SLOT + a_unit0;
 #pragma unroll 1
       for (int tap = 0; tap < 9; ++tap)
-        group(wbase + ((tap / 3) * TB_PITCH + tap % 3) * ROW, s > 0 || tap > 0, tap == 0);
+        group(wbase + tap_offset(tap), s > 0 || tap > 0, tap == 0);
       ++wi;
     }
     drain(true);
@@ -969,7 +1019,7 @@ dec_tail_kernel(const __grid_constant__ CUtensorMap xmap0,
     zero();
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap)
-      group(hbase + a_unit0 + ((tap / 3) * TB_PITCH + tap % 3) * ROW, tap > 0, false);
+      group(hbase + a_unit0 + tap_offset(tap), tap > 0, false);
     drain(false);
 
     const int y0 = band * TB_OUT, y_end = min(y0 + TB_OUT, Ho);
@@ -985,6 +1035,368 @@ dec_tail_kernel(const __grid_constant__ CUtensorMap xmap0,
                 y_end);
     }
   }
+}
+
+// ------------------------------------------------------------ the fused enc0
+// enc0_fused_kernel: the stem h = ReLU(conv3x3(x, w0) + b0) (1 -> 64
+// channels) rounded to bf16, skip0 = ReLU(conv3x3(h, w1) + b1) (64 -> 64)
+// rounded to bf16 and its 2x2 max-pool, in one kernel (entry
+// enc0_fused.cu); h never leaves shared memory. A step is E0_OUT output
+// rows x E0_STEP columns of one image (16 rows a consumer warpgroup), bands
+// starting at multiples of E0_OUT, so every 2x2 pool window lies inside
+// one warpgroup; steps in (image, band, column step) order, a contiguous
+// range of them per block of a persistent grid of one block per SM. A step
+// needs of the step before only the stem's carry (below): a block's first
+// step, and each band's first, compute all of h.
+// - Warp-specialised: a stem warpgroup computes h into one of two tiles
+//   and copies x; two consumer warpgroups run conv1 from the other tile.
+//   mbarriers pass the tiles: hfull (the stem's 128 threads done) and
+//   hempty (both consumers' conv1 done). While a consumer warpgroup's conv1
+//   of step k + 1 runs on the tensor core (36 wgmmas in one group), it
+//   stores step k's tiles; then it waits for the group and rounds its
+//   accumulators (bias, ReLU, bf16) into registers. The code between a
+//   group's issue and its wait has no branch (the stores are predicated;
+//   a block's last step issues a conv1 that is never stored), so ptxas
+//   keeps the group asynchronous. (With the stem on the consumers'
+//   warps, between the taps or after the issue, it did not hide under the
+//   tensor core's work: PERF.md.)
+// - The stem on the FMA units: E0_H_ROWS rows (the E0_ROWS that conv1
+//   reads, then padding) of the TB_PITCH h columns a step. Where the block's
+//   step before is the same band's column step j - 1 (the carry), columns
+//   0 and 1 are that step's columns 8 and 9, copied from the other h tile,
+//   and the stem computes columns 2..9; else all ten. Units (segment of
+//   E0_SEG rows, column), thread (unit lane, channel group cg) walking two
+//   or three of them with the 3x3 window sliding down the column (three
+//   new x values a row), for channels 8 cg .. 8 cg + 7, with the 72 stem
+//   weights and 8 biases in registers. The arithmetic is
+//   stem_rows_kernel's (conv3x3_bias_relu.cu): f32 from the bias, the nine
+//   taps in order by FMA, ReLU, rounded by __floats2bfloat162_rn: the same
+//   bits, carried or computed. h is written as TMA would have written it
+//   (16-byte chunk c of pixel P at c ^ (P & 7) from a 1 KB-aligned base),
+//   as the tail's conv0 tile. Recomputing the two halo columns in every
+//   step (1.41x the pixels conv1 reads at 16 x 700^2) kept the stem the
+//   longest part; the carry (1.14x) took the kernel 14% faster (PERF.md).
+// - x: a row of 700 bf16 values is 1,400 bytes, not a multiple of 16, so a
+//   2-D tensor map of x is illegal, and 38 1-D TMA copies a step cost the
+//   stem warpgroup 6% of the kernel's time (PERF.md). Instead a step's
+//   E0_XROWS rows come as E0_X_CHUNKS 16-byte loads a row of the flat
+//   input, from the 16-byte boundary at or before the row's first value,
+//   one load a stem thread, into rows E0_X_ROW bytes apart of one of two
+//   stages: loaded into registers two steps ahead and stored into the
+//   stage the stem has just read, so the next barrier publishes it. Rows
+//   and columns past the image's edge read the next row's values or zeros
+//   (past the input's end); they feed only outputs that are not stored.
+// - conv1 as the transposed product (the tail's conv1: tap_n128, M = 64
+//   channels of the weight tile, N = the warpgroup's 16 rows x 8 columns,
+//   the tap a descriptor start), its nine 8 KB weight taps copied once per
+//   block by TMA and resident. It sums taps 0..8, k16 steps 0..3, the
+//   order of the windowed N = 64 form that conv3x3_bias_relu runs for enc0
+//   conv1 + pool (the tensor core sums a k16 step the same way for either
+//   operand order).
+// - Epilogue: the rounded values through stmatrix .trans into the
+//   warpgroup's 16 x 8 skip0 tile (store_packed); the pool from the
+//   registers: a thread holds channels 16 warp + g (+8) at rows j, j + 1
+//   and columns 2q, 2q + 1, so a 2x2 window is four of its own rounded
+//   values, taken in the chained epilogue's order (rounding and ReLU are
+//   monotone: the chain's bits), into the warpgroup's 8 x 4 pooled tile.
+//   One thread of the warpgroup stores both tiles by TMA tensor stores
+//   (boxes clipped at the ragged edges; odd sizes floor) as one bulk group,
+//   read before the next step's tiles are written.
+// So skip0 and pooled equal the counted chain conv3x3_bias_relu (the stem,
+// stem_rows_kernel) -> conv3x3_bias_relu with the pool (the windowed wgmma
+// form) bit for bit (the card tests and chip_smoke.py check it).
+// ops/kernels/conv3x3.py enc0_fused_plan and enc0_fused_steps mirror the
+// walk.
+constexpr int E0_OUT = 32, E0_STEP = UNIT;          // output rows x columns a step
+constexpr int E0_THREADS = (CONSUMERS + 1) * 128;    // two consumer warpgroups, the stem's
+constexpr int E0_ROWS = E0_OUT + 2;                  // h rows conv1 reads
+constexpr int E0_SEG = 9, E0_NSEG = 4;              // h rows a stem unit walks, segments
+constexpr int E0_H_ROWS = E0_NSEG * E0_SEG;          // h rows the stem computes
+constexpr int E0_XROWS = E0_H_ROWS + 2;              // x rows they read
+constexpr int E0_H_SLOT = (E0_H_ROWS * TB_PITCH * ROW + 1023) / 1024 * 1024;
+constexpr int E0_X_CHUNKS = 3;  // 16-byte loads of 8 values a row: >= 7 + E0_STEP + 4 values
+constexpr int E0_X_ROW = 128;   // bytes between staged x rows
+constexpr int E0_X_STAGE = E0_XROWS * E0_X_ROW;
+constexpr int E0_W_BYTES = 9 * TB_B_STAGE;           // conv1's nine taps, resident
+constexpr int E0_TILE = 2 * UNIT * UNIT * ROW;       // a warpgroup's 16 x 8 skip0 pixels
+constexpr int E0_PTILE = UNIT * UNIT / 2 * ROW;      // its 8 x 4 pooled pixels
+constexpr int E0_SMEM = 1024 + E0_W_BYTES + 2 * E0_H_SLOT + CONSUMERS * (E0_TILE + E0_PTILE) +
+                        2 * E0_X_STAGE + 5 * 8;
+static_assert(E0_SMEM <= SMEM_PER_BLOCK, "the fused enc0 exceeds the 227 KB a block can use");
+static_assert(E0_OUT == CONSUMERS * 2 * UNIT, "16 output rows a warpgroup");
+static_assert(E0_H_ROWS >= E0_ROWS, "every h pixel conv1 reads");
+static_assert(E0_XROWS * E0_X_CHUNKS <= 128, "a load a stem thread");
+static_assert(8 * E0_X_CHUNKS >= 7 + E0_STEP + 4 && 16 * E0_X_CHUNKS <= E0_X_ROW,
+              "a row's loads cover its 12 values from the 16-byte boundary before them");
+static_assert((E0_W_BYTES + 2 * E0_H_SLOT) % 1024 == 0, "the output tiles on a 1 KB atom");
+
+__device__ __forceinline__ void st_shared_b16(uint32_t addr, __nv_bfloat16 v) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr), "h"(__bfloat16_as_ushort(v)) : "memory");
+}
+
+// Step m of a block's walk, m >= n repeating step n - 1 (the x loads past
+// the block's last step, never used).
+struct E0Walk {
+  int b, band, j, m;
+};
+
+__device__ __forceinline__ void e0_next(E0Walk& w, int n, int nbands, int nj) {
+  if (w.m + 1 < n && ++w.j == nj) {
+    w.j = 0;
+    if (++w.band == nbands) {
+      w.band = 0;
+      ++w.b;
+    }
+  }
+  ++w.m;
+}
+
+// The stem of one unit (segment: h rows r0 .. r0 + E0_SEG - 1, column c)
+// of the step whose flat x index of row 0, column 0 is row0, channels 8 cg
+// .. 8 cg + 7, from the staged x rows xs into the h tile hs, the 3x3 window
+// sliding down the column: x rows r, r + 1, r + 2 of it at win[r % 3].
+struct E0Stem {
+  const uint8_t* xs;
+  uint8_t* hs;
+  int row0, W, r0, c, cg;
+  float win[3][3];
+};
+
+// x row r into v (the row's first value sits at (its flat index & 7) in the
+// staged row)
+__device__ __forceinline__ void e0_x_row(const E0Stem& st, int r, float (&v)[3]) {
+  const __nv_bfloat16* xr = reinterpret_cast<const __nv_bfloat16*>(st.xs + r * E0_X_ROW) +
+                            ((st.row0 + r * st.W) & 7) + st.c;
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx) v[kx] = __bfloat162float(xr[kx]);
+}
+
+__device__ __forceinline__ void e0_stem_begin(E0Stem& st) {
+  e0_x_row(st, st.r0, st.win[0]);
+  e0_x_row(st, st.r0 + 1, st.win[1]);
+}
+
+// Rows I .. END - 1 of the unit (window slots (I + ky) % 3).
+template <int I, int END>
+__device__ __forceinline__ void e0_stem_rows(E0Stem& st, const float (&sw)[9][8],
+                                             const float (&sb)[8]) {
+  if constexpr (I < END) {
+    e0_x_row(st, st.r0 + I + 2, st.win[(I + 2) % 3]);
+    float a[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) a[k] = sb[k];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) a[k] += sw[tap][k] * st.win[(I + tap / 3) % 3][tap % 3];
+    __align__(16) __nv_bfloat162 o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      o[k] = __floats2bfloat162_rn(unet::act(a[2 * k], 1), unet::act(a[2 * k + 1], 1));
+    const int p = (st.r0 + I) * TB_PITCH + st.c;
+    *reinterpret_cast<uint4*>(st.hs + p * ROW + ((st.cg ^ (p & 7)) << 4)) =
+        *reinterpret_cast<const uint4*>(o);
+    e0_stem_rows<I + 1, END>(st, sw, sb);
+  }
+}
+
+// x: the input, xn = B H W values; wmap: w1 as the (64, 9, 64) view (box
+// one tap); ymap: skip0 (B, Ho, Wo, 64), boxes of 64 x E0_STEP x 16; pmap:
+// pooled (B, Ho / 2, Wo / 2, 64), boxes of 64 x E0_STEP / 2 x 8 (used when
+// pool_out).
+__global__ void __launch_bounds__(E0_THREADS, 1)
+enc0_fused_kernel(const __nv_bfloat16* __restrict__ x, int xn,
+                  const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap ymap,
+                  const __grid_constant__ CUtensorMap pmap, const __nv_bfloat16* __restrict__ w0,
+                  const float* __restrict__ b0, const float* __restrict__ b1, int H, int W,
+                  int Ho, int Wo, int nbands, int nj, int total, int pool_out) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t wbase = (raw + 1023) & ~1023u;  // the swizzle's 1 KB atom
+  const uint32_t hbase = wbase + E0_W_BYTES;
+  const uint32_t tbase = hbase + 2 * E0_H_SLOT;
+  const uint32_t pbase = tbase + CONSUMERS * E0_TILE;
+  const uint32_t xbase = pbase + CONSUMERS * E0_PTILE;
+  const uint32_t wfull = xbase + 2 * E0_X_STAGE, hfull0 = wfull + 8, hempty0 = hfull0 + 16;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int t_begin = (int)((long long)total * blockIdx.x / gridDim.x);
+  const int n = (int)((long long)total * (blockIdx.x + 1) / gridDim.x) - t_begin;
+  E0Walk first;
+  tail_step(t_begin, nbands, nj, first.b, first.band, first.j);
+  first.m = 0;
+
+  if (tid == 0) {
+    mbar_init(wfull, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(hfull0 + 8 * s, 1);
+      mbar_init(hempty0 + 8 * s, CONSUMERS);  // one arrive per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {  // ---- the stem warpgroup
+    const int st_tid = tid - CONSUMERS * 128;
+    E0Walk st = first, ld = first;  // the steps of the stem and of the x copies
+    const auto row0 = [&](const E0Walk& s) {
+      return (s.b * H + s.band * E0_OUT) * W + s.j * E0_STEP;
+    };
+    // this thread's 16 bytes of step ld.m's x rows: row xr, values 8 xc ..
+    // 8 xc + 7 from the row's 16-byte boundary; zeros past the input's end
+    const int xr = st_tid / E0_X_CHUNKS, xc = st_tid % E0_X_CHUNKS;
+    const bool loader = xr < E0_XROWS;
+    uint4 xv = make_uint4(0u, 0u, 0u, 0u);
+    const auto load_x = [&]() {
+      const int i = ((row0(ld) + xr * W) & ~7) + 8 * xc;
+      e0_next(ld, n, nbands, nj);
+      if (!loader) return;
+      if (i + 8 <= xn) {
+        xv = __ldg(reinterpret_cast<const uint4*>(x + i));
+        return;
+      }
+      __align__(16) __nv_bfloat16 v[8];
+      for (int e = 0; e < 8; ++e) v[e] = i + e < xn ? x[i + e] : __float2bfloat16(0.f);
+      xv = *reinterpret_cast<const uint4*>(v);
+    };
+    // ... into x stage s
+    const auto store_x = [&](int s) {
+      if (loader)
+        *reinterpret_cast<uint4*>(smem_raw + (xbase + s * E0_X_STAGE - raw) + xr * E0_X_ROW +
+                                  16 * xc) = xv;
+    };
+    if (st_tid == 0) {
+      mbar_expect_tx(wfull, E0_W_BYTES);
+      for (int tap = 0; tap < 9; ++tap)
+        tma_load_3d(wbase + tap * TB_B_STAGE, &wmap, wfull, 0, tap, 0);
+    }
+    load_x();
+    store_x(0);
+    load_x();
+    store_x(1);
+    load_x();  // step 2's, stored once step 0's stem has read stage 0
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + CONSUMERS) : "memory");
+
+    const int cg = st_tid & 7, lane16 = st_tid >> 3;  // units lane16 and lane16 + 16
+    float sw[9][8], sb[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      sb[k] = b0[8 * cg + k];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) sw[tap][k] = __bfloat162float(w0[(8 * cg + k) * 9 + tap]);
+    }
+    E0Stem stl;
+    stl.W = W;
+    stl.cg = cg;
+    for (int m = 0; m < n; ++m) {
+      const int s = m & 1;
+      if (m >= 2) mbar_wait(hempty0 + 8 * s, ((m >> 1) - 1) & 1);  // conv1 of step m - 2 done
+      stl.xs = smem_raw + (xbase + s * E0_X_STAGE - raw);
+      stl.hs = smem_raw + (hbase + s * E0_H_SLOT - raw);
+      stl.row0 = row0(st);
+      // the carry: after this band's column step j - 1 (the block's step
+      // m - 1, in the other tile) h columns 0, 1 are its columns 8, 9
+      const bool carry = m >= 1 && st.j > 0;
+      const int c0 = carry ? 2 : 0, ncols = TB_PITCH - c0;
+      if (carry) {
+        const uint8_t* prev = smem_raw + (hbase + (s ^ 1) * E0_H_SLOT - raw);
+        for (int i = st_tid; i < E0_H_ROWS * 2 * 8; i += 128) {
+          const int r = i >> 4, cc = (i >> 3) & 1, ch = i & 7;
+          const int ps = r * TB_PITCH + E0_STEP + cc, pd = r * TB_PITCH + cc;
+          *reinterpret_cast<uint4*>(stl.hs + pd * ROW + ((ch ^ (pd & 7)) << 4)) =
+              *reinterpret_cast<const uint4*>(prev + ps * ROW + ((ch ^ (ps & 7)) << 4));
+        }
+      }
+      // units (segment, column) of the new columns: 32 with the carry, 40
+      // without
+      for (int u = lane16; u < E0_NSEG * ncols; u += 16) {
+        stl.r0 = E0_SEG * (u / ncols);
+        stl.c = c0 + u % ncols;
+        e0_stem_begin(stl);
+        e0_stem_rows<0, E0_SEG>(stl, sw, sb);
+      }
+      fence_proxy_async_shared();  // the stem's writes before wgmma reads them
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + CONSUMERS) : "memory");
+      if (st_tid == 0) mbar_arrive(hfull0 + 8 * s);
+      // step m + 2's x rows into the stage this stem has read (the next
+      // step's barrier publishes them), step m + 3's into registers
+      store_x(s);
+      load_x();
+      e0_next(st, n, nbands, nj);
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: warpgroup wg owns output rows 16 wg .. 16
+  // wg + 15 of each step, warp w of it channels 16 w .. 16 w + 15
+  const int g = lane >> 2, q = lane & 3;
+  const float blo = b1[16 * warp + g], bhi = b1[16 * warp + g + 8];
+  const uint64_t da = weight_desc(wbase);
+  const uint64_t db0 = pixel_desc(hbase + (uint32_t)(2 * UNIT * wg * TB_PITCH * ROW));
+  float acc[64];
+  // conv1 of step m on h tile m & 1 as one wgmma group; a step past the
+  // block's last (m = n) reads a tile no stem wrote and is never stored
+  const auto conv1 = [&](int m) {
+    const uint64_t db = db0 + (uint64_t)((m & 1) * (E0_H_SLOT >> 4));
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    fence_regs(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+      tap_n128(acc, da + tap * (TB_B_STAGE >> 4), db + (tap_offset(tap) >> 4));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    fence_regs(acc);
+  };
+  // wait for it, free its h tile for the stem, round it into pk
+  uint32_t pk[32];
+  const auto conv1_done = [&](int m) {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(acc);
+    if ((tid & 127) == 0) mbar_arrive(hempty0 + 8 * (m & 1));
+    pack_transposed(acc, blo, bhi, pk);
+  };
+  const uint32_t tile = tbase + wg * E0_TILE, ptile = pbase + wg * E0_PTILE;
+  const bool storer = (tid & 127) == 0;  // issues the warpgroup's stores
+  E0Walk ep = first;                     // the epilogue's step
+
+  mbar_wait(hfull0, 0);
+  mbar_wait(wfull, 0);
+  conv1(0);
+  conv1_done(0);
+  for (int k = 0; k < n; ++k) {
+    // conv1 of step k + 1 runs while this warpgroup stores step k's tiles
+    if (k + 1 < n) mbar_wait(hfull0 + 8 * ((k + 1) & 1), ((k + 1) >> 1) & 1);
+    conv1(k + 1);
+    bulk_wait_read<0>();  // the stores of step k - 1 have read the tiles
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    // skip0 into the tile; pooled pixel (j / 2, q) of the warpgroup's 8 x 4
+    // from rows j, j + 1 of each of the thread's two channels
+    store_packed(pk, tile, warp, lane, [](int row, int c) { return row * UNIT + c; },
+                 [&](int jr, const uint32_t (&r)[4]) {
+                   const int pp = (jr >> 1) * (UNIT / 2) + q;
+#pragma unroll
+                   for (int h = 0; h < 2; ++h) {
+                     const __nv_bfloat162 u = *reinterpret_cast<const __nv_bfloat162*>(&r[h]);
+                     const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&r[h + 2]);
+                     st_shared_b16(ptile + pp * ROW + (((2 * warp + h) ^ (pp & 7)) << 4) + 2 * g,
+                                   __hmax(__hmax(__hmax(u.x, u.y), v.x), v.y));
+                   }
+                 });
+    fence_proxy_async_shared();  // the tiles' writes before the TMA stores read them
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    // boxes wholly past the edge (the last band's second half) are not stored
+    const int oy = ep.band * E0_OUT + 2 * UNIT * wg, ox = ep.j * E0_STEP;
+    tma_store_4d_if(storer && oy < Ho, &ymap, tile, 0, ox, oy, ep.b);
+    tma_store_4d_if(storer && pool_out && oy / 2 < Ho / 2 && ox / 2 < Wo / 2, &pmap, ptile, 0,
+                    ox / 2, oy / 2, ep.b);
+    bulk_commit_if(storer);
+    conv1_done(k + 1);
+    e0_next(ep, n, nbands, nj);
+  }
+  bulk_wait<0>();  // the last stores are done
 }
 
 }  // namespace
@@ -1043,6 +1455,33 @@ int launch_dec_tail_wgmma(Src s0, Src s1, const void* w0, const void* b0, const 
   dec_tail_kernel<<<grid, FWD_THREADS, TB_SMEM, (cudaStream_t)stream>>>(
       xmap0, xmap1, w0map, w1map, s0.C, s0.off_y, s0.off_x, slices0, slices, (const float*)b0,
       (const float*)b1, B, Ho, Wo, nbands, nj, hd);
+  return (int)cudaGetLastError();
+}
+
+int launch_enc0_fused_wgmma(const void* x, const void* w0, const void* b0, const void* w1,
+                            const void* b1, void* y, void* pooled, int B, int H, int W,
+                            void* stream) {
+  const int Ho = H - 4, Wo = W - 4;
+  const int pool = Ho >= 2 && Wo >= 2;  // else nothing to pool
+  // flat x indices up to the last step's rows past the image
+  if ((long long)(B * (long long)H + E0_XROWS) * W >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  CUtensorMap wmap, ymap, pmap;
+  int sms = 0;
+  int e = weight_map(&wmap, w1, SLICE, SLICE);
+  if (e == 0) e = nhwc_map(&ymap, y, B, Ho, Wo, SLICE, E0_STEP, E0_OUT / 2);
+  if (e == 0 && pool) e = nhwc_map(&pmap, pooled, B, Ho / 2, Wo / 2, SLICE, E0_STEP / 2, E0_OUT / 4);
+  if (e == 0) e = sm_count(&sms);
+  if (e != 0) return e;
+  if (!pool) pmap = ymap;
+  cudaError_t err =
+      cudaFuncSetAttribute(enc0_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, E0_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int nbands = (Ho + E0_OUT - 1) / E0_OUT, nj = (Wo + E0_STEP - 1) / E0_STEP;
+  const int total = B * nbands * nj;
+  const int grid = total < sms ? total : sms;
+  enc0_fused_kernel<<<grid, E0_THREADS, E0_SMEM, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, B * H * W, wmap, ymap, pmap, (const __nv_bfloat16*)w0,
+      (const float*)b0, (const float*)b1, H, W, Ho, Wo, nbands, nj, total, pool);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,8 @@
 // (conv_fwd_wgmma.cu): the multi-channel path of conv3x3_bias_relu.cu
 // (conv3x3_bias_relu, conv3x3_dense, conv3x3_cblock), dec_conv0.cu
 // (dec_conv0, dec_conv0_dense), conv3x3_head.cu (conv3x3_head),
-// conv3x3_dgrad.cu (conv3x3_dgrad, conv3x3_dense_dgrad) and dec_tail.cu
-// (dec_tail).
+// conv3x3_dgrad.cu (conv3x3_dgrad, conv3x3_dense_dgrad), dec_tail.cu
+// (dec_tail) and enc0_fused.cu (enc0_fused).
 #pragma once
 
 #include "conv_mma.cuh"
@@ -45,5 +45,15 @@ int launch_conv_head_wgmma(Src s0, const void* w, const void* bias, const void* 
 int launch_dec_tail_wgmma(Src s0, Src s1, const void* w0, const void* b0, const void* w1,
                           const void* b1, const void* head_w, const void* head_b, int nc, int B,
                           int Ho, int Wo, void* logits, void* stream);
+
+// skip0 (B, H - 4, W - 4, 64) = ReLU(conv3x3(h, w1) + b1) rounded to
+// bf16 and, where H - 4 and W - 4 are both at least 2, pooled (B, (H -
+// 4) / 2, (W - 4) / 2, 64) its 2x2 max-pool, h = ReLU(conv3x3(x, w0) + b0)
+// rounded to bf16 and kept in shared memory (the fused enc0); x (B, H, W,
+// 1) bf16, w0 (64, 3, 3, 1), w1 (64, 3, 3, 64) bf16, b0 and b1 (64,) f32.
+// Returns as launch_conv_fwd_wgmma.
+int launch_enc0_fused_wgmma(const void* x, const void* w0, const void* b0, const void* w1,
+                            const void* b1, void* y, void* pooled, int B, int H, int W,
+                            void* stream);
 
 }  // namespace unet

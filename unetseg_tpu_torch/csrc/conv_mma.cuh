@@ -1,8 +1,9 @@
 // Implicit-GEMM valid 3x3 convolution on Hopper tensor cores (mma.sync).
 //
 // Shared by conv3x3_bias_relu.cu, dec_conv0.cu, conv3x3_head.cu and
-// conv3x3_dgrad.cu; enc0_fused.cu and dec_tail.cu build their fused
-// kernels from its pieces (staging, fragment loads, tile loop, epilogues);
+// conv3x3_dgrad.cu; enc0_fused.cu and dec_tail.cu build their mma.sync
+// reference kernels from its pieces (staging, fragment loads, tile loop,
+// epilogues);
 // tconv2x2_bias.cu and conv3x3_wgrad.cu use its constants and mma helper.
 // NHWC bf16 activations, weights (CO, 3, 3, CI) bf16 ("OHWI"), f32 bias,
 // f32 accumulation. GEMM view: M = output pixels, N = output channels,

@@ -6,24 +6,40 @@
 // (serving path with fused_enc0: x (B,700,700,1) -> skip0 (B,696,696,64)
 // and pooled (B,348,348,64)).
 //
-// About 36 GFLOP per 700^2 tile, almost all of it conv1's, against 78 MB
+// About 36 GFLOP per 700^2 tile, almost all of it conv1's, against 79 MB
 // of traffic (x in, skip0 and pooled out): tensor-core bound. The chained
-// kernels write the 62 MB stem activation and read it again per tile;
-// here a block owns a 16x16 tile of conv1 outputs and all 64 channels:
+// kernels write the 62 MB stem activation and read it again per tile.
+//
+// enc0_fused_bf16 launches enc0_fused_kernel of conv_fwd_wgmma.cu (the note
+// there): bands of 32 output rows walked 8 columns a step on a persistent
+// grid; a stem warpgroup computes the stem on the FMA units into one of two
+// shared tiles (the two halo columns carried from the step before) while
+// two consumer warpgroups run conv1 from the other as the fused tail's
+// transposed wgmma product, its nine weight taps resident; the 2x2 pool
+// from the accumulator registers; TMA tensor stores. Its skip0 and pooled
+// equal the counted chain conv3x3_bias_relu (stem_rows_kernel) ->
+// conv3x3_bias_relu with the pool (the windowed wgmma form) bit for bit.
+//
+// enc0_fused_mma_reference_bf16 keeps the mma.sync kernel it replaced
+// (uncounted, on no path; chip_smoke.py times it beside the new kernel and
+// holds it to the mma.sync chain bit for bit): enc0_fused_mma_kernel, whose
+// block owns a 16x16 tile of conv1 outputs and all 64 channels:
 //   1. the (16+4)^2 input patch and the stem taps go to shared memory as
 //      f32, and the stem runs on the FMA units for the (16+2)^2 pixels
 //      conv1 reads (a one-pixel halo, recomputed at tile seams: 1.27x the
-//      stem's work, 2% of the kernel's), each value rounded to bf16 into
-//      a shared tile, as the chained stem stores it;
+//      stem's work), each value rounded to bf16 into a shared tile, as the
+//      chained stem stores it;
 //   2. conv1 runs from that tile with conv_mma.cuh's tile loop, its weight
-//      staged 32 input channels at a time;
+//      staged 32 input channels at a time between two barriers;
 //   3. conv_mma.cuh's epilogue adds the bias, applies ReLU, stores skip0
 //      and the 2x2 max-pool (tiles start at even rows and columns; odd
 //      sizes floor).
-// The stem and conv1 sum in the chained kernels' order (stem: bias, then
-// the nine taps by FMA; conv1: 32-channel slices, taps, k16 steps), so the
-// result equals conv3x3_bias_relu twice, bit for bit.
-#include "conv_mma.cuh"
+// The stem and conv1 sum in the order of the stem kernel and the mma.sync
+// conv (32-channel slices, taps, k16 steps), so its result equals the stem
+// kernel chained with conv3x3_mma_reference, bit for bit. Two 256-thread
+// blocks an SM, no asynchronous copy, the stem between barriers: 17% of its
+// operations bound.
+#include "conv_fwd_wgmma.cuh"
 
 namespace {
 
@@ -37,7 +53,7 @@ constexpr int ENC0_SMEM =
 static_assert(TILE_BYTES <= STEM_BYTES, "the epilogue tile reuses the stem tile");
 
 __global__ void __launch_bounds__(THREADS, 2)
-enc0_fused_kernel(const __nv_bfloat16* __restrict__ x, int H, int W,
+enc0_fused_mma_kernel(const __nv_bfloat16* __restrict__ x, int H, int W,
                   const __nv_bfloat16* __restrict__ w0,
                   const float* __restrict__ b0,
                   const __nv_bfloat16* __restrict__ w1,
@@ -116,18 +132,27 @@ enc0_fused_kernel(const __nv_bfloat16* __restrict__ x, int H, int W,
 
 // x (B,H,W,1) bf16; w0 (64,3,3,1) bf16, b0 (64,) f32; w1 (64,3,3,64) bf16,
 // b1 (64,) f32 -> y (B,H-4,W-4,64) bf16 and pooled (B,(H-4)/2,(W-4)/2,64)
-// bf16. Returns the launch's CUDA error.
-extern "C" int enc0_fused_bf16(const void* x, const void* w0, const void* b0,
-                               const void* w1, const void* b1, void* y,
-                               void* pooled, int B, int H, int W, void* stream) {
+// bf16, through the mma.sync kernel. Returns the launch's CUDA error.
+extern "C" int enc0_fused_mma_reference_bf16(const void* x, const void* w0, const void* b0,
+                                             const void* w1, const void* b1, void* y,
+                                             void* pooled, int B, int H, int W, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      enc0_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ENC0_SMEM);
+      enc0_fused_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ENC0_SMEM);
   if (err != cudaSuccess) return (int)err;
   const int Ho = H - 4, Wo = W - 4;
   dim3 grid((Wo + unet::TW - 1) / unet::TW, (Ho + unet::TH - 1) / unet::TH, B);
-  enc0_fused_kernel<<<grid, unet::THREADS, ENC0_SMEM, (cudaStream_t)stream>>>(
+  enc0_fused_mma_kernel<<<grid, unet::THREADS, ENC0_SMEM, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, H, W, (const __nv_bfloat16*)w0, (const float*)b0,
       (const __nv_bfloat16*)w1, (const float*)b1, Ho, Wo, (__nv_bfloat16*)y,
       (__nv_bfloat16*)pooled);
   return (int)cudaGetLastError();
+}
+
+// The same function through enc0_fused_kernel (conv_fwd_wgmma.cu). Returns
+// the launch's CUDA error, or -(the CUresult) of a failed tensor-map
+// encoding.
+extern "C" int enc0_fused_bf16(const void* x, const void* w0, const void* b0, const void* w1,
+                               const void* b1, void* y, void* pooled, int B, int H, int W,
+                               void* stream) {
+  return unet::launch_enc0_fused_wgmma(x, w0, b0, w1, b1, y, pooled, B, H, W, stream);
 }

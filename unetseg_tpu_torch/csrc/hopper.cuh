@@ -101,6 +101,24 @@ __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
+// tma_store_4d and bulk_commit where p holds, as predicated instructions:
+// no branch, so no divergent path between a wgmma and its wait.
+__device__ __forceinline__ void tma_store_4d_if(bool p, const CUtensorMap* map, uint32_t src,
+                                                int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "@p cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n}\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"((int)p)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit_if(bool p) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n@p cp.async.bulk.commit_group;\n}\n" ::"r"(
+                   (int)p)
+               : "memory");
+}
+
 // Waits until at most N of the thread's bulk groups have not finished
 // reading their shared memory (their sources may then be overwritten).
 template <int N>

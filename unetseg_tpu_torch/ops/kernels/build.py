@@ -41,6 +41,7 @@ SIGNATURES = {
     "conv3x3_head_bf16": [P, P, P, P, P, P, I, I, I, I, I, P],
     "conv3x3_head_mma_reference_bf16": [P, P, P, P, P, P, I, I, I, I, I, P],
     "enc0_fused_bf16": [P, P, P, P, P, P, P, I, I, I, P],
+    "enc0_fused_mma_reference_bf16": [P, P, P, P, P, P, P, I, I, I, P],
     "dec_tail_bf16": [P, I, I, I, I, I, P, I, I, I, P, P, P, P, P, P, I, P, I, P],
     "dec_tail_mma_reference_bf16": [P, I, I, I, I, I, P, I, I, I, P, P, P, P, P, P, I, P, I, P],
     "tconv2x2_bias_bf16": [P, P, P, P, I, I, I, I, I, P],

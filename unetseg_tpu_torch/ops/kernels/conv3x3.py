@@ -46,8 +46,8 @@ pool at N = 128 and a windowed form otherwise), and conv3x3_head its
 windowed form at N = 64 with the 1x1 head in the epilogue; `fwd_plan`
 mirrors its launch plan. `conv3x3_mma_reference` runs the mma.sync
 implicit GEMM that they launched before (csrc/conv_mma.cuh), with the head
-when given one, which enc0_fused and dec_tail_mma_reference still sum
-like: uncounted, on no path, for the card's bit-for-bit checks and
+when given one, which enc0_fused_mma_reference and dec_tail_mma_reference
+sum like: uncounted, on no path, for the card's bit-for-bit checks and
 timings. tconv2x2_bias launches a streaming wgmma GEMM with resident
 weights (csrc/tconv2x2_bias.cu); `tconv_plan` and `tconv_store_offsets`
 mirror its tiles and its pixel-shuffle stores, and `tconv2x2_mma_reference`
@@ -56,7 +56,16 @@ dec_tail launches the wgmma forward's fused-tail kernel (bands of 30
 logits rows walked 8 columns a step, conv0's tile kept in shared memory);
 `dec_tail_plan` and `dec_tail_steps` mirror its walk, and
 `dec_tail_mma_reference` runs the mma.sync kernel it replaced, uncounted,
-for the card's bit-for-bit checks and timings.
+for the card's bit-for-bit checks and timings. enc0_fused (csrc/enc0_fused.cu)
+launches the wgmma forward's fused-enc0 kernel (bands of 32 output rows
+walked 8 columns a step; a stem warpgroup fills one of two shared h tiles
+on the FMA units, carrying the two halo columns from the step before,
+while two consumer warpgroups run conv1 from the other as the tail's
+transposed product with resident weights; the pool from registers), whose
+bits are the chain conv3x3_bias_relu -> conv3x3_bias_relu(fuse_pool=True);
+`enc0_fused_plan` and `enc0_fused_steps` mirror its walk, and
+`enc0_fused_mma_reference` runs the mma.sync kernel it replaced,
+uncounted, for the card's bit-for-bit checks and timings.
 """
 
 from __future__ import annotations
@@ -164,6 +173,87 @@ def dec_tail_steps(plan: TailPlan) -> List[np.ndarray]:
         if len(t) and j[0] > 0:
             rows = np.concatenate([[[b[0], band[0], j[0] - 1, 0]], rows])
         out.append(rows)
+    return out
+
+
+# csrc/conv_fwd_wgmma.cu's fused enc0 (enc0_fused_kernel): bands of ENC0_OUT
+# output rows (16 a consumer warpgroup) walked ENC0_STEP columns a step, a
+# contiguous range of the (image, band, column step) steps per block of a
+# persistent grid of at most one block per SM: two consumer warpgroups
+# (conv1, the epilogue) and a stem warpgroup. The stem fills ENC0_H_ROWS
+# rows x ENC0_STEP + 2 columns of h a step (the ENC0_OUT + 2 rows conv1
+# reads, then padding; ENC0_NSEG segments of ENC0_SEG rows a column), 128
+# bytes a pixel, in one of two 1 KB-aligned h tiles, from ENC0_X_ROWS rows of
+# x (ENC0_X_CHUNKS 16-byte loads a row, ENC0_X_ROW bytes apart, two stages):
+# where the block's step before is the same band's column step j - 1 it
+# carries columns 0, 1 from that step's 8, 9 and computes 2..9, else all
+# ten. conv1's nine 64 x 64 weight taps stay resident; a consumer warpgroup
+# stores a 16 x 8 skip0 tile and an 8 x 4 pooled tile. Bands start at
+# multiples of ENC0_OUT and a warpgroup's half at multiples of 16, so
+# every 2x2 pool window lies inside one warpgroup.
+ENC0_OUT, ENC0_STEP = 32, 8
+assert ENC0_OUT % 2 == 0 and (ENC0_OUT // 2) % 2 == 0 and ENC0_STEP % 2 == 0, \
+    "the 2x2 pool needs even rows and columns a warpgroup"
+ENC0_SEG, ENC0_NSEG, ENC0_X_CHUNKS, ENC0_X_ROW = 9, 4, 3, 128
+ENC0_H_ROWS = ENC0_NSEG * ENC0_SEG
+ENC0_X_ROWS = ENC0_H_ROWS + 2
+
+
+class Enc0Plan(NamedTuple):
+    nbands: int  # bands of ENC0_OUT output rows
+    nj: int  # column steps of ENC0_STEP a band
+    steps: int  # (image, band, step) steps
+    grid: int  # blocks of the persistent grid
+    smem: int  # dynamic shared memory bytes of a block
+    fill: float  # skip0 pixels / pixels conv1 computes
+    recompute: float  # stem pixels computed (padding included, the carry not) / pixels conv1 needs
+
+
+def enc0_fused_smem_bytes() -> int:
+    """1 KB of alignment slack, conv1's nine resident weight taps (64 x 128
+    bytes each), two h tiles (ENC0_H_ROWS rows of ENC0_STEP + 2 pixels of
+    128 bytes, each rounded up to 1 KB), each warpgroup's skip0 and pooled
+    tiles, two x stages, five mbarriers (the weights; h full and h empty
+    per stage)."""
+    row = 2 * FWD_SLICE
+    h = -(-ENC0_H_ROWS * (ENC0_STEP + 2) * row // 1024) * 1024
+    tile = ENC0_OUT // 2 * ENC0_STEP * row
+    ptile = ENC0_OUT // 4 * ENC0_STEP // 2 * row
+    return (1024 + 9 * FWD_SLICE * row + 2 * h + FWD_CONSUMERS * (tile + ptile)
+            + 2 * ENC0_X_ROWS * ENC0_X_ROW + 5 * 8)
+
+
+def enc0_fused_plan(bsz: int, ho: int, wo: int, sm_count: int) -> Enc0Plan:
+    """The launch plan of enc0_fused_kernel for skip0 (bsz, ho, wo, 64)."""
+    nbands, nj = -(-ho // ENC0_OUT), -(-wo // ENC0_STEP)
+    steps = bsz * nbands * nj
+    grid = min(steps, sm_count)
+    # a step carries its first two h columns unless it is j == 0 or its
+    # block's first
+    carries = np.arange(steps) % nj != 0
+    carries[np.arange(grid) * steps // grid] = False
+    carried = int(np.count_nonzero(carries))
+    computed = ENC0_H_ROWS * ((steps - carried) * (ENC0_STEP + 2) + carried * ENC0_STEP)
+    return Enc0Plan(nbands, nj, steps, grid, enc0_fused_smem_bytes(),
+                    bsz * ho * wo / (steps * ENC0_OUT * ENC0_STEP),
+                    computed / (bsz * (ho + 2) * (wo + 2)))
+
+
+def enc0_fused_steps(plan: Enc0Plan) -> List[np.ndarray]:
+    """Per block of the plan's grid, its steps in the kernel's order as rows
+    (b, band, j, carry): block i takes steps steps * i // grid .. steps *
+    (i + 1) // grid - 1. Step (b, band, j) stores skip0 rows ENC0_OUT band
+    .. ENC0_OUT (band + 1) - 1 and columns ENC0_STEP j .. ENC0_STEP (j + 1)
+    - 1, and the pooled pixels of half those, each clipped to the output;
+    carry 1 where its stem takes h columns 0, 1 from the step before (the
+    block's, at j - 1)."""
+    out = []
+    for blk in range(plan.grid):
+        t = np.arange(plan.steps * blk // plan.grid, plan.steps * (blk + 1) // plan.grid)
+        j = t % plan.nj
+        carry = (j > 0) & (np.arange(len(t)) > 0)
+        out.append(np.stack([t // (plan.nj * plan.nbands), (t // plan.nj) % plan.nbands, j,
+                             carry.astype(t.dtype)], axis=1))
     return out
 
 
@@ -699,19 +789,9 @@ def conv3x3_cblock(
     return out
 
 
-@counted
-def enc0_fused(
-    x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
-    b1: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The stem, enc0 conv1 and the 2x2 max-pool in one kernel:
-    h = ReLU(conv(x, w0) + b0) rounded to x's dtype, skip0 = ReLU(conv(h,
-    w1) + b1), pooled = maxpool2x2(skip0), floor on odd sizes.
-
-    x (B,H,W,1), w0 (F,1,3,3), w1 (F,F,3,3), b0 and b1 (F,) -> (skip0
-    (B,H-4,W-4,F), pooled (B,(H-4)//2,(W-4)//2,F)). The kernel needs F == 64."""
-    if _on_cpu(x, w0, b0, w1, b1):
-        return enc0_fused_plain(x, w0, b0, w1, b1)
+def _launch_enc0(name, entry, x, w0, b0, w1, b1):
+    """A fused-enc0 kernel (C entry `entry` of csrc/enc0_fused.cu) on CUDA
+    tensors; the caller counts the launch."""
     bsz, h, wd, ci = x.shape
     f = w0.shape[0]
     if (ci != 1 or tuple(w0.shape) != (f, 1, 3, 3) or tuple(w1.shape) != (f, f, 3, 3)
@@ -726,13 +806,45 @@ def enc0_fused(
     y = torch.empty((bsz, ho, wo, f), dtype=x.dtype, device=x.device)
     pooled = torch.empty((bsz, ho // 2, wo // 2, f), dtype=x.dtype, device=x.device)
     w0k, w1k, b0k, b1k = _ohwi(w0), _ohwi(w1), _f32(b0), _f32(b1)
-    err = library().enc0_fused_bf16(
+    err = getattr(library(), entry)(
         x.data_ptr(), w0k.data_ptr(), b0k.data_ptr(), w1k.data_ptr(), b1k.data_ptr(),
         y.data_ptr(), pooled.data_ptr(), bsz, h, wd, _stream(x),
     )
-    _raise_on(err, "enc0_fused")
-    enc0_fused.launches += 1
+    _raise_on(err, name)
     return y, pooled
+
+
+def enc0_fused_mma_reference(
+    x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """enc0_fused's function through the mma.sync kernel that the wgmma
+    kernel replaced (csrc/enc0_fused.cu), on CUDA tensors, uncounted: the
+    bits of the stem kernel chained with conv3x3_mma_reference and the
+    pool; no serving path calls it."""
+    if x.device.type != "cuda":
+        raise RuntimeError("enc0_fused_mma_reference runs the mma.sync kernel: CUDA tensors only")
+    return _launch_enc0("enc0_fused_mma_reference", "enc0_fused_mma_reference_bf16", x, w0, b0,
+                        w1, b1)
+
+
+@counted
+def enc0_fused(
+    x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
+    b1: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stem, enc0 conv1 and the 2x2 max-pool in one kernel:
+    h = ReLU(conv(x, w0) + b0) rounded to x's dtype, skip0 = ReLU(conv(h,
+    w1) + b1), pooled = maxpool2x2(skip0), floor on odd sizes.
+
+    x (B,H,W,1), w0 (F,1,3,3), w1 (F,F,3,3), b0 and b1 (F,) -> (skip0
+    (B,H-4,W-4,F), pooled (B,(H-4)//2,(W-4)//2,F)). The kernel needs F == 64;
+    on a CUDA tensor its bits are those of conv3x3_bias_relu (the stem)
+    chained with conv3x3_bias_relu(..., fuse_pool=True)."""
+    if _on_cpu(x, w0, b0, w1, b1):
+        return enc0_fused_plain(x, w0, b0, w1, b1)
+    out = _launch_enc0("enc0_fused", "enc0_fused_bf16", x, w0, b0, w1, b1)
+    enc0_fused.launches += 1
+    return out
 
 
 @counted

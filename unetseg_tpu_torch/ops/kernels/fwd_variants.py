@@ -3,7 +3,8 @@
 (csrc/tconv2x2_bias.cu); with --dgrad-stem, the input gradient on the
 forward's kernels (csrc/conv3x3_dgrad.cu) and the stem's row kernel
 (csrc/conv3x3_bias_relu.cu); with --tail, the fused decoder tail
-(dec_tail_kernel of csrc/conv_fwd_wgmma.cu).
+(dec_tail_kernel of csrc/conv_fwd_wgmma.cu); with --enc0, the fused enc0
+(enc0_fused_kernel of csrc/conv_fwd_wgmma.cu).
 
 Each variant is the sources with a few lines of one file replaced, built
 into a library of its own under unetseg_tpu_torch/build/variants/ and run
@@ -21,9 +22,11 @@ for bit against that kernel); with --tail the tail at the serving shape
 (skip 16 x 696^2 read at (88, 88), up 16 x 520^2, 2 classes) beside the
 wgmma chain dec_conv0 -> conv3x3_head and the mma.sync tail it replaced,
 after edge-case parity (bit for bit against the chain, or the largest
-difference).
+difference); with --enc0 the fused enc0 at the serving shape (16 x 700^2)
+beside the chain stem -> wgmma conv1 + pool and the mma.sync kernel it
+replaced, after edge-case parity (the same).
 
-    python3 -m unetseg_tpu_torch.ops.kernels.fwd_variants [--new | --dgrad-stem | --tail] [variant ...]
+    python3 -m unetseg_tpu_torch.ops.kernels.fwd_variants [--new | --dgrad-stem | --tail | --enc0] [variant ...]
 
 Variants: "source" (as it is); "nostore" (the epilogue computes but
 stores nothing: what the stores cost); "wst3" (three window stages and
@@ -40,11 +43,16 @@ instead of the im2col form with its bounding box moved to (-2, -2));
 "stem_sw64" (strips of 64 columns instead of 128); "stem_2blk",
 "stem_1blk" (two or one block per SM instead of three); "stem_tiles3"
 (three output tiles instead of two, a store more in flight; two blocks
-then fit an SM). The
+then fit an SM); "enc0_nostem" (the fused enc0 without its stem's rows: the
+tensor core's work, the stores and the epilogue; wrong bits), "enc0_nomma" (without conv1's wgmmas; wrong bits), "enc0_idle"
+(without both), "enc0_nostore" (without its TMA stores), "enc0_noload"
+(without its x loads after the first three; wrong bits): what each part
+costs. The
 default runs source, window, source, window; with --new, source, the four
 A depths, tconv_plainst, head_streamed, source; with --dgrad-stem,
 source, dgrad_window, stem_sw64, stem_2blk, stem_1blk, stem_tiles3,
-source, dgrad_window, stem_2blk; with --tail, source.
+source, dgrad_window, stem_2blk; with --tail, source; with --enc0, source,
+enc0_nostem, enc0_nomma, enc0_idle, enc0_nostore, enc0_noload, source.
 """
 
 from __future__ import annotations
@@ -57,6 +65,15 @@ from pathlib import Path
 
 MODULE = "unetseg_tpu_torch.ops.kernels.fwd_variants"
 REPO = Path(__file__).resolve().parents[3]
+# the fused enc0's conv1 taps, its stem's rows, its stores, and its x loads
+# after the first three
+ENC0_TAPS = [("      tap_n128(acc, da + tap * (TB_B_STAGE >> 4), db + (tap_offset(tap) >> 4));\n",
+              "      ;\n")]
+ENC0_STEM = [("        e0_stem_rows<0, E0_SEG>(stl, sw, sb);\n", "")]
+ENC0_NOSTORE = [("tma_store_4d_if(storer && oy < Ho,", "tma_store_4d_if(false,"),
+                ("tma_store_4d_if(storer && pool_out && oy / 2 < Ho / 2 && ox / 2 < Wo / 2,",
+                 "tma_store_4d_if(false,")]
+ENC0_NOLOAD = [("      store_x(s);\n      load_x();\n", "")]
 PATCHES = {
     "source": [],
     "nostore": [("if (oy < f.Ho && ox < f.Wo)\n", "if (oy < f.Ho && ox < f.Wo && f.relu > 1)\n"),
@@ -78,6 +95,11 @@ PATCHES = {
     **{f"stem_{n}blk": [("constexpr int STEM_BLOCKS_PER_SM = 3;",
                          f"constexpr int STEM_BLOCKS_PER_SM = {n};")] for n in (1, 2)},
     "stem_tiles3": [("constexpr int STEM_TILES = 2;", "constexpr int STEM_TILES = 3;")],
+    "enc0_nostem": ENC0_STEM,
+    "enc0_nomma": ENC0_TAPS,
+    "enc0_idle": ENC0_STEM + ENC0_TAPS,
+    "enc0_nostore": ENC0_NOSTORE,
+    "enc0_noload": ENC0_NOLOAD,
 }
 # the source file a variant patches, where not conv_fwd_wgmma.cu
 SOURCE_OF = {**{k: "tconv2x2_bias.cu" for k in PATCHES if k.startswith("tconv_")},
@@ -88,8 +110,10 @@ DEFAULT_NEW = ["source", "tconv_ast8", "tconv_ast3", "tconv_ast6", "tconv_ast2",
 DEFAULT_DGRAD_STEM = ["source", "dgrad_window", "stem_sw64", "stem_2blk", "stem_1blk",
                       "stem_tiles3", "source", "dgrad_window", "stem_2blk"]
 DEFAULT_TAIL = ["source"]
+DEFAULT_ENC0 = ["source", "enc0_nostem", "enc0_nomma", "enc0_idle", "enc0_nostore",
+                "enc0_noload", "source"]
 MODES = {"--conv": DEFAULT, "--new": DEFAULT_NEW, "--dgrad-stem": DEFAULT_DGRAD_STEM,
-         "--tail": DEFAULT_TAIL}
+         "--tail": DEFAULT_TAIL, "--enc0": DEFAULT_ENC0}
 
 
 def main(names, mode="--conv"):
@@ -146,6 +170,9 @@ def run_variant(name, mode="--conv"):
         return ((got.float() - ref).abs() / (1e-2 + 1e-2 * ref.abs())).max().item()
 
     def device(fn, iters=10, kernel="conv_fwd"):
+        """fn's device ms per call in the kernels whose names hold `kernel`
+        (a name, or a tuple of names)."""
+        names = (kernel,) if isinstance(kernel, str) else kernel
         for _ in range(3):  # the profiler can record nothing after many sessions
             for _ in range(2):
                 fn()
@@ -155,7 +182,8 @@ def run_variant(name, mode="--conv"):
                     fn()
                 torch.cuda.synchronize()
             ms = sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and kernel in e.key) / 1e3 / iters
+                     if e.device_type == DeviceType.CUDA
+                     and any(k in e.key for k in names)) / 1e3 / iters
             if ms > 0:
                 return ms
         raise RuntimeError("torch.profiler recorded no device time in three sessions")
@@ -166,6 +194,8 @@ def run_variant(name, mode="--conv"):
         return time_dgrad_stem(name, act, weights, worst, device)
     if mode == "--tail":
         return time_tail(name, act, weights, device)
+    if mode == "--enc0":
+        return time_enc0(name, act, weights, device)
     edge = []
     for b, h, w, ci, co in [(2, 21, 19, 96, 128), (3, 11, 21, 64, 192), (2, 38, 38, 512, 256)]:
         x, (wt, bias) = act(b, h, w, ci), weights(co, ci)
@@ -347,6 +377,45 @@ def time_tail(name, act, weights, device):
     print(f"variant {name} tail: device {dev:.4f} ms ({flop / dev / 1e9:.0f} TFLOP/s), wgmma "
           f"chain {chain_dev:.4f} ms (tail / chain {dev / chain_dev:.3f}), mma.sync tail "
           f"{old:.4f} ms ({old / dev:.2f}x)", flush=True)
+    torch.cuda.empty_cache()
+
+
+def time_enc0(name, act, weights, device):
+    """The fused enc0: edge cases (one band, odd sizes; three bands of 81
+    steps; 300 steps, blocks of two or three) against the counted chain
+    stem -> wgmma conv1 + pool, bit for bit or the largest difference, then
+    device time at the serving shape (16 x 700^2) beside the chain and the
+    mma.sync kernel it replaced, on the same tensors."""
+    import torch
+
+    from unetseg_tpu_torch.ops.kernels import conv3x3 as K
+
+    def enc0_args(b, h, w):
+        w0, b0 = weights(64, 1)
+        w1, b1 = weights(64, 64)
+        return act(b, h, w, 1), w0, b0, w1, b1
+
+    def chain(x, w0, b0, w1, b1):
+        return K.conv3x3_bias_relu(K.conv3x3_bias_relu(x, w0, b0), w1, b1, fuse_pool=True)
+
+    same, diff = True, 0.0
+    for shape in [(1, 37, 45), (3, 75, 70), (2, 196, 200)]:
+        args = enc0_args(*shape)
+        got, ref = K.enc0_fused(*args), chain(*args)
+        torch.cuda.synchronize()
+        for a, r in zip(got, ref):
+            same = same and torch.equal(a, r)
+            diff = max(diff, ((a.float() - r.float()).abs().max() / r.float().abs().max()).item())
+    print(f"variant {name}: edge cases equal the chain bit for bit: {same} (largest difference "
+          f"{diff:.3e} of the largest output)", flush=True)
+    args = enc0_args(16, 700, 700)
+    dev = device(lambda: K.enc0_fused(*args), kernel="enc0_fused_kernel")
+    chain_dev = device(lambda: chain(*args), kernel=("stem_rows", "conv_fwd"))
+    old = device(lambda: K.enc0_fused_mma_reference(*args), kernel="enc0_fused_mma_kernel")
+    flop = 2 * 16 * (698 * 698 * 64 * 9 + 696 * 696 * 64 * 64 * 9)
+    print(f"variant {name} enc0: device {dev:.4f} ms ({flop / dev / 1e9:.0f} TFLOP/s), chain "
+          f"{chain_dev:.4f} ms (fused / chain {dev / chain_dev:.3f}), mma.sync kernel {old:.4f} "
+          f"ms ({old / dev:.2f}x)", flush=True)
     torch.cuda.empty_cache()
 
 
