@@ -5,7 +5,8 @@ Run from the repository root on a machine with the card and the CUDA
 toolkit: `python3 chip_smoke.py`. The phases run in order, each prints
 its own line, and any failure raises (non-zero exit):
 
-1. environment: torch, CUDA, nvcc, and the card's name and power limit;
+1. environment: torch, CUDA, nvcc, the card's name and power limit, and
+   whether Pillow imports;
 2. build the kernels of the nineteen wrappers from the twelve CUDA sources
    of unetseg_tpu_torch/csrc (one nvcc per source, in parallel) and print
    ptxas's register and spill lines and any wgmma serialization warning;
@@ -109,7 +110,29 @@ its own line, and any failure raises (non-zero exit):
    train kernel), finite history, both checkpoint streams, the restored
    full state bit for bit, the resume at epoch 2, and Predictor.masks_tiled
    on the restored light checkpoint; ms per step of the epoch feed, ms per
-   validation pass and seconds per checkpoint write.
+   validation pass and seconds per checkpoint write;
+10. sequence path: two light checkpoint directories written by the port's
+   checkpoint code (planted full-width params and an EMA shadow from other
+   seeds), served as a 4-member ensemble (Predictor.from_checkpoints,
+   ema="both") with configs/best_recipe.json's inference settings
+   (standardize, flips TTA by vote, members by vote, temporal markers and
+   the backward sweep, min_cell_size 1500; 700^2 tiles, tile_batch 16) by
+   the in-memory sequence core (Predictor.predict_frames, tiled) on 16
+   seeded 512^2 frames whose cells drift 1-3 px a frame, some in touching
+   pairs: exact launches (chunks x 4 transforms x 4 members x the four
+   serving kernels), uint8 binary masks, uint16 instances none under
+   min_cell_size before the grow, >= 0.999 pixel agreement with the same
+   ensemble through the plain fp32 forward (TF32 off), the same instances
+   on every frame whose mask equals the plain path's bit for bit;
+   ms per frame of the device part and of the host post-processing. Then
+   device CC: a one-member Predictor.labels_device on the 16 frames at
+   image_size 512 equals scipy's labels after compact_labels, bit for bit,
+   and a 512^2 spiral converges under the 4096 cap (its iterations
+   printed), with ms beside scipy's; from_torch_checkpoint on a
+   reference-layout .pth of the planted variables gives their
+   probabilities bit for bit; and, where Pillow is installed (phase 1
+   says), `python -m unetseg_tpu_torch predict` on TIFFs of the frames
+   writes the core's masks.
 
 Every parity case prints the kernel's ms, its plain version's, the one
 PyTorch call that computes the same work where there is one (library;
@@ -132,6 +155,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -164,6 +188,12 @@ from unetseg_tpu_torch.ops.kernels import wce as KW
 from unetseg_tpu_torch.ops.kernels.build import build, nvcc_path
 from unetseg_tpu_torch.ops.losses import binary_probs_from_logits
 from unetseg_tpu_torch.ops.weight_maps import weight_map, weight_map_np
+from unetseg_tpu_torch.post.cc import get_instance_masks
+from unetseg_tpu_torch.post.cc_device import (
+    compact_labels,
+    label_components_device,
+    propagate_labels,
+)
 from unetseg_tpu_torch.train import checkpoint as ckpt
 from unetseg_tpu_torch.train.loop import train
 from unetseg_tpu_torch.train.state import create_train_state
@@ -175,6 +205,7 @@ from unetseg_tpu_torch.train.steps import (
     make_epoch_train_step,
     make_train_step,
 )
+from unetseg_tpu_torch.utils.torch_import import to_reference_state_dict
 
 FRAMES, SIZE = 16, 512
 BATCH = 16  # tiles per forward chunk: one 700^2 tile per 512^2 frame
@@ -340,6 +371,11 @@ PRE_FRAMES, PRE_SIZE = 8, 512
 WMAP_ATOL = 1e-3  # device weight maps against scipy's (tests/test_weight_maps.py)
 CROWD_INSTANCES = 300  # more than one EDT batch (ops/weight_maps.py EDT_CHUNK)
 LOOP_FRAMES, LOOP_EPOCHS = 17, 2  # train_val_split: 16 train (4 steps of 4), 1 val
+# phase 10: the best recipe's inference settings on a sequence cut to one
+# forward chunk of frames (a CTC sequence has 84+)
+RECIPE_JSON = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                           "best_recipe.json")
+SEQ_FRAMES, SEQ_MODEL = 16, ModelConfig()
 
 
 def run(cmd):
@@ -1683,6 +1719,227 @@ def loop_path(gpu):
     return launches
 
 
+def drifting_frames(rs, n, size, pairs=3):
+    """n uint8-valued frames (k / 255, as load_image_01 reads a TIFF) of
+    16-24 elliptic cells (0.70 on 0.25, noise 0.05) drifting 1-3 px a
+    frame, `pairs` of them in touching pairs that move together, so that
+    the temporal markers have a history and the watershed has merged
+    components to split."""
+    yy, xx = np.mgrid[:size, :size].astype(np.float32)
+    cells = []  # (cy, cx, ry, rx, th, vy, vx)
+    for _ in range(rs.randint(16, 25)):
+        speed, way = rs.uniform(1, 3), rs.uniform(0, 2 * np.pi)
+        cells.append([*rs.uniform(40, size - 40, 2), *rs.uniform(22, 40, 2), rs.uniform(0, np.pi),
+                      speed * np.sin(way), speed * np.cos(way)])
+    for a in cells[:pairs]:  # a partner touching each of the first cells
+        way = rs.uniform(0, 2 * np.pi)
+        d = 0.9 * (a[2] + a[3])
+        cells.append([a[0] + d * np.sin(way), a[1] + d * np.cos(way), a[2], a[3], a[4], a[5], a[6]])
+    frames = []
+    for t in range(n):
+        inside = np.zeros((size, size), bool)
+        for cy, cx, ry, rx, th, vy, vx in cells:
+            dy, dx = yy - cy - t * vy, xx - cx - t * vx
+            u = (dy * np.cos(th) + dx * np.sin(th)) / ry
+            v = (dx * np.cos(th) - dy * np.sin(th)) / rx
+            inside |= u * u + v * v < 1
+        img = 0.25 + 0.45 * inside + 0.05 * rs.standard_normal((size, size))
+        frames.append(np.round(np.clip(img, 0, 1) * 255))
+    return (np.stack(frames) / 255.0).astype(np.float32)
+
+
+def spiral_mask(size, width=3, step=100):
+    """A square spiral path from the top-left corner inward, arms `step`
+    apart: one component whose label must travel its whole length."""
+    m = np.zeros((size, size), np.uint8)
+    y = x = 6
+    n = size - 12
+    moves, lengths = ((0, 1), (1, 0), (0, -1), (-1, 0)), [n, n, n]
+    while n - step > 0:
+        n -= step
+        lengths += [n, n]
+    for k, length in enumerate(lengths):
+        dy, dx = moves[k % 4]
+        y2, x2 = y + dy * length, x + dx * length
+        m[min(y, y2):max(y, y2) + width, min(x, x2):max(x, x2) + width] = 1
+        y, x = y2, x2
+    return m, sum(lengths)
+
+
+def write_ensemble_checkpoints(work, members, cfg):
+    """Two light checkpoint directories, written by the port's checkpoint
+    code: each holds one member's params and another's as the EMA shadow."""
+    dirs = []
+    for j in range(0, len(members), 2):
+        state = create_train_state(members[j], cfg, TrainConfig(ema_decay=0.999), device=DEVICE)
+        shadow = create_train_state(members[j + 1], cfg, device=DEVICE)
+        state = dataclasses.replace(state, ema_params=shadow.params,
+                                    ema_batch_stats=shadow.batch_stats)
+        d = os.path.join(work, f"seed{j}")
+        ckpt.Checkpointer(d).save_light_payload(ckpt.device_light_payload(state), 0, 1.0)
+        dirs.append(d)
+        del state, shadow
+    return dirs
+
+
+def run_sequence(pred, frames):
+    """The in-memory sequence core with the best recipe's options on tiled
+    frames: [(number, mask, instances before the grow)] in frame order."""
+    out = pred.predict_frames(frames, list(range(len(frames))), tiled=True,
+                              temporal_markers=True, temporal_bidi=True)
+    return sorted(out, key=lambda r: r[0])
+
+
+def sequence_path(gpu, pil):
+    """Phase 10: the sequence path. A 4-member ensemble (raw + EMA of two
+    light checkpoints) with the best recipe's inference settings runs the
+    sequence core on SEQ_FRAMES drifting 512^2 frames through the kernels;
+    then device CC, from_torch_checkpoint and, with Pillow, the predict
+    command. Returns the ensemble run's launches."""
+    cfg = SEQ_MODEL
+    icfg = dataclasses.replace(Config.from_json_file(RECIPE_JSON).infer,
+                               tile_input=min_tile_input(SIZE), tile_batch=BATCH)
+    members = [plant_intensity_path(fast_random_variables(cfg, SEED + 10 + i)) for i in range(4)]
+    frames = drifting_frames(np.random.RandomState(SEED + 10), SEQ_FRAMES, SIZE)
+    work = tempfile.mkdtemp(prefix="chip_smoke_seq_")
+    dirs = write_ensemble_checkpoints(work, members, cfg)
+    pred = Predictor.from_checkpoints(dirs, cfg, icfg, ema="both", device=DEVICE)
+    if len(pred.members) != 4 or (DEVICE == "cuda" and not pred.uses_kernels):
+        raise AssertionError("sequence path: expected 4 members through the kernel forward")
+    grid = plan_tiles(SIZE, SIZE, icfg.tile_input)
+
+    pred.masks_tiled(frames[:BATCH])  # warm-up: cuDNN algorithm choice, allocator
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = run_sequence(pred, frames)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    n_chunks = -(-len(frames) * grid.ny * grid.nx // BATCH)
+    transforms = 4  # icfg.tta == "flips"
+    check_launches("sequence path", launches, {k: v * transforms * len(pred.members)
+                                              for k, v in DEFAULT_LAUNCHES.items()}, n_chunks)
+    masks = np.stack([b for _, b, _ in got])
+    insts = [i for _, _, i in got]
+    if (masks.shape != frames.shape or masks.dtype != np.uint8
+            or set(np.unique(masks)) - {0, 1}):
+        raise AssertionError(f"sequence path: masks {masks.shape} {masks.dtype} not binary")
+    for num, _, inst in got:
+        sizes = np.bincount(inst.ravel())[1:]
+        if inst.dtype != np.uint16 or (sizes[sizes > 0] < icfg.min_cell_size).any():
+            raise AssertionError(f"sequence path: frame {num} instances {inst.dtype}, an "
+                                 f"instance under {icfg.min_cell_size} px before the grow")
+
+    # the same ensemble and TTA through the plain fp32 forward (TF32 off)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    variables = [ckpt.restore_params_for_inference(d, ema=e) for d in dirs for e in (False, True)]
+    plain = Predictor(dataclasses.replace(cfg, compute_dtype="float32"), variables, icfg, DEVICE)
+    ref = run_sequence(plain, frames)
+    del plain
+    ref_masks = np.stack([b for _, b, _ in ref])
+    agreement = float((ref_masks == masks).mean())
+    same = [k for k in range(len(frames)) if np.array_equal(masks[k], ref_masks[k])]
+    same_inst = [k for k in same if np.array_equal(insts[k], ref[k][2])]
+    # with temporal markers a frame's instances also depend on the frames
+    # before it, and in the backward sweep's window on the window's frames:
+    # printed, how many equal frames have every such frame's mask equal too
+    window = icfg.temporal_bidi_frames
+    closed = [k for k in same if all(j in same for j in range(max(k, window) + 1))]
+    print(f"sequence path: {len(pred.members)} members x {transforms} TTA transforms, "
+          f"{n_chunks} chunk(s), launches {dict((k, v) for k, v in launches.items() if v)}; "
+          f"foreground {float(masks.mean()):.4f}, pixel agreement with the plain fp32 ensemble "
+          f"{agreement:.6f}; frames with the same mask bit for bit {len(same)} of {len(frames)}, "
+          f"with the same instances too {len(same_inst)}, of which every frame they depend on "
+          f"has the same mask {len(closed)}; instances per frame "
+          f"{[len(np.unique(i)) - 1 for i in insts]}", flush=True)
+    if agreement < AGREEMENT_BAR:
+        raise AssertionError(f"sequence path: agreement {agreement:.6f} < {AGREEMENT_BAR}")
+    if len(same_inst) != len(same):
+        raise AssertionError(f"sequence path: frames {sorted(set(same) - set(same_inst))} have "
+                             f"the plain path's mask and other instances (their history masks "
+                             f"equal on {len(closed)} of the {len(same)})")
+    device_ms = cuda_ms(lambda: pred.masks_tiled(frames), iters=2, warmup=1)
+    host_ms = total_s * 1e3 - device_ms
+    print(f"sequence path: {device_ms / len(frames):.2f} ms per frame on the device "
+          f"(masks_tiled of {len(frames)} frames, 4 members x 4 transforms), "
+          f"{host_ms / len(frames):.2f} ms per frame of host post-processing (temporal "
+          f"watershed and backward sweep; the core's {total_s * 1e3:.1f} ms less the device "
+          f"part), on {gpu}", flush=True)
+
+    # ---- device CC: one member at image_size 512 (324^2 output)
+    one = Predictor(cfg, members[0], InferConfig(), DEVICE)
+    raw = one.labels_device(frames)
+    probs = one.probs(frames)
+    fg = (probs > one.cfg.threshold).cpu().numpy()
+    if not np.array_equal(raw > 0, fg):
+        raise AssertionError("device CC: labels > 0 is not the thresholded probabilities")
+    t0 = time.perf_counter()
+    want = [get_instance_masks(m, min_size=one.cfg.min_cell_size) for m in fg]
+    scipy_ms = (time.perf_counter() - t0) * 1e3
+    for k, m in enumerate(want):
+        if not np.array_equal(compact_labels(raw[k], min_size=one.cfg.min_cell_size), m):
+            raise AssertionError(f"device CC: frame {k} differs from scipy's labels")
+    fg_dev = probs > one.cfg.threshold
+    cc_ms = cuda_ms(lambda: label_components_device(fg_dev), iters=3, warmup=1)
+    _, iters = propagate_labels(fg_dev)
+    spiral, length = spiral_mask(SIZE)
+    sp_raw, sp_iters = propagate_labels(torch.from_numpy(spiral)[None].to(DEVICE))
+    if sp_iters >= 4096 or not np.array_equal(
+            compact_labels(sp_raw[0].cpu().numpy(), min_size=1),
+            get_instance_masks(spiral, min_size=1)):
+        raise AssertionError(f"device CC: the spiral did not converge to scipy's labels "
+                             f"({sp_iters} iterations)")
+    print(f"device CC: {len(fg)} frames of {fg.shape[1]}^2 equal scipy's labels after "
+          f"compact_labels ({sum(len(np.unique(m)) - 1 for m in want)} instances, {iters} "
+          f"iterations); label propagation {cc_ms:.2f} ms on the device, scipy "
+          f"{scipy_ms:.2f} ms on the host; a {SIZE}^2 spiral of path length {length} converged "
+          f"in {sp_iters} iterations (cap 4096), on {gpu}", flush=True)
+
+    # ---- a reference-layout .pth
+    pth = os.path.join(work, "reference.pth")
+    torch.save(to_reference_state_dict(members[0]), pth)
+    from_pth = Predictor.from_torch_checkpoint(pth, cfg, InferConfig(), device=DEVICE)
+    a, b = from_pth.probs(frames[:4]), one.probs(frames[:4])
+    if not torch.equal(a, b):
+        raise AssertionError("from_torch_checkpoint: probabilities differ from the variables'")
+    print(f"from_torch_checkpoint: probabilities {tuple(a.shape)} equal bit for bit those of a "
+          f"Predictor built from the variables", flush=True)
+    del one, from_pth
+
+    # ---- the predict command's file layer, where Pillow is installed
+    if pil:
+        data = os.path.join(work, "data", "HeLa", "01")
+        os.makedirs(data)
+        from PIL import Image
+
+        for k, f in enumerate(frames):
+            Image.fromarray(np.round(f * 255).astype(np.uint8)).save(
+                os.path.join(data, f"t{k:03d}.tif"))
+        conf = os.path.join(work, "recipe.json")
+        with open(conf, "w") as fh:
+            json.dump({"model": dataclasses.asdict(cfg), "infer": dataclasses.asdict(icfg)}, fh)
+        out = os.path.join(work, "out")
+        res = subprocess.run(
+            [sys.executable, "-m", "unetseg_tpu_torch", "predict", "--config", conf,
+             "--checkpoint-dir", ",".join(dirs), "--ema-both", "--tiled", "--data-root",
+             os.path.dirname(data), "--sequence", "01", "--output-dir", out,
+             *(["--cpu"] if DEVICE == "cpu" else [])], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise AssertionError(f"predict command failed ({res.returncode}):\n{res.stderr}")
+        for k in range(len(frames)):
+            written = np.array(Image.open(os.path.join(out, "01_RES", f"mask{k:03d}.tif")))
+            if not np.array_equal(written > 0, masks[k] > 0):
+                raise AssertionError(f"predict command: mask{k:03d}.tif differs from the core's")
+        print(f"predict command: the {len(frames)} mask files equal the core's masks", flush=True)
+    else:
+        print("predict command: Pillow is not installed here; the file layer (TIFF reads and "
+              "writes) was not driven", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
@@ -1690,8 +1947,15 @@ def main():
     gpu = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     gpu = GPU = gpu.splitlines()[0]
     nvcc = run([nvcc_path(), "--version"]).splitlines()[-1]
+    try:
+        import PIL  # noqa: F401
+
+        pil = True
+    except ImportError:
+        pil = False
     print(f"env: torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc {nvcc}, "
-          f"device {torch.cuda.get_device_name(0)} ({gpu})", flush=True)
+          f"device {torch.cuda.get_device_name(0)} ({gpu}), Pillow "
+          f"{'importable' if pil else 'not installed'}", flush=True)
 
     t0 = time.perf_counter()
     info = build()
@@ -1715,11 +1979,12 @@ def main():
     loss_and_edt_parity(stats, pre_labels)
     preprocess = preprocess_path(pre_labels)
     loop = loop_path(gpu)
+    sequence = sequence_path(gpu, pil)
 
     # launches: each path's run (serving call, the four variant calls, the
     # tier-1 and tier-2 train steps, preprocess of PRE_FRAMES frames, the
-    # loop's first train()), counted from 0
-    paths = (serving, variants, training, training2, preprocess, loop)
+    # loop's first train(), the sequence core's run), counted from 0
+    paths = (serving, variants, training, training2, preprocess, loop, sequence)
     record = [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": sum(p[k] for p in paths),

@@ -896,3 +896,68 @@ def test_stem_rows_equal_the_fma_kernel(g, b, h, w, co, pool, relu):
     plain = K.conv3x3_bias_relu_plain(x.float(), wt, bias, fuse_pool=pool_plain, relu=relu)
     for a, r in zip(got, plain) if pool_plain else [(got[0] if pool else got, plain)]:
         _close(a, r)
+
+
+def _spiral(n):
+    m = torch.zeros(n, n, dtype=torch.uint8)
+    m[0, :] = m[:, -1] = m[-1, :] = 1
+    m[2:, 0] = 1
+    return m
+
+
+def test_label_components_on_the_card_equal_the_cpu(g):
+    """The label propagation on the card equals its CPU result bit for bit:
+    random masks, an unconverged spiral at the cap and a converged one;
+    Predictor.labels_device on the card is the propagation of its own
+    thresholded probabilities."""
+    from unetseg_tpu_torch.core.config import InferConfig, ModelConfig
+    from unetseg_tpu_torch.infer.engine import Predictor
+    from unetseg_tpu_torch.models.fast_init import fast_random_variables
+    from unetseg_tpu_torch.post.cc_device import label_components_device, propagate_labels
+
+    masks = torch.rand(3, 130, 97, generator=g, device="cuda") > 0.55
+    got = label_components_device(masks)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), label_components_device(masks.cpu()))
+    spiral = _spiral(64)[None]
+    for cap in (50, 4096):
+        lab, iters = propagate_labels(spiral.cuda(), cap)
+        lab_cpu, iters_cpu = propagate_labels(spiral, cap)
+        assert torch.equal(lab.cpu(), lab_cpu) and iters == iters_cpu
+    assert iters < 4096
+    pred = Predictor(ModelConfig(), fast_random_variables(ModelConfig(), 0), InferConfig(),
+                     "cuda")
+    imgs = torch.rand(2, 252, 252, generator=g, device="cuda").cpu().numpy()
+    fg = (pred.probs(imgs) > pred.cfg.threshold).cpu()
+    assert torch.equal(torch.from_numpy(pred.labels_device(imgs)), label_components_device(fg))
+
+
+def test_ensemble_vote_on_the_card(g):
+    """A 3-member vote ensemble at full width on the card: each member
+    through the four serving kernels (counted), the merged probabilities
+    the strict majority of the members' thresholded probabilities, bit for
+    bit, and masks_tiled through the same merge."""
+    from unetseg_tpu_torch.core.config import InferConfig, ModelConfig
+    from unetseg_tpu_torch.infer.engine import Predictor
+    from unetseg_tpu_torch.infer.tiling import extract_tiles, mirror_pad, plan_tiles
+    from unetseg_tpu_torch.models.fast_init import fast_random_variables
+
+    cfg = ModelConfig()
+    icfg = InferConfig(ensemble_merge="vote", tile_input=252, tile_batch=2)
+    members = [fast_random_variables(cfg, s) for s in (0, 1, 2)]
+    ens = Predictor(cfg, members, icfg, "cuda")
+    imgs = torch.rand(2, 252, 252, generator=g, device="cuda").cpu().numpy()
+    K.reset_launch_counts()
+    got = ens.probs(imgs)
+    torch.cuda.synchronize()
+    per_member = {"conv3x3_bias_relu": 2, "tconv2x2_bias": 1, "dec_conv0": 1, "conv3x3_head": 1}
+    assert K.launch_counts() == _only(**{k: 3 * v for k, v in per_member.items()})
+    votes = sum((Predictor(cfg, v, icfg, "cuda").probs(imgs) > icfg.threshold).int()
+                for v in members)
+    assert torch.equal(got, (votes * 2 > 3).float())
+    frames = imgs[:, :68, :68]  # one 252^2 tile each, one chunk of two
+    grid = plan_tiles(68, 68, 252)
+    tiles = extract_tiles(mirror_pad(torch.from_numpy(frames), grid), grid)[:, 0]
+    want = (ens.probs(tiles.numpy()) > icfg.threshold).to(torch.uint8).cpu().numpy()
+    masks = ens.masks_tiled(frames)
+    assert masks.shape == (2, 68, 68) and (masks == want).all() and 0 < masks.mean() < 1

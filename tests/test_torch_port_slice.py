@@ -153,8 +153,8 @@ def test_predictor_rejects_unknown_merge_and_ensembles(variables):
     cfg = ModelConfig(**TINY)
     with pytest.raises(ValueError, match="tta_merge"):
         Predictor(cfg, variables, InferConfig(tta_merge="median"), "cpu")
-    with pytest.raises(TypeError, match="ensembles"):
-        Predictor(cfg, [variables, variables], InferConfig(), "cpu")
+    with pytest.raises(ValueError, match="ensemble_merge"):
+        Predictor(cfg, [variables, variables], InferConfig(ensemble_merge="max"), "cpu")
 
 
 def test_predict_image_and_probs_shapes(variables):

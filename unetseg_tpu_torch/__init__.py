@@ -1,6 +1,8 @@
 """PyTorch + CUDA port of unetseg_tpu: the overlap-tile serving path, the
-augmented training loop with its checkpoints, and the weight-map
-preprocessing, with `python -m unetseg_tpu_torch preprocess|train`.
+augmented training loop with its checkpoints, the weight-map
+preprocessing, and sequence prediction (ensembles, device connected
+components, the post-processing chain), with
+`python -m unetseg_tpu_torch preprocess|train|infer|predict|refine`.
 
 The JAX package (`unetseg_tpu`) is the reference; each module here names
 its counterpart there, and tests/test_torch_port_*.py hold the two against

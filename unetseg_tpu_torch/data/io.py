@@ -1,19 +1,24 @@
 """File IO and the Cell Tracking Challenge naming conventions (a copy of
-the parts of unetseg_tpu/data/io.py that preprocessing and training read).
+the parts of unetseg_tpu/data/io.py that preprocessing, training and
+prediction use).
 
 Raw frames are `t{NNN}.tif`, silver-truth instance masks
 `{seq}_ST/SEG/man_seg{NNN}.tif`, weight maps
 `{seq}_ST/WEIGHT_MAPS/weight_map_{NNN}.npy` (reference:
-utils/dataset.py:30-56). PIL is imported by the functions that read
-files, so that the port imports where Pillow is not installed.
+utils/dataset.py:30-56), prediction outputs `{seq}_RES/mask{NNN}.tif`
+(0/255 uint8) and `{seq}_RES_INST/m{NNN}.tif` (uint16 instance labels)
+(reference: scripts/predict.py:104-112). PIL is imported by the functions
+that read or write files, so that the port imports where Pillow is not
+installed.
 """
 
 from __future__ import annotations
 
 import glob
 import os
+import re
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -26,6 +31,32 @@ def read_image(path: str, grayscale: bool = False) -> np.ndarray:
     if grayscale and img.mode not in ("I;16", "I", "F"):
         img = img.convert("L")
     return np.array(img)
+
+
+def write_mask_u8(path: str, mask: np.ndarray) -> None:
+    """Binary mask as 0/255 uint8 TIFF/PNG (reference: scripts/predict.py:92,106)."""
+    from PIL import Image
+
+    arr = ((np.asarray(mask) > 0) * 255).astype(np.uint8)
+    Image.fromarray(arr).save(path)
+
+
+def write_mask_u16(path: str, mask: np.ndarray) -> None:
+    """Instance mask as uint16 TIFF — the CTC-required format
+    (reference: scripts/predict.py:98,112)."""
+    from PIL import Image
+
+    arr = np.asarray(mask).astype(np.uint16)
+    Image.fromarray(arr).save(path)
+
+
+def frame_number(path: str) -> int:
+    """Frame index from CTC file names (t012.tif, mask012.tif, m012.tif,
+    man_seg012.tif, man_track012.tif)."""
+    m = re.search(r"(\d+)\.(tif|tiff|png)$", os.path.basename(path), re.IGNORECASE)
+    if not m:
+        raise ValueError(f"no frame number in {path}")
+    return int(m.group(1))
 
 
 def sorted_frames(directory: str, pattern: str) -> List[str]:
@@ -60,6 +91,20 @@ class SequencePaths:
 
     def weight_map_path(self, num: str) -> str:
         return os.path.join(self.weight_maps_dir, f"weight_map_{num}.npy")
+
+
+def prediction_dirs(data_root: str, sequence: str) -> Tuple[str, str]:
+    """(binary_masks_dir, instance_masks_dir) mirroring the reference's output
+    layout `processed/predictions/DIC-C2DH-HeLa/{seq}_RES{,_INST}`
+    (reference: scripts/predict.py:136-141)."""
+    base = os.path.join(
+        os.path.dirname(os.path.dirname(data_root)),
+        "processed", "predictions", os.path.basename(data_root),
+    )
+    return (
+        os.path.join(base, f"{sequence}_RES"),
+        os.path.join(base, f"{sequence}_RES_INST"),
+    )
 
 
 def file_number_str(image_path: str) -> str:

@@ -119,6 +119,62 @@ def pad_tile_count(n: int, multiple: int) -> int:
     return -(-n // multiple) * multiple
 
 
+def _stitch_any(outputs: torch.Tensor, grid: TileGrid) -> torch.Tensor:
+    """(n, o, o) or (n, o, o, C) per-tile outputs -> (h, w) or (h, w, C)."""
+    if outputs.dim() == 3:
+        return stitch(outputs, grid)
+    return stitch(outputs.movedim(-1, 0), grid).movedim(0, -1)
+
+
+def make_tiled_fn(
+    tile_fn: Callable[[torch.Tensor], torch.Tensor],
+    grid: TileGrid,
+    tile_batch: Optional[int] = None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """fn(image (H, W)) -> stitched (h, w) or (h, w, C) on the image's
+    device: mirror-pad -> extract -> per-chunk forward -> stitch.
+
+    The tile count is padded to a multiple of `tile_batch` with copies of
+    tile 0, so that every chunk has one batch size, as in the JAX version.
+    `tile_fn(chunk (B, T, T))` returns (B, o, o) binary probabilities or
+    (B, o, o, C) class probabilities."""
+    n = grid.num_tiles
+    batch = tile_batch or n
+    n_padded = pad_tile_count(n, batch)
+
+    def run(image: torch.Tensor) -> torch.Tensor:
+        tiles = extract_tiles(mirror_pad(image, grid), grid)
+        if n_padded > n:
+            tiles = torch.cat([tiles, tiles[:1].expand(n_padded - n, -1, -1)])
+        outs = [tile_fn(tiles[s : s + batch]) for s in range(0, n_padded, batch)]
+        return _stitch_any(torch.cat(outs)[:n], grid)
+
+    return run
+
+
+def tiled_apply(
+    tile_fn: Callable[[torch.Tensor], torch.Tensor],
+    image: torch.Tensor,
+    grid: TileGrid,
+    tile_batch: Optional[int] = None,
+) -> torch.Tensor:
+    """Run `tile_fn` ((B, T, T) -> (B, o, o) or (B, o, o, C)) over all tiles
+    of `image` in chunks of `tile_batch` and stitch; a ragged last chunk is
+    padded with copies of its first tile and the padding's outputs are
+    dropped."""
+    tiles = extract_tiles(mirror_pad(image, grid), grid)
+    n = grid.num_tiles
+    tile_batch = tile_batch or n
+    outs = []
+    for start in range(0, n, tile_batch):
+        chunk = tiles[start : start + tile_batch]
+        pad = tile_batch - chunk.shape[0]
+        if pad:
+            chunk = torch.cat([chunk, chunk[:1].expand(pad, -1, -1)])
+        outs.append(tile_fn(chunk)[: tile_batch - pad])
+    return _stitch_any(torch.cat(outs), grid)
+
+
 def _t(x: torch.Tensor) -> torch.Tensor:
     """Transpose the trailing (H, W) axes (square frames only)."""
     return x.transpose(-2, -1)
