@@ -6,7 +6,7 @@ toolkit: `python3 chip_smoke.py`. The phases run in order, each prints
 its own line, and any failure raises (non-zero exit):
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit, and
-   whether Pillow imports;
+   whether Pillow and matplotlib import;
 2. build the kernels of the nineteen wrappers from the twelve CUDA sources
    of unetseg_tpu_torch/csrc (one nvcc per source, in parallel) and print
    ptxas's register and spill lines and any wgmma serialization warning;
@@ -132,7 +132,26 @@ its own line, and any failure raises (non-zero exit):
    reference-layout .pth of the planted variables gives their
    probabilities bit for bit; and, where Pillow is installed (phase 1
    says), `python -m unetseg_tpu_torch predict` on TIFFs of the frames
-   writes the core's masks.
+   writes the core's masks;
+11. scoring path: (a) a seeded synthetic CTC sequence (ctc_sequence: 20
+   512^2 frames of drifting cells, one planted division, one cell that
+   leaves the frame; GT labels and man_track.txt rows); (b) the known
+   answer: the tracker over the GT labels, relabelled by track id, scores
+   SEG = TRA = DET = 1.0 with the native and the python measures (equal
+   counts, TRA and every object's SEG within 1e-12) and finds the
+   division; (c) the planted net (one member, 700^2 tiles, through the
+   kernels: exact launches) segments the frames through the sequence
+   core, and its tracked instances are scored by both backends, held to
+   each other, printed as the synthetic sequence's numbers with planted
+   weights, with the tracker's and each measure's host ms; (d) where
+   Pillow imports, the sequence written as a CTC data root and
+   `python -m unetseg_tpu_torch pipeline` run in this process with
+   configs/best_recipe.json cut to 1 epoch at full width: exit code 0,
+   the launches exactly the train steps x TRAIN_LAUNCHES plus the forward
+   chunks x 4 TTA transforms x the serving kernels, summary.json's SEG /
+   TRA / DET in [0, 1] and equal to the evaluate-ctc command's on the same
+   01_CTC directory, 01_CTC/res_track.txt equal to the track command's run
+   alone, and the seconds of each stage.
 
 Every parity case prints the kernel's ms, its plain version's, the one
 PyTorch call that computes the same work where there is one (library;
@@ -150,6 +169,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib
 import json
 import os
 import re
@@ -163,18 +183,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from unetseg_tpu_torch.cli import main as cli
 from unetseg_tpu_torch.core.config import Config, DataConfig, InferConfig, ModelConfig, TrainConfig
 from unetseg_tpu_torch.data.dataset import HeLaArrays, epoch_index_matrix, train_val_split
 from unetseg_tpu_torch.infer.engine import Predictor
 from unetseg_tpu_torch.infer.folding import FoldedUNet
 from unetseg_tpu_torch.infer.kernel_net import folded_forward_kernels
 from unetseg_tpu_torch.infer.tiling import (
+    TTA_TRANSFORMS,
     extract_tiles,
     make_tiled_mask_batch_fn,
     min_tile_input,
     mirror_pad,
     plan_tiles,
 )
+from unetseg_tpu_torch.metrics import ctc
 from unetseg_tpu_torch.models.fast_init import fast_random_variables
 from unetseg_tpu_torch.models.shapes import unet_shapes
 from unetseg_tpu_torch.models.train_forward import train_forward
@@ -194,6 +217,9 @@ from unetseg_tpu_torch.post.cc_device import (
     label_components_device,
     propagate_labels,
 )
+from unetseg_tpu_torch.post.watershed import watershed
+from unetseg_tpu_torch.track.ctc_io import read_track_file, relabel_by_track
+from unetseg_tpu_torch.track.tracker import CellTrack, Tracker
 from unetseg_tpu_torch.train import checkpoint as ckpt
 from unetseg_tpu_torch.train.loop import train
 from unetseg_tpu_torch.train.state import create_train_state
@@ -376,6 +402,10 @@ LOOP_FRAMES, LOOP_EPOCHS = 17, 2  # train_val_split: 16 train (4 steps of 4), 1 
 RECIPE_JSON = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                            "best_recipe.json")
 SEQ_FRAMES, SEQ_MODEL = 16, ModelConfig()
+# phase 11: a synthetic CTC sequence cut from 84+ frames to 20, GT SEG on
+# every 4th frame (the CTC annotates SEG sparsely), and the pipeline
+# command with the best recipe cut from 80 epochs to 1
+CTC_FRAMES, CTC_SEG_EVERY, CTC_EPOCHS = 20, 4, 1
 
 
 def run(cmd):
@@ -1809,6 +1839,8 @@ def sequence_path(gpu, pil):
     grid = plan_tiles(SIZE, SIZE, icfg.tile_input)
 
     pred.masks_tiled(frames[:BATCH])  # warm-up: cuDNN algorithm choice, allocator
+    # the native flood is built with g++ at first use: outside the timed core
+    watershed(np.zeros((4, 4), np.float32), np.zeros((4, 4)), np.ones((4, 4)))
     torch.cuda.synchronize()
     K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1940,6 +1972,353 @@ def sequence_path(gpu, pil):
     return launches
 
 
+def ctc_sequence(rs, n, size):
+    """A synthetic CTC sequence: n uint8-valued frames (k / 255, as
+    load_image_01 reads a TIFF) of cells (0.70 on 0.25, noise 0.05), their
+    uint16 instance labels, in which each cell's label is its track id (the
+    GT TRA markers and SEG masks both), and the man_track.txt rows
+    (label, begin, end, parent). 10-13 elliptic cells (radii 24-34 px)
+    drift 0.5-1.5 px a frame, at least 6 px apart from every other cell in
+    every frame. One disc of radius 34 divides at frame n // 3 into two
+    discs of half its area, 6 px apart, that move apart 1.5 px a frame
+    each; one disc of radius 28 leaves the frame across its right edge at
+    3 px a frame, and its track ends at the last frame that shows a third
+    of it or more."""
+    yy, xx = np.mgrid[:size, :size].astype(np.float32)
+    t_div = n // 3
+    objs = []  # label, begin, end, parent, centre(t) -> (y, x), ry, rx, th
+
+    def add(label, begin, end, parent, centre, ry, rx, th=0.0):
+        objs.append(dict(label=label, begin=begin, end=end, parent=parent, centre=centre,
+                         ry=ry, rx=rx, th=th))
+
+    def clear(c, r, lo, hi):
+        """True when a cell of radius r at c(t) for t in [lo, hi] stays
+        6 px clear of every other cell alive then."""
+        for o in objs:
+            ts = np.arange(max(lo, o["begin"]), min(hi, o["end"]) + 1)
+            (ay, ax), (by, bx) = c(ts), o["centre"](ts)
+            if (np.hypot(ay - by, ax - bx) < r + max(o["ry"], o["rx"]) + 6).any():
+                return False
+        return True
+
+    def linear(y, x, vy, vx):
+        return lambda t: (y + t * vy, x + t * vx)
+
+    # the dividing mother and her two daughters
+    rm = 34.0
+    rd = rm / np.sqrt(2.0)
+    y0, x0 = rs.uniform(120, size - 120, 2)
+    way = rs.uniform(0, 2 * np.pi)
+    vy, vx = 0.8 * np.sin(way), 0.8 * np.cos(way)
+    mother = linear(y0, x0, vy, vx)
+    split = rs.uniform(0, np.pi)
+    uy, ux = np.sin(split), np.cos(split)
+    cy, cx = mother(t_div - 1)
+    add(1, 0, t_div - 1, 0, mother, rm, rm)
+    for k, sgn in ((2, 1.0), (3, -1.0)):
+        add(k, t_div, n - 1, 1,
+            lambda t, sgn=sgn: (cy + sgn * uy * (rd + 3 + 1.5 * (t - t_div)),
+                                cx + sgn * ux * (rd + 3 + 1.5 * (t - t_div))), rd, rd)
+    # the cell that leaves across the right edge, 3 px a frame
+    rl = 28.0
+    for _ in range(1000):
+        leaver = linear(rs.uniform(rl + 10, size - rl - 10), size - 30.0, 0.0, 3.0)
+        if clear(leaver, rl, 0, n - 1):
+            break
+    else:
+        raise RuntimeError("ctc_sequence: no room for the leaving cell")
+    full = np.pi * rl * rl
+    end = 0
+    while end + 1 < n:
+        ly, lx = leaver(end + 1)
+        if ((yy - ly) ** 2 + (xx - lx) ** 2 < rl * rl).sum() < full / 3:
+            break
+        end += 1
+    add(4, 0, end, 0, leaver, rl, rl)
+    # the drifting cells, inside the frame throughout
+    label = 5
+    for _ in range(rs.randint(10, 14)):
+        for _ in range(1000):
+            ry, rx = rs.uniform(24, 34, 2)
+            r = max(ry, rx)
+            speed, way = rs.uniform(0.5, 1.5), rs.uniform(0, 2 * np.pi)
+            y, x = rs.uniform(r + 4, size - r - 4, 2)
+            c = linear(y, x, speed * np.sin(way), speed * np.cos(way))
+            ends = (c(0), c(n - 1))
+            inside = all(r + 2 <= v <= size - r - 2 for p in ends for v in p)
+            if inside and clear(c, r, 0, n - 1):
+                add(label, 0, n - 1, 0, c, ry, rx, rs.uniform(0, np.pi))
+                label += 1
+                break
+    frames, labels = [], []
+    for t in range(n):
+        lab = np.zeros((size, size), np.uint16)
+        for o in objs:
+            if o["begin"] <= t <= o["end"]:
+                oy, ox = o["centre"](t)
+                r = max(o["ry"], o["rx"]) + 1
+                y0, y1 = max(int(oy - r), 0), min(int(oy + r) + 1, size)
+                x0, x1 = max(int(ox - r), 0), min(int(ox + r) + 1, size)
+                dy, dx = yy[y0:y1, x0:x1] - oy, xx[y0:y1, x0:x1] - ox
+                u = (dy * np.cos(o["th"]) + dx * np.sin(o["th"])) / o["ry"]
+                v = (dx * np.cos(o["th"]) - dy * np.sin(o["th"])) / o["rx"]
+                lab[y0:y1, x0:x1][u * u + v * v < 1] = o["label"]
+        img = 0.25 + 0.45 * (lab > 0) + 0.05 * rs.standard_normal((size, size))
+        frames.append(np.round(np.clip(img, 0, 1) * 255))
+        labels.append(lab)
+    rows = [(o["label"], o["begin"], o["end"], o["parent"]) for o in objs]
+    return (np.stack(frames) / 255.0).astype(np.float32), np.stack(labels), rows
+
+
+def frame_chunks(n_frames, per_call, grid, tile_batch):
+    """Forward chunks of the sequence core over n_frames frames, read
+    per_call frames (masks_tiled calls) at a time."""
+    calls = [min(per_call, n_frames - s) for s in range(0, n_frames, per_call)]
+    return sum(-(-k * grid.ny * grid.nx // tile_batch) for k in calls)
+
+
+def score_both(gt, res, gt_tracks, res_tracks, name):
+    """SEG and TRA/DET of res against gt by both backends, held to each
+    other: equal counts, |dTRA| and |dDET| < 1e-12, every object's SEG
+    within 1e-12. Returns the native (seg, tra) and each backend's
+    (SEG ms, TRA/DET ms)."""
+    out, ms = {}, {}
+    for b in ctc.BACKENDS:
+        t0 = time.perf_counter()
+        seg = ctc.seg_measure_arrays(gt, res, backend=b)
+        t1 = time.perf_counter()
+        tra = ctc.tra_det_arrays(gt, res, gt_tracks, res_tracks, backend=b)
+        ms[b] = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+        out[b] = seg, tra
+    (sn, tn), (sp, tp) = out["native"], out["python"]
+    counts = [{k: float(v) for k, v in t.counts.items()} for t in (tn, tp)]
+    if (counts[0] != counts[1] or abs(tn.tra - tp.tra) >= 1e-12 or abs(tn.det - tp.det) >= 1e-12
+            or sn.per_object.shape != sp.per_object.shape
+            or np.abs(sn.per_object - sp.per_object).max(initial=0.0) >= 1e-12):
+        raise AssertionError(f"{name}: the native and python measures differ: counts {counts}, "
+                             f"TRA {tn.tra!r} / {tp.tra!r}, DET {tn.det!r} / {tp.det!r}, SEG "
+                             f"{sn.value!r} / {sp.value!r}")
+    return sn, tn, ms
+
+
+def measure_ms(ms):
+    return ", ".join(f"{m} {ms['native'][i]:.1f} native / {ms['python'][i]:.1f} python"
+                     for i, m in enumerate(("SEG", "TRA/DET")))
+
+
+def write_ctc_root(root, frames, labels, rows):
+    """The sequence as a CTC data root: 01/t*.tif, the labels as silver
+    truth 01_ST/SEG (every frame), gold 01_GT/SEG (every CTC_SEG_EVERY-th
+    frame) and 01_GT/TRA markers with man_track.txt."""
+    from PIL import Image
+
+    dirs = {k: os.path.join(root, *k.split("/")) for k in
+            ("01", "01_ST/SEG", "01_GT/SEG", "01_GT/TRA")}
+    for d in dirs.values():
+        os.makedirs(d)
+    for t, (f, lab) in enumerate(zip(frames, labels)):
+        Image.fromarray(np.round(f * 255).astype(np.uint8)).save(
+            os.path.join(dirs["01"], f"t{t:03d}.tif"))
+        Image.fromarray(lab).save(os.path.join(dirs["01_ST/SEG"], f"man_seg{t:03d}.tif"))
+        Image.fromarray(lab).save(os.path.join(dirs["01_GT/TRA"], f"man_track{t:03d}.tif"))
+        if t % CTC_SEG_EVERY == 0:
+            Image.fromarray(lab).save(os.path.join(dirs["01_GT/SEG"], f"man_seg{t:03d}.tif"))
+    with open(os.path.join(dirs["01_GT/TRA"], "man_track.txt"), "w") as fh:
+        fh.writelines(f"{a} {b} {e} {p}\n" for a, b, e, p in rows)
+
+
+def run_cli(argv):
+    """cli.main in this process, its standard output captured: (rc, output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def pipeline_run(gpu, frames, labels, rows):
+    """Phase 11 (d): the pipeline command in this process on the sequence
+    written as a CTC data root, with configs/best_recipe.json cut to
+    CTC_EPOCHS epochs at full width: its summary against the evaluate-ctc
+    command, its res_track.txt against the track command run alone, and
+    its exact launches. Returns the launches."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    root, out = os.path.join(work, "data"), os.path.join(work, "out")
+    write_ctc_root(root, frames, labels, rows)
+    with open(RECIPE_JSON) as fh:
+        recipe = json.load(fh)
+    recipe["train"]["num_epochs"] = CTC_EPOCHS
+    recipe["model"] = dataclasses.asdict(SEQ_MODEL)  # the recipe's: ModelConfig(), full width
+    conf = os.path.join(work, "recipe.json")
+    with open(conf, "w") as fh:
+        json.dump(recipe, fh)
+    cfg = Config.from_json_file(conf)
+    stage_s = {}
+
+    def timed(name, fn):
+        def run(args):
+            t0 = time.perf_counter()
+            rc = fn(args)
+            torch.cuda.synchronize()
+            stage_s[name] = stage_s.get(name, 0.0) + time.perf_counter() - t0
+            return rc
+        return run
+
+    stages = {n: getattr(cli, f"cmd_{n}") for n in ("preprocess", "train", "predict", "track")}
+    for n, fn in stages.items():
+        setattr(cli, f"cmd_{n}", timed(n, fn))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc, text = run_cli(["pipeline", "--config", conf, "--data-root", root, "--output-dir",
+                            out, *(["--cpu"] if DEVICE == "cpu" else [])])
+    finally:
+        for n, fn in stages.items():
+            setattr(cli, f"cmd_{n}", fn)
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    with open(os.path.join(work, "pipeline.log"), "w") as fh:
+        fh.write(text)
+    if rc != 0:
+        raise AssertionError(f"pipeline: exit code {rc}; the end of its output:\n{text[-4000:]}")
+
+    # the launches: every train step's and every forward chunk's, exactly
+    n_train = len(train_val_split(CTC_FRAMES, cfg.data.val_percent, cfg.train.seed)[0])
+    steps = CTC_EPOCHS * -(-n_train // cfg.train.batch_size)
+    icfg = cfg.infer
+    grid = plan_tiles(SIZE, SIZE, icfg.tile_input)
+    forwards = (frame_chunks(CTC_FRAMES, icfg.tile_batch, grid, icfg.tile_batch)
+                * len(TTA_TRANSFORMS[icfg.tta]))
+    want = {k: steps * TRAIN_LAUNCHES.get(k, 0) + forwards * DEFAULT_LAUNCHES.get(k, 0)
+            for k in {**TRAIN_LAUNCHES, **DEFAULT_LAUNCHES}}
+    ran = {k: v for k, v in launches.items() if v}
+    if ran != want:
+        raise AssertionError(f"pipeline: launches {ran}, expected {want} ({steps} train steps, "
+                             f"{forwards} forward chunks)")
+
+    # the summary against evaluate-ctc, res_track.txt against track alone
+    with open(os.path.join(out, "summary.json")) as fh:
+        summary = json.load(fh)["01"]
+    if json.loads(text.strip().splitlines()[-1]) != {"pipeline": {"01": summary}}:
+        raise AssertionError("pipeline: the printed summary differs from summary.json")
+    ctc_dir = os.path.join(out, "01_CTC")
+    alone = {}
+    for measure, gt_dir in (("seg", "SEG"), ("tra", "TRA")):
+        rc, text = run_cli(["evaluate-ctc", measure, "--gt-dir",
+                            os.path.join(root, "01_GT", gt_dir), "--res-dir", ctc_dir])
+        if rc != 0:
+            raise AssertionError(f"evaluate-ctc {measure}: exit code {rc}")
+        alone.update(json.loads(text.strip().splitlines()[-1]))
+    scores = {k: summary[k] for k in ("SEG", "TRA", "DET")}
+    if scores != {k: alone[k] for k in scores} or not all(0 <= v <= 1 for v in scores.values()):
+        raise AssertionError(f"pipeline: summary {scores} against evaluate-ctc {alone}")
+    rc, _ = run_cli(["track", "--instance-dir", os.path.join(out, "01_RES_INST"), "--output",
+                     os.path.join(work, "alone.txt")])
+    with open(os.path.join(work, "alone.txt"), "rb") as a, \
+            open(os.path.join(ctc_dir, "res_track.txt"), "rb") as b:
+        if rc != 0 or a.read() != b.read():
+            raise AssertionError("pipeline: 01_CTC/res_track.txt differs from the track command's")
+    tracks = read_track_file(os.path.join(ctc_dir, "res_track.txt"))
+    stage_s["scoring"] = wall - sum(stage_s.values())
+    print(f"pipeline: exit 0 in {wall:.2f} s on {CTC_FRAMES} frames of {SIZE}^2 (the best recipe, "
+          f"{CTC_EPOCHS} epoch of {steps} steps, base {cfg.model.base_features} "
+          f"{cfg.model.compute_dtype}): seconds per stage "
+          f"{ {k: round(v, 2) for k, v in stage_s.items()} }; launches {ran} = {steps} steps x "
+          f"TRAIN_LAUNCHES + {forwards} forward chunks x the serving kernels; {len(tracks)} "
+          f"tracks; summary {scores} equals the evaluate-ctc command's (synthetic sequence, "
+          f"1-epoch weights), and 01_CTC/res_track.txt the track command's, on {gpu}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def scoring_path(gpu, pil):
+    """Phase 11: tracking and CTC scoring. (a) a synthetic CTC sequence;
+    (b) the known answer: the tracker over the GT labels, relabelled by
+    track, scores SEG = TRA = DET = 1 by both backends and finds the
+    planted division; (c) the planted net's instances (one member, through
+    the kernels) tracked and scored by both backends, held to each other;
+    (d) with Pillow, the pipeline command. Returns the launches of (c) and
+    (d)."""
+    frames, labels, rows = ctc_sequence(np.random.RandomState(SEED + 11), CTC_FRAMES, SIZE)
+    gt, gt_tracks = list(labels), [CellTrack(*r) for r in rows]
+    t0 = time.perf_counter()
+    ctc.build_native()  # g++ at first use: outside the measures' times
+    build_s = time.perf_counter() - t0
+    t_div = min(r[1] for r in rows if r[3])
+    left = next(e for lab, _, e, _ in rows if e < CTC_FRAMES - 1 and lab not in
+                {r[3] for r in rows})
+
+    def tracked(masks):
+        tracker = Tracker()
+        t0 = time.perf_counter()
+        tracks = tracker.track_arrays(masks)
+        ms = (time.perf_counter() - t0) * 1e3 / len(masks)
+        return tracks, [relabel_by_track(m, a) for m, a in zip(masks, tracker.assignments())], ms
+
+    tracks, res, track_ms = tracked(gt)
+    kids = {}
+    for t in tracks:
+        if t.parent_label:
+            kids.setdefault(t.parent_label, []).append(t.start_frame)
+    seg, tra, ms = score_both(gt, res, gt_tracks, tracks, "known answer")
+    if list(kids.values()) != [[t_div, t_div]] or (seg.value, tra.tra, tra.det) != (1.0, 1.0, 1.0):
+        raise AssertionError(f"known answer: divisions {kids} (planted: one at frame {t_div}), "
+                             f"SEG {seg.value!r}, TRA {tra.tra!r}, DET {tra.det!r}")
+    print(f"scoring path: known answer on {CTC_FRAMES} synthetic {SIZE}^2 GT frames "
+          f"({len(rows)} tracks, one division at frame {t_div}, one cell leaving at frame "
+          f"{left + 1}): the tracker found the division, SEG = TRA = DET = 1.0 by both "
+          f"backends, counts { {k: int(v) for k, v in tra.counts.items()} }; "
+          f"tracker {track_ms:.2f} ms per frame on the host; {measure_ms(ms)} ms (the native "
+          f"library built in {build_s:.2f} s before)", flush=True)
+
+    # (c) the planted net's instances, one member through the kernels
+    icfg = InferConfig(tile_input=min_tile_input(SIZE), tile_batch=BATCH)
+    pred = Predictor(SEQ_MODEL, plant_intensity_path(fast_random_variables(SEQ_MODEL, SEED + 10)),
+                     icfg, DEVICE)
+    pred.masks_tiled(frames[:BATCH])  # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = sorted(pred.predict_frames(frames, range(CTC_FRAMES), tiled=True), key=lambda r: r[0])
+    torch.cuda.synchronize()
+    core_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    check_launches("scoring path core", launches, DEFAULT_LAUNCHES, frame_chunks(
+        CTC_FRAMES, icfg.tile_batch, plan_tiles(SIZE, SIZE, icfg.tile_input), icfg.tile_batch))
+    insts = [i for _, _, i in got]
+    tracks, res, track_ms = tracked(insts)
+    seg, tra, ms = score_both(gt, res, gt_tracks, tracks, "planted net")
+    for v in (seg.value, tra.tra, tra.det):
+        if not 0.0 <= v <= 1.0:
+            raise AssertionError(f"planted net: a measure outside [0, 1]: {v}")
+    print(f"scoring path: synthetic sequence, planted weights (not the north-star SEG): SEG "
+          f"{seg.value:.6f}, TRA {tra.tra:.6f}, DET {tra.det:.6f} ({len(tracks)} tracks, "
+          f"{sum(1 for t in tracks if t.parent_label) // 2} divisions, counts "
+          f"{ {k: int(v) for k, v in tra.counts.items()} }), native equals python; the core "
+          f"{core_s * 1e3 / CTC_FRAMES:.2f} ms per frame; tracker {track_ms:.2f} ms per frame on "
+          f"the host; {measure_ms(ms)} ms, on {gpu}", flush=True)
+    del pred
+    if pil:
+        piped = pipeline_run(gpu, frames, labels, rows)
+        launches = {k: v + piped[k] for k, v in launches.items()}
+    else:
+        print("pipeline: Pillow is not installed here; the pipeline command (TIFF reads and "
+              "writes) was not driven", flush=True)
+    return launches
+
+
+def importable(name):
+    try:
+        importlib.import_module(name)
+        return True
+    except ImportError:
+        return False
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
@@ -1947,15 +2326,11 @@ def main():
     gpu = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     gpu = GPU = gpu.splitlines()[0]
     nvcc = run([nvcc_path(), "--version"]).splitlines()[-1]
-    try:
-        import PIL  # noqa: F401
-
-        pil = True
-    except ImportError:
-        pil = False
+    pil, mpl = importable("PIL"), importable("matplotlib")
     print(f"env: torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc {nvcc}, "
           f"device {torch.cuda.get_device_name(0)} ({gpu}), Pillow "
-          f"{'importable' if pil else 'not installed'}", flush=True)
+          f"{'importable' if pil else 'not installed'}, matplotlib "
+          f"{'importable' if mpl else 'not installed'}", flush=True)
 
     t0 = time.perf_counter()
     info = build()
@@ -1980,11 +2355,13 @@ def main():
     preprocess = preprocess_path(pre_labels)
     loop = loop_path(gpu)
     sequence = sequence_path(gpu, pil)
+    scoring = scoring_path(gpu, pil)
 
     # launches: each path's run (serving call, the four variant calls, the
     # tier-1 and tier-2 train steps, preprocess of PRE_FRAMES frames, the
-    # loop's first train(), the sequence core's run), counted from 0
-    paths = (serving, variants, training, training2, preprocess, loop, sequence)
+    # loop's first train(), the sequence core's run, the scoring path's
+    # core run and pipeline command), counted from 0
+    paths = (serving, variants, training, training2, preprocess, loop, sequence, scoring)
     record = [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": sum(p[k] for p in paths),

@@ -38,7 +38,8 @@ through both wrappers at 64-, 128- and 256-channel dx from 1x1, 2x3 and
 odd g at batch 1 and 4 (the same bits twice), and its uncounted mma.sync
 reference; the stem's row kernel bit for bit against the FMA kernel it
 replaced (the pool on odd and 1-row outputs, relu on and off, CO 128 and
-192, ragged strips); and the wrappers' refusals.
+192, ragged strips); the wrappers' refusals; and the pipeline command at
+base 8 on the card.
 
 Marked `cuda` and skipped without a card. The file imports no jax, so on a
 GPU machine it runs without the JAX package:
@@ -961,3 +962,46 @@ def test_ensemble_vote_on_the_card(g):
     want = (ens.probs(tiles.numpy()) > icfg.threshold).to(torch.uint8).cpu().numpy()
     masks = ens.masks_tiled(frames)
     assert masks.shape == (2, 68, 68) and (masks == want).all() and 0 < masks.mean() < 1
+
+
+def test_pipeline_on_the_card(g, tmp_path):
+    """The pipeline command on the card at base 8 (the plain forward and
+    train step on CUDA tensors; the elastic sampler and the weighted CE
+    through their kernels) over chip_smoke's synthetic CTC sequence: exit
+    code 0, its scores in [0, 1] and equal to the evaluate-ctc command's."""
+    import contextlib
+    import io
+    import json
+    import os
+
+    import numpy as np
+
+    from chip_smoke import ctc_sequence, write_ctc_root
+    from unetseg_tpu_torch.cli.main import main
+
+    frames, labels, rows = ctc_sequence(np.random.RandomState(3), 8, 252)
+    root, out = str(tmp_path / "data"), str(tmp_path / "out")
+    write_ctc_root(root, frames, labels, rows)
+    conf = tmp_path / "tiny.json"
+    conf.write_text(json.dumps({
+        "model": {"base_features": 8},
+        "train": {"num_epochs": 1, "batch_size": 2},
+        "infer": {"tile_input": 252, "tile_batch": 4, "min_cell_size": 100},
+    }))
+    K.reset_launch_counts()
+    assert main(["pipeline", "--config", str(conf), "--data-root", root, "--output-dir",
+                 out]) == 0
+    counts = K.launch_counts()
+    # 8 frames leave no validation split: 4 steps of 2
+    assert counts["sample_displaced"] == counts["weighted_ce_fwd"] == 4
+    with open(os.path.join(out, "summary.json")) as fh:
+        summary = json.load(fh)["01"]
+    alone = {}
+    for measure, sub in (("seg", "SEG"), ("tra", "TRA")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(["evaluate-ctc", measure, "--gt-dir", os.path.join(root, "01_GT", sub),
+                         "--res-dir", os.path.join(out, "01_CTC")]) == 0
+        alone.update(json.loads(buf.getvalue().strip().splitlines()[-1]))
+    for k in ("SEG", "TRA", "DET"):
+        assert 0.0 <= summary[k] <= 1.0 and summary[k] == alone[k]

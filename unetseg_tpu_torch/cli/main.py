@@ -1,32 +1,42 @@
-"""Command-line interface of the port (counterpart of the `preprocess`,
-`train`, `infer`, `predict` and `refine` subcommands of
-unetseg_tpu/cli/main.py):
+"""Command-line interface of the port (counterpart of
+unetseg_tpu/cli/main.py's subcommands, apart from `visualize*`, `export`
+and `bench`):
 
     python -m unetseg_tpu_torch preprocess --data-root ... --sequence 01 [--mode paper]
     python -m unetseg_tpu_torch train --data-root ... [--config configs/best_recipe.json]
     python -m unetseg_tpu_torch infer --checkpoint-dir ... --input t000.tif
     python -m unetseg_tpu_torch predict --checkpoint-dir ... --data-root ... [--tiled]
     python -m unetseg_tpu_torch refine --masks-dir ... --instance-dir ... --output-dir ...
+    python -m unetseg_tpu_torch track --instance-dir ... [--ctc-dir ...] [--output res_track.txt]
+    python -m unetseg_tpu_torch evaluate --checkpoint-dir ... --data-root ...
+    python -m unetseg_tpu_torch evaluate-divisions --gt-dir 01_GT/TRA --res-dir 01_CTC
+    python -m unetseg_tpu_torch evaluate-ctc seg|tra|det --gt-dir ... --res-dir ...
+    python -m unetseg_tpu_torch rescue-labels --data-root ... --output-root ... \
+        --rescue-sequences 01
+    python -m unetseg_tpu_torch pipeline --config ... --data-root ... --output-dir ...
 
 Flags and defaults are the JAX command's, apart from its mesh and
 multi-process flags (data parallelism is not ported). The commands run
-on the card; `--cpu` runs them on the CPU instead. The preprocess
-command's reference mode and the refine command are host computations
-(scipy, the native watershed) with no device version, so they run on the
-host either way.
+on the card; `--cpu` runs them on the CPU instead, and `pipeline` hands
+it to its preprocess, train and predict stages. The preprocess command's
+reference mode and the refine, track, evaluate-divisions, evaluate-ctc
+and rescue-labels commands are host computations (scipy, the native
+watershed and CTC measures) with no device version, so they run on the
+host either way and take `--cpu` as a no-op.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 from typing import List, Optional
 
 import numpy as np
 
-from unetseg_tpu_torch.core.config import Config, InferConfig, ModelConfig
+from unetseg_tpu_torch.core.config import Config, InferConfig, ModelConfig, TrackConfig
 
 
 def _load_config(args) -> Config:
@@ -277,12 +287,301 @@ def cmd_refine(args) -> int:
     return 0
 
 
+# --------------------------------------------------------------------- track
+def cmd_track(args) -> int:
+    from unetseg_tpu_torch.data.io import frame_number, read_image, sorted_frames
+    from unetseg_tpu_torch.track.ctc_io import write_res_track
+    from unetseg_tpu_torch.track.tracker import Tracker
+
+    files = sorted_frames(args.instance_dir, "m*.tif")
+    files = [f for f in files if not os.path.basename(f).startswith("mask")]
+    if not files:
+        print(f"error: no m*.tif instance masks in {args.instance_dir}", file=sys.stderr)
+        return 1
+    prune_k = 0 if args.faithful else args.prune_divisions
+    tcfg = TrackConfig(
+        iou_threshold_track=args.iou_track,
+        iou_threshold_division=args.iou_division,
+        max_children=args.max_children,
+        division_from_matched=not args.no_division_from_matched,
+        division_min_child_frac=args.min_child_frac,
+    )
+    tracker = Tracker(tcfg, faithful_active_map=args.faithful)
+    masks = []
+    keep_masks = bool(args.ctc_dir) or args.close_gaps > 0 or prune_k > 0
+    for f in files:
+        m = read_image(f)
+        tracker.update(m, frame_number(f))
+        if keep_masks:
+            masks.append(m)
+    tracks = tracker.tracks()
+    assignments = tracker.assignments()
+    frame_nums = [frame_number(f) for f in files]
+    if args.close_gaps > 0:
+        from unetseg_tpu_torch.track.postprocess import close_gaps
+
+        n_before = len(tracks)
+        tracks, assignments = close_gaps(
+            masks, frame_nums, tracks, assignments,
+            max_gap=args.close_gaps, iou_threshold=args.gap_iou,
+        )
+        print(f"gap closing: {n_before} -> {len(tracks)} tracks")
+    if prune_k > 0:
+        from unetseg_tpu_torch.track.postprocess import prune_short_divisions
+
+        n_div_before = sum(1 for t in tracks if t.parent_label > 0) // 2
+        tracks, assignments = prune_short_divisions(
+            masks, frame_nums, tracks, assignments, min_child_frames=prune_k,
+        )
+        n_div_after = sum(1 for t in tracks if t.parent_label > 0) // 2
+        if n_div_after != n_div_before:
+            print(f"division pruning: {n_div_before} -> {n_div_after} divisions")
+    out = args.output or os.path.join(
+        os.path.dirname(args.instance_dir.rstrip("/")), "res_track.txt"
+    )
+    parent_none = -1 if args.reference_parent else 0
+    write_res_track(out, tracks, parent_none=parent_none)
+    if args.ctc_dir:
+        # CTC-conformant result dir: mask{NNN}.tif relabeled by TRACK id +
+        # res_track.txt (the labeling the official measures require)
+        from unetseg_tpu_torch.data.io import write_mask_u16
+        from unetseg_tpu_torch.track.ctc_io import relabel_by_track
+
+        os.makedirs(args.ctc_dir, exist_ok=True)
+        for f, m, assignment in zip(files, masks, assignments):
+            write_mask_u16(os.path.join(args.ctc_dir, f"mask{frame_number(f):03d}.tif"),
+                           relabel_by_track(m, assignment))
+        write_res_track(os.path.join(args.ctc_dir, "res_track.txt"), tracks,
+                        parent_none=parent_none)
+        print(f"CTC-format results -> {args.ctc_dir}")
+    print(f"tracked {len(files)} frames -> {len(tracks)} tracks -> {out}")
+    return 0
+
+
+# ------------------------------------------------------------------ evaluate
+def cmd_evaluate(args) -> int:
+    from unetseg_tpu_torch.data.dataset import HeLaArrays, train_val_split
+    from unetseg_tpu_torch.metrics.binary import dice as dice_fn
+    from unetseg_tpu_torch.metrics.binary import iou as iou_fn
+    from unetseg_tpu_torch.metrics.rand import rand_index_and_error
+    from unetseg_tpu_torch.models.shapes import center_crop_bounds
+    from unetseg_tpu_torch.post.cc import get_instance_masks
+
+    cfg = _load_config(args)
+    data_root = args.data_root or cfg.data.data_root
+    sequences = args.sequences or [cfg.data.sequence]
+    # images are loaded raw [0,1]; if training standardized (on the device,
+    # see ops/intensity.standardize_batch) the predictor must match
+    icfg = dataclasses.replace(
+        cfg.infer, standardize=cfg.infer.standardize or cfg.data.standardize
+    )
+    pred = _make_predictor(args, cfg, icfg)
+    ious: List[float] = []
+    dices: List[float] = []
+    rands: List[float] = []
+    loaded = [
+        HeLaArrays.load(
+            dataclasses.replace(cfg.data, data_root=data_root, sequence=seq),
+            require_weight_maps=False,
+            image_size=cfg.infer.image_size,
+        )
+        for seq in sequences
+    ]
+    if args.pooled and len(loaded) > 1:
+        # the reference's protocol: every sequence pooled into one dataset
+        # and one random split of the pool scored (reference:
+        # scripts/evaluate.py:54-82 ConcatDataset + random_split); the
+        # default scores each sequence on its own
+        pooled = HeLaArrays(
+            images=np.concatenate([d.images for d in loaded]),
+            masks=np.concatenate([d.masks for d in loaded]),
+            weight_maps=None,
+            files=[t for d in loaded for t in d.files],
+        )
+        loaded = [pooled]
+    for data in loaded:
+        idx = np.arange(len(data))
+        if args.val_only:
+            vp = args.val_percent if args.val_percent is not None else cfg.data.val_percent
+            _, idx = train_val_split(len(data), vp, args.seed)
+        bs = args.batch_size or cfg.train.batch_size
+        for s in range(0, len(idx), bs):
+            chunk = idx[s : s + bs]
+            # thresholded on the device; one copy to the host per batch
+            binary = (pred.probs(data.images[chunk]) > cfg.infer.threshold).cpu().numpy()
+            th = binary.shape[1]
+            h = data.masks.shape[1]
+            a0, a1 = center_crop_bounds(h, th)
+            gt = data.masks[chunk][:, a0:a1, a0:a1] > 0
+            for k in range(len(chunk)):
+                ious.append(iou_fn(binary[k], gt[k]))
+                dices.append(dice_fn(binary[k], gt[k]))
+                if args.rand:
+                    gt_inst = data.masks[chunk][k][a0:a1, a0:a1]
+                    pred_inst = get_instance_masks(binary[k], min_size=cfg.infer.min_cell_size)
+                    rands.append(rand_index_and_error(gt_inst, pred_inst)[0])
+    out = {
+        "n_samples": len(ious),
+        "mean_iou": float(np.mean(ious)) if ious else 0.0,
+        "mean_dice": float(np.mean(dices)) if dices else 0.0,
+    }
+    if args.rand:
+        out["mean_rand_index"] = float(np.mean(rands)) if rands else 0.0
+    print(json.dumps(out))
+    return 0
+
+
+# ------------------------------------------------------- evaluate-divisions
+def cmd_evaluate_divisions(args) -> int:
+    from unetseg_tpu_torch.metrics.divisions import division_report
+
+    r = division_report(
+        args.gt_dir, args.res_dir, res_track_path=args.res_track,
+        frame_tolerance=args.frame_tolerance,
+    )
+    out = {
+        "gt_divisions": r.n_gt, "res_divisions": r.n_res,
+        "matched": r.matched, "recall": round(r.recall, 4),
+        "precision": round(r.precision, 4),
+    }
+    if args.details:
+        out["details"] = r.details
+    print(json.dumps(out))
+    return 0
+
+
+# -------------------------------------------------------------- evaluate-ctc
+def cmd_evaluate_ctc(args) -> int:
+    from unetseg_tpu_torch.metrics import ctc
+
+    if args.measure == "seg":
+        r = ctc.seg_measure(args.gt_dir, args.res_dir, backend=args.backend)
+        print(json.dumps({"SEG": r.value, "n_objects": r.n_objects}))
+    else:
+        r = ctc.tra_measure(args.gt_dir, args.res_dir, res_track_path=args.res_track,
+                            backend=args.backend)
+        print(json.dumps({
+            "TRA": r.tra,
+            "DET": r.det,
+            "DET_no_fp_penalty": r.det_without_fp_penalty,
+            "AOGM": r.aogm,
+            "AOGM_0": r.aogm0,
+            **{k: float(v) for k, v in r.counts.items()},
+        }))
+    return 0
+
+
+# ------------------------------------------------------------- rescue-labels
+def cmd_rescue_labels(args) -> int:
+    """Faint-cell label rescue (data/rescue.py): build a parallel data root
+    whose silver labels are augmented with gold-TRA-marker-seeded cores +
+    ignore annuli for the cells the silver truth misses. Train against the
+    overlay root; evaluate the OTHER sequence (leak-free)."""
+    from unetseg_tpu_torch.data.rescue import build_overlay_root
+
+    stats = build_overlay_root(
+        args.data_root,
+        args.output_root,
+        rescue_sequences=args.rescue_sequences,
+        passthrough_sequences=args.passthrough_sequences or [],
+        cover_thresh=args.cover_thresh,
+        core_radius=args.core_radius,
+        ignore_radius=args.ignore_radius,
+        core_weight=args.core_weight,
+        w0=args.w0,
+        sigma=args.sigma,
+        weight_map_mode=args.mode,
+    )
+    for seq, st in stats.items():
+        print(f"seq {seq}: {st.markers_missing} missing markers rescued in "
+              f"{st.frames_rescued}/{st.frames_seen} frames "
+              f"({st.core_px} core px, {st.ignore_px} ignore px)")
+    print(f"overlay root ready: {args.output_root}")
+    return 0
+
+
+# ------------------------------------------------------------------ pipeline
+def cmd_pipeline(args) -> int:
+    """The reference README's whole workflow as one command: preprocess ->
+    train -> predict -> track -> evaluate-ctc per sequence (reference:
+    README.md:183-290 documents the steps as separate manual scripts). All
+    knobs come from --config; `--cpu` reaches the three device stages. The
+    per-sequence CTC scores print as one summary JSON at the end and land
+    in <output-dir>/summary.json."""
+    from unetseg_tpu_torch.metrics import ctc
+
+    seqs = args.sequences or ["01"]
+    data_root = args.data_root
+    out_dir = args.output_dir
+    ckpt_dir = args.checkpoint_dir or os.path.join(out_dir, "checkpoints")
+    os.makedirs(out_dir, exist_ok=True)
+    cfg_flags = ["--config", args.config] if args.config else []
+    cpu_flag = ["--cpu"] if args.cpu else []
+
+    if not args.skip_preprocess:
+        for seq in seqs:
+            rc = main(["preprocess", *cfg_flags, *cpu_flag, "--data-root", data_root,
+                       "--sequence", seq])
+            if rc:
+                return rc
+    if not args.skip_train:
+        rc = main(["train", *cfg_flags, *cpu_flag, "--data-root", data_root,
+                   "--sequences", *seqs, "--checkpoint-dir", ckpt_dir,
+                   "--metrics-jsonl", os.path.join(out_dir, "metrics.jsonl")])
+        if rc:
+            return rc
+
+    pred_flags = ["--tiled"] if args.tiled else []
+    if args.resize_output:
+        pred_flags += ["--resize-output", str(args.resize_output)]
+    for flag, value in (("--tta", args.tta), ("--tta-merge", args.tta_merge),
+                        ("--ensemble-merge", args.ensemble_merge)):
+        if value:
+            pred_flags += [flag, value]
+    if args.temporal_bidi is not None:
+        pred_flags += ["--temporal-bidi" if args.temporal_bidi else "--no-temporal-bidi"]
+    if args.boundary_grow is not None:
+        pred_flags += ["--boundary-grow", str(args.boundary_grow)]
+    if args.ema is not None:
+        pred_flags += ["--ema" if args.ema else "--no-ema"]
+    if args.ema_both:
+        pred_flags += ["--ema-both"]
+    summary = {}
+    for seq in seqs:
+        rc = main(["predict", *cfg_flags, *cpu_flag, "--data-root", data_root,
+                   "--sequence", seq, "--checkpoint-dir", ckpt_dir, "--output-dir", out_dir,
+                   *pred_flags])
+        if rc:
+            return rc
+        ctc_dir = os.path.join(out_dir, f"{seq}_CTC")
+        rc = main(["track", "--instance-dir", os.path.join(out_dir, f"{seq}_RES_INST"),
+                   "--ctc-dir", ctc_dir,
+                   "--output", os.path.join(out_dir, f"{seq}_res_track.txt")])
+        if rc:
+            return rc
+        row = {}
+        seg_gt = os.path.join(data_root, f"{seq}_GT", "SEG")
+        tra_gt = os.path.join(data_root, f"{seq}_GT", "TRA")
+        if os.path.isdir(seg_gt):
+            row["SEG"] = ctc.seg_measure(seg_gt, ctc_dir).value
+        if os.path.isdir(tra_gt):
+            r = ctc.tra_measure(tra_gt, ctc_dir)
+            row["TRA"], row["DET"] = r.tra, r.det
+        if not row:
+            row["note"] = f"no {seq}_GT dirs under {data_root}; skipped scoring"
+        summary[seq] = row
+    print(json.dumps({"pipeline": summary}))
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    return 0
+
+
 # -------------------------------------------------------------------- parser
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="unetseg_tpu_torch",
-        description="U-Net cell segmentation, PyTorch + CUDA port: weight maps, training "
-                    "and prediction",
+        description="U-Net cell segmentation, PyTorch + CUDA port: weight maps, training, "
+                    "prediction, tracking and CTC scoring",
     )
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -422,11 +721,143 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--max-frames", dest="max_frames", type=int, default=8,
                     help="sweep depth from the sequence start (whole-sequence sweeps "
                          "pre-split dividing parents, a measured negative)")
-    sp.add_argument("--cpu", action="store_true",
-                    help="accepted for the other commands' lines: refine is a host "
-                         "computation (scipy and the native watershed) either way")
+    _add_host_cpu(sp)
     sp.set_defaults(fn=cmd_refine)
+
+    sp = sub.add_parser("track", help="track instance masks into res_track.txt")
+    sp.add_argument("--instance-dir", required=True)
+    sp.add_argument("--output", default=None)
+    sp.add_argument("--iou-track", type=float, default=0.3)
+    sp.add_argument("--iou-division", type=float, default=0.1)
+    sp.add_argument("--max-children", type=int, default=2)
+    sp.add_argument("--faithful", action="store_true",
+                    help="replicate the reference's stale active-label map")
+    sp.add_argument("--reference-parent", action="store_true",
+                    help="write parent -1 like the reference instead of CTC's 0")
+    sp.add_argument("--ctc-dir", default=None,
+                    help="also write a CTC-conformant result dir: maskNNN.tif relabeled by "
+                         "track id + res_track.txt")
+    sp.add_argument("--close-gaps", type=int, default=0, metavar="N",
+                    help="link tracks across gaps of up to N frames (tracklet stitching)")
+    sp.add_argument("--gap-iou", type=float, default=0.2)
+    sp.add_argument("--no-division-from-matched", action="store_true",
+                    help="reference division semantics only (unmatched-parent rule)")
+    sp.add_argument("--min-child-frac", type=float, default=0.25,
+                    help="area gate: every daughter >= this fraction of the parent area "
+                         "(0 disables)")
+    sp.add_argument("--prune-divisions", type=int, default=3, metavar="K",
+                    help="revoke divisions whose childless daughter lives < K frames "
+                         "(0 disables; forced off with --faithful)")
+    _add_host_cpu(sp)
+    sp.set_defaults(fn=cmd_track)
+
+    sp = sub.add_parser("evaluate", help="IoU/Dice against silver truth")
+    _add_common(sp)
+    _add_checkpoint_flags(sp)
+    sp.add_argument("--data-root", default=None)
+    sp.add_argument("--sequences", nargs="*", default=None)
+    sp.add_argument("--val-only", action="store_true")
+    sp.add_argument("--val-percent", type=float, default=None,
+                    help="validation fraction for --val-only (default: config)")
+    sp.add_argument("--pooled", action="store_true",
+                    help="pool all sequences into one dataset and split once (the "
+                         "reference's ConcatDataset+random_split protocol)")
+    sp.add_argument("--rand", action="store_true",
+                    help="also report the Rand index of CC instances vs GT instances")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--batch-size", dest="batch_size", type=int, default=None)
+    sp.add_argument("--classes", type=int, default=None)
+    sp.add_argument("--bilinear", action="store_true")
+    sp.set_defaults(fn=cmd_evaluate)
+
+    sp = sub.add_parser("evaluate-divisions",
+                        help="division recall/precision vs GT lineage (man_track.txt)")
+    sp.add_argument("--gt-dir", required=True, help="{seq}_GT/TRA directory")
+    sp.add_argument("--res-dir", required=True,
+                    help="CTC result dir (mask{NNN}.tif by track id)")
+    sp.add_argument("--res-track", default=None)
+    sp.add_argument("--frame-tolerance", type=int, default=2)
+    sp.add_argument("--details", action="store_true")
+    _add_host_cpu(sp)
+    sp.set_defaults(fn=cmd_evaluate_divisions)
+
+    sp = sub.add_parser("evaluate-ctc", help="official CTC SEG/TRA/DET measures")
+    sp.add_argument("measure", choices=["seg", "tra", "det"])
+    sp.add_argument("--gt-dir", required=True,
+                    help="GT dir ({seq}_GT/SEG for seg, {seq}_GT/TRA for tra/det)")
+    sp.add_argument("--res-dir", required=True)
+    sp.add_argument("--res-track", default=None)
+    sp.add_argument("--backend", choices=["native", "python"], default="native")
+    _add_host_cpu(sp)
+    sp.set_defaults(fn=cmd_evaluate_ctc)
+
+    sp = sub.add_parser("rescue-labels",
+                        help="gold-marker-seeded faint-cell label rescue into an overlay data "
+                             "root (train against it; evaluate the OTHER sequence)")
+    sp.add_argument("--data-root", required=True)
+    sp.add_argument("--output-root", required=True)
+    sp.add_argument("--rescue-sequences", nargs="+", required=True,
+                    help="sequences whose labels get rescued from their gold TRA markers "
+                         "(leaks into THEIR eval)")
+    sp.add_argument("--passthrough-sequences", nargs="*", default=None,
+                    help="sequences symlinked verbatim (silver labels)")
+    sp.add_argument("--cover-thresh", type=float, default=0.5)
+    sp.add_argument("--core-radius", type=float, default=30.0)
+    sp.add_argument("--ignore-radius", type=float, default=70.0)
+    sp.add_argument("--core-weight", type=float, default=3.0)
+    # regenerated weight maps must match the dataset's preprocess settings
+    # or rescued vs passthrough frames mix two weight-map formulas
+    sp.add_argument("--w0", type=float, default=10.0)
+    sp.add_argument("--sigma", type=float, default=5.0)
+    sp.add_argument("--mode", choices=["reference", "paper"], default="reference")
+    _add_host_cpu(sp)
+    sp.set_defaults(fn=cmd_rescue_labels)
+
+    sp = sub.add_parser("pipeline",
+                        help="preprocess -> train -> predict -> track -> evaluate-ctc in one "
+                             "command")
+    sp.add_argument("--config")
+    sp.add_argument("--data-root", required=True)
+    sp.add_argument("--sequences", nargs="+", default=["01"])
+    sp.add_argument("--output-dir", required=True)
+    sp.add_argument("--checkpoint-dir", help="default <output-dir>/checkpoints")
+    sp.add_argument("--tiled", action="store_true", default=True)
+    sp.add_argument("--no-tiled", dest="tiled", action="store_false")
+    sp.add_argument("--resize-output", dest="resize_output", type=int, default=None,
+                    help="nearest-resize predictions (non-tiled path) so CTC scoring sees GT "
+                         "resolution")
+    sp.add_argument("--skip-preprocess", action="store_true")
+    sp.add_argument("--skip-train", action="store_true",
+                    help="reuse an existing --checkpoint-dir")
+    sp.add_argument("--tta", choices=["none", "flips", "flips8"], default=None,
+                    help="forwarded to predict")
+    sp.add_argument("--tta-merge", dest="tta_merge", choices=["mean", "gmean", "vote", "max"],
+                    default=None, help="forwarded to predict")
+    sp.add_argument("--temporal-bidi", dest="temporal_bidi", action="store_const", const=True,
+                    default=None, help="forwarded to predict")
+    sp.add_argument("--no-temporal-bidi", dest="temporal_bidi", action="store_const",
+                    const=False, help="forwarded to predict")
+    sp.add_argument("--ensemble-merge", dest="ensemble_merge", choices=["mean", "gmean", "vote"],
+                    default=None, help="forwarded to predict")
+    sp.add_argument("--boundary-grow", dest="boundary_grow", type=float, default=None,
+                    help="forwarded to predict")
+    sp.add_argument("--ema", action="store_true", default=None,
+                    help="forwarded to predict: evaluate the EMA weight shadow")
+    sp.add_argument("--no-ema", dest="ema", action="store_false",
+                    help="force raw weights even if the config sets use_ema")
+    sp.add_argument("--ema-both", dest="ema_both", action="store_true",
+                    help="ensemble: two members per checkpoint dir (raw + EMA shadow)")
+    sp.add_argument("--cpu", action="store_true",
+                    help="run preprocess, train and predict on the CPU (the kernels' plain "
+                         "versions) instead of the card")
+    sp.set_defaults(fn=cmd_pipeline)
     return p
+
+
+def _add_host_cpu(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--cpu", action="store_true",
+                   help="accepted for the other commands' lines: this command is a host "
+                        "computation either way")
 
 
 def _add_checkpoint_flags(p: argparse.ArgumentParser, ensemble: bool = False) -> None:

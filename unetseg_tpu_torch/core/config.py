@@ -179,8 +179,8 @@ class InferConfig:
 
 @dataclass(frozen=True)
 class TrackConfig:
-    """Tracker thresholds (reference: scripts/track.py:21-24). The tracker
-    is not ported; the section is copied so that config files load."""
+    """Tracker thresholds (reference: scripts/track.py:21-24), read by
+    track/tracker.py's Tracker."""
 
     iou_threshold_track: float = 0.3
     iou_threshold_division: float = 0.1
