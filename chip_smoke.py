@@ -151,7 +151,32 @@ its own line, and any failure raises (non-zero exit):
    chunks x 4 TTA transforms x the serving kernels, summary.json's SEG /
    TRA / DET in [0, 1] and equal to the evaluate-ctc command's on the same
    01_CTC directory, 01_CTC/res_track.txt equal to the track command's run
-   alone, and the seconds of each stage.
+   alone, and the seconds of each stage;
+12. data parallelism: two ranks on the one card over gloo (nccl refuses
+   two ranks on one card), each a worker process of this script
+   (`--dp-worker RANK DIR`): (a) at full width with the best recipe, three
+   tier-1 steps, one with valid [T, T, T, F] and one tier-2 step through
+   the kernels, and one step through the plain forward in fp32, each from
+   the seeded state with its own draws on a global batch of 4 512^2
+   frames (2 a rank), held to the single-process batch-4 step on the card
+   with the same draws: the fp32 step within 2e-3 relative on loss and
+   grad_norm, relative L2 error 1e-2 on every gradient but the pre-BN
+   conv biases and 1e-3 of their largest value on the running
+   statistics; the bf16 kernel steps no further from the plain fp32 step
+   on each of these than max(2 x the single-process kernel step, those
+   tolerances) (see DP_NOISE_FACTOR); both ranks' parameters bit for bit
+   equal; exact launches (TRAIN_LAUNCHES, TIER2_LAUNCHES or the plain
+   step's three a step on each rank) and both steps' wall ms printed
+   (information only); (b) Predictor.masks_tiled over the two ranks on
+   phase 4's frames: exact launches of each rank's share, uint8 masks
+   within the 0.999 agreement bar of phase 4's (cuDNN's algorithm for the
+   middle depends on the batch) and, with cuDNN off, equal to one rank's
+   bit for bit; (c) where Pillow imports, `python -m
+   unetseg_tpu_torch train` twice, joined by --coordinator /
+   --num-processes / --process-id, 1 epoch of the best recipe on 8
+   synthetic frames: exit codes 0, the same parameter digest on both
+   ranks and in rank 0's full checkpoint, no file written by rank 1, and
+   the checkpoint served by the Predictor.
 
 Every parity case prints the kernel's ms, its plain version's, the one
 PyTorch call that computes the same work where there is one (library;
@@ -184,7 +209,11 @@ import torch
 import torch.nn.functional as F
 
 from unetseg_tpu_torch.cli import main as cli
-from unetseg_tpu_torch.core.config import Config, DataConfig, InferConfig, ModelConfig, TrainConfig
+from unetseg_tpu_torch.core import distributed
+from unetseg_tpu_torch.core.config import (
+    Config, DataConfig, InferConfig, MeshConfig, ModelConfig, TrainConfig,
+)
+from unetseg_tpu_torch.core.mesh import make_mesh
 from unetseg_tpu_torch.data.dataset import HeLaArrays, epoch_index_matrix, train_val_split
 from unetseg_tpu_torch.infer.engine import Predictor
 from unetseg_tpu_torch.infer.folding import FoldedUNet
@@ -224,6 +253,7 @@ from unetseg_tpu_torch.train import checkpoint as ckpt
 from unetseg_tpu_torch.train.loop import train
 from unetseg_tpu_torch.train.state import create_train_state
 from unetseg_tpu_torch.train.steps import (
+    AugmentDraws,
     draw_augment,
     loss_and_grads,
     make_augmenter,
@@ -316,6 +346,8 @@ TRAIN_LAUNCHES = {"conv3x3_bias_relu": 3, "tconv2x2_bias": 1, "dec_conv0": 1, "c
 TIER2_LAUNCHES = {**TRAIN_LAUNCHES, "conv3x3_dense": 3, "dec_conv0_dense": 1,
                   "conv3x3_dense_dgrad": 4, "conv3x3_dense_wgrad": 3,
                   "conv3x3_dec0_dense_wgrad": 1}
+# the plain forward's step: the elastic sampler and the weighted CE
+PLAIN_LAUNCHES = {"sample_displaced": 1, "weighted_ce_fwd": 1, "weighted_ce_bwd": 1}
 TRAINING = tuple(TRAIN_LAUNCHES)
 PREPROCESS = ("minplus",)
 # H100 SXM peaks (data sheet; dense, at the 700 W limit)
@@ -406,6 +438,38 @@ SEQ_FRAMES, SEQ_MODEL = 16, ModelConfig()
 # every 4th frame (the CTC annotates SEG sparsely), and the pipeline
 # command with the best recipe cut from 80 epochs to 1
 CTC_FRAMES, CTC_SEG_EVERY, CTC_EPOCHS = 20, 4, 1
+
+
+# phase 12: data parallelism, two ranks on the one card over gloo
+# (core/distributed.py: nccl refuses two ranks on one card). Two checks of
+# each data-parallel step:
+# - exact: both ranks hold the same two items and draws, so every global
+#   sum is twice a rank's (exact in floating point) and the step must
+#   equal the single-process step on those two items bit for bit (but the
+#   running variances, whose unbiasing n / (n - 1) counts four items, and
+#   grad_norm, within 1e-6); any
+#   fault of the collectives (a sum left out or taken twice, a local
+#   normaliser, an average) breaks it;
+# - against the single-process batch-4 step on four distinct items with
+#   the same draws, by loss and grad_norm (relative), each gradient's
+#   relative L2 error (the pre-BN conv biases, true gradient 0, left out
+#   as in phase 6), the whole gradient's, and each running statistic's max
+#   error over its max. Only the order of float sums differs there, and
+#   this random full-width net amplifies it: in fp32 (the plain forward,
+#   without cuDNN) the batch split moved enc4.conv0's and enc3.bn0.bias's
+#   gradients by 1.9% while grad_norm moved 6.8e-5 (an H100, this script), so
+#   the fp32 step gates each quantity but the single tensors at the
+#   tolerances; in bf16 (the kernels) the split changes roundings by as
+#   much as bf16 itself errs (enc3.conv0: 0.27 from the single step, whose
+#   plain bf16 version is 0.48 from fp32), so there each quantity's error
+#   against the plain fp32 step may be at most max(DP_NOISE_FACTOR x the
+#   single-process kernel step's, the tolerance), as phase 6 holds the
+#   kernel path's gradients.
+DP_RANKS, DP_STEPS = 2, 3
+DP_LOSS_RTOL, DP_GRAD_L2, DP_STATS_RTOL = 2e-3, 1e-2, 1e-3
+DP_NOISE_FACTOR = 2.0
+DP_CLI_FRAMES = 8  # the train command: 8 frames, no validation split: 2 steps of 4
+DP_TIMEOUT = 300
 
 
 def run(cmd):
@@ -1099,7 +1163,8 @@ def main_path(gpu):
           f"{FRAMES * SIZE * SIZE / 1e6 / (plain_ms / 1e3):.2f} MPix/s; recorded with the mma.sync "
           f"head and tconv: {MMA_SYNC_SERVING_MPIX[0]:.2f}-{MMA_SYNC_SERVING_MPIX[1]:.2f} MPix/s) "
           f"on {gpu}", flush=True)
-    return launches, dict(pred=pred, variables=variables, frames=frames, ref_masks=plain["fp32"])
+    return launches, dict(pred=pred, variables=variables, frames=frames, ref_masks=plain["fp32"],
+                          masks=masks)
 
 
 def chunks(grid):
@@ -2311,6 +2376,411 @@ def scoring_path(gpu, pil):
     return launches
 
 
+def dp_grads(cfg, state, images, masks, weights, valid, draws, tier2, mesh, kernels=True):
+    """(loss, new statistics, gradients) of the step make_train_step takes
+    with these draws (under a mesh: this rank's rows of them and the
+    group's sums) through the kernel train forward, or the plain one
+    (`kernels` False), for the comparison; the caller does not count its
+    launches."""
+    group = None if mesh is None else mesh.data_group
+    if mesh is not None:
+        draws = draws.rows(mesh.batch_rows(images.shape[0] * mesh.num_data))
+    augmenter = make_augmenter(True, RECIPE["elastic_alpha"], RECIPE["elastic_sigma"], False,
+                               1.0, RECIPE["standardize"], RECIPE["aug_gamma"],
+                               RECIPE["aug_illum"], RECIPE["aug_noise"])
+    x, t, w = augmenter(images, masks, weights, draws)
+    forward = (functools.partial(train_forward, tier2=tier2, group=group) if kernels
+               else functools.partial(unet_train_forward, group=group))
+    return loss_and_grads(forward, state, x, t, w, valid, None if bool(valid.all()) else valid,
+                          cfg, group)
+
+
+def dp_errors(got, ref):
+    """{quantity: error} of a step's (loss, grad_norm, grads, stats)
+    against another's: loss and grad_norm relative, each gradient's
+    relative L2 error and the whole gradient's ("all gradients"; not the
+    zero-gradient biases), each running statistic's max error over its
+    max."""
+    (loss, gnorm, grads, stats), (loss1, gnorm1, grads1, stats1) = got, ref
+    err = {"loss": abs(loss - loss1) / abs(loss1), "grad_norm": abs(gnorm - gnorm1) / gnorm1}
+    keys = [k for k, g in grads1.items() if not zero_grad_params(k) and float(g.norm()) > 0]
+    err.update({k: float((grads[k] - grads1[k]).norm() / grads1[k].norm()) for k in keys})
+    diff = sum(float((grads[k] - grads1[k]).square().sum()) for k in keys)
+    err["all gradients"] = (diff / sum(float(grads1[k].square().sum()) for k in keys)) ** 0.5
+    err.update({k: float((stats[k] - v).abs().max() / v.abs().max()) for k, v in stats1.items()})
+    return err
+
+
+def dp_tolerance(key):
+    if key in ("loss", "grad_norm"):
+        return DP_LOSS_RTOL
+    return DP_STATS_RTOL if key.endswith(("running_mean", "running_var")) else DP_GRAD_L2
+
+
+def dp_compare(name, dp, single, ref=None):
+    """Hold the data-parallel step's (loss, grad_norm, grads, stats) to
+    the single-process step's (see the phase-12 constants). Without
+    `ref`: each quantity but the single gradient tensors within its
+    tolerance. With the plain fp32 step's `ref`: each quantity no further
+    from ref than max(DP_NOISE_FACTOR x the single step's distance, the
+    tolerance). Any miss raises. Returns the worst share of its bound and
+    the errors against the single step."""
+    vs = dp_errors(dp, single)
+    if ref is None:
+        errs = {k: v for k, v in vs.items() if dp_tolerance(k) != DP_GRAD_L2}
+        errs["all gradients"] = vs["all gradients"]
+        bound = {k: dp_tolerance(k) for k in errs}
+    else:
+        errs, base = dp_errors(dp, ref), dp_errors(single, ref)
+        bound = {k: max(DP_NOISE_FACTOR * base[k], dp_tolerance(k)) for k in errs}
+    share, at = max((errs[k] / bound[k], k) for k in errs)
+    grads = {k: v for k, v in vs.items()
+             if dp_tolerance(k) == DP_GRAD_L2 and k != "all gradients"}
+    stats = {k: v for k, v in vs.items() if dp_tolerance(k) == DP_STATS_RTOL}
+    out = {"share": share, "share_at": at, "loss_rel": vs["loss"],
+           "grad_norm_rel": vs["grad_norm"], "grad_all": vs["all gradients"],
+           "grad_l2": max(grads.values()), "grad_at": max(grads, key=grads.get),
+           "stats": max(stats.values()), "stats_at": max(stats, key=stats.get)}
+    if share > 1.0:
+        raise AssertionError(f"{name}: the data-parallel step misses its bound at {at}: error "
+                             f"{errs[at]:.3e}, bound {bound[at]:.3e}; against the single step "
+                             f"{out}")
+    return out
+
+
+def doubled_equal(dp, single):
+    """The exact check's comparison: every tensor of the two states bit
+    for bit but the running variances and their EMA, whose unbiasing
+    factor n / (n - 1) counts the doubled batch (the four-item comparison
+    holds them, with the same n on both sides)."""
+    pairs = [(dp.params, single.params), (dp.opt_state["mu"], single.opt_state["mu"]),
+             (dp.opt_state["nu"], single.opt_state["nu"]), (dp.ema_params, single.ema_params),
+             (dp.batch_stats, single.batch_stats), (dp.ema_batch_stats, single.ema_batch_stats)]
+    return all(torch.equal(a[k], b[k]) for a, b in pairs for k in a
+               if not k.endswith("running_var"))
+
+
+def doubled(draws):
+    """The draws of a batch twice over (the exact check's global draws)."""
+    return AugmentDraws(**{f.name: None if getattr(draws, f.name) is None
+                           else torch.cat([getattr(draws, f.name)] * 2)
+                           for f in dataclasses.fields(draws)})
+
+
+def dp_worker(rank, work):
+    """One rank of phase 12 (`chip_smoke.py --dp-worker RANK DIR`): (a) the
+    data-parallel train steps against the single-process step (rank 0
+    runs the references, uncounted), each from the seeded state with its
+    own draws: five through the kernels (bf16, held through the plain
+    fp32 step, see DP_NOISE_FACTOR) and one through the plain forward in
+    fp32 (held at the tolerances); (b) tile-sharded masks_tiled. Writes
+    DIR/rank<RANK>.json.
+
+    Each step starts from the seeded state: after a few Adam steps this
+    net reaches states where the order of the BatchNorm sums alone moves
+    some gradients by 10% (measured on the CPU at base 8: splitting the
+    sums of any one of enc0.bn0, enc1.bn0, enc1.bn1 into two halves in
+    one process moves enc0.conv0's gradient as much as two ranks do),
+    which no tolerance for summation order covers."""
+    distributed.maybe_initialize(f"file://{work}/rendezvous", DP_RANKS, rank,
+                                 local_device_ids=[0])
+    torch.backends.cudnn.allow_tf32 = False  # the fp32 steps in fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(MeshConfig())
+    dev, cfg = mesh.device, TRAIN_MODEL
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    out = {"rank": rank, "backend": torch.distributed.get_backend(), "device": str(dev),
+           "steps": [], "launches": {}}
+
+    def add(launches):
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    batch = np.load(os.path.join(work, "batch.npz"))
+    images, masks, wts = (torch.from_numpy(batch[k]).to(dev) for k in ("images", "masks", "wts"))
+    rows = mesh.batch_rows(TRAIN_BATCH)
+    state = create_train_state(fast_random_variables(cfg, SEED), cfg, RECIPE_TRAIN,
+                               steps_per_epoch=STEPS_PER_EPOCH, device=dev)
+    plan = [("tier 1 step 1", True, False), ("tier 1 step 2", True, False),
+            ("tier 1 step 3", True, False)][:DP_STEPS]
+    plan += [("tier 1, valid [T, T, T, F]", False, False), ("tier 2", True, True),
+             ("plain fp32", True, None)]
+    torch.backends.cudnn.deterministic = True  # the exact check compares bits
+    for i, (name, all_valid, tier2) in enumerate(plan):
+        kernels = tier2 is not None  # else the plain forward in fp32, without cuDNN
+        c = cfg if kernels else cfg32
+        torch.backends.cudnn.enabled = kernels
+        valid = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev)
+        valid[-1] = all_valid
+        gen = torch.Generator(device=dev).manual_seed(SEED + 120 + i)
+        draws = draw_augment(gen, images, True, RECIPE["aug_gamma"], RECIPE["aug_illum"],
+                             RECIPE["aug_noise"])
+        local = (images[rows], masks[rows], wts[rows], valid[rows])
+
+        def make(mesh):
+            return make_train_step(c, lanes="auto" if kernels else "off",
+                                   assume_valid=all_valid, tier2=bool(tier2), mesh=mesh,
+                                   **RECIPE)
+
+        torch.cuda.synchronize()
+        distributed.barrier()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        new, metrics = make(mesh)(state, *local, draws=draws)
+        torch.cuda.synchronize()
+        dp_ms = (time.perf_counter() - t0) * 1e3
+        launches = K.launch_counts()
+        add(launches)
+        per_step = (TIER2_LAUNCHES if tier2 else TRAIN_LAUNCHES) if kernels else PLAIN_LAUNCHES
+        check_launches(f"data-parallel {name} (rank {rank})", launches, per_step, 1)
+        _, _, grads = dp_grads(c, state, *local, draws, bool(tier2), mesh, kernels)
+        rec = {"name": name, "dp_ms": dp_ms, "digest": distributed.tensor_digest(new.params),
+               "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+
+        # the exact check: the same two items (and draws) on both ranks,
+        # with the second half's validity ([T, F] in the masked step)
+        mine = (images[:2], masks[:2], wts[:2], valid[2:])
+        new2, m2 = make(mesh)(state, *mine, draws=doubled(draws.rows(slice(0, 2))))
+        rec["digest_doubled"] = distributed.tensor_digest(new2.params)
+        if rank == 0:  # the references: one process, the same state and draws
+            single1, s1 = make(None)(state, *mine, draws=draws.rows(slice(0, 2)))
+            # grad_norm sums the summed gradients, views into one flat
+            # buffer, where the single step sums fresh tensors: the
+            # reductions may group them otherwise (1 ulp on the CPU)
+            same = (float(m2["loss"]) == float(s1["loss"])
+                    and abs(float(m2["grad_norm"]) / float(s1["grad_norm"]) - 1) <= 1e-6
+                    and doubled_equal(new2, single1))
+            if not same:
+                worst = max((float((new2.params[k] - t).abs().max()), k)
+                            for k, t in single1.params.items())
+                raise AssertionError(
+                    f"{name}: two ranks holding the same two items differ from one process on "
+                    f"them: loss {float(m2['loss'])} vs {float(s1['loss'])}, grad_norm "
+                    f"{float(m2['grad_norm'])} vs {float(s1['grad_norm'])}, worst parameter "
+                    f"{worst}")
+            del single1
+
+            def single_step(c, lanes, tier2, kernels):
+                step1 = make_train_step(c, lanes=lanes, assume_valid=all_valid, tier2=tier2,
+                                        **RECIPE)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                new1, m1 = step1(state, images, masks, wts, valid, draws=draws)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                _, _, g1 = dp_grads(c, state, images, masks, wts, valid, draws, tier2, None,
+                                    kernels)
+                return (float(m1["loss"]), float(m1["grad_norm"]), g1, new1.batch_stats), ms
+
+            dp = (rec["loss"], rec["grad_norm"], grads, new.batch_stats)
+            single, rec["single_ms"] = single_step(c, "auto" if kernels else "off",
+                                                   bool(tier2), kernels)
+            ref = single_step(cfg32, "off", False, False)[0] if kernels else None
+            rec["held"] = (f"to plain fp32 at {DP_NOISE_FACTOR} x the single step's error"
+                           if kernels else "to the single step but the single tensors")
+            rec.update(dp_compare(name, dp, single, ref))
+            del single, ref
+        out["steps"].append(rec)
+        del new, new2, grads
+    torch.backends.cudnn.enabled = True
+    torch.backends.cudnn.deterministic = False
+
+    # (b) tile-sharded serving: phase 4's Predictor over the two ranks
+    del state
+    torch.cuda.empty_cache()
+    variables = plant_intensity_path(fast_random_variables(ModelConfig(), SEED))
+    frames = cell_frames(np.random.RandomState(SEED), FRAMES, SIZE)
+    tile = min_tile_input(SIZE)
+    pred = Predictor(ModelConfig(), variables, InferConfig(tile_input=tile, tile_batch=BATCH),
+                     dev, mesh=mesh)
+    pred.masks_tiled(frames)  # warm-up
+    torch.cuda.synchronize()
+    distributed.barrier()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = pred.masks_tiled(frames)
+    torch.cuda.synchronize()
+    out["serving_ms"] = (time.perf_counter() - t0) * 1e3
+    launches = K.launch_counts()
+    add(launches)
+    check_launches(f"tile-sharded serving (rank {rank})", launches, DEFAULT_LAUNCHES,
+                   chunks(plan_tiles(SIZE, SIZE, tile)))
+    want = np.load(os.path.join(work, "phase4_masks.npy"))
+    out["serving_differ"] = int((got != want).sum())
+    out["serving_shape"] = list(got.shape)
+    # cuDNN picks its algorithm by the batch, so the middle's convs at a
+    # rank's 8 tiles round otherwise than at 16 (on an H100: dec0
+    # conv1 differs in 1,226 of 27.6M outputs, the kernels in none); with
+    # cuDNN off (native convs) the forward is batch-invariant, and there
+    # the sharded masks must equal one rank's bit for bit
+    torch.backends.cudnn.enabled = False
+    got = pred.masks_tiled(frames)
+    one = Predictor(ModelConfig(), variables, InferConfig(tile_input=tile, tile_batch=BATCH),
+                    dev).masks_tiled(frames)
+    torch.backends.cudnn.enabled = True
+    out["serving_differ_native"] = int((got != one).sum())
+    distributed.shutdown()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_cli_run(gpu, work, frames, labels):
+    """Phase 12 (c): `python -m unetseg_tpu_torch train` twice, joined by
+    --coordinator / --num-processes 2 / --process-id, both ranks on the
+    card; returns rank 0's checkpoint directory."""
+    from PIL import Image
+
+    root = os.path.join(work, "hela")
+    for sub in ("01", "01_ST/SEG", "01_ST/WEIGHT_MAPS"):
+        os.makedirs(os.path.join(root, sub))
+    for t, (f, lab) in enumerate(zip(frames, labels)):
+        Image.fromarray(np.round(f * 255).astype(np.uint8)).save(
+            os.path.join(root, "01", f"t{t:03d}.tif"))
+        Image.fromarray(lab.astype(np.uint16)).save(
+            os.path.join(root, "01_ST", "SEG", f"man_seg{t:03d}.tif"))
+        np.save(os.path.join(root, "01_ST", "WEIGHT_MAPS", f"weight_map_{t:03d}.npy"),
+                weight_map_np(lab, mode="reference"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(DP_RANKS):
+        argv = [sys.executable, "-m", "unetseg_tpu_torch", "train", "--config", RECIPE_JSON,
+                "--data-root", root, "--sequence", "01", "--epochs", "1",
+                "--coordinator", f"file://{work}/cli_rendezvous", "--num-processes",
+                str(DP_RANKS), "--process-id", str(r),
+                "--checkpoint-dir", os.path.join(work, f"ck{r}"),
+                "--metrics-jsonl", os.path.join(work, f"m{r}.jsonl")]
+        log = open(os.path.join(work, f"cli{r}.log"), "w")
+        procs.append((subprocess.Popen(argv, cwd=here, stdout=log, stderr=subprocess.STDOUT),
+                      log))
+    codes = wait_all(procs, DP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    logs = [open(os.path.join(work, f"cli{r}.log")).read() for r in range(DP_RANKS)]
+    if codes != [0] * DP_RANKS:
+        raise AssertionError(f"dp path (c): exit codes {codes}: {logs}")
+    digests = [re.findall(r"parameters sha256 ([0-9a-f]+)", log) for log in logs]
+    if not all(len(d) == 1 for d in digests) or digests[0] != digests[1]:
+        raise AssertionError(f"dp path (c): the ranks' parameters differ: {digests}")
+    ck0 = os.path.join(work, "ck0")
+    if os.path.exists(os.path.join(work, "ck1")) or os.path.exists(os.path.join(work, "m1.jsonl")):
+        raise AssertionError("dp path (c): rank 1 wrote checkpoints or metrics")
+    with open(os.path.join(work, "m0.jsonl")) as f:
+        events = [json.loads(ln)["event"] for ln in f]
+    if events.count("start") != 1 or "checkpoint_full" not in events:
+        raise AssertionError(f"dp path (c): rank 0's metrics {events}")
+    full = torch.load(os.path.join(ck0, "full", "0.pt"), map_location="cpu", weights_only=True)
+    if distributed.tensor_digest(full["params"]) != digests[0][0]:
+        raise AssertionError("dp path (c): the full checkpoint is not the ranks' parameters")
+    print(f"dp path (c): the train command on {DP_RANKS} ranks of the card, 1 epoch of "
+          f"{DP_CLI_FRAMES // TRAIN_BATCH} steps at full width: exit codes {codes}, {wall:.1f} s "
+          f"of command; parameters sha256 {digests[0][0][:16]}... on both ranks and in rank 0's "
+          f"full checkpoint; rank 1 wrote no checkpoint and no metrics (rank 0's events "
+          f"{events})", flush=True)
+    return ck0
+
+
+def wait_all(procs, timeout):
+    """Exit codes of (Popen, log) pairs; stragglers past the timeout are
+    killed (and count as failed)."""
+    deadline = time.monotonic() + timeout
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return [p.returncode for p, _ in procs]
+
+
+def dp_path(gpu, pil, phase4_masks):
+    """Phase 12: data parallelism over two ranks on the one card (gloo).
+    (a) three tier-1 steps, one with valid [T, T, T, F] and one tier-2
+    step, each against the single-process batch-4 step with the same
+    draws; (b) tile-sharded masks_tiled against phase 4's masks; (c) with
+    Pillow, the train command on two ranks, and its checkpoint served.
+    Returns the launches of (a) and (b), both ranks summed."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    frames, labels = cell_frames(np.random.RandomState(SEED + 3), TRAIN_BATCH, TRAIN_SIZE,
+                                 labels=True)
+    wts = np.stack([weight_map_np(lab, mode="reference") for lab in labels])
+    np.savez(os.path.join(work, "batch.npz"), images=frames, masks=labels, wts=wts)
+    np.save(os.path.join(work, "phase4_masks.npy"), phase4_masks)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(DP_RANKS):
+        log = open(os.path.join(work, f"worker{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r), work],
+            stdout=log, stderr=subprocess.STDOUT), log))
+    codes = wait_all(procs, DP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    logs = [open(os.path.join(work, f"worker{r}.log")).read() for r in range(DP_RANKS)]
+    if codes != [0] * DP_RANKS:
+        raise AssertionError(f"dp path: worker exit codes {codes}:\n" + "\n".join(logs))
+    res = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    print(f"dp path: {DP_RANKS} ranks on {res[0]['device']} over {res[0]['backend']}, "
+          f"{wall:.1f} s of workers (start-up included)", flush=True)
+    for i, rec in enumerate(res[0]["steps"]):
+        for key in ("digest", "digest_doubled"):
+            if len({rr["steps"][i][key] for rr in res}) != 1:
+                raise AssertionError(f"dp path: {rec['name']}: the ranks' parameters differ")
+        print(f"dp path (a): {rec['name']}: two ranks holding the same two items match one "
+              f"process on them (parameters, optimizer state, EMA and running means bit for "
+              f"bit); on four items: loss {rec['loss']:.6f}, grad_norm "
+              f"{rec['grad_norm']:.6f}; against the single-process step: loss rel "
+              f"{rec['loss_rel']:.2e}, grad_norm rel {rec['grad_norm_rel']:.2e}, the whole "
+              f"gradient rel L2 {rec['grad_all']:.2e}, worst tensor "
+              f"{rec['grad_l2']:.2e} ({rec['grad_at']}), worst running statistic "
+              f"{rec['stats']:.2e} ({rec['stats_at']}); held {rec['held']}: worst share of the bound "
+              f"{rec['share']:.3f} ({rec['share_at']}); both ranks' parameters bit for bit "
+              f"equal; step {rec['dp_ms']:.1f} ms on 2 ranks vs {rec['single_ms']:.1f} ms in one "
+              f"process (wall, rank 0, information only) on {gpu}", flush=True)
+    n_pix = phase4_masks.size
+    for rr in res:
+        agree = 1.0 - rr["serving_differ"] / n_pix
+        if (rr["serving_differ_native"] or agree < AGREEMENT_BAR
+                or rr["serving_shape"] != list(phase4_masks.shape)):
+            raise AssertionError(
+                f"dp path (b): rank {rr['rank']}'s masks: {rr['serving_differ_native']} pixels "
+                f"from one rank's without cuDNN, agreement {agree:.7f} with phase 4's")
+    print(f"dp path (b): tile-sharded masks_tiled on {FRAMES} frames ({BATCH} tiles a chunk, "
+          f"{BATCH // DP_RANKS} a rank): uint8 masks {res[0]['serving_differ']} and "
+          f"{res[1]['serving_differ']} pixels of {n_pix} from phase 4's single-rank masks "
+          f"(cuDNN's algorithm for the middle depends on the batch), equal to one rank's bit "
+          f"for bit with cuDNN off on both ranks; {res[0]['serving_ms']:.1f} ms (rank 0 wall, "
+          f"information only)", flush=True)
+    launches = {}
+    for rr in res:
+        for k, v in rr["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"dp path: launches of (a) and (b), both ranks: {launches}", flush=True)
+    if pil:
+        cli_frames, cli_labels = cell_frames(np.random.RandomState(SEED + 12), DP_CLI_FRAMES,
+                                             TRAIN_SIZE, labels=True)
+        ck0 = dp_cli_run(gpu, work, cli_frames, cli_labels)
+        pred = Predictor.from_checkpoint(ck0, TRAIN_MODEL, InferConfig(
+            tile_input=min_tile_input(TRAIN_SIZE), tile_batch=2), device=DEVICE)
+        served = pred.masks_tiled(cli_frames[:2])
+        if served.shape != (2, TRAIN_SIZE, TRAIN_SIZE) or served.dtype != np.uint8 or \
+                set(np.unique(served)) - {0, 1}:
+            raise AssertionError(f"dp path (c): served masks {served.shape} {served.dtype}")
+        print(f"dp path (c): rank 0's checkpoint served {served.shape} uint8 masks", flush=True)
+    else:
+        print("dp path (c): Pillow is not installed: the train command's run is left out",
+              flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def importable(name):
     try:
         importlib.import_module(name)
@@ -2346,6 +2816,7 @@ def main():
     stats = kernel_parity(sh)
     serving, main = main_path(gpu)
     variants = variants_path(gpu, main)
+    phase4_masks = main["masks"]
     del main
     train_kernel_parity(stats)
     training, training2 = train_path(gpu)
@@ -2356,12 +2827,14 @@ def main():
     loop = loop_path(gpu)
     sequence = sequence_path(gpu, pil)
     scoring = scoring_path(gpu, pil)
+    dp = dp_path(gpu, pil, phase4_masks)
 
     # launches: each path's run (serving call, the four variant calls, the
     # tier-1 and tier-2 train steps, preprocess of PRE_FRAMES frames, the
     # loop's first train(), the sequence core's run, the scoring path's
-    # core run and pipeline command), counted from 0
-    paths = (serving, variants, training, training2, preprocess, loop, sequence, scoring)
+    # core run and pipeline command, the data-parallel steps and tile-sharded
+    # serving of both ranks), counted from 0
+    paths = (serving, variants, training, training2, preprocess, loop, sequence, scoring, dp)
     record = [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": sum(p[k] for p in paths),
@@ -2379,4 +2852,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

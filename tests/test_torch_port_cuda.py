@@ -1005,3 +1005,131 @@ def test_pipeline_on_the_card(g, tmp_path):
         alone.update(json.loads(buf.getvalue().strip().splitlines()[-1]))
     for k in ("SEG", "TRA", "DET"):
         assert 0.0 <= summary[k] <= 1.0 and summary[k] == alone[k]
+
+
+DP_WORKER = '''
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import chip_smoke as cs
+from unetseg_tpu_torch.core import distributed as D
+from unetseg_tpu_torch.core.config import InferConfig, MeshConfig, ModelConfig
+from unetseg_tpu_torch.core.mesh import make_mesh
+from unetseg_tpu_torch.infer.engine import Predictor
+from unetseg_tpu_torch.models.fast_init import fast_random_variables
+from unetseg_tpu_torch.ops.kernels import conv3x3 as K
+from unetseg_tpu_torch.train.state import create_train_state
+from unetseg_tpu_torch.train.steps import draw_augment, make_train_step
+
+rank, work = int(sys.argv[2]), sys.argv[3]
+D.maybe_initialize(f"file://{work}/rendezvous", 2, rank, local_device_ids=[0])
+mesh = make_mesh(MeshConfig())
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True  # the doubled pair compares bits
+dev, cfg = mesh.device, ModelConfig(base_features=8, compute_dtype="float32")
+frames, labels = cs.cell_frames(np.random.RandomState(3), 4, 252, labels=True)
+images, masks = torch.from_numpy(frames).to(dev), torch.from_numpy(labels).to(dev)
+wts = torch.ones_like(images)
+rows = mesh.batch_rows(4)
+state = create_train_state(fast_random_variables(cfg, 0), cfg, cs.RECIPE_TRAIN, device=dev)
+out = {"backend": torch.distributed.get_backend(), "device": str(dev)}
+for i, (name, all_valid) in enumerate((("full", True), ("masked", False))):
+    valid = torch.ones(4, dtype=torch.bool, device=dev)
+    valid[-1] = all_valid
+    draws = draw_augment(torch.Generator(device=dev).manual_seed(10 + i), images, True,
+                         cs.RECIPE["aug_gamma"], cs.RECIPE["aug_illum"], cs.RECIPE["aug_noise"])
+    local = (images[rows], masks[rows], wts[rows], valid[rows])
+    step = make_train_step(cfg, assume_valid=all_valid, mesh=mesh, **cs.RECIPE)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    new, m = step(state, *local, draws=draws)
+    torch.cuda.synchronize()
+    rec = {"launches": {k: v for k, v in K.launch_counts().items() if v},
+           "digest": D.tensor_digest(new.params)}
+    _, _, grads = cs.dp_grads(cfg, state, *local, draws, False, mesh, kernels=False)
+    if rank == 0:
+        new1, m1 = make_train_step(cfg, assume_valid=all_valid, **cs.RECIPE)(
+            state, images, masks, wts, valid, draws=draws)
+        _, _, grads1 = cs.dp_grads(cfg, state, images, masks, wts, valid, draws, False, None,
+                                   kernels=False)
+        rec.update(cs.dp_compare(name, (float(m["loss"]), float(m["grad_norm"]), grads,
+                                        new.batch_stats),
+                                 (float(m1["loss"]), float(m1["grad_norm"]), grads1,
+                                  new1.batch_stats)))
+    # the same two items on both ranks: one process on them, bit for bit
+    pair = (images[:2], masks[:2], wts[:2], valid[2:])
+    new2, m2 = step(state, *pair, draws=cs.doubled(draws.rows(slice(0, 2))))
+    rec["digest_doubled"] = D.tensor_digest(new2.params)
+    if rank == 0:
+        new1, m1 = make_train_step(cfg, assume_valid=all_valid, **cs.RECIPE)(
+            state, *pair, draws=draws.rows(slice(0, 2)))
+        assert float(m2["loss"]) == float(m1["loss"]) and cs.doubled_equal(new2, new1), name
+    out[name] = rec
+scfg = ModelConfig()  # the serving kernels take base 64 in bf16
+variables = cs.plant_intensity_path(fast_random_variables(scfg, 0))
+frames = cs.cell_frames(np.random.RandomState(0), 4, 120)
+icfg = InferConfig(tile_input=252, tile_batch=8)
+K.reset_launch_counts()
+got = Predictor(scfg, variables, icfg, dev, mesh=mesh).masks_tiled(frames)
+out["serving"] = {k: v for k, v in K.launch_counts().items() if v}
+out["foreground"] = float(got.mean())
+# cuDNN picks the middle's algorithm by the batch: compare without it
+torch.backends.cudnn.enabled = False
+got = Predictor(scfg, variables, icfg, dev, mesh=mesh).masks_tiled(frames)
+want = Predictor(scfg, variables, icfg, dev).masks_tiled(frames)
+out["masks_differ"] = int((got != want).sum())
+D.shutdown()
+with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+    json.dump(out, f)
+'''
+
+
+def test_data_parallel_on_the_card(g, tmp_path):
+    """Two ranks on the one card over gloo (nccl refuses two ranks on one
+    card) at base 8 in fp32, as chip_smoke.py's phase 12's fp32 step: the
+    augmented data-parallel step (the plain forward; the elastic sampler
+    and the weighted CE through their kernels on each rank's share), with
+    every item valid and with [T, T, T, F], held to the single-process
+    step on the card with the same draws by chip_smoke.dp_compare (loss
+    and grad_norm 2e-3 relative, the whole gradient 1e-2 relative L2,
+    statistics 1e-3), and, with the same two items on both ranks, equal
+    to one process on those two items (chip_smoke.doubled_equal); both
+    ranks' parameters bit for bit equal; and tile-sharded
+    masks_tiled (4 frames of 120^2, 4 tiles of 252^2 a frame, chunks of 8
+    split 4 + 4; the kernel forward, full width) equal to one rank's
+    masks with cuDNN off (cuDNN picks the middle's algorithm by the
+    batch)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "worker.py"
+    script.write_text(DP_WORKER)
+    procs = [subprocess.Popen([sys.executable, str(script), repo, str(rank), str(tmp_path)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0, 0], logs
+    res = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in (0, 1)]
+    assert res[0]["backend"] == "gloo" and res[0]["device"] == "cuda:0"
+    for name in ("full", "masked"):
+        for key in ("digest", "digest_doubled"):
+            assert res[0][name][key] == res[1][name][key]
+        for r in res:
+            assert r[name]["launches"] == {"sample_displaced": 1, "weighted_ce_fwd": 1,
+                                           "weighted_ce_bwd": 1}
+    per_rank = {"conv3x3_bias_relu": 4, "tconv2x2_bias": 2, "dec_conv0": 2, "conv3x3_head": 2}
+    for r in res:
+        assert r["masks_differ"] == 0 and 0 < r["foreground"] < 1
+        assert r["serving"] == per_rank  # two chunks of 8, 4 tiles a rank

@@ -15,10 +15,14 @@ and `bench`):
         --rescue-sequences 01
     python -m unetseg_tpu_torch pipeline --config ... --data-root ... --output-dir ...
 
-Flags and defaults are the JAX command's, apart from its mesh and
-multi-process flags (data parallelism is not ported). The commands run
-on the card; `--cpu` runs them on the CPU instead, and `pipeline` hands
-it to its preprocess, train and predict stages. The preprocess command's
+Flags and defaults are the JAX command's. The commands run on the card;
+`--cpu` runs them on the CPU instead, and `pipeline` hands it to its
+preprocess, train and predict stages. `train` is data-parallel over a
+mesh of ranks (`--mesh auto|on|off`) when several processes join through
+`--coordinator`, `--num-processes` and `--process-id` (one per card, or
+gloo processes on the CPU with `--cpu`); on a host with several cards and
+no coordinator it starts one worker per visible card on localhost
+(launch_local), as the JAX command uses every local chip. The preprocess command's
 reference mode and the refine, track, evaluate-divisions, evaluate-ctc
 and rescue-labels commands are host computations (scipy, the native
 watershed and CTC measures) with no device version, so they run on the
@@ -32,6 +36,7 @@ import dataclasses
 import json
 import os
 import sys
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -149,7 +154,58 @@ def cmd_preprocess(args) -> int:
 
 
 # --------------------------------------------------------------------- train
+def _worker(index: int, argv: List[str], coordinator: str, n: int) -> None:
+    """One worker of launch_local: the command with its rank's flags."""
+    rc = main([*argv, "--coordinator", coordinator, "--num-processes", str(n),
+               "--process-id", str(index)])
+    if rc:
+        raise SystemExit(rc)
+
+
+def launch_local(argv: List[str], n_workers: int, timeout_s: Optional[float] = None) -> int:
+    """Run `main(argv)` in `n_workers` processes joined on localhost (each
+    given --coordinator, --num-processes and --process-id); 0 when every
+    worker ends with 0. A worker's failure, or the timeout, stops the
+    others and raises."""
+    import torch.multiprocessing as mp
+
+    from unetseg_tpu_torch.core.distributed import free_port
+
+    ctx = mp.start_processes(_worker, args=(list(argv), f"localhost:{free_port()}", n_workers),
+                             nprocs=n_workers, join=False, start_method="spawn")
+    deadline = None if timeout_s is None else time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=1.0):
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(f"{n_workers} workers still running after {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return 0
+
+
+def _use_mesh(mode: str, batch_size: int, n: int) -> bool:
+    """Whether `train` builds a mesh over n ranks: --mesh on, or auto with
+    several ranks and a batch that divides (auto with one that does not
+    trains without, with the JAX command's note); on with such a batch
+    exits with the JAX command's message."""
+    divisible = batch_size % n == 0
+    if mode == "on" and not divisible:
+        raise SystemExit(
+            f"error: --mesh on with batch_size {batch_size} not divisible by the {n} "
+            f"visible devices; pick a divisible --batch-size")
+    if mode == "auto" and n > 1 and not divisible:
+        print(f"note: {n} devices visible but batch_size {batch_size} is not divisible; "
+              f"training single-device (--mesh on + a divisible --batch-size to parallelize)")
+    return mode == "on" or (mode == "auto" and n > 1 and divisible)
+
+
 def cmd_train(args) -> int:
+    import torch
+
+    from unetseg_tpu_torch.core import distributed
+    from unetseg_tpu_torch.core.mesh import make_mesh
     from unetseg_tpu_torch.data.dataset import HeLaArrays
     from unetseg_tpu_torch.train.loop import train
 
@@ -182,8 +238,30 @@ def cmd_train(args) -> int:
     cfg = dataclasses.replace(
         cfg, model=_model_cfg(cfg, args), data=dataclasses.replace(cfg.data, **data_kw),
         train=dataclasses.replace(cfg.train, **train_kw))
-    data = HeLaArrays.load_many(cfg.data, args.sequences) if args.sequences else None
-    result = train(cfg, data=data, max_steps=args.max_steps, device=_device(args))
+    mode = args.mesh or "auto"
+    coordinator = args.coordinator or os.environ.get("UNETSEG_COORDINATOR")
+    cards = 0 if args.cpu else torch.cuda.device_count()
+    if coordinator is None and cards > 1 and mode != "off":
+        # every card of this host, one worker each, as the JAX command
+        # takes every local chip
+        if _use_mesh(mode, cfg.train.batch_size, cards):
+            return launch_local(args.argv, cards)
+    was_up = torch.distributed.is_initialized()
+    joined_here = distributed.maybe_initialize(
+        args.coordinator, args.num_processes, args.process_id, cpu=args.cpu) and not was_up
+    try:
+        n = distributed.process_count()
+        device = _device(args) if n == 1 else distributed.device_of_rank()
+        mesh = make_mesh(cfg.mesh, device=device) if _use_mesh(
+            mode, cfg.train.batch_size, n) else None
+        data = HeLaArrays.load_many(cfg.data, args.sequences) if args.sequences else None
+        result = train(cfg, data=data, max_steps=args.max_steps, device=device, mesh=mesh)
+        if n > 1:  # the replicas must agree: their digests are printed side by side
+            print(f"rank {distributed.process_index()} of {n}: parameters sha256 "
+                  f"{distributed.tensor_digest(result.state.params)}")
+    finally:
+        if joined_here:
+            distributed.shutdown()
     print(f"training finished: best val loss {result.best_val_loss:.4f} "
           f"at epoch {result.best_epoch}")
     return 0
@@ -634,6 +712,16 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--max-steps", type=int, default=None)
     sp.add_argument("--classes", type=int, default=None)
     sp.add_argument("--bilinear", action="store_true")
+    sp.add_argument("--mesh", choices=["auto", "on", "off"], default=None,
+                    help="device-mesh DP train: auto (mesh when >1 device), "
+                    "on, or off (default auto)")
+    sp.add_argument("--coordinator", default=None,
+                    help="torch.distributed coordinator address host:port "
+                    "(multi-process; or env UNETSEG_COORDINATOR)")
+    sp.add_argument("--num-processes", dest="num_processes", type=int,
+                    default=None, help="total processes (multi-process)")
+    sp.add_argument("--process-id", dest="process_id", type=int, default=None,
+                    help="this process's id (multi-process)")
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("infer", help="segment one image")
@@ -878,5 +966,7 @@ def _add_checkpoint_flags(p: argparse.ArgumentParser, ensemble: bool = False) ->
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    args.argv = argv
     return args.fn(args)

@@ -201,8 +201,9 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Named device mesh of the JAX package (data / tile / model axes); the
-    port's data parallelism is not ported yet, so nothing reads it."""
+    """Named mesh of ranks (data / tile / model axes), read by
+    core/mesh.make_mesh: the train command's data-parallel run and
+    tile-sharded serving."""
 
     data_axis: str = "data"
     tile_axis: str = "tile"

@@ -31,6 +31,18 @@ head outside the kernels, among them), and so does any variant the
 kernel forward cannot run for this net on this device: a request never
 silently becomes another forward.
 
+Tile-sharded serving: with `mesh` (core/mesh.MeshSpec) the tiled paths
+(`masks_tiled`, `probs_tiled` and the sequence core's tiled chunks) shard
+each forward chunk's tiles over the mesh's ranks and gather the shares
+(infer/tiling.py), as the JAX Predictor's mesh does. Unlike the JAX
+Predictor, which leaves its kernel path under a mesh because GSPMD cannot
+partition a pallas_call, every rank here runs whole kernels on its own
+card, so the kernel forward stays on. The masks are the single-rank
+masks up to the cuDNN middle's algorithm, which cuDNN picks by the
+chunk's batch (28 of 4.2M pixels apart at 8 tiles a rank against 16 on
+an H100; bit for bit with cuDNN off). The other paths run whole on every
+rank.
+
 Sequences: `predict_frames` is the in-memory core (frames and their
 numbers in; frame number, binary mask and instances out, one frame at a
 time) and `predict_sequence` the file layer around it (t*.tif in,
@@ -50,6 +62,7 @@ import numpy as np
 import torch
 
 from unetseg_tpu_torch.core.config import InferConfig, ModelConfig
+from unetseg_tpu_torch.core.mesh import MeshSpec
 from unetseg_tpu_torch.data.io import frame_number, sorted_frames, write_mask_u16, write_mask_u8
 from unetseg_tpu_torch.infer.folding import fold_batchnorm
 from unetseg_tpu_torch.infer.kernel_net import (
@@ -110,7 +123,9 @@ class Predictor:
     device-CC and sequence prediction.
 
     `variables` is the JAX package's {'params', 'batch_stats'} tree of
-    arrays (see utils/flax_bridge.py), or a list of them for an ensemble."""
+    arrays (see utils/flax_bridge.py), or a list of them for an ensemble.
+    `mesh` shards the tiled paths' tiles over its ranks; `device` is then
+    this rank's device."""
 
     def __init__(
         self,
@@ -123,6 +138,7 @@ class Predictor:
         fused_enc0: bool = False,
         dec_fuse: str = "head",
         cblock: Collection[str] = (),
+        mesh: Optional[MeshSpec] = None,
     ):
         if cfg.tta not in TTA_TRANSFORMS:
             raise ValueError(
@@ -139,6 +155,7 @@ class Predictor:
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
         self.options = dict(tier2=tier2, fused_enc0=fused_enc0, dec_fuse=dec_fuse,
                             cblock=check_options(model_cfg, dec_fuse, cblock))
         self.uses_kernels = supports(model_cfg, self.device)
@@ -235,7 +252,8 @@ class Predictor:
         strategy."""
         h, w = image.shape
         grid = plan_tiles(h, w, tile_input or self.cfg.tile_input)
-        fn = make_tiled_fn(self._probs, grid, tile_batch=tile_batch or self.cfg.tile_batch)
+        fn = make_tiled_fn(self._probs, grid, tile_batch=tile_batch or self.cfg.tile_batch,
+                           mesh=self.mesh)
         return fn(self._to_device(image)).cpu().numpy()
 
     def predict_image_tiled(self, image: np.ndarray) -> np.ndarray:
@@ -257,7 +275,7 @@ class Predictor:
         fn = make_tiled_mask_batch_fn(
             self._probs, plan_tiles(h, w, t_in), n_frames=f,
             threshold=self.cfg.threshold, tile_batch=t_batch,
-            tta=self.cfg.tta, tta_merge=self.cfg.tta_merge,
+            tta=self.cfg.tta, tta_merge=self.cfg.tta_merge, mesh=self.mesh,
         )
         return fn(self._to_device(images)).cpu().numpy()
 
@@ -442,7 +460,7 @@ class Predictor:
     ) -> "Predictor":
         """Load a reference-format .pth state dict (see utils/torch_import),
         so reference users run their trained models here. `options` are the
-        serving variants of __init__."""
+        serving variants and the mesh of __init__."""
         from unetseg_tpu_torch.utils.torch_import import load_reference_checkpoint
 
         model_cfg = model_cfg or ModelConfig()
@@ -461,7 +479,8 @@ class Predictor:
         **options: Any,
     ) -> "Predictor":
         """From the port's light checkpoint stream (train/checkpoint.py): the
-        best epoch, or `epoch`; `ema` takes the EMA shadow."""
+        best epoch, or `epoch`; `ema` takes the EMA shadow. `options` are
+        the serving variants and the mesh of __init__."""
         from unetseg_tpu_torch.train.checkpoint import restore_params_for_inference
 
         variables = restore_params_for_inference(checkpoint_dir, epoch=epoch, ema=ema)
@@ -484,7 +503,8 @@ class Predictor:
         ema: False = raw weights, True = each member's EMA shadow,
         "both" = two members per checkpoint (raw + EMA), a 2k-member
         ensemble from a k-seed training run. One directory without "both"
-        is from_checkpoint."""
+        is from_checkpoint. `options` are the serving variants and the
+        mesh of __init__."""
         both = ema == "both"
         if len(checkpoint_dirs) == 1 and not both:
             return cls.from_checkpoint(

@@ -4,6 +4,15 @@ Mirror-pad by half the valid-conv margin, run the net on overlapping
 input tiles, and concatenate the disjoint output tiles (the U-Net paper's
 overlap-tile strategy). Images and probabilities are torch tensors on the
 caller's device; the tile grid is plain Python.
+
+With a mesh (core/mesh.MeshSpec) the tiles are sharded over its ranks
+(data x tile axes, as the JAX tile sharding): each chunk's tile count is
+padded to a multiple of the ranks, each rank runs its contiguous share
+through `tile_fn` on its own device, and the shares are gathered (an
+all-reduce into a zeroed buffer, which gloo and nccl both take and which
+is exact). Tiles are independent, so every rank ends with the
+single-rank result, up to what a rank's smaller chunk changes in
+`tile_fn` itself (cuDNN picks its algorithm by the batch).
 """
 
 from __future__ import annotations
@@ -15,6 +24,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from unetseg_tpu_torch.core.distributed import gather_shares
+from unetseg_tpu_torch.core.mesh import MeshSpec
 from unetseg_tpu_torch.models.shapes import output_size
 
 
@@ -119,6 +130,30 @@ def pad_tile_count(n: int, multiple: int) -> int:
     return -(-n // multiple) * multiple
 
 
+def shard_tile_fn(
+    tile_fn: Callable[[torch.Tensor], torch.Tensor], mesh: Optional[MeshSpec]
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """tile_fn over a chunk whose size divides by the mesh's tile shards:
+    this rank runs its contiguous share, and the shares are gathered.
+    `tile_fn` itself without a mesh or with one tile shard."""
+    if mesh is None or mesh.num_tile_shards == 1:
+        return tile_fn
+    n_shards, index = mesh.num_tile_shards, mesh.tile_shard_index
+
+    def run(chunk: torch.Tensor) -> torch.Tensor:
+        k = chunk.shape[0] // n_shards
+        share = tile_fn(chunk[index * k : (index + 1) * k])
+        return gather_shares(share, chunk.shape[0], index, mesh.tile_group)
+
+    return run
+
+
+def _chunk_size(batch: int, mesh: Optional[MeshSpec]) -> int:
+    """A chunk's tile count: `batch`, padded to a multiple of the ranks
+    that share it."""
+    return batch if mesh is None else pad_tile_count(batch, mesh.num_tile_shards)
+
+
 def _stitch_any(outputs: torch.Tensor, grid: TileGrid) -> torch.Tensor:
     """(n, o, o) or (n, o, o, C) per-tile outputs -> (h, w) or (h, w, C)."""
     if outputs.dim() == 3:
@@ -130,6 +165,7 @@ def make_tiled_fn(
     tile_fn: Callable[[torch.Tensor], torch.Tensor],
     grid: TileGrid,
     tile_batch: Optional[int] = None,
+    mesh: Optional[MeshSpec] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """fn(image (H, W)) -> stitched (h, w) or (h, w, C) on the image's
     device: mirror-pad -> extract -> per-chunk forward -> stitch.
@@ -137,10 +173,12 @@ def make_tiled_fn(
     The tile count is padded to a multiple of `tile_batch` with copies of
     tile 0, so that every chunk has one batch size, as in the JAX version.
     `tile_fn(chunk (B, T, T))` returns (B, o, o) binary probabilities or
-    (B, o, o, C) class probabilities."""
+    (B, o, o, C) class probabilities. With a `mesh` each chunk's tiles are
+    sharded over its ranks (see the module docstring)."""
     n = grid.num_tiles
-    batch = tile_batch or n
+    batch = _chunk_size(tile_batch or n, mesh)
     n_padded = pad_tile_count(n, batch)
+    tile_fn = shard_tile_fn(tile_fn, mesh)
 
     def run(image: torch.Tensor) -> torch.Tensor:
         tiles = extract_tiles(mirror_pad(image, grid), grid)
@@ -157,14 +195,16 @@ def tiled_apply(
     image: torch.Tensor,
     grid: TileGrid,
     tile_batch: Optional[int] = None,
+    mesh: Optional[MeshSpec] = None,
 ) -> torch.Tensor:
     """Run `tile_fn` ((B, T, T) -> (B, o, o) or (B, o, o, C)) over all tiles
     of `image` in chunks of `tile_batch` and stitch; a ragged last chunk is
     padded with copies of its first tile and the padding's outputs are
-    dropped."""
+    dropped. With a `mesh` each chunk's tiles are sharded over its ranks."""
     tiles = extract_tiles(mirror_pad(image, grid), grid)
     n = grid.num_tiles
-    tile_batch = tile_batch or n
+    tile_batch = _chunk_size(tile_batch or n, mesh)
+    tile_fn = shard_tile_fn(tile_fn, mesh)
     outs = []
     for start in range(0, n, tile_batch):
         chunk = tiles[start : start + tile_batch]
@@ -222,6 +262,7 @@ def make_tiled_mask_batch_fn(
     tile_batch: Optional[int] = None,
     tta: str = "none",
     tta_merge: str = "mean",
+    mesh: Optional[MeshSpec] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Frame-batched tiled binary segmentation:
     fn(images (F, H, W) f32) -> (F, H, W) uint8, on the images' device.
@@ -229,11 +270,13 @@ def make_tiled_mask_batch_fn(
     All frames' tiles are pooled into fixed-size forward chunks of
     `tile_batch` (the last chunk padded with copies of the first tile), each
     frame is stitched, and the threshold is applied on the device.
-    `tile_fn(chunk (B, T, T))` returns (B, o, o) foreground probabilities."""
+    `tile_fn(chunk (B, T, T))` returns (B, o, o) foreground probabilities.
+    With a `mesh` each chunk's tiles are sharded over its ranks."""
     n = grid.num_tiles
     total = n_frames * n
-    batch = tile_batch or total
+    batch = _chunk_size(tile_batch or total, mesh)
     n_padded = pad_tile_count(total, batch)
+    tile_fn = shard_tile_fn(tile_fn, mesh)
 
     if tta == "flips8" and grid.h != grid.w:
         raise ValueError(

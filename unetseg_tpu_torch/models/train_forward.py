@@ -84,12 +84,14 @@ def supports_tier2(model_cfg: ModelConfig, input_size: int, device) -> bool:
 def train_forward(
     params: Mapping[str, torch.Tensor], batch_stats: Mapping[str, torch.Tensor],
     x: torch.Tensor, cfg: ModelConfig, item_mask: Optional[torch.Tensor] = None,
-    tier2: bool = False,
+    tier2: bool = False, group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, S, 1) -> (f32 logits (B, s', s', num_classes), new batch
     stats); the same values and gradients as models/unet.unet_train_forward
     up to summation order, except the middle's pre-BN conv biases, whose
-    gradient is dropped. `tier2` runs enc1 and dec2 through the kernels."""
+    gradient is dropped. `tier2` runs enc1 and dec2 through the kernels.
+    With a process `group` every BatchNorm takes the group's global
+    moments (the data-parallel step; JAX train_forward_lanes' axis_name)."""
     dtype = compute_dtype(cfg)
     new_stats: Dict[str, torch.Tensor] = {}
 
@@ -97,7 +99,7 @@ def train_forward(
         y, nm, nv = bn_relu_nhwc(
             z, params[f"{name}.weight"], params[f"{name}.bias"],
             batch_stats[f"{name}.running_mean"], batch_stats[f"{name}.running_var"],
-            cfg.bn_momentum, cfg.bn_epsilon, item_mask,
+            cfg.bn_momentum, cfg.bn_epsilon, item_mask, group,
         )
         new_stats[f"{name}.running_mean"] = nm.detach()
         new_stats[f"{name}.running_var"] = nv.detach()

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unetseg_tpu_torch.core.config import ModelConfig
+from unetseg_tpu_torch.core.distributed import all_reduce_sum_autograd
 from unetseg_tpu_torch.models.shapes import center_crop_bounds
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -65,6 +66,7 @@ def masked_batch_norm(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     running_mean: torch.Tensor, running_var: torch.Tensor,
     momentum: float, eps: float, item_mask: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Train-mode MaskedBatchNorm (unetseg_tpu/models/unet.py:82-153) on an
     NCHW tensor -> (y, new running mean, new running var).
@@ -73,18 +75,28 @@ def masked_batch_norm(
     0; with a per-item mask the sums are weighted and n = sum(mask)*H*W,
     clamped to >= 1. Running stats follow flax's momentum (0.9 keeps 90%)
     with torch's unbiased n/(n-1) variance. The normalisation is one
-    per-channel multiply-add in x's dtype."""
+    per-channel multiply-add in x's dtype. With a process `group` the sums
+    (s, sq, n) are summed over its ranks by an all-reduce that autograd
+    differentiates (its backward sums the cotangents), so the moments are
+    the whole group's batch's."""
     dims = (0, 2, 3)
     hw = x.shape[2] * x.shape[3]
     if item_mask is None:
         n = torch.tensor(float(x.shape[0] * hw), device=x.device)
-        mean = x.sum(dims, dtype=torch.float32) / n
-        mean_sq = x.square().sum(dims, dtype=torch.float32) / n
+        s = x.sum(dims, dtype=torch.float32)
+        sq = x.square().sum(dims, dtype=torch.float32)
     else:
         wm = item_mask.to(x.dtype)[:, None, None, None]
-        n = (item_mask.float().sum() * hw).clamp_min(1.0)
-        mean = (x * wm).sum(dims, dtype=torch.float32) / n
-        mean_sq = (x.square() * wm).sum(dims, dtype=torch.float32) / n
+        n = item_mask.float().sum() * hw
+        s = (x * wm).sum(dims, dtype=torch.float32)
+        sq = (x.square() * wm).sum(dims, dtype=torch.float32)
+    if group is not None:
+        c = s.shape[0]
+        s, sq, n = all_reduce_sum_autograd(torch.cat([s, sq, n[None]]), group).split([c, c, 1])
+        n = n[0]
+    n = n.clamp_min(1.0)
+    mean = s / n
+    mean_sq = sq / n
     var = (mean_sq - mean.square()).clamp_min(0.0)
     unbias = n / (n - 1.0).clamp_min(1.0)
     new_mean = momentum * running_mean + (1 - momentum) * mean
@@ -232,12 +244,14 @@ def split_state_dict(sd: Mapping[str, torch.Tensor]):
 def unet_train_forward(
     params: Mapping[str, torch.Tensor], batch_stats: Mapping[str, torch.Tensor],
     x: torch.Tensor, cfg: ModelConfig, item_mask: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Plain train-mode forward, UNet.apply(train=True, item_mask=...,
     mutable=["batch_stats"]): x (N, H, W, 1) -> (f32 NHWC logits, new
     batch stats). `params` and `batch_stats` use the state-dict names
     (`enc0.conv0.weight`, `enc0.bn0.running_mean`, ...); the new stats are
-    detached."""
+    detached. With a process `group` BatchNorm takes the group's global
+    moments (the data-parallel step)."""
     dtype = compute_dtype(cfg)
     new_stats: Dict[str, torch.Tensor] = {}
 
@@ -248,7 +262,7 @@ def unet_train_forward(
             h, nm, nv = masked_batch_norm(
                 h, params[f"{bn}.weight"], params[f"{bn}.bias"],
                 batch_stats[f"{bn}.running_mean"], batch_stats[f"{bn}.running_var"],
-                cfg.bn_momentum, cfg.bn_epsilon, item_mask,
+                cfg.bn_momentum, cfg.bn_epsilon, item_mask, group,
             )
             new_stats[f"{bn}.running_mean"] = nm.detach()
             new_stats[f"{bn}.running_var"] = nv.detach()

@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from unetseg_tpu_torch.core.distributed import is_primary
 from unetseg_tpu_torch.train.state import TrainState
 from unetseg_tpu_torch.utils.flax_bridge import state_dict_to_flax
 
@@ -112,17 +113,21 @@ def _remove(directory: str, epoch: int) -> None:
 
 class Checkpointer:
     """Two-stream checkpoint writer; every save is written before it
-    returns."""
+    returns. Under several processes only rank 0 writes (the others hold
+    the same replicated state) and the saves of the rest do nothing."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self.active = is_primary()
 
     def save_light_payload(self, payload: Dict[str, Any], epoch: int, val_loss: float,
                            extra: Optional[Dict[str, Any]] = None) -> None:
         """Save a device_light_payload taken earlier (the loop holds the
         best state's payload until the save cooldown allows a write), then
         keep the k lowest val_loss (the earlier epoch wins a tie)."""
+        if not self.active:
+            return
         _write(self.directory, payload, epoch, val_loss, extra)
         ranked = sorted(_entries(self.directory).items(), key=lambda e: (e[1], e[0]))
         for e, _ in ranked[self.keep:]:
@@ -131,6 +136,8 @@ class Checkpointer:
     def save_full(self, state: TrainState, epoch: int, val_loss: float,
                   extra: Optional[Dict[str, Any]] = None) -> None:
         """Full train-state save (latest only): the resume artifact."""
+        if not self.active:
+            return
         full = os.path.join(self.directory, FULL_SUBDIR)
         _write(full, device_full_payload(state), epoch, val_loss, extra)
         for e in _entries(full):

@@ -16,7 +16,12 @@ torch.Generator on the device is seeded from (seed, epoch) alone, so a run
 resumed at an epoch boundary continues exactly as an uninterrupted run.
 Losses stay on the device until one fetch per epoch.
 
-Not ported here: the device mesh, host_put and multi-process training.
+Data parallelism (`mesh`, core/mesh.MeshSpec): every rank runs this loop
+on its own device with the same seed, so state, schedule and draws are
+the same everywhere; each step takes the rank's B / D columns of the
+global schedule (parallel/sharding.py), and only rank 0 writes the
+metrics JSONL and the checkpoints, with a barrier after each save so that
+no rank reads a checkpoint before it exists.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import numpy as np
 import torch
 
 from unetseg_tpu_torch.core.config import Config
+from unetseg_tpu_torch.core.distributed import barrier, host_put, is_primary
+from unetseg_tpu_torch.core.mesh import MeshSpec
 from unetseg_tpu_torch.data.dataset import (
     HeLaArrays,
     epoch_index_matrix,
@@ -67,9 +74,11 @@ def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
 def train(
     cfg: Config, data: Optional[HeLaArrays] = None, max_steps: Optional[int] = None,
     device: Union[str, torch.device] = "cuda", init: Optional[Mapping[str, Any]] = None,
-    tier2: bool = False,
+    tier2: bool = False, mesh: Optional[MeshSpec] = None,
 ) -> TrainResult:
-    """Train on `device` (the card unless the caller asks otherwise).
+    """Train on `device` (the card unless the caller asks otherwise), or
+    data-parallel over `mesh` on the mesh's device for this rank; the
+    batch size must divide by the mesh's data-parallel degree.
     `init` is a Flax-layout {'params', 'batch_stats'} tree to start from
     (e.g. the JAX package's initial variables through the same layout);
     without it the weights come from models/fast_init with the config's
@@ -78,8 +87,12 @@ def train(
     UNETSEG_LANES_TIER2_TRAIN); it raises ValueError where `lanes`
     resolves to off."""
     t_cfg, d_cfg, m_cfg = cfg.train, cfg.data, cfg.model
-    dev = torch.device(device)
-    logger = MetricsLogger(t_cfg.metrics_jsonl)
+    dev = mesh.device if mesh is not None else torch.device(device)
+    if mesh is not None and t_cfg.batch_size % mesh.num_data:
+        raise ValueError(
+            f"batch_size ({t_cfg.batch_size}) must divide by the data-parallel degree "
+            f"({mesh.num_data}): each rank takes an equal share of every batch")
+    logger = MetricsLogger(t_cfg.metrics_jsonl if is_primary() else None)
     data = data or HeLaArrays.load(d_cfg)
     train_idx, val_idx = train_val_split(len(data), d_cfg.val_percent, t_cfg.seed)
     logger.log({"event": "start", "n_train": len(train_idx), "n_val": len(val_idx)})
@@ -108,12 +121,12 @@ def train(
         aug_gamma=d_cfg.aug_gamma, aug_illum=d_cfg.aug_illum, aug_noise=d_cfg.aug_noise,
         lanes=lanes, tier2=tier2,
     )
-    eval_kw = dict(three_class=three_class, standardize=d_cfg.standardize)
-    train_step = make_train_step(m_cfg, **step_kw)
+    eval_kw = dict(three_class=three_class, standardize=d_cfg.standardize, mesh=mesh)
+    train_step = make_train_step(m_cfg, mesh=mesh, **step_kw)
     eval_step = make_eval_step(m_cfg, **eval_kw)
     use_epoch_feed = t_cfg.device_data and t_cfg.profile_dir is None and max_steps is None
     if use_epoch_feed:
-        epoch_step = make_epoch_train_step(m_cfg, inner_step=train_step)
+        epoch_step = make_epoch_train_step(m_cfg, inner_step=train_step, mesh=mesh)
         epoch_eval = make_epoch_eval_step(m_cfg, **eval_kw)
         on_dev = [torch.from_numpy(a).to(dev) for a in (data.images, data.masks, data.weight_maps)]
         logger.log({"event": "device_data", "bytes": int(
@@ -121,8 +134,10 @@ def train(
         val_mat, val_valid = (torch.from_numpy(a).to(dev) for a in epoch_index_matrix(
             val_idx, t_cfg.batch_size, shuffle=False, seed=0))
 
-    def to_dev(batch):
-        return [torch.from_numpy(a).to(dev) for a in
+    shard = (0, 1) if mesh is None else (mesh.data_index, mesh.num_data)
+
+    def to_dev(batch):  # this rank's rows of the global batch
+        return [host_put(a, dev, *shard) for a in
                 (batch.images, batch.masks, batch.weight_maps, batch.valid)]
 
     out = output_size(input_size, m_cfg.levels)
@@ -209,12 +224,14 @@ def train(
             payload, b_epoch, b_loss = pending_best
             checkpointer.save_light_payload(payload, b_epoch, b_loss,
                                             extra={"config": cfg.to_dict()})
+            barrier()
             last_saved_epoch, pending_best = epoch, None
             logger.log({"event": "checkpoint", "epoch": b_epoch, "val_loss": b_loss})
         # the full (resumable) save: the CURRENT state, on its own cadence
         if checkpointer is not None and (
                 epoch - last_full_epoch >= t_cfg.full_save_interval or last):
             checkpointer.save_full(state, epoch, val_loss, extra={"config": cfg.to_dict()})
+            barrier()
             last_full_epoch = epoch
             logger.log({"event": "checkpoint_full", "epoch": epoch})
         if done:

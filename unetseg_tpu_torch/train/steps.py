@@ -24,6 +24,18 @@ the fused weighted CE (ops/kernels/wce.py) on every path.
 The epoch steps take the dataset resident on the device and an (S, B)
 index matrix per epoch; a Python loop over its rows, gathering each
 batch with index_select, takes the place of the JAX package's lax.scan.
+
+Data parallelism (`mesh`, core/mesh.MeshSpec; parallel/sharding.py builds
+these steps under the JAX package's names). Each rank is fed its B / D
+items of a global batch of B (D = mesh.num_data) and computes what the
+single-process step computes on the whole batch: the draws are made for
+the global batch and sliced (each item's elastic field, photometric draw
+and noise are the single-process step's), BatchNorm takes the global
+moments, the loss is normalised by the global valid-pixel count, and the
+gradients are summed over the data axis in one flat all-reduce before
+grad_norm, the optimizer and the EMA, which then run identically on every
+rank; the reported loss is the sum of the ranks' losses. A mesh of one
+data rank runs the single-process step.
 """
 
 from __future__ import annotations
@@ -36,6 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from unetseg_tpu_torch.core.config import ModelConfig
+from unetseg_tpu_torch.core.distributed import all_reduce_sum, all_reduce_tree
+from unetseg_tpu_torch.core.mesh import MeshSpec
 from unetseg_tpu_torch.models.shapes import center_crop_bounds
 from unetseg_tpu_torch.models.train_forward import supports, supports_tier2, train_forward
 from unetseg_tpu_torch.models.unet import UNet, unet_train_forward
@@ -70,16 +84,31 @@ class AugmentDraws:
     noise_sigma: Optional[torch.Tensor] = None
     noise: Optional[torch.Tensor] = None
 
+    def rows(self, sl: slice) -> "AugmentDraws":
+        """The draws of items `sl` (a rank's share of a global batch's)."""
+        return AugmentDraws(**{f.name: None if getattr(self, f.name) is None
+                               else getattr(self, f.name)[sl]
+                               for f in dataclasses.fields(self)})
+
+
+def data_group(mesh: Optional[MeshSpec]):
+    """The process group a step sums over: the mesh's data axis, or None
+    (no collective) without a mesh or with one data rank."""
+    return None if mesh is None else mesh.data_group
+
 
 def _masked_mean_loss(
     logits: torch.Tensor, full_targets: torch.Tensor,
     full_weights: Optional[torch.Tensor], valid: torch.Tensor,
+    n_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Mean over the valid items' pixels of w * CE, targets and weights
     center-cropped to the logits (reference: scripts/train.py:118-128).
     The weighted case is the fused weighted CE (the JAX step's
     use_pallas_loss), which reads the uncropped targets and weights at the
-    crop's offsets; the unweighted case (validation) is per_pixel_ce."""
+    crop's offsets; the unweighted case (validation) is per_pixel_ce.
+    `n_valid` is the normaliser's item count (the global count under data
+    parallelism, JAX's n_pix); by default this batch's valid items."""
     th, tw = logits.shape[1], logits.shape[2]
     if full_weights is not None:
         row_off = center_crop_bounds(full_targets.shape[1], th)[0]
@@ -88,7 +117,7 @@ def _masked_mean_loss(
     else:
         ce = per_pixel_ce(logits, center_crop_nhw(full_targets, th, tw))
     item = valid.float()
-    n_pix = item.sum().clamp_min(1.0) * (th * tw)
+    n_pix = (item.sum() if n_valid is None else n_valid).clamp_min(1.0) * (th * tw)
     return (ce * item[:, None, None]).sum() / n_pix
 
 
@@ -107,12 +136,15 @@ def three_class_targets(masks: torch.Tensor, halo: int = 2) -> torch.Tensor:
 
 def draw_augment(
     generator: torch.Generator, images: torch.Tensor, augment: bool,
-    aug_gamma: float, aug_illum: float, aug_noise: float,
+    aug_gamma: float, aug_illum: float, aug_noise: float, batch: Optional[int] = None,
 ) -> AugmentDraws:
-    """Draw every random number one step needs, stage by stage."""
+    """Draw every random number one step needs, stage by stage, for
+    `batch` items (default: images' batch; a data-parallel step draws for
+    the global batch)."""
     if not augment:
         return AugmentDraws()
     b, h, w = images.shape
+    b = batch or b
     dev = images.device
     draws = AugmentDraws(elastic=draw_elastic(generator, b, h, w, dev))
     if aug_gamma > 0 or aug_illum > 0:
@@ -180,19 +212,25 @@ def lanes_active(mode: str, model_cfg: ModelConfig, input_size: int, device) -> 
 def loss_and_grads(
     forward: Forward, state: TrainState, images: torch.Tensor, targets: torch.Tensor,
     weights: Optional[torch.Tensor], valid: torch.Tensor, bn_mask: Optional[torch.Tensor],
-    model_cfg: Optional[ModelConfig] = None,
+    model_cfg: Optional[ModelConfig] = None, group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(loss, new batch stats, grads) of one forward/backward; a parameter
-    the loss does not reach gets a zero gradient (as jax.grad gives)."""
+    the loss does not reach gets a zero gradient (as jax.grad gives).
+    With a process `group` (the forward already bound to it) the loss is
+    normalised by the group's valid-pixel count, and the loss and the
+    gradients come back summed over the group: the whole batch's."""
     cfg = model_cfg or state.model_cfg
     params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+    n_valid = None if group is None else all_reduce_sum(valid.float().sum(), group)
     with torch.enable_grad():
         logits, new_bs = forward(params, state.batch_stats, images[..., None], cfg, bn_mask)
-        loss = _masked_mean_loss(logits, targets, weights, valid)
+        loss = _masked_mean_loss(logits, targets, weights, valid, n_valid)
         keys = list(params)
         gs = torch.autograd.grad(loss, [params[k] for k in keys], allow_unused=True)
     grads = {k: (g if g is not None else torch.zeros_like(params[k])) for k, g in zip(keys, gs)}
-    return loss.detach(), new_bs, grads
+    # one SUM all-reduce of every gradient: the loss is globally normalised,
+    # so the sum is the whole batch's gradient (an average would divide it)
+    return all_reduce_sum(loss.detach(), group), new_bs, all_reduce_tree(grads, group)
 
 
 def optax_global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -214,6 +252,7 @@ def make_train_step(
     lanes: str = "auto",
     assume_valid: bool = False,
     tier2: bool = False,
+    mesh: Optional[MeshSpec] = None,
 ) -> Callable:
     """Build the train step (unetseg_tpu/train/steps.py:151, without the
     JAX-only donate / jit / remat / Pallas-loss switches).
@@ -227,27 +266,35 @@ def make_train_step(
     mask, while `valid` still weights the loss. `model_cfg` defaults to
     the state's. `tier2` needs the kernel train forward: it raises
     ValueError here for lanes="off", and in the step where "auto" resolves
-    to off or supports_tier2 fails."""
+    to off or supports_tier2 fails. Under a `mesh` the arrays are this
+    rank's share of the global batch, and `draws` are the global batch's
+    (the step takes its rows)."""
     if tier2 and lanes == "off":
         raise ValueError("tier2 runs in the kernel train forward, which lanes='off' never takes")
     augmenter = make_augmenter(augment, elastic_alpha, elastic_sigma, three_class,
                                border_boost, standardize, aug_gamma, aug_illum, aug_noise)
 
+    group = data_group(mesh)
+
     def step(state: TrainState, images, masks, weights, valid, generator=None, *, draws=None):
         cfg = model_cfg or state.model_cfg
+        n = images.shape[0] * (1 if mesh is None else mesh.num_data)
         if draws is None:
-            draws = draw_augment(generator, images, augment, aug_gamma, aug_illum, aug_noise)
+            draws = draw_augment(generator, images, augment, aug_gamma, aug_illum, aug_noise,
+                                 batch=n)
+        if mesh is not None:
+            draws = draws.rows(mesh.batch_rows(n))
         images, targets, weights = augmenter(images, masks, weights, draws)
         use_kernels = lanes_active(lanes, cfg, images.shape[1], images.device)
         if tier2 and not (use_kernels and supports_tier2(cfg, images.shape[1], images.device)):
             raise ValueError(
                 f"tier2 needs the kernel train forward, which lanes={lanes!r} does not take "
                 f"on {images.device} at input_size={images.shape[1]}")
-        forward = (functools.partial(train_forward, tier2=tier2) if use_kernels
-                   else unet_train_forward)
+        forward = (functools.partial(train_forward, tier2=tier2, group=group) if use_kernels
+                   else functools.partial(unet_train_forward, group=group))
         bn_mask = None if assume_valid else valid
         loss, new_bs, grads = loss_and_grads(
-            forward, state, images, targets, weights, valid, bn_mask, cfg)
+            forward, state, images, targets, weights, valid, bn_mask, cfg, group)
         state = state.apply_gradients(grads, new_bs)
         return state, {"loss": loss, "grad_norm": optax_global_norm(grads)}
 
@@ -255,7 +302,8 @@ def make_train_step(
 
 
 def make_epoch_train_step(
-    model_cfg: Optional[ModelConfig] = None, inner_step: Optional[Callable] = None, **step_kw
+    model_cfg: Optional[ModelConfig] = None, inner_step: Optional[Callable] = None,
+    mesh: Optional[MeshSpec] = None, **step_kw
 ) -> Callable:
     """Whole-epoch train step over a device-resident dataset
     (unetseg_tpu/train/steps.py:247).
@@ -267,10 +315,15 @@ def make_epoch_train_step(
     The steps draw their augmentation from `generator` in order; the loop
     seeds it from (seed, epoch) alone, so a run resumed at an epoch
     boundary draws what an uninterrupted run draws. `inner_step` overrides
-    make_train_step(model_cfg, **step_kw). The metrics stay on the device."""
-    inner = inner_step or make_train_step(model_cfg, **step_kw)
+    make_train_step(model_cfg, mesh=mesh, **step_kw). The metrics stay on
+    the device. Under a `mesh` the matrices are the global schedule and
+    each rank gathers its columns of every row."""
+    inner = inner_step or make_train_step(model_cfg, mesh=mesh, **step_kw)
 
     def epoch_step(state, images_all, masks_all, wmaps_all, idx, valid, generator=None):
+        if mesh is not None:
+            cols = mesh.batch_rows(idx.shape[1])
+            idx, valid = idx[:, cols], valid[:, cols]
         metrics = []
         for ib, vb in zip(idx, valid):
             state, m = inner(state, images_all.index_select(0, ib), masks_all.index_select(0, ib),
@@ -281,15 +334,21 @@ def make_epoch_train_step(
     return epoch_step
 
 
-def make_epoch_eval_step(model_cfg: Optional[ModelConfig] = None, **eval_kw) -> Callable:
+def make_epoch_eval_step(
+    model_cfg: Optional[ModelConfig] = None, mesh: Optional[MeshSpec] = None, **eval_kw
+) -> Callable:
     """Whole-validation eval over the device-resident dataset (the
     companion of make_epoch_train_step, unetseg_tpu/train/steps.py:308).
 
     epoch_eval(state, images_all, masks_all, idx (S,B), valid (S,B))
-        -> {"val_loss": (S,), "val_acc": (S,), "val_iou": (S,)}"""
-    inner = make_eval_step(model_cfg, **eval_kw)
+        -> {"val_loss": (S,), "val_acc": (S,), "val_iou": (S,)}
+    Under a `mesh` each rank takes its columns, as the epoch train step."""
+    inner = make_eval_step(model_cfg, mesh=mesh, **eval_kw)
 
     def epoch_eval(state, images_all, masks_all, idx, valid):
+        if mesh is not None:
+            cols = mesh.batch_rows(idx.shape[1])
+            idx, valid = idx[:, cols], valid[:, cols]
         ms = [inner(state, images_all.index_select(0, ib), masks_all.index_select(0, ib), vb)
               for ib, vb in zip(idx, valid)]
         return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
@@ -300,6 +359,7 @@ def make_epoch_eval_step(model_cfg: Optional[ModelConfig] = None, **eval_kw) -> 
 def make_eval_step(
     model_cfg: Optional[ModelConfig] = None, three_class: bool = False,
     standardize: bool = False,
+    mesh: Optional[MeshSpec] = None,
 ) -> Callable:
     """Validation step (unetseg_tpu/train/steps.py:336): unweighted CE on
     the cropped targets over the valid items, pixel accuracy and the binary
@@ -307,8 +367,12 @@ def make_eval_step(
     through the eval-mode UNet (BatchNorm on its running statistics).
 
     step(state, images (B,H,W), masks (B,H,W) int32, valid (B,) bool)
-        -> {"val_loss", "val_acc", "val_iou"} as device scalars"""
+        -> {"val_loss", "val_acc", "val_iou"} as device scalars
+    Under a `mesh` the arrays are this rank's share and the metrics the
+    global batch's: the summed per-rank losses over the global normaliser,
+    and accuracy and IoU from the summed counts."""
     nets: Dict[ModelConfig, UNet] = {}
+    group = data_group(mesh)
 
     @torch.no_grad()
     def step(state: TrainState, images, masks, valid):
@@ -322,15 +386,18 @@ def make_eval_step(
         targets = three_class_targets(masks) if three_class else (masks > 0).to(torch.int32)
         logits = torch.func.functional_call(
             net, {**state.params, **state.batch_stats}, (images[..., None],))
-        loss = _masked_mean_loss(logits, targets, None, valid)
+        n_valid = None if group is None else all_reduce_sum(valid.float().sum(), group)
+        loss = all_reduce_sum(_masked_mean_loss(logits, targets, None, valid, n_valid), group)
         th, tw = logits.shape[1], logits.shape[2]
         t = center_crop_nhw(targets, th, tw)
         pred = logits.argmax(-1)
         item = valid[:, None, None]
-        acc = ((pred == t) & item).sum() / (valid.sum() * th * tw).clamp_min(1)
+        right, n_items = (all_reduce_sum(c, group) for c in (((pred == t) & item).sum(),
+                                                            valid.sum()))
+        acc = right / (n_items * th * tw).clamp_min(1)
         pred_fg, t_fg = pred >= 1, t >= 1
-        inter = (pred_fg & t_fg & item).sum()
-        union = ((pred_fg | t_fg) & item).sum()
+        inter, union = (all_reduce_sum(c, group) for c in ((pred_fg & t_fg & item).sum(),
+                                                           ((pred_fg | t_fg) & item).sum()))
         iou = torch.where(union > 0, inter / union.clamp_min(1), 1.0)
         return {"val_loss": loss, "val_acc": acc, "val_iou": iou}
 
