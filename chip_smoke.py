@@ -177,6 +177,21 @@ its own line, and any failure raises (non-zero exit):
    synthetic frames: exit codes 0, the same parameter digest on both
    ranks and in rank 0's full checkpoint, no file written by rank 1, and
    the checkpoint served by the Predictor.
+13. export and visualize-augmentation: the default serving forward
+   exported with a symbolic batch (infer/export.py: torch.export through
+   the custom operators of ops/kernels/library.py) at full width with
+   phase 4's planted weights and 512^2 frames; loaded in a fresh process
+   (which must import neither infer.engine nor train) and in this one,
+   and run at batches 1, 2 and 16 of phase 4's frames: exact launches
+   (2, 1, 1, 1 a call), the five unetseg operators in the graph,
+   probabilities equal to Predictor.probs bit for bit (else the largest
+   difference is printed and the masks are held to the 0.999 agreement
+   bar), and the artifact's ms beside Predictor.probs's at batch 16,
+   alternating (information only); then visualize-augmentation's
+   deformation (cli.augmentation_arrays) of one 512^2 frame and its
+   labels on the card: one sample_displaced launch, the image within
+   SAMPLER_ATOL of the plain sampler on the same uniforms and the labels
+   equal, the panel written where matplotlib imports.
 
 Every parity case prints the kernel's ms, its plain version's, the one
 PyTorch call that computes the same work where there is one (library;
@@ -470,6 +485,35 @@ DP_LOSS_RTOL, DP_GRAD_L2, DP_STATS_RTOL = 2e-3, 1e-2, 1e-3
 DP_NOISE_FACTOR = 2.0
 DP_CLI_FRAMES = 8  # the train command: 8 frames, no validation split: 2 steps of 4
 DP_TIMEOUT = 300
+# phase 13: the exported serving function at one whole 512^2 frame per item
+EXPORT_SIZE = 512
+EXPORT_BATCHES = (1, 2, 16)
+EXPORT_ROUNDS = 3  # timed rounds of the artifact and Predictor.probs, alternating
+EXPORT_TIMEOUT = 300
+AUG_ALPHA, AUG_SIGMA = 2000.0, 20.0  # visualize-augmentation's defaults
+# The fresh process of phase 13: loads the artifact with nothing of the
+# package but infer/export.py and the custom operators, runs each batch,
+# and reports its launches and whether the engine or training was imported
+EXPORT_LOADER = """
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from unetseg_tpu_torch.infer.export import load_exported
+from unetseg_tpu_torch.ops.kernels.launches import launch_counts, reset_launch_counts
+work, batches = sys.argv[2], json.loads(sys.argv[3])
+fn = load_exported(work + "/serving.pt2", device="cuda")
+frames = np.load(work + "/frames.npy")
+out = {"platforms": list(fn.platforms), "launches": {}}
+for b in batches:
+    reset_launch_counts()
+    p = fn(frames[:b])
+    torch.cuda.synchronize()
+    out["launches"][str(b)] = {k: v for k, v in launch_counts().items() if v}
+    np.save(f"{work}/fresh{b}.npy", p.cpu().numpy())
+out["imported"] = sorted(m for m in ("unetseg_tpu_torch.infer.engine", "unetseg_tpu_torch.train")
+                         if m in sys.modules)
+print(json.dumps(out))
+"""
 
 
 def run(cmd):
@@ -2781,6 +2825,133 @@ def dp_path(gpu, pil, phase4_masks):
     return launches
 
 
+def export_path(gpu, mpl, variables, frames):
+    """Phase 13: the default serving forward exported at full width
+    (phase 4's planted weights) with a symbolic batch, loaded in a fresh
+    process and in this one, held to Predictor.probs at each of
+    EXPORT_BATCHES with its exact launches and timed beside it; then
+    visualize-augmentation's deformation of one 512^2 frame on the card.
+    Returns the launches of the artifact's calls here and of the
+    deformation."""
+    from unetseg_tpu_torch.infer.export import export_inference, load_exported, save_exported
+    from unetseg_tpu_torch.ops.kernels import library
+    from unetseg_tpu_torch.utils.profiling import DeviceTimer
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    cfg, icfg = ModelConfig(), InferConfig(image_size=EXPORT_SIZE)
+    frames = frames[:max(EXPORT_BATCHES)]
+    timer = DeviceTimer()
+    data = export_inference(cfg, variables, icfg, device="cuda")
+    export_s = timer.stop()
+    path = os.path.join(work, "serving.pt2")
+    save_exported(path, data)
+    np.save(os.path.join(work, "frames.npy"), frames)
+    here = os.path.dirname(os.path.abspath(__file__))
+    timer.start()
+    res = subprocess.run([sys.executable, "-c", EXPORT_LOADER, here, work,
+                          json.dumps(list(EXPORT_BATCHES))], capture_output=True, text=True,
+                         timeout=EXPORT_TIMEOUT)
+    fresh_s = timer.stop()
+    if res.returncode != 0:
+        raise AssertionError(f"export: the fresh process failed:\n{res.stdout}\n{res.stderr}")
+    fresh = json.loads(res.stdout.strip().splitlines()[-1])
+    imported = f"imported: {fresh['imported']}" if fresh["imported"] else "not imported"
+    print(f"export: {len(data) / 1e6:.1f} MB artifact (platforms {','.join(fresh['platforms'])}, "
+          f"batch symbolic, input {EXPORT_SIZE}^2) in {export_s:.1f} s; a fresh process loaded "
+          f"and ran it in {fresh_s:.1f} s with unetseg_tpu_torch.infer.engine and "
+          f"unetseg_tpu_torch.train {imported} on {gpu}", flush=True)
+    if fresh["imported"]:
+        raise AssertionError(f"export: loading imported {fresh['imported']}")
+    for b in EXPORT_BATCHES:
+        check_launches(f"export (fresh process) batch {b}", fresh["launches"][str(b)],
+                       DEFAULT_LAUNCHES, 1)
+
+    fn = load_exported(path, device="cuda")
+    ops = {str(n.target) for n in fn.exported.graph.nodes if n.op == "call_function"}
+    missing = {f"unetseg.{name}.default" for name in library.OPS} - ops
+    if missing:
+        raise AssertionError(f"export: the graph does not name {sorted(missing)}")
+    pred = Predictor(cfg, variables, icfg, "cuda")
+    total = {k: 0 for k in SOURCES}
+    out = unet_shapes(EXPORT_SIZE).output_size
+    for b in EXPORT_BATCHES:
+        x = frames[:b]
+        K.reset_launch_counts()
+        p = fn(x)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        check_launches(f"export batch {b}", launches, DEFAULT_LAUNCHES, 1)
+        for k, v in launches.items():
+            total[k] += v
+        q = pred.probs(x)
+        fresh_p = torch.from_numpy(np.load(os.path.join(work, f"fresh{b}.npy"))).cuda()
+        if (tuple(p.shape) != (b, out, out) or not bool(torch.isfinite(p).all())
+                or not bool(((p >= 0) & (p <= 1)).all())):
+            raise AssertionError(f"export batch {b}: probabilities {tuple(p.shape)} not finite "
+                                 f"in [0, 1]")
+        same, same_fresh = bool(torch.equal(p, q)), bool(torch.equal(fresh_p, q))
+        line = (f"export batch {b}: launches {DEFAULT_LAUNCHES} a call; probabilities equal to "
+                f"Predictor.probs bit for bit: {same} (here), {same_fresh} (fresh process)")
+        if not (same and same_fresh):
+            thr = pred.cfg.threshold
+            diff = max((p - q).abs().max().item(), (fresh_p - q).abs().max().item())
+            agree = min(float(((p > thr) == (q > thr)).float().mean()),
+                        float(((fresh_p > thr) == (q > thr)).float().mean()))
+            line += f"; largest difference {diff:.3e}, mask agreement {agree:.6f}"
+            if agree < AGREEMENT_BAR:
+                raise AssertionError(line)
+        print(line, flush=True)
+
+    times = {"artifact": [], "Predictor.probs": []}
+    calls = {"artifact": lambda: fn(frames), "Predictor.probs": lambda: pred.probs(frames)}
+    for r in range(EXPORT_ROUNDS):
+        for k in (list(calls) if r % 2 == 0 else list(calls)[::-1]):
+            times[k].append(cuda_ms(calls[k], iters=3, warmup=1))
+    runs = "; ".join(f"{k} " + ", ".join(f"{t:.2f}" for t in v) for k, v in times.items())
+    b = len(frames)
+    print(f"export: batch {b} of {EXPORT_SIZE}^2 frames, ms per call (CUDA events, runs of 3 "
+          f"alternating, host frames in): {runs}; median artifact "
+          f"{np.median(times['artifact']):.2f} ms = "
+          f"{b * EXPORT_SIZE ** 2 / 1e6 / (np.median(times['artifact']) / 1e3):.2f} MPix/s, "
+          f"Predictor.probs {np.median(times['Predictor.probs']):.2f} ms (information only) "
+          f"on {gpu}", flush=True)
+    del fn, pred
+
+    frame, labels = cell_frames(np.random.RandomState(SEED + 13), 1, EXPORT_SIZE, labels=True)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    di, dm = cli.augmentation_arrays(frame[0], labels[0], AUG_ALPHA, AUG_SIGMA, SEED, "cuda")
+    aug_ms = (time.perf_counter() - t0) * 1e3
+    aug = {k: v for k, v in K.launch_counts().items() if v}
+    if aug != {"sample_displaced": 1}:
+        raise AssertionError(f"visualize-augmentation: launches {aug}, expected one "
+                             f"sample_displaced")
+    total["sample_displaced"] += 1
+    u = draw_elastic(torch.Generator().manual_seed(SEED), 1, EXPORT_SIZE, EXPORT_SIZE).cuda()
+    yy, xx = displaced_coords(u, AUG_ALPHA, AUG_SIGMA)
+    ref_img, ref_mask = KE.sample_displaced_plain(torch.from_numpy(frame).cuda(),
+                                                  torch.from_numpy(labels).cuda(), yy, xx)
+    err = float(np.abs(di - ref_img[0].cpu().numpy()).max())
+    exact = bool(np.array_equal(dm, ref_mask[0].cpu().numpy()))
+    moved = float((dm != labels[0]).mean())
+    if mpl:
+        from unetseg_tpu_torch.viz.overlays import save_augmentation_panel
+
+        save_augmentation_panel(os.path.join(work, "augmentation.png"), frame[0], labels[0], di,
+                                dm)
+    print(f"visualize-augmentation: {EXPORT_SIZE}^2 frame and mask deformed on the card (alpha "
+          f"{AUG_ALPHA:g}, sigma {AUG_SIGMA:g}, seed {SEED}): one sample_displaced launch, image "
+          f"max_abs_err {err:.3e} against the plain version on the same uniforms (bound "
+          f"{SAMPLER_ATOL:g}), mask exact: {exact}, {moved:.3f} of the labels moved; "
+          f"{aug_ms:.1f} ms wall with the host copies on {gpu}; panel "
+          f"{'written' if mpl else 'not written: matplotlib is not installed'}", flush=True)
+    if not (err <= SAMPLER_ATOL and exact and np.isfinite(di).all()):
+        raise AssertionError("visualize-augmentation: the deformation disagrees with the plain "
+                             "sampler")
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 def importable(name):
     try:
         importlib.import_module(name)
@@ -2817,6 +2988,7 @@ def main():
     serving, main = main_path(gpu)
     variants = variants_path(gpu, main)
     phase4_masks = main["masks"]
+    export_inputs = main["variables"], main["frames"]
     del main
     train_kernel_parity(stats)
     training, training2 = train_path(gpu)
@@ -2828,13 +3000,16 @@ def main():
     sequence = sequence_path(gpu, pil)
     scoring = scoring_path(gpu, pil)
     dp = dp_path(gpu, pil, phase4_masks)
+    exported = export_path(gpu, mpl, *export_inputs)
 
     # launches: each path's run (serving call, the four variant calls, the
     # tier-1 and tier-2 train steps, preprocess of PRE_FRAMES frames, the
     # loop's first train(), the sequence core's run, the scoring path's
     # core run and pipeline command, the data-parallel steps and tile-sharded
-    # serving of both ranks), counted from 0
-    paths = (serving, variants, training, training2, preprocess, loop, sequence, scoring, dp)
+    # serving of both ranks, the exported artifact's calls and the
+    # augmentation panel's deformation), counted from 0
+    paths = (serving, variants, training, training2, preprocess, loop, sequence, scoring, dp,
+             exported)
     record = [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": sum(p[k] for p in paths),

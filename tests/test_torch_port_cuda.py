@@ -38,8 +38,11 @@ through both wrappers at 64-, 128- and 256-channel dx from 1x1, 2x3 and
 odd g at batch 1 and 4 (the same bits twice), and its uncounted mma.sync
 reference; the stem's row kernel bit for bit against the FMA kernel it
 replaced (the pool on odd and 1-row outputs, relu on and off, CO 128 and
-192, ragged strips); the wrappers' refusals; and the pipeline command at
-base 8 on the card.
+192, ragged strips); the wrappers' refusals; the pipeline command at
+base 8 on the card; the full-width serving forward exported with a
+symbolic batch and loaded on the card (batches 1, 3 and 5, bit for bit
+against Predictor.probs) and on the CPU, and a pinned batch; and
+visualize-augmentation's deformation on the card.
 
 Marked `cuda` and skipped without a card. The file imports no jax, so on a
 GPU machine it runs without the JAX package:
@@ -1133,3 +1136,60 @@ def test_data_parallel_on_the_card(g, tmp_path):
     for r in res:
         assert r["masks_differ"] == 0 and 0 < r["foreground"] < 1
         assert r["serving"] == per_rank  # two chunks of 8, 4 tiles a rank
+
+
+@pytest.mark.parametrize("image_size", [188, 252])
+def test_export_and_load_on_the_card(g, tmp_path, image_size):
+    """The full-width default serving forward exported on the card with a
+    symbolic batch, loaded on the card and on the CPU: on the card each
+    call at batches 1, 3 and 5 launches the four serving kernels (2, 1, 1,
+    1) and equals Predictor.probs bit for bit; on the CPU the same
+    artifact equals the CPU Predictor; a batch pinned to 2 refuses 3."""
+    from unetseg_tpu_torch.core.config import InferConfig, ModelConfig
+    from unetseg_tpu_torch.infer.engine import Predictor
+    from unetseg_tpu_torch.infer.export import export_inference, load_exported, save_exported
+    from unetseg_tpu_torch.models.fast_init import fast_random_variables
+
+    cfg, icfg = ModelConfig(), InferConfig(image_size=image_size)
+    v = fast_random_variables(cfg, 4)
+    path = str(tmp_path / "serving.pt2")
+    save_exported(path, export_inference(cfg, v, icfg, device="cuda"))
+    fn = load_exported(path, device="cuda")
+    pred = Predictor(cfg, v, icfg, "cuda")
+    imgs = torch.rand(5, image_size, image_size, generator=g, device="cuda").cpu().numpy()
+    per_call = {"conv3x3_bias_relu": 2, "tconv2x2_bias": 1, "dec_conv0": 1, "conv3x3_head": 1}
+    for b in (1, 3, 5):
+        K.reset_launch_counts()
+        got = fn(imgs[:b])
+        torch.cuda.synchronize()
+        assert K.launch_counts() == _only(**per_call)
+        assert got.is_cuda and torch.equal(got, pred.probs(imgs[:b]))
+    on_cpu = load_exported(path, device="cpu")
+    assert torch.equal(on_cpu(imgs[:1]), Predictor(cfg, v, icfg, "cpu").probs(imgs[:1]))
+    pinned = str(tmp_path / "pinned.pt2")
+    save_exported(pinned, export_inference(cfg, v, icfg, batch=2, device="cuda"))
+    fn2 = load_exported(pinned)
+    assert torch.equal(fn2(imgs[:2]), pred.probs(imgs[:2]))
+    with pytest.raises(Exception):
+        fn2(imgs[:3])
+
+
+def test_augmentation_arrays_on_the_card(g):
+    """visualize-augmentation's deformation on the card: one
+    sample_displaced launch, the image within 1e-5 of the plain sampler on
+    the card's coordinates and the labels equal to its labels."""
+    from unetseg_tpu_torch.cli.main import augmentation_arrays
+    from unetseg_tpu_torch.ops.elastic import displaced_coords, draw_elastic
+
+    img = torch.rand(97, 131, generator=g, device="cuda").cpu().numpy()
+    lab = (torch.rand(97, 131, generator=g, device="cuda") * 5).int().cpu().numpy()
+    K.reset_launch_counts()
+    di, dm = augmentation_arrays(img, lab, 300.0, 8.0, 3, "cuda")
+    torch.cuda.synchronize()
+    assert K.launch_counts() == _only(sample_displaced=1)
+    u = draw_elastic(torch.Generator().manual_seed(3), 1, 97, 131).cuda()
+    yy, xx = displaced_coords(u, 300.0, 8.0)
+    ref_img, ref_lab = KE.sample_displaced_plain(torch.from_numpy(img).cuda()[None],
+                                                 torch.from_numpy(lab).cuda()[None], yy, xx)
+    assert abs(di - ref_img[0].cpu().numpy()).max() <= 1e-5
+    assert (dm == ref_lab[0].cpu().numpy()).all()

@@ -39,6 +39,7 @@ step), serving at 1e-6 and the loop at 1e-6 on its metrics.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -679,15 +680,20 @@ def test_cli_mesh_on_refuses_an_indivisible_batch(runs):
 def test_launcher_runs_the_train_command_on_two_workers(runs):
     """launch_local starts two gloo workers of the train command on
     localhost: both end with the same parameters, and only rank 0 wrote
-    the metrics and the checkpoints."""
+    the metrics and the checkpoints. The workers share the launcher's
+    stdout, so the digests are found in the whole log, wherever another
+    rank's output lands beside them."""
     log = runs["launcher_log"]
-    digests = sorted(line.split()[-1] for line in log.splitlines()
-                     if "parameters sha256" in line)
-    assert len(digests) == 2 and digests[0] == digests[1], log
-    events = [json.loads(line)["event"] for line in
-              open(os.path.join(runs["lwork"], "m.jsonl"))]
-    assert events.count("start") == 1 and "checkpoint_full" in events
-    assert os.path.exists(os.path.join(runs["lwork"], "ck", "full", "0.json"))
+    digests = re.findall(r"rank (\d+) of 2: parameters sha256 ([0-9a-f]{64})", log)
+    metrics = os.path.join(runs["lwork"], "m.jsonl")
+    events = ([json.loads(line)["event"] for line in open(metrics)]
+              if os.path.exists(metrics) else None)
+    why = f"launcher log:\n{log}\nevents: {events}"
+    assert sorted(r for r, _ in digests) == ["0", "1"], why
+    assert digests[0][1] == digests[1][1], why
+    assert events is not None and events.count("start") == 1, why
+    assert "checkpoint_full" in events, why
+    assert os.path.exists(os.path.join(runs["lwork"], "ck", "full", "0.json")), why
 
 
 def test_new_modules_import_no_jax():

@@ -1,6 +1,5 @@
 """Command-line interface of the port (counterpart of
-unetseg_tpu/cli/main.py's subcommands, apart from `visualize*`, `export`
-and `bench`):
+unetseg_tpu/cli/main.py's subcommands, apart from `bench`):
 
     python -m unetseg_tpu_torch preprocess --data-root ... --sequence 01 [--mode paper]
     python -m unetseg_tpu_torch train --data-root ... [--config configs/best_recipe.json]
@@ -13,6 +12,10 @@ and `bench`):
     python -m unetseg_tpu_torch evaluate-ctc seg|tra|det --gt-dir ... --res-dir ...
     python -m unetseg_tpu_torch rescue-labels --data-root ... --output-root ... \
         --rescue-sequences 01
+    python -m unetseg_tpu_torch visualize --instance-dir ... --images-dir ... --output-dir ...
+    python -m unetseg_tpu_torch visualize-prediction --input ... --prediction ... --output ...
+    python -m unetseg_tpu_torch visualize-augmentation --input ... --mask ... --output ...
+    python -m unetseg_tpu_torch export --checkpoint-dir ... [--batch N] [--output a.pt2]
     python -m unetseg_tpu_torch pipeline --config ... --data-root ... --output-dir ...
 
 Flags and defaults are the JAX command's. The commands run on the card;
@@ -23,10 +26,12 @@ mesh of ranks (`--mesh auto|on|off`) when several processes join through
 gloo processes on the CPU with `--cpu`); on a host with several cards and
 no coordinator it starts one worker per visible card on localhost
 (launch_local), as the JAX command uses every local chip. The preprocess command's
-reference mode and the refine, track, evaluate-divisions, evaluate-ctc
-and rescue-labels commands are host computations (scipy, the native
-watershed and CTC measures) with no device version, so they run on the
-host either way and take `--cpu` as a no-op.
+reference mode and the refine, track, evaluate-divisions, evaluate-ctc,
+rescue-labels, visualize and visualize-prediction commands are host
+computations (scipy, the native watershed and CTC measures, matplotlib)
+with no device version, so they run on the host either way and take
+`--cpu` as a no-op. `export` traces on the card unless `--cpu`, and
+refuses an ensemble.
 """
 
 from __future__ import annotations
@@ -256,9 +261,14 @@ def cmd_train(args) -> int:
             mode, cfg.train.batch_size, n) else None
         data = HeLaArrays.load_many(cfg.data, args.sequences) if args.sequences else None
         result = train(cfg, data=data, max_steps=args.max_steps, device=device, mesh=mesh)
-        if n > 1:  # the replicas must agree: their digests are printed side by side
-            print(f"rank {distributed.process_index()} of {n}: parameters sha256 "
-                  f"{distributed.tensor_digest(result.state.params)}")
+        if n > 1:
+            # the replicas must agree: their digests are printed side by side.
+            # One write of the whole line: the workers of launch_local share
+            # the launcher's stdout, and an unbuffered print writes the text
+            # and the newline apart, so two ranks' lines could interleave
+            sys.stdout.write(f"rank {distributed.process_index()} of {n}: parameters sha256 "
+                             f"{distributed.tensor_digest(result.state.params)}\n")
+            sys.stdout.flush()
     finally:
         if joined_here:
             distributed.shutdown()
@@ -549,6 +559,91 @@ def cmd_evaluate_ctc(args) -> int:
     return 0
 
 
+# ----------------------------------------------------------------- visualize
+def cmd_visualize(args) -> int:
+    from unetseg_tpu_torch.data.io import frame_number, read_image, sorted_frames
+    from unetseg_tpu_torch.infer.engine import load_image_01
+    from unetseg_tpu_torch.track.tracker import Tracker
+    from unetseg_tpu_torch.viz.overlays import save_frame_overlay
+
+    inst_files = sorted_frames(args.instance_dir, "m*.tif")
+    inst_files = [f for f in inst_files if not os.path.basename(f).startswith("mask")]
+    if not inst_files:
+        print("error: no instance masks found", file=sys.stderr)
+        return 1
+    img_files = {frame_number(f): f for f in sorted_frames(args.images_dir, "t*.tif")}
+    tracker = Tracker() if args.tracks else None
+    os.makedirs(args.output_dir, exist_ok=True)
+    count = 0
+    for f in inst_files[: args.max_frames]:
+        num = frame_number(f)
+        inst = read_image(f)
+        assignment = tracker.update(inst, num) if tracker else None
+        img_path = img_files.get(num)
+        if img_path is None:
+            continue
+        img = load_image_01(img_path, inst.shape[0] if args.resize_image else None)
+        if img.shape != inst.shape:
+            from PIL import Image
+
+            img = np.asarray(
+                Image.fromarray((img * 255).astype(np.uint8)).resize(
+                    (inst.shape[1], inst.shape[0]), Image.BILINEAR),
+                np.float32,
+            ) / 255.0
+        out = os.path.join(args.output_dir, f"vis_frame_{num:03d}.png")
+        save_frame_overlay(out, img, inst, assignment, title=f"frame {num}")
+        count += 1
+    print(f"wrote {count} overlays -> {args.output_dir}")
+    return 0
+
+
+def cmd_visualize_prediction(args) -> int:
+    from unetseg_tpu_torch.data.io import read_image
+    from unetseg_tpu_torch.infer.engine import load_image_01
+    from unetseg_tpu_torch.viz.overlays import save_prediction_panel
+
+    image = load_image_01(args.input, None)
+    gt = read_image(args.gt) if args.gt else None
+    pred = read_image(args.prediction)
+    save_prediction_panel(args.output, image, gt, pred)
+    print(f"wrote {args.output}")
+    return 0
+
+
+def augmentation_arrays(image: np.ndarray, mask: np.ndarray, alpha: float, sigma: float,
+                        seed: int, device: str):
+    """visualize-augmentation's deformation: one (H, W) frame in [0, 1] and
+    its integer labels, deformed with one field on `device` (the
+    sample_displaced kernel on the card) -> (f32 image, int32 labels) as
+    numpy. The field's uniforms are drawn on the host from a torch
+    generator seeded by `seed`, so one seed gives one field on either
+    device (not the JAX command's field for that seed: its draws come from
+    jax.random.key(seed))."""
+    import torch
+
+    from unetseg_tpu_torch.ops.elastic import draw_elastic, elastic_deform
+
+    uniforms = draw_elastic(torch.Generator().manual_seed(seed), 1, *image.shape)[0]
+    di, dm = elastic_deform(torch.from_numpy(np.asarray(image, np.float32)).to(device),
+                            torch.from_numpy(np.asarray(mask, np.int32)).to(device),
+                            uniforms.to(device), alpha=alpha, sigma=sigma)
+    return di.cpu().numpy(), dm.cpu().numpy()
+
+
+def cmd_visualize_augmentation(args) -> int:
+    from unetseg_tpu_torch.data.io import read_image
+    from unetseg_tpu_torch.infer.engine import load_image_01
+    from unetseg_tpu_torch.viz.overlays import save_augmentation_panel
+
+    image = load_image_01(args.input, None)
+    mask = read_image(args.mask).astype(np.int32)
+    di, dm = augmentation_arrays(image, mask, args.alpha, args.sigma, args.seed, _device(args))
+    save_augmentation_panel(args.output, image, mask, di, dm)
+    print(f"wrote {args.output}")
+    return 0
+
+
 # ------------------------------------------------------------- rescue-labels
 def cmd_rescue_labels(args) -> int:
     """Faint-cell label rescue (data/rescue.py): build a parallel data root
@@ -575,6 +670,50 @@ def cmd_rescue_labels(args) -> int:
               f"{st.frames_rescued}/{st.frames_seen} frames "
               f"({st.core_px} core px, {st.ignore_px} ignore px)")
     print(f"overlay root ready: {args.output_root}")
+    return 0
+
+
+# -------------------------------------------------------------------- export
+def _serving_variables(args, cfg: Config, icfg: InferConfig):
+    """The one member's variables the export command serves: a reference
+    .pth, or one checkpoint directory's raw or EMA weights. An ensemble
+    (several directories, or raw and EMA together) is refused: the
+    artifact is one member's forward."""
+    if args.torch_checkpoint:
+        from unetseg_tpu_torch.utils.torch_import import load_reference_checkpoint
+
+        return load_reference_checkpoint(args.torch_checkpoint,
+                                         levels=_model_cfg(cfg, args).levels)
+    if not args.checkpoint_dir:
+        raise SystemExit("error: --checkpoint-dir or --torch-checkpoint required")
+    dirs = [d for d in args.checkpoint_dir.split(",") if d]
+    use_ema = icfg.use_ema
+    if len(dirs) > 1 or use_ema == "both":
+        raise SystemExit("error: export serves one member; an ensemble (several "
+                         "--checkpoint-dir, or use_ema \"both\") cannot be exported: "
+                         "export each member on its own")
+    from unetseg_tpu_torch.train.checkpoint import restore_params_for_inference
+
+    return restore_params_for_inference(dirs[0], epoch=args.epoch, ema=bool(use_ema))
+
+
+def cmd_export(args) -> int:
+    from unetseg_tpu_torch.infer.export import export_inference, save_exported
+
+    cfg = _load_config(args)
+    icfg = dataclasses.replace(cfg.infer, **_infer_overrides(args))
+    if args.image_size is not None:
+        icfg = dataclasses.replace(icfg, image_size=args.image_size)
+    platforms = tuple(s.strip() for s in args.platforms.split(",") if s.strip())
+    data = export_inference(
+        _model_cfg(cfg, args), _serving_variables(args, cfg, icfg), infer_cfg=icfg,
+        batch=args.batch, platforms=platforms, device=_device(args),
+    )
+    out = args.output or "unetseg_serving.pt2"
+    save_exported(out, data)
+    batch = "symbolic" if args.batch is None else str(args.batch)
+    print(f"wrote {out} ({len(data) / 1e6:.1f} MB, platforms={','.join(platforms)}, "
+          f"batch={batch}, input {icfg.image_size}x{icfg.image_size})")
     return 0
 
 
@@ -879,6 +1018,35 @@ def build_parser() -> argparse.ArgumentParser:
     _add_host_cpu(sp)
     sp.set_defaults(fn=cmd_evaluate_ctc)
 
+    sp = sub.add_parser("visualize", help="overlay instances / track ids on frames")
+    sp.add_argument("--instance-dir", required=True)
+    sp.add_argument("--images-dir", required=True)
+    sp.add_argument("--output-dir", required=True)
+    sp.add_argument("--tracks", action="store_true", help="show stable track ids")
+    sp.add_argument("--max-frames", type=int, default=10**9)
+    sp.add_argument("--resize-image", action="store_true")
+    _add_host_cpu(sp)
+    sp.set_defaults(fn=cmd_visualize)
+
+    sp = sub.add_parser("visualize-prediction", help="original / GT / prediction panel figure")
+    sp.add_argument("--input", required=True)
+    sp.add_argument("--gt", default=None)
+    sp.add_argument("--prediction", required=True)
+    sp.add_argument("--output", required=True)
+    _add_host_cpu(sp)
+    sp.set_defaults(fn=cmd_visualize_prediction)
+
+    sp = sub.add_parser("visualize-augmentation", help="original vs elastically deformed panel")
+    sp.add_argument("--input", required=True)
+    sp.add_argument("--mask", required=True)
+    sp.add_argument("--output", required=True)
+    sp.add_argument("--alpha", type=float, default=2000.0)
+    sp.add_argument("--sigma", type=float, default=20.0)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--cpu", action="store_true",
+                    help="deform on the CPU (the sampler's plain version) instead of the card")
+    sp.set_defaults(fn=cmd_visualize_augmentation)
+
     sp = sub.add_parser("rescue-labels",
                         help="gold-marker-seeded faint-cell label rescue into an overlay data "
                              "root (train against it; evaluate the OTHER sequence)")
@@ -900,6 +1068,24 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--mode", choices=["reference", "paper"], default="reference")
     _add_host_cpu(sp)
     sp.set_defaults(fn=cmd_rescue_labels)
+
+    sp = sub.add_parser("export", help="export the folded inference forward as a portable "
+                                       "serving artifact (torch.export; weights baked in)")
+    _add_common(sp)
+    sp.add_argument("--checkpoint-dir", default=None)
+    sp.add_argument("--torch-checkpoint", default=None)
+    sp.add_argument("--epoch", type=int, default=None)
+    sp.add_argument("--output", default=None)
+    sp.add_argument("--batch", type=int, default=None,
+                    help="pin the batch dimension (default: symbolic)")
+    sp.add_argument("--platforms", default="cuda,cpu",
+                    help="comma-separated devices the artifact is for")
+    sp.add_argument("--image-size", type=int, default=None)
+    sp.add_argument("--normalize", action="store_const", const=True, default=None)
+    sp.add_argument("--standardize", action="store_const", const=True, default=None)
+    sp.add_argument("--classes", type=int, default=None)
+    sp.add_argument("--bilinear", action="store_true")
+    sp.set_defaults(fn=cmd_export)
 
     sp = sub.add_parser("pipeline",
                         help="preprocess -> train -> predict -> track -> evaluate-ctc in one "

@@ -65,19 +65,14 @@ from unetseg_tpu_torch.core.config import InferConfig, ModelConfig
 from unetseg_tpu_torch.core.mesh import MeshSpec
 from unetseg_tpu_torch.data.io import frame_number, sorted_frames, write_mask_u16, write_mask_u8
 from unetseg_tpu_torch.infer.folding import fold_batchnorm
-from unetseg_tpu_torch.infer.kernel_net import (
-    check_options,
-    folded_forward_kernels,
-    supports,
-    supports_tier2,
-)
+from unetseg_tpu_torch.infer.kernel_net import check_options, supports, supports_tier2
+from unetseg_tpu_torch.infer.serving import member_probs, normalize_input
 from unetseg_tpu_torch.infer.tiling import (
     TTA_TRANSFORMS,
     make_tiled_fn,
     make_tiled_mask_batch_fn,
     plan_tiles,
 )
-from unetseg_tpu_torch.ops.losses import binary_probs_from_logits
 from unetseg_tpu_torch.post.boundary import grow_instances
 from unetseg_tpu_torch.post.cc import get_instance_masks
 from unetseg_tpu_torch.post.cc_device import compact_labels, label_components_device
@@ -169,30 +164,13 @@ class Predictor:
         self.folded = self.members[0]
 
     # ------------------------------------------------------------- forward
-    def _member_probs(self, net: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
-        if self.uses_kernels:
-            logits = folded_forward_kernels(net, x[..., None], **self.options)
-        else:
-            logits = net(x[..., None])
-        if logits.shape[-1] == 3:
-            # 3-class (bg / interior / border) head: all probabilities; the
-            # sequence path splits instances from interior markers
-            return torch.softmax(logits.float(), dim=-1)
-        return binary_probs_from_logits(logits)
-
     def _probs(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W) on the device -> (B, h', w') foreground probability, or
         (B, h', w', 3) class probabilities for a 3-class head; an
         ensemble's members merged by cfg.ensemble_merge."""
-        x = images
-        if self.cfg.standardize:
-            mu = x.mean(dim=(-2, -1), keepdim=True)
-            sd = x.std(dim=(-2, -1), keepdim=True, correction=0).clamp_min(1e-6)
-            x = (x - mu) / sd
-        elif self.cfg.normalize:
-            x = (x - self.cfg.normalize_mean) / self.cfg.normalize_std
+        x = normalize_input(images, self.cfg)
         if len(self.members) == 1:
-            return self._member_probs(self.folded, x)
+            return member_probs(self.folded, x, self.uses_kernels, self.options)
         # Member PROBABILITIES (post-softmax/sigmoid) combine: "mean" is the
         # standard deep-ensemble merge but smooths the thin membranes
         # between touching cells where members disagree; "gmean" keeps a
@@ -201,7 +179,7 @@ class Predictor:
         merge, m = self.cfg.ensemble_merge, len(self.members)
         acc = None
         for net in self.members:
-            p = self._member_probs(net, x)
+            p = member_probs(net, x, self.uses_kernels, self.options)
             binary = p.dim() == 3
             if binary and merge == "gmean":
                 p = torch.log(p + 1e-7)

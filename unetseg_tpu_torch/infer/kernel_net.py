@@ -32,7 +32,10 @@ The options change these stages, as in lanes_net.py:250-500:
 
 On a CUDA device the kernels run the hand-written Hopper kernels; on the
 CPU their plain versions, which is what the CPU tests compare with the
-JAX package.
+JAX package. The default path's four wrappers are called as the custom
+operators of ops/kernels/library.py (torch.ops.unetseg.*), so that
+torch.export can trace the forward (infer/export.py); the variants'
+wrappers are called directly.
 """
 
 from __future__ import annotations
@@ -51,18 +54,15 @@ from unetseg_tpu_torch.models.unet import (
     to_nchw,
     to_nhwc,
 )
+from unetseg_tpu_torch.ops.kernels import library as ops
 from unetseg_tpu_torch.ops.kernels.conv3x3 import (
     CBLOCK_CO,
     MAX_HEAD_CLASSES,
-    conv3x3_bias_relu,
     conv3x3_cblock,
     conv3x3_dense,
-    conv3x3_head,
-    dec_conv0,
     dec_conv0_dense,
     dec_tail,
     enc0_fused,
-    tconv2x2_bias,
 )
 
 DEC_FUSE = ("head", "tail")
@@ -157,8 +157,8 @@ def folded_forward_kernels(
         skip0, pooled = enc0_fused(x, e0.conv0.weight, e0.conv0.bias,
                                    e0.conv1.weight, e0.conv1.bias)
     else:
-        h = conv3x3_bias_relu(x, e0.conv0.weight, e0.conv0.bias)
-        skip0, pooled = conv3x3_bias_relu(h, e0.conv1.weight, e0.conv1.bias, fuse_pool=True)
+        h = ops.conv3x3_bias_relu(x, e0.conv0.weight, e0.conv0.bias)
+        skip0, pooled = ops.conv3x3_bias_relu_pool(h, e0.conv1.weight, e0.conv1.bias)
 
     # ---- tier 2: enc1 through the kernels, on the pooled enc0 output
     xm, start = pooled, 1
@@ -199,11 +199,11 @@ def folded_forward_kernels(
 
     # ---- last decoder level + head: kernels
     t = getattr(p, f"up{last}_tconv")
-    up = tconv2x2_bias(xm.contiguous(), t.weight, t.bias)
+    up = ops.tconv2x2_bias(xm.contiguous(), t.weight, t.bias)
     row_off, col_off = _crop_offsets(skip0, up)
     d = getattr(p, f"dec{last}")
     if dec_fuse == "tail":
         return dec_tail(skip0, up, d.conv0.weight, d.conv0.bias, d.conv1.weight,
                         d.conv1.bias, p.outc.weight, p.outc.bias, row_off, col_off)
-    y = dec_conv0(skip0, up, d.conv0.weight, d.conv0.bias, row_off, col_off)
-    return conv3x3_head(y, d.conv1.weight, d.conv1.bias, p.outc.weight, p.outc.bias)
+    y = ops.dec_conv0(skip0, up, d.conv0.weight, d.conv0.bias, row_off, col_off)
+    return ops.conv3x3_head(y, d.conv1.weight, d.conv1.bias, p.outc.weight, p.outc.bias)

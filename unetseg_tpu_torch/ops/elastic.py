@@ -115,3 +115,20 @@ def elastic_deform_batch(
     (nearest, exact) with one field per item from `uniforms` (B, 2, H, W)."""
     yy, xx = displaced_coords(uniforms, alpha, sigma, truncate)
     return sample_displaced(images.float().contiguous(), masks.contiguous(), yy, xx)
+
+
+def elastic_deform(
+    image: torch.Tensor, mask: torch.Tensor, uniforms: torch.Tensor,
+    alpha: float = 2000.0, sigma: float = 20.0, truncate: float = 4.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Deform one (H, W) image (bilinear, f32 out) and its integer label
+    mask (nearest, in the mask's dtype) with one field from `uniforms`
+    (2, H, W) (counterpart of unetseg_tpu/ops/elastic.py:elastic_deform,
+    which draws the field from a key: [0] drives dx, [1] dy). A batch of
+    one through elastic_deform_batch, so a CUDA tensor launches the
+    sample_displaced kernel. The JAX single-image path reflects without
+    the displacement_pad clamp; the two differ only past 8 standard
+    deviations of the displacement."""
+    img_d, mask_d = elastic_deform_batch(image[None], mask[None].to(torch.int32),
+                                         uniforms[None], alpha, sigma, truncate)
+    return img_d[0], mask_d[0].to(mask.dtype)
