@@ -191,7 +191,16 @@ its own line, and any failure raises (non-zero exit):
    deformation (cli.augmentation_arrays) of one 512^2 frame and its
    labels on the card: one sample_displaced launch, the image within
    SAMPLER_ATOL of the plain sampler on the same uniforms and the labels
-   equal, the panel written where matplotlib imports.
+   equal, the panel written where matplotlib imports;
+14. the benchmark: `python -m unetseg_tpu_torch bench` (the default
+   forward and the best-recipe train step) and `python -m
+   unetseg_tpu_torch.bench --tier2 --fused-enc0 --dec-fuse tail --cblock
+   all` with BENCH_TRAIN=0 (variant (d)), each a subprocess under
+   BENCH_TIMEOUT: exit code 0, the last stdout line one JSON object with
+   bench.py's keys, value > 0, train_step_ms > 0 (default), SEG null,
+   `device` nvidia-smi's line, and the launches the bench printed on
+   stderr exactly its forward's kernels a chunk and the nine train
+   kernels a step; both lines printed.
 
 Every parity case prints the kernel's ms, its plain version's, the one
 PyTorch call that computes the same work where there is one (library;
@@ -223,6 +232,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from unetseg_tpu_torch import bench
 from unetseg_tpu_torch.cli import main as cli
 from unetseg_tpu_torch.core import distributed
 from unetseg_tpu_torch.core.config import (
@@ -491,6 +501,17 @@ EXPORT_BATCHES = (1, 2, 16)
 EXPORT_ROUNDS = 3  # timed rounds of the artifact and Predictor.probs, alternating
 EXPORT_TIMEOUT = 300
 AUG_ALPHA, AUG_SIGMA = 2000.0, 20.0  # visualize-augmentation's defaults
+# phase 14: the benchmark's two runs (the command, and variant (d) without
+# the train step), and the keys of bench.py's line that each must print
+BENCH_TIMEOUT = 600
+BENCH_RUNS = {
+    "default": (["-m", "unetseg_tpu_torch", "bench"], {}, {}),
+    "variant d": (["-m", "unetseg_tpu_torch.bench", "--tier2", "--fused-enc0", "--dec-fuse",
+                   "tail", "--cblock", "all"], {"BENCH_TRAIN": "0"}, VARIANTS["d all three"][0]),
+}
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "seg_seq01", "seg_seq02", "seg_source",
+              "device")
+BENCH_TRAIN_KEYS = ("train_steps_per_sec", "train_step_ms", "train_step_config")
 # The fresh process of phase 13: loads the artifact with nothing of the
 # package but infer/export.py and the custom operators, runs each batch,
 # and reports its launches and whether the engine or training was imported
@@ -2952,6 +2973,50 @@ def export_path(gpu, mpl, variables, frames):
     return total
 
 
+def bench_path(gpu):
+    """Phase 14: the benchmark command and variant (d), each in a
+    subprocess from the repository root; checks each JSON line and the
+    launches it printed. Returns those launches (one segment call and,
+    for the command, one train step)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    n = bench.forward_chunks(SIZE, FRAMES, min_tile_input(SIZE), BATCH)
+    total = {k: 0 for k in SOURCES}
+    for name, (argv, env, opts) in BENCH_RUNS.items():
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, *argv], cwd=root, env={**os.environ, **env},
+                           capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"bench {name}: exit code {r.returncode}\n{r.stderr[-4000:]}")
+        line = r.stdout.strip().splitlines()[-1]
+        rec = json.loads(line)
+        launches = {m.group(1): json.loads(m.group(2)) for m in
+                    re.finditer(r"^bench: launches (serving|train step) (\{.*\})$", r.stderr,
+                                re.M)}
+        want = {"serving": {k: v * n for k, v in
+                            bench.serving_launches(ModelConfig(), **opts).items()}}
+        keys = BENCH_KEYS
+        if "BENCH_TRAIN" not in env:
+            want["train step"] = TRAIN_LAUNCHES
+            keys += BENCH_TRAIN_KEYS
+        print(f"bench {name} on {gpu} ({seconds:.1f} s of subprocess): {line}", flush=True)
+        print(f"bench {name}: launches {launches}", flush=True)
+        missing = [k for k in keys if k not in rec]
+        if missing or not rec["value"] > 0 or rec["device"] != gpu:
+            raise AssertionError(f"bench {name}: keys {missing} missing, value {rec.get('value')}, "
+                                 f"device {rec.get('device')!r} (expected {gpu!r})")
+        if "train step" in want and not rec["train_step_ms"] > 0:
+            raise AssertionError(f"bench {name}: train_step_ms {rec['train_step_ms']}")
+        if rec["seg_seq01"] is not None or rec["seg_seq02"] is not None:
+            raise AssertionError(f"bench {name}: a SEG the port did not compute")
+        if launches != want:
+            raise AssertionError(f"bench {name}: launches {launches}, expected {want}")
+        for counts in launches.values():
+            for k, v in counts.items():
+                total[k] += v
+    return total
+
+
 def importable(name):
     try:
         importlib.import_module(name)
@@ -3001,15 +3066,17 @@ def main():
     scoring = scoring_path(gpu, pil)
     dp = dp_path(gpu, pil, phase4_masks)
     exported = export_path(gpu, mpl, *export_inputs)
+    benched = bench_path(gpu)
 
     # launches: each path's run (serving call, the four variant calls, the
     # tier-1 and tier-2 train steps, preprocess of PRE_FRAMES frames, the
     # loop's first train(), the sequence core's run, the scoring path's
     # core run and pipeline command, the data-parallel steps and tile-sharded
     # serving of both ranks, the exported artifact's calls and the
-    # augmentation panel's deformation), counted from 0
+    # augmentation panel's deformation, the benchmark's checked segment
+    # calls and train step), counted from 0
     paths = (serving, variants, training, training2, preprocess, loop, sequence, scoring, dp,
-             exported)
+             exported, benched)
     record = [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": sum(p[k] for p in paths),

@@ -1,1 +1,1 @@
-"""Command-line interface: python -m unetseg_tpu_torch preprocess|train."""
+"""Command-line interface: python -m unetseg_tpu_torch <command> (see main.py)."""

@@ -1,5 +1,5 @@
-"""Command-line interface of the port (counterpart of
-unetseg_tpu/cli/main.py's subcommands, apart from `bench`):
+"""Command-line interface of the port (counterpart of every subcommand
+of unetseg_tpu/cli/main.py):
 
     python -m unetseg_tpu_torch preprocess --data-root ... --sequence 01 [--mode paper]
     python -m unetseg_tpu_torch train --data-root ... [--config configs/best_recipe.json]
@@ -16,6 +16,7 @@ unetseg_tpu/cli/main.py's subcommands, apart from `bench`):
     python -m unetseg_tpu_torch visualize-prediction --input ... --prediction ... --output ...
     python -m unetseg_tpu_torch visualize-augmentation --input ... --mask ... --output ...
     python -m unetseg_tpu_torch export --checkpoint-dir ... [--batch N] [--output a.pt2]
+    python -m unetseg_tpu_torch bench
     python -m unetseg_tpu_torch pipeline --config ... --data-root ... --output-dir ...
 
 Flags and defaults are the JAX command's. The commands run on the card;
@@ -31,7 +32,8 @@ rescue-labels, visualize and visualize-prediction commands are host
 computations (scipy, the native watershed and CTC measures, matplotlib)
 with no device version, so they run on the host either way and take
 `--cpu` as a no-op. `export` traces on the card unless `--cpu`, and
-refuses an ensemble.
+refuses an ensemble. `bench` runs the benchmark (unetseg_tpu_torch/bench.py)
+in a subprocess, on the card only.
 """
 
 from __future__ import annotations
@@ -717,6 +719,14 @@ def cmd_export(args) -> int:
     return 0
 
 
+# --------------------------------------------------------------------- bench
+def cmd_bench(args) -> int:
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    return subprocess.call([sys.executable, "-m", "unetseg_tpu_torch.bench"], cwd=root)
+
+
 # ------------------------------------------------------------------ pipeline
 def cmd_pipeline(args) -> int:
     """The reference README's whole workflow as one command: preprocess ->
@@ -1086,6 +1096,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--classes", type=int, default=None)
     sp.add_argument("--bilinear", action="store_true")
     sp.set_defaults(fn=cmd_export)
+
+    sp = sub.add_parser("bench", help="run the performance benchmark")
+    sp.set_defaults(fn=cmd_bench)
 
     sp = sub.add_parser("pipeline",
                         help="preprocess -> train -> predict -> track -> evaluate-ctc in one "

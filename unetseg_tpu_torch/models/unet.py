@@ -19,8 +19,9 @@ is the kernel one.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -170,6 +171,25 @@ class UNet(nn.Module):
         x = trunk(self, to_nchw(x.to(compute_dtype(self.cfg))))
         logits = F.conv2d(x.float(), self.outc.weight, self.outc.bias)
         return to_nhwc(logits)
+
+
+def create_unet(cfg: Optional[ModelConfig] = None) -> UNet:
+    return UNet(cfg or ModelConfig())
+
+
+def param_count(variables: Union[nn.Module, Mapping[str, Any]]) -> int:
+    """Number of parameters of a module (its nn.Parameters; BatchNorm's
+    running statistics are buffers) or of a {'params', ...} tree of arrays
+    in the Flax layout, as unetseg_tpu/models/unet.py:param_count counts."""
+    if isinstance(variables, nn.Module):
+        return sum(p.numel() for p in variables.parameters())
+
+    def leaves(tree) -> int:
+        if isinstance(tree, Mapping):
+            return sum(leaves(v) for v in tree.values())
+        return int(np.size(tree))
+
+    return leaves(variables["params"])
 
 
 def add_blocks(net: nn.Module, make_block: Callable[[int, int], nn.Module]) -> None:

@@ -48,6 +48,12 @@ def weighted_cross_entropy(
     return weighted_ce_pixels(logits, targets, weights).mean()
 
 
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Unweighted mean CE, the reference's validation loss
+    (scripts/train.py:143; unetseg_tpu/ops/losses.py:64)."""
+    return per_pixel_ce(logits, targets).mean()
+
+
 def binary_probs_from_logits(logits: torch.Tensor) -> torch.Tensor:
     """Foreground probability map from NHWC logits.
 
