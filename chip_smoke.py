@@ -200,7 +200,20 @@ its own line, and any failure raises (non-zero exit):
    bench.py's keys, value > 0, train_step_ms > 0 (default), SEG null,
    `device` nvidia-smi's line, and the launches the bench printed on
    stderr exactly its forward's kernels a chunk and the nine train
-   kernels a step; both lines printed.
+   kernels a step; both lines printed;
+15. the flagship reproduction, `bash tools/reproduce_flagship_torch.sh`
+   in a subprocess (where Pillow imports) on a synthetic two-sequence CTC
+   root (ctc_sequence for 01 and 02, seq 01's weight maps through the
+   preprocess command here), with the best recipe cut to CTC_EPOCHS and
+   DATA, RUN, EVAL and LATEST in a temporary directory: exit code 0, three
+   members' checkpoints (their saved config's seed, finite params), each
+   process's launches (UNETSEG_LAUNCH_LOG) exactly its train steps' or
+   its ensemble's forward chunks', per sequence the flagship summary equal
+   to the evaluate-ctc command on its result directories, the LATEST
+   record's SEG equal to the summary's and its provenance naming the
+   card, and bench.seg_record reading those numbers back; prints each
+   step's wall seconds (the SEG/TRA/DET of this synthetic root check that
+   the parts agree, they are not quality).
 
 Every parity case prints the kernel's ms, its plain version's, the one
 PyTorch call that computes the same work where there is one (library;
@@ -226,6 +239,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -512,6 +526,12 @@ BENCH_RUNS = {
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "seg_seq01", "seg_seq02", "seg_source",
               "device")
 BENCH_TRAIN_KEYS = ("train_steps_per_sec", "train_step_ms", "train_step_config")
+# phase 15: the flagship script on two synthetic sequences of CTC_FRAMES
+# frames, its members trained CTC_EPOCHS epochs
+FLAGSHIP_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                               "reproduce_flagship_torch.sh")
+FLAGSHIP_MEMBERS = 3
+FLAGSHIP_TIMEOUT = 900
 # The fresh process of phase 13: loads the artifact with nothing of the
 # package but infer/export.py and the custom operators, runs each batch,
 # and reports its launches and whether the engine or training was imported
@@ -2237,25 +2257,37 @@ def measure_ms(ms):
                      for i, m in enumerate(("SEG", "TRA/DET")))
 
 
-def write_ctc_root(root, frames, labels, rows):
-    """The sequence as a CTC data root: 01/t*.tif, the labels as silver
-    truth 01_ST/SEG (every frame), gold 01_GT/SEG (every CTC_SEG_EVERY-th
-    frame) and 01_GT/TRA markers with man_track.txt."""
+def write_ctc_root(root, frames, labels, rows, seq="01"):
+    """The sequence as sequence `seq` of a CTC data root: <seq>/t*.tif, the
+    labels as silver truth <seq>_ST/SEG (every frame), gold <seq>_GT/SEG
+    (every CTC_SEG_EVERY-th frame) and <seq>_GT/TRA markers with
+    man_track.txt."""
     from PIL import Image
 
-    dirs = {k: os.path.join(root, *k.split("/")) for k in
-            ("01", "01_ST/SEG", "01_GT/SEG", "01_GT/TRA")}
+    dirs = {k: os.path.join(root, seq + k) for k in ("", "_ST/SEG", "_GT/SEG", "_GT/TRA")}
     for d in dirs.values():
         os.makedirs(d)
     for t, (f, lab) in enumerate(zip(frames, labels)):
         Image.fromarray(np.round(f * 255).astype(np.uint8)).save(
-            os.path.join(dirs["01"], f"t{t:03d}.tif"))
-        Image.fromarray(lab).save(os.path.join(dirs["01_ST/SEG"], f"man_seg{t:03d}.tif"))
-        Image.fromarray(lab).save(os.path.join(dirs["01_GT/TRA"], f"man_track{t:03d}.tif"))
+            os.path.join(dirs[""], f"t{t:03d}.tif"))
+        Image.fromarray(lab).save(os.path.join(dirs["_ST/SEG"], f"man_seg{t:03d}.tif"))
+        Image.fromarray(lab).save(os.path.join(dirs["_GT/TRA"], f"man_track{t:03d}.tif"))
         if t % CTC_SEG_EVERY == 0:
-            Image.fromarray(lab).save(os.path.join(dirs["01_GT/SEG"], f"man_seg{t:03d}.tif"))
-    with open(os.path.join(dirs["01_GT/TRA"], "man_track.txt"), "w") as fh:
+            Image.fromarray(lab).save(os.path.join(dirs["_GT/SEG"], f"man_seg{t:03d}.tif"))
+    with open(os.path.join(dirs["_GT/TRA"], "man_track.txt"), "w") as fh:
         fh.writelines(f"{a} {b} {e} {p}\n" for a, b, e, p in rows)
+
+
+def cut_recipe(path):
+    """configs/best_recipe.json cut to CTC_EPOCHS epochs at SEQ_MODEL's
+    width, written to `path`; returns its Config."""
+    with open(RECIPE_JSON) as fh:
+        recipe = json.load(fh)
+    recipe["train"]["num_epochs"] = CTC_EPOCHS
+    recipe["model"] = dataclasses.asdict(SEQ_MODEL)  # the recipe's: ModelConfig(), full width
+    with open(path, "w") as fh:
+        json.dump(recipe, fh)
+    return Config.from_json_file(path)
 
 
 def run_cli(argv):
@@ -2269,6 +2301,23 @@ def run_cli(argv):
     return rc, buf.getvalue()
 
 
+def summary_equals_evaluate_ctc(name, row, root, out, seq):
+    """A pipeline summary's row for `seq` against the evaluate-ctc command
+    run alone on <out>/<seq>_CTC; returns its {SEG, TRA, DET}."""
+    alone = {}
+    for measure, gt_dir in (("seg", "SEG"), ("tra", "TRA")):
+        rc, text = run_cli(["evaluate-ctc", measure, "--gt-dir",
+                            os.path.join(root, f"{seq}_GT", gt_dir), "--res-dir",
+                            os.path.join(out, f"{seq}_CTC")])
+        if rc != 0:
+            raise AssertionError(f"{name}: evaluate-ctc {measure} on {seq}: exit code {rc}")
+        alone.update(json.loads(text.strip().splitlines()[-1]))
+    scores = {k: row[k] for k in ("SEG", "TRA", "DET")}
+    if scores != {k: alone[k] for k in scores} or not all(0 <= v <= 1 for v in scores.values()):
+        raise AssertionError(f"{name}: {seq} summary {scores} against evaluate-ctc {alone}")
+    return scores
+
+
 def pipeline_run(gpu, frames, labels, rows):
     """Phase 11 (d): the pipeline command in this process on the sequence
     written as a CTC data root, with configs/best_recipe.json cut to
@@ -2278,14 +2327,8 @@ def pipeline_run(gpu, frames, labels, rows):
     work = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
     root, out = os.path.join(work, "data"), os.path.join(work, "out")
     write_ctc_root(root, frames, labels, rows)
-    with open(RECIPE_JSON) as fh:
-        recipe = json.load(fh)
-    recipe["train"]["num_epochs"] = CTC_EPOCHS
-    recipe["model"] = dataclasses.asdict(SEQ_MODEL)  # the recipe's: ModelConfig(), full width
     conf = os.path.join(work, "recipe.json")
-    with open(conf, "w") as fh:
-        json.dump(recipe, fh)
-    cfg = Config.from_json_file(conf)
+    cfg = cut_recipe(conf)
     stage_s = {}
 
     def timed(name, fn):
@@ -2336,16 +2379,7 @@ def pipeline_run(gpu, frames, labels, rows):
     if json.loads(text.strip().splitlines()[-1]) != {"pipeline": {"01": summary}}:
         raise AssertionError("pipeline: the printed summary differs from summary.json")
     ctc_dir = os.path.join(out, "01_CTC")
-    alone = {}
-    for measure, gt_dir in (("seg", "SEG"), ("tra", "TRA")):
-        rc, text = run_cli(["evaluate-ctc", measure, "--gt-dir",
-                            os.path.join(root, "01_GT", gt_dir), "--res-dir", ctc_dir])
-        if rc != 0:
-            raise AssertionError(f"evaluate-ctc {measure}: exit code {rc}")
-        alone.update(json.loads(text.strip().splitlines()[-1]))
-    scores = {k: summary[k] for k in ("SEG", "TRA", "DET")}
-    if scores != {k: alone[k] for k in scores} or not all(0 <= v <= 1 for v in scores.values()):
-        raise AssertionError(f"pipeline: summary {scores} against evaluate-ctc {alone}")
+    scores = summary_equals_evaluate_ctc("pipeline", summary, root, out, "01")
     rc, _ = run_cli(["track", "--instance-dir", os.path.join(out, "01_RES_INST"), "--output",
                      os.path.join(work, "alone.txt")])
     with open(os.path.join(work, "alone.txt"), "rb") as a, \
@@ -3017,6 +3051,148 @@ def bench_path(gpu):
     return total
 
 
+def script_steps(lines):
+    """[(step, wall seconds)] from the script's `[reproduce HH:MM:SS] text`
+    lines, each stamped on this clock as it arrived: a step lasts until the
+    next step's line (the last one until the script's exit, `end`)."""
+    marks = [(t, re.split(r" \(| from |; | -> |: ", ln.split("] ", 1)[1])[0])
+             for t, ln in lines if ln.startswith("[reproduce ")]
+    ends = [t for t, _ in marks[1:]] + [lines[-1][0]]
+    return [(text, end - t) for (t, text), end in zip(marks, ends)]
+
+
+def run_script(argv, env, timeout):
+    """argv in a new session, its output read line by line and stamped:
+    (exit code, [(seconds since start, line)]). The whole session is
+    killed at the timeout."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    timer = threading.Timer(timeout, lambda: os.killpg(proc.pid, 9))
+    timer.start()
+    lines = []
+    try:
+        for ln in proc.stdout:
+            lines.append((time.perf_counter() - t0, ln.rstrip("\n")))
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+    lines.append((time.perf_counter() - t0, ""))
+    return rc, lines
+
+
+def flagship_path(gpu, pil):
+    """Phase 15: tools/reproduce_flagship_torch.sh on a synthetic
+    two-sequence CTC root (see the module docstring). Returns the launches
+    of its processes."""
+    none = {k: 0 for k in SOURCES}
+    if not pil:
+        print("flagship: Pillow is not installed here; the script (TIFF reads and writes) was "
+              "not driven", flush=True)
+        return none
+    work = tempfile.mkdtemp(prefix="chip_smoke_flagship_")
+    ref = os.path.join(work, "ref")
+    for i, seq in enumerate(("01", "02")):
+        write_ctc_root(ref, *ctc_sequence(np.random.RandomState(SEED + 15 + i), CTC_FRAMES,
+                                          SIZE), seq=seq)
+    t0 = time.perf_counter()
+    rc, _ = run_cli(["preprocess", "--data-root", ref, "--sequence", "01"])
+    pre_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"flagship: preprocess of seq 01: exit code {rc}")
+    conf = os.path.join(work, "recipe.json")
+    cfg = cut_recipe(conf)
+    bin_dir = os.path.join(work, "bin")  # `python` in the script is this interpreter
+    os.makedirs(bin_dir)
+    with open(os.path.join(bin_dir, "python"), "w") as fh:
+        fh.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(os.path.join(bin_dir, "python"), 0o755)
+    paths = {k: os.path.join(work, v) for k, v in (
+        ("DATA", "data/DIC-C2DH-HeLa"), ("RUN", "run"), ("EVAL", "eval"),
+        ("LATEST", "docs/results_torch_latest.json"), ("UNETSEG_LAUNCH_LOG", "launches.jsonl"))}
+    env = {**os.environ, **paths, "REF": ref, "CONFIG": conf, "PYTHONUNBUFFERED": "1",
+           "PATH": bin_dir + os.pathsep + os.environ.get("PATH", "")}
+    rc, lines = run_script(["bash", FLAGSHIP_SCRIPT], env, FLAGSHIP_TIMEOUT)
+    wall = lines[-1][0]
+    with open(os.path.join(work, "script.log"), "w") as fh:
+        fh.writelines(ln + "\n" for _, ln in lines)
+    if rc != 0:
+        logs = ""
+        for name in ("train_f0.log", "train_f1.log", "train_f2.log", "flagship/log.txt"):
+            path = os.path.join(paths["EVAL"], name)
+            if os.path.exists(path):
+                with open(path) as fh:
+                    logs += f"\n--- {name}:\n" + fh.read()[-3000:]
+        raise AssertionError(f"flagship: the script's exit code {rc}:\n"
+                             + "\n".join(ln for _, ln in lines[-40:]) + logs)
+
+    # the members: checkpoints whose saved config has the member's seed
+    members = [os.path.join(paths["RUN"], f"f{m}") for m in range(FLAGSHIP_MEMBERS)]
+    for m, d in enumerate(members):
+        saved = ckpt.read_checkpoint_config(d)
+        params, _, _ = ckpt.restore_light(d)
+        if (not os.path.exists(os.path.join(d, ".done")) or saved["train"]["seed"] != m
+                or saved["train"]["num_epochs"] != CTC_EPOCHS
+                or not all(torch.isfinite(v).all() for v in params.values())):
+            raise AssertionError(f"flagship: member {d}: config {saved['train']}")
+
+    # each process's launches: its train steps', or its ensemble's chunks'
+    icfg = cfg.infer
+    n_train = len(train_val_split(2 * CTC_FRAMES, cfg.data.val_percent, cfg.train.seed)[0])
+    steps = CTC_EPOCHS * -(-n_train // cfg.train.batch_size)
+    forwards = (2 * FLAGSHIP_MEMBERS * len(TTA_TRANSFORMS[icfg.tta]) * frame_chunks(
+        CTC_FRAMES, icfg.tile_batch, plan_tiles(SIZE, SIZE, icfg.tile_input), icfg.tile_batch))
+    want = {"train": {k: steps * v for k, v in TRAIN_LAUNCHES.items()},
+            "pipeline": {k: forwards * v for k, v in DEFAULT_LAUNCHES.items()}}
+    with open(paths["UNETSEG_LAUNCH_LOG"]) as fh:
+        logged = [json.loads(ln) for ln in fh]
+    total = dict(none)
+    ran = {}
+    for rec in logged:
+        cmd = rec["argv"][1] if len(rec["argv"]) > 1 else "?"
+        ran.setdefault(cmd, []).append(rec["launches"])
+        if rec["launches"] != want.get(cmd, {}):
+            raise AssertionError(f"flagship: {cmd} launched {rec['launches']}, expected "
+                                 f"{want.get(cmd, {})}")
+        for k, v in rec["launches"].items():
+            total[k] += v
+    if len(ran.get("train", [])) != FLAGSHIP_MEMBERS or len(ran.get("pipeline", [])) != 1:
+        raise AssertionError(f"flagship: processes that launched kernels {ran}")
+
+    # the summaries against evaluate-ctc, the record, the bench's reader
+    out = os.path.join(paths["EVAL"], "flagship")
+    with open(os.path.join(out, "summary.json")) as fh:
+        summary = json.load(fh)
+    scores = {seq: summary_equals_evaluate_ctc("flagship", summary[seq], paths["DATA"], out, seq)
+              for seq in ("01", "02")}
+    with open(paths["LATEST"]) as fh:
+        latest = json.load(fh)
+    got = bench.seg_record(paths["LATEST"], recipe_path=conf)
+    if ((latest["seg_seq01"], latest["seg_seq02"]) != (scores["01"]["SEG"], scores["02"]["SEG"])
+            or latest["device"] != gpu or gpu not in latest["source"]
+            or latest["package"] != "unetseg_tpu_torch" or "'flagship'" not in latest["source"]
+            or (got["seg_seq01"], got["seg_seq02"]) != (latest["seg_seq01"], latest["seg_seq02"])
+            or got["seg_recipe_current"] is not True or got["seg_checkpoints_present"] is not True):
+        raise AssertionError(f"flagship: record {latest}, bench reads {got}, summary {scores}")
+    if os.path.exists(bench.RESULTS_PATH):
+        raise AssertionError(f"flagship: the smoke run wrote {bench.RESULTS_PATH}")
+    step_s = script_steps(lines)
+    print(f"flagship: tools/reproduce_flagship_torch.sh exit 0 in {wall:.2f} s on two synthetic "
+          f"sequences of {CTC_FRAMES} {SIZE}^2 frames (seq 01's weight maps {pre_s:.2f} s before "
+          f"it), the best recipe cut to {CTC_EPOCHS} epoch, base {cfg.model.base_features} "
+          f"{cfg.model.compute_dtype}, on {gpu}: seconds per step "
+          f"{ {k: round(v, 2) for k, v in step_s} }", flush=True)
+    print(f"flagship: {FLAGSHIP_MEMBERS} members of {steps} train steps each (launches "
+          f"{steps} x TRAIN_LAUNCHES a member), the ensemble eval {forwards} forward chunks x the "
+          f"serving kernels ({FLAGSHIP_MEMBERS} members x {len(TTA_TRANSFORMS[icfg.tta])} flips "
+          f"x 2 sequences); synthetic-root scores {scores} (they check that the parts agree, "
+          f"not quality) equal the evaluate-ctc command's; the record's SEG and card and "
+          f"bench.seg_record agree", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 def importable(name):
     try:
         importlib.import_module(name)
@@ -3067,6 +3243,7 @@ def main():
     dp = dp_path(gpu, pil, phase4_masks)
     exported = export_path(gpu, mpl, *export_inputs)
     benched = bench_path(gpu)
+    flagship = flagship_path(gpu, pil)
 
     # launches: each path's run (serving call, the four variant calls, the
     # tier-1 and tier-2 train steps, preprocess of PRE_FRAMES frames, the
@@ -3074,9 +3251,9 @@ def main():
     # core run and pipeline command, the data-parallel steps and tile-sharded
     # serving of both ranks, the exported artifact's calls and the
     # augmentation panel's deformation, the benchmark's checked segment
-    # calls and train step), counted from 0
+    # calls and train step, the flagship script's processes), counted from 0
     paths = (serving, variants, training, training2, preprocess, loop, sequence, scoring, dp,
-             exported, benched)
+             exported, benched, flagship)
     record = [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
          "launches": sum(p[k] for p in paths),

@@ -32,8 +32,11 @@ kernels. A wrong count, or a failed train timing, raises.
 
 Prints ONE JSON line on stdout with bench.py's keys and `device` (the
 card's name and power limit from nvidia-smi); everything else goes to
-stderr. SEG is null: the port has computed none. Without a CUDA device
-it prints one line on stderr and exits 1; there is no CPU fallback.
+stderr. SEG and its provenance come from the port's recorded evaluation,
+docs/results_torch_latest.json (tools/reproduce_flagship_torch.sh writes
+it), as bench.py takes the JAX package's from docs/results_latest.json;
+without that file SEG is null with SEG_SOURCE. Without a CUDA device it
+prints one line on stderr and exits 1; there is no CPU fallback.
 
 Environment, as bench.py reads it: BENCH_IMAGE_SIZE (512), BENCH_FRAMES
 (16), BENCH_TILE_CHUNK (16), BENCH_TILE_IN ("auto": the smallest tile
@@ -69,10 +72,12 @@ from unetseg_tpu_torch.train.loop import epoch_generator
 from unetseg_tpu_torch.train.state import create_train_state
 from unetseg_tpu_torch.train.steps import lanes_active, make_train_step
 from unetseg_tpu_torch.utils.flax_bridge import flax_to_state_dict
+from unetseg_tpu_torch.utils.provenance import recipe_hash
 
 REPO = Path(__file__).resolve().parents[1]
 RECIPE_PATH = REPO / "configs" / "best_recipe.json"
 BASELINE_PATH = REPO / "baselines" / "torch_cpu.json"
+RESULTS_PATH = REPO / "docs" / "results_torch_latest.json"
 DEFAULT_OPTIONS = dict(tier2=False, fused_enc0=False, dec_fuse="head", cblock=())
 # launches of one augmented train step through the kernel train forward at
 # tier 1 (the stem's input gradient is skipped: the input needs none)
@@ -80,8 +85,9 @@ TRAIN_LAUNCHES = {"conv3x3_bias_relu": 3, "tconv2x2_bias": 1, "dec_conv0": 1, "c
                   "conv3x3_wgrad": 3, "conv3x3_dec0_wgrad": 1, "sample_displaced": 1,
                   "weighted_ce_fwd": 1, "weighted_ce_bwd": 1}
 STEPS_PER_EPOCH = 38  # the recipe's 152 training frames / batch 4
-SEG_SOURCE = ("not measured: the port has computed no SEG (no dataset where it runs); "
-              "docs/results_latest.json holds the JAX package's")
+SEG_SOURCE = ("not measured: no docs/results_torch_latest.json (written by "
+              "tools/reproduce_flagship_torch.sh); docs/results_latest.json holds the JAX "
+              "package's")
 
 
 def log(msg: str) -> None:
@@ -251,6 +257,30 @@ def measure_train_step(lo: int, hi: int, device="cuda", model_cfg: Optional[Mode
     }
 
 
+def seg_record(path=RESULTS_PATH, recipe_path=RECIPE_PATH) -> Dict[str, Any]:
+    """bench.py's SEG keys from a results record written by
+    tools/collect_results_torch.py: the shipped row's SEG, its source and
+    eval date, whether its recipe hash is still that of `recipe_path` and
+    whether its checkpoint directories still exist (None where the record
+    does not say). Without the file, SEG null and SEG_SOURCE."""
+    if not os.path.exists(path):
+        return {"seg_seq01": None, "seg_seq02": None, "seg_source": SEG_SOURCE,
+                "seg_eval_date": None, "seg_recipe_current": None,
+                "seg_checkpoints_present": None}
+    with open(path) as f:
+        seg = json.load(f)
+    stored = seg.get("recipe_hash")
+    dirs = seg.get("checkpoint_dirs") or []
+    return {
+        "seg_seq01": seg.get("seg_seq01"),
+        "seg_seq02": seg.get("seg_seq02"),
+        "seg_source": seg.get("source"),
+        "seg_eval_date": seg.get("eval_date"),
+        "seg_recipe_current": stored == recipe_hash(str(recipe_path)) if stored else None,
+        "seg_checkpoints_present": all(os.path.isdir(d) for d in dirs) if dirs else None,
+    }
+
+
 def metric_text(size: int, frames: int, options: Mapping[str, Any]) -> str:
     text = (f"sustained overlap-tile segmentation, {size}x{size} frames, "
             f"full-width bf16 folded U-Net, batch {frames}")
@@ -265,10 +295,11 @@ def metric_text(size: int, frames: int, options: Mapping[str, Any]) -> str:
 
 def build_record(mpix: float, size: int, frames: int, options: Mapping[str, Any],
                  train: Mapping[str, Any], device: Optional[str],
-                 baseline_path=BASELINE_PATH) -> Dict[str, Any]:
+                 baseline_path=BASELINE_PATH, results_path=RESULTS_PATH) -> Dict[str, Any]:
     """The JSON line: bench.py's keys (value rounded to 2, vs_baseline to
     1 against the CPU baseline's MPix/s, 1.0 without the file), the train
-    step's keys when measured, SEG null, and `device`."""
+    step's keys when measured, SEG from seg_record(results_path), and
+    `device`."""
     vs = None
     if os.path.exists(baseline_path):
         with open(baseline_path) as f:
@@ -279,12 +310,7 @@ def build_record(mpix: float, size: int, frames: int, options: Mapping[str, Any]
         "unit": "MPix/s/chip",
         "vs_baseline": round(vs, 1) if vs is not None else 1.0,
         **train,
-        "seg_seq01": None,
-        "seg_seq02": None,
-        "seg_source": SEG_SOURCE,
-        "seg_eval_date": None,
-        "seg_recipe_current": None,
-        "seg_checkpoints_present": None,
+        **seg_record(results_path),
         "device": device,
     }
     return record

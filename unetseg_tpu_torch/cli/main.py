@@ -74,7 +74,7 @@ def _model_cfg(cfg: Config, args) -> ModelConfig:
 
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--config",
-                   help="JSON config file (Config.to_dict layout, e.g. configs/best_recipe.json)")
+                   help="JSON config file (Config.to_json layout, e.g. configs/best_recipe.json)")
     p.add_argument("--dtype", choices=["bfloat16", "float32"], default=None,
                    help="compute dtype (default bfloat16)")
     p.add_argument("--cpu", action="store_true",

@@ -1,8 +1,9 @@
 """Configuration for the PyTorch port: copies of the JAX package's
 `ModelConfig`, `DataConfig`, `TrainConfig`, `InferConfig`, `TrackConfig`,
-`EvalConfig`, `MeshConfig` and the `Config` tree with its JSON loaders
-(unetseg_tpu/core/config.py), so that its config files (e.g.
-configs/best_recipe.json) load here.
+`EvalConfig`, `MeshConfig` and the `Config` tree with its JSON writer and
+loaders (unetseg_tpu/core/config.py), so that its config files (e.g.
+configs/best_recipe.json) load here and a file either package writes
+loads in both.
 
 Copied rather than imported because importing anything under
 `unetseg_tpu` imports jax. tests/test_torch_port_bridge.py keeps the
@@ -226,8 +227,15 @@ class Config:
     # per-sequence InferConfig field overrides, e.g. {"02": {"boundary_grow": 1.5}}
     infer_per_sequence: dict = field(default_factory=dict)
 
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    def to_json(self, indent: int = 2) -> str:
+        """The JSON text that from_json_file reads back (either package's)."""
+        return json.dumps(self.to_dict(), indent=indent)
 
     @classmethod
     def from_dict(cls, d: dict) -> "Config":

@@ -14,7 +14,9 @@ process per host over a device mesh. This module supplies:
 - :func:`is_primary` - the rank-0 gate of filesystem writes (checkpoints,
   metrics JSONL), :func:`process_shard_indices` and :func:`barrier`;
 - :func:`host_put` - this rank's slice of a global host batch, placed on
-  its device (the counterpart of `host_put` on a batch sharding);
+  its device (the counterpart of `host_put` on a batch sharding), and
+  :func:`host_put_tree`, a whole tree on this rank's device (the
+  counterpart on a replicated sharding);
 - the sums the data-parallel step and tile-sharded serving need, each a
   SUM all-reduce, which both backends take on CUDA and CPU tensors (gloo
   all-reduces CUDA tensors but does not all-gather them, so a gather is
@@ -30,7 +32,7 @@ import datetime
 import hashlib
 import os
 import socket
-from typing import List, Mapping, Optional, Sequence
+from typing import Any, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -143,6 +145,19 @@ def host_put(array: np.ndarray, device, shard: int = 0, num_shards: int = 1) -> 
         raise ValueError(f"{n} rows do not split evenly over {num_shards} shards")
     k = n // num_shards
     return torch.from_numpy(np.ascontiguousarray(array[shard * k : (shard + 1) * k])).to(device)
+
+
+def host_put_tree(tree: Any, device) -> Any:
+    """Every leaf of a nested dict, list or tuple (numpy arrays, scalars or
+    tensors) whole on `device`: each rank holds its own replica, as of a
+    train state built from the same seed on every rank."""
+    if isinstance(tree, dict):
+        return {k: host_put_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_put_tree(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return torch.as_tensor(np.asarray(tree)).to(device)
 
 
 def free_port() -> int:

@@ -84,6 +84,36 @@ def reflect_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(idx >= n, 2 * n - 1 - idx, idx)
 
 
+def sample_2d(img: torch.Tensor, yy: torch.Tensor, xx: torch.Tensor, order: int,
+              mode: str = "reflect") -> torch.Tensor:
+    """map_coordinates of a (H, W) tensor at (yy, xx) with scipy's
+    'reflect' boundary, as jax.scipy.ndimage.map_coordinates computes it:
+    order 0 takes the nearest pixel (half away from zero) in img's dtype,
+    order 1 the bilinear f32 value. Plain PyTorch on any device; the
+    train step samples through the sample_displaced kernel instead."""
+    if mode != "reflect":
+        raise NotImplementedError(f"sample_2d: mode {mode!r}; only 'reflect' is ported")
+    h, w = img.shape
+    if order == 0:
+        near = [(c.sign() * (c.abs() + 0.5).floor()).long() for c in (yy, xx)]
+        return img[reflect_index(near[0], h), reflect_index(near[1], w)]
+    if order != 1:
+        raise NotImplementedError(f"sample_2d: order {order}; orders 0 and 1 are ported")
+    img = img.float()
+    taps = []
+    for c, n in ((yy, h), (xx, w)):
+        lo = c.floor()
+        up = c - lo
+        i = lo.long()
+        taps.append(((reflect_index(i, n), 1 - up), (reflect_index(i + 1, n), up)))
+    out = None
+    for iy, wy in taps[0]:
+        for ix, wx in taps[1]:
+            term = wy * wx * img[iy, ix]
+            out = term if out is None else out + term
+    return out
+
+
 def displacement_pad(alpha: float, sigma: float) -> int:
     """Bound on |displacement| (8 standard deviations of alpha times the
     blurred U[-1, 1] field); coordinates are clamped to it."""

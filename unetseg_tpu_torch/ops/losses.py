@@ -5,6 +5,8 @@ weighted cross-entropy the train step averages, and the inference head."""
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 
@@ -52,6 +54,20 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Unweighted mean CE, the reference's validation loss
     (scripts/train.py:143; unetseg_tpu/ops/losses.py:64)."""
     return per_pixel_ce(logits, targets).mean()
+
+
+def cropped_weighted_ce(
+    logits: torch.Tensor, full_targets: torch.Tensor, full_weights: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Center-crop (N, Hf, Wf) targets and weights to the NHWC logits'
+    window: (loss, cropped targets, cropped weights); the unweighted CE
+    and None without weights."""
+    th, tw = logits.shape[1], logits.shape[2]
+    t = center_crop_nhw(full_targets, th, tw)
+    if full_weights is None:
+        return cross_entropy(logits, t), t, None
+    w = center_crop_nhw(full_weights, th, tw)
+    return weighted_cross_entropy(logits, t, w), t, w
 
 
 def binary_probs_from_logits(logits: torch.Tensor) -> torch.Tensor:

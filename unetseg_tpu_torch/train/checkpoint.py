@@ -16,7 +16,9 @@ JSON exists. Saves write at once, on the caller's thread: a background
 writer gained nothing for the host-bound loop, whose steps need the GIL
 that serialisation holds. Tensors are keyed by the state-dict names of
 models/unet.UNet; restore_params_for_inference returns the Flax-layout
-tree that infer/engine.Predictor takes.
+tree that infer/engine.Predictor takes; restore_light the light stream's
+TrainState-keyed params (f32) and statistics, read_checkpoint_config the
+Config dict the loop saves beside each epoch.
 """
 
 from __future__ import annotations
@@ -70,6 +72,12 @@ def device_light_payload(state: TrainState) -> Dict[str, Any]:
     if ema is not None:
         out["ema"] = ema
     return out
+
+
+def light_payload(state: TrainState) -> Dict[str, Any]:
+    """device_light_payload copied to the host: a payload that no later
+    step can change, for save_light_payload."""
+    return _to_host(device_light_payload(state))
 
 
 def device_full_payload(state: TrainState) -> Dict[str, Any]:
@@ -148,6 +156,15 @@ class Checkpointer:
         """Nothing is pending; kept for the JAX Checkpointer's interface."""
 
 
+def save_checkpoint(directory: str, state: TrainState, epoch: int, val_loss: float,
+                    keep: int = 3, extra: Optional[Dict[str, Any]] = None) -> None:
+    """One save of both streams (tests and scripts)."""
+    ck = Checkpointer(directory, keep)
+    ck.save_light_payload(device_light_payload(state), epoch, val_loss, extra)
+    ck.save_full(state, epoch, val_loss, extra)
+    ck.close()
+
+
 def latest_epoch(directory: str) -> Optional[int]:
     """The latest resumable epoch (the full stream), or None."""
     eps = _entries(os.path.join(directory, FULL_SUBDIR))
@@ -158,6 +175,19 @@ def best_epoch(directory: str) -> Optional[int]:
     """The light stream's epoch with the lowest val_loss, or None."""
     eps = _entries(directory)
     return min(eps, key=lambda e: (eps[e], e)) if eps else None
+
+
+def light_latest_epoch(directory: str) -> Optional[int]:
+    """The light stream's latest epoch, or None."""
+    return max(_entries(directory), default=None)
+
+
+def _light_epoch(directory: str, epoch: Optional[int]) -> int:
+    """`epoch`, else the light stream's latest; raises when there is none."""
+    epoch = light_latest_epoch(directory) if epoch is None else epoch
+    if epoch is None:
+        raise FileNotFoundError(f"no checkpoints under {directory}")
+    return epoch
 
 
 def _load(directory: str, epoch: int) -> Tuple[Dict[str, Any], Dict[str, Any]]:
@@ -196,6 +226,44 @@ def restore_checkpoint(
         state = dataclasses.replace(state, ema_params=ema["params"],
                                     ema_batch_stats=ema["batch_stats"])
     return state, int(e), meta["extra"]
+
+
+def restore_light(
+    directory: str, params_template: Optional[Tensors] = None,
+    batch_stats_template: Optional[Tensors] = None, epoch: Optional[int] = None,
+    ema: bool = False,
+) -> Tuple[Tensors, Tensors, Dict[str, Any]]:
+    """(params in f32, batch_stats, extra) of the light stream's given or
+    latest epoch, keyed as TrainState keys them; `ema` takes the EMA
+    shadows, and a checkpoint without them raises. Given templates, the
+    saved keys must be theirs and the tensors go to their device; else
+    they stay on the CPU."""
+    epoch = _light_epoch(directory, epoch)
+    payload, meta = _load(directory, epoch)
+    if ema:
+        if "ema" not in payload:
+            raise FileNotFoundError(
+                f"checkpoint {directory} (epoch {epoch}) has no EMA shadow: was it trained "
+                f"with TrainConfig.ema_decay > 0?")
+        payload = payload["ema"]
+    out = []
+    for name, template in (("params", params_template), ("batch_stats", batch_stats_template)):
+        tree = payload[name]
+        if template is not None:
+            if set(tree) != set(template):
+                raise KeyError(f"checkpoint {directory} (epoch {epoch}): {name} keys "
+                               f"{sorted(set(tree) ^ set(template))} differ from the template's")
+            tree = _to(tree, next(iter(template.values())).device)
+        out.append(tree)
+    return {k: v.float() for k, v in out[0].items()}, out[1], meta["extra"]
+
+
+def read_checkpoint_config(directory: str, epoch: Optional[int] = None) -> Dict[str, Any]:
+    """The Config dict saved beside the light stream's given or latest
+    epoch ({} if none was)."""
+    epoch = _light_epoch(directory, epoch)
+    with open(os.path.join(directory, f"{epoch}.json")) as f:
+        return json.load(f)["extra"].get("config", {})
 
 
 def restore_params_for_inference(
