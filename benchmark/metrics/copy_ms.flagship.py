@@ -1,0 +1,6 @@
+"""copy_ms.flagship: copy_ms.serve's reading, in the cell that reports
+flagship_mpix_s."""
+
+import harness
+
+read = harness.metric_reader("copy_ms.serve")

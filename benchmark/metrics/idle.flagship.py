@@ -1,0 +1,6 @@
+"""idle.flagship: idle.serve's reading, in the cell that reports
+flagship_mpix_s."""
+
+import harness
+
+read = harness.metric_reader("idle.serve")
