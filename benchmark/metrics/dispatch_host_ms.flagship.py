@@ -1,0 +1,6 @@
+"""dispatch_host_ms.flagship: dispatch_host_ms.serve's reading, in the cell that
+reports flagship_mpix_s."""
+
+import harness
+
+read = harness.metric_reader("dispatch_host_ms.serve")

@@ -346,14 +346,46 @@ def test_cli_train_writes_metrics_and_both_streams(tmp_path, capsys):
     assert ckpt.latest_epoch(str(ck)) == 0 and ckpt.best_epoch(str(ck)) == 0
 
 
-def test_profile_dir_writes_a_trace(tmp_path):
-    """profile_dir takes the host-fed loop and writes a torch.profiler
-    trace from its second step on, where the JAX loop writes a jax one."""
+def _profiled_run(tmp_path, **train_kw):
+    """A profiled train() on 5 frames; -> (the logged events, each
+    train.step region of the one trace written with the regions nested in
+    it)."""
     imgs, masks, weights = _frames(5, 10)
+    log = tmp_path / "metrics.jsonl"
+    max_steps = train_kw.pop("max_steps", None)
     cfg = Config(model=ModelConfig(**TINY), data=DataConfig(augment=False), train=TrainConfig(
-        batch_size=2, num_epochs=1, save_checkpoint=False, profile_dir=str(tmp_path / "prof"),
-        profile_steps=1))
-    train(cfg, data=dataset.HeLaArrays(imgs, masks, weights, []), device="cpu")
+        batch_size=2, save_checkpoint=False, profile_dir=str(tmp_path / "prof"),
+        metrics_jsonl=str(log), **train_kw))
+    train(cfg, data=dataset.HeLaArrays(imgs, masks, weights, []), device="cpu",
+          max_steps=max_steps)
     traces = os.listdir(tmp_path / "prof")
     assert len(traces) == 1 and traces[0].endswith(".json")
-    assert json.loads((tmp_path / "prof" / traces[0]).read_text())["traceEvents"]
+    events = json.loads((tmp_path / "prof" / traces[0]).read_text())["traceEvents"]
+    regions = [e for e in events if e.get("cat") == "user_annotation"]
+    steps = []
+    for st in (e for e in regions if e["name"] == "train.step"):
+        end = st["ts"] + st["dur"] + 1e-3
+        steps.append(sorted(e["name"] for e in regions if e is not st and
+                            st["ts"] <= e["ts"] and e["ts"] + e["dur"] <= end))
+    return [json.loads(x)["event"] for x in log.read_text().splitlines()], steps
+
+
+PHASES = sorted(["train.augment", "train.forward", "train.backward", "train.update"])
+
+
+def test_profile_dir_writes_a_trace(tmp_path):
+    """profile_dir keeps the epoch feed and writes, through
+    utils/profiling.trace, a chrome trace of the second epoch's train
+    part (where the JAX loop writes a jax one) in which every step is a
+    train.step region holding the four phases."""
+    events, steps = _profiled_run(tmp_path, num_epochs=2)
+    assert "device_data" in events and events.count("profile_written") == 1
+    assert len(steps) == 3 and all(s == PHASES for s in steps)  # 5 frames, batches of 2
+
+
+def test_profile_dir_on_the_host_feed(tmp_path):
+    """On the host feed (max_steps), profile_dir traces profile_steps
+    steps from the second."""
+    events, steps = _profiled_run(tmp_path, num_epochs=2, max_steps=3, profile_steps=1)
+    assert "device_data" not in events and events.count("profile_written") == 1
+    assert steps == [PHASES]

@@ -79,6 +79,7 @@ from unetseg_tpu_torch.post.cc_device import compact_labels, label_components_de
 from unetseg_tpu_torch.post.temporal import refine_backward, temporal_instance_masks
 from unetseg_tpu_torch.post.watershed import expand_markers, get_instance_masks_watershed
 from unetseg_tpu_torch.utils.flax_bridge import flax_to_state_dict
+from unetseg_tpu_torch.utils.profiling import annotate
 
 MERGES = ("gmean", "max", "mean", "vote")
 ENSEMBLE_MERGES = ("gmean", "mean", "vote")
@@ -246,16 +247,24 @@ class Predictor:
     ) -> np.ndarray:
         """Binary uint8 masks (F, H, W) for a batch of (F, H, W) frames:
         pad -> tile -> forward -> stitch -> threshold on the device, all
-        frames' tiles pooled into shared forward chunks of `tile_batch`."""
-        f, h, w = images.shape
-        t_in = tile_input or self.cfg.tile_input
-        t_batch = tile_batch or self.cfg.tile_batch
-        fn = make_tiled_mask_batch_fn(
-            self._probs, plan_tiles(h, w, t_in), n_frames=f,
-            threshold=self.cfg.threshold, tile_batch=t_batch,
-            tta=self.cfg.tta, tta_merge=self.cfg.tta_merge, mesh=self.mesh,
-        )
-        return fn(self._to_device(images)).cpu().numpy()
+        frames' tiles pooled into shared forward chunks of `tile_batch`.
+        Spans (utils/profiling): serve.call over serve.copy_in, the copy
+        to the device; serve.dispatch, planning and enqueueing the work;
+        serve.copy_out, the wait for the device and the copy back."""
+        with annotate("serve.call"):
+            with annotate("serve.copy_in"):
+                x = self._to_device(images)
+            with annotate("serve.dispatch"):
+                f, h, w = images.shape
+                fn = make_tiled_mask_batch_fn(
+                    self._probs, plan_tiles(h, w, tile_input or self.cfg.tile_input),
+                    n_frames=f, threshold=self.cfg.threshold,
+                    tile_batch=tile_batch or self.cfg.tile_batch,
+                    tta=self.cfg.tta, tta_merge=self.cfg.tta_merge, mesh=self.mesh,
+                )
+                masks = fn(x)
+            with annotate("serve.copy_out"):
+                return masks.cpu().numpy()
 
     # ------------------------------------------------------------ sequence
     def _chunk_masks(self, images: np.ndarray, tiled: bool, device_cc: bool):

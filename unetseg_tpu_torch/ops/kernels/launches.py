@@ -4,10 +4,11 @@ Each wrapper of a hand-written kernel is registered with `counted`, which
 gives it a `launches` attribute; the wrapper adds one where it launches
 its kernel and nowhere else (never on the plain CPU route). A run that
 must show which kernels it went through resets the counts, runs, and
-reads them back. A run in other processes (a command line, a script of
-commands) sets UNETSEG_LAUNCH_LOG to a file: each process that imported
-the wrappers then appends one JSON line at exit, {"argv", "pid",
-"launches"} with its nonzero counts.
+reads them back; the reset clears the program's span totals too. A run
+in other processes (a command line, a script of commands) sets
+UNETSEG_LAUNCH_LOG to a file: each process that imported the wrappers
+then appends one JSON line at exit, {"argv", "pid", "launches"} with its
+nonzero counts.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import json
 import os
 import sys
 from typing import Callable, Dict, List
+
+from unetseg_tpu_torch.utils.profiling import reset_span_totals
 
 KERNELS: List[Callable] = []
 LOG_ENV = "UNETSEG_LAUNCH_LOG"
@@ -29,8 +32,12 @@ def counted(fn: Callable) -> Callable:
 
 
 def reset_launch_counts() -> None:
+    """Zero every launch count and clear the program's span totals
+    (utils/profiling.reset_span_totals): one call resets every counter in
+    the program, so what is read after it covers the run that follows."""
     for k in KERNELS:
         k.launches = 0
+    reset_span_totals()
 
 
 def launch_counts() -> Dict[str, int]:

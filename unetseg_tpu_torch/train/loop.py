@@ -7,14 +7,18 @@ checkpoint on each new best validation loss (held back by the
 checkpoint every `full_save_interval` epochs and at the end, resume from
 the latest full checkpoint, and JSONL metrics.
 
-Feeds. With `device_data` (and no `max_steps`, no `profile_dir`) the
-dataset is put on the device once and each epoch runs
-train/steps.make_epoch_train_step over that epoch's (S, B) index matrix;
-otherwise batches are fed from the host one step at a time. Both feeds
-take the same batches and draw the same random numbers: each epoch's
-torch.Generator on the device is seeded from (seed, epoch) alone, so a run
-resumed at an epoch boundary continues exactly as an uninterrupted run.
-Losses stay on the device until one fetch per epoch.
+Feeds. With `device_data` (and no `max_steps`) the dataset is put on the
+device once and each epoch runs train/steps.make_epoch_train_step over that
+epoch's (S, B) index matrix; otherwise batches are fed from the host one
+step at a time. Both feeds take the same batches and draw the same random
+numbers: each epoch's torch.Generator on the device is seeded from (seed,
+epoch) alone, so a run resumed at an epoch boundary continues exactly as an
+uninterrupted run. Losses stay on the device until one fetch per epoch.
+
+Profiling. `profile_dir` writes a chrome trace through
+utils/profiling.trace, with the steps' train.* spans as regions: of the
+train part of the run's second epoch (its only one in a one-epoch run) on
+the epoch feed, of `profile_steps` steps from the second on the host feed.
 
 Data parallelism (`mesh`, core/mesh.MeshSpec): every rank runs this loop
 on its own device with the same seed, so state, schedule and draws are
@@ -26,8 +30,7 @@ no rank reads a checkpoint before it exists.
 
 from __future__ import annotations
 
-import os
-import time
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Union
 
@@ -55,6 +58,7 @@ from unetseg_tpu_torch.train.steps import (
     make_eval_step,
     make_train_step,
 )
+from unetseg_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -124,7 +128,7 @@ def train(
     eval_kw = dict(three_class=three_class, standardize=d_cfg.standardize, mesh=mesh)
     train_step = make_train_step(m_cfg, mesh=mesh, **step_kw)
     eval_step = make_eval_step(m_cfg, **eval_kw)
-    use_epoch_feed = t_cfg.device_data and t_cfg.profile_dir is None and max_steps is None
+    use_epoch_feed = t_cfg.device_data and max_steps is None
     if use_epoch_feed:
         epoch_step = make_epoch_train_step(m_cfg, inner_step=train_step, mesh=mesh)
         epoch_eval = make_epoch_eval_step(m_cfg, **eval_kw)
@@ -150,7 +154,8 @@ def train(
                     if t_cfg.save_checkpoint else None)
     last_saved_epoch = last_full_epoch = -(10**9)
     pending_best = None  # (payload, epoch, val_loss) awaiting the cooldown
-    prof = None
+    profiled_epoch = min(start_epoch + 1, t_cfg.num_epochs - 1) if t_cfg.profile_dir else None
+    prof: Optional[contextlib.ExitStack] = None  # the host feed's open trace
 
     for epoch in range(start_epoch, t_cfg.num_epochs):
         # ---------------------------------------------------------- train
@@ -159,8 +164,11 @@ def train(
         if use_epoch_feed:
             mat, vmat = (torch.from_numpy(a).to(dev) for a in epoch_index_matrix(
                 train_idx, t_cfg.batch_size, shuffle=True, seed=t_cfg.seed * 100003 + epoch))
-            state, ms = epoch_step(state, *on_dev, mat, vmat, gen)
-            losses = ms["loss"].cpu().numpy()  # the epoch's one sync point
+            with profiling.trace(t_cfg.profile_dir if epoch == profiled_epoch else None):
+                state, ms = epoch_step(state, *on_dev, mat, vmat, gen)
+                losses = ms["loss"].cpu().numpy()  # the epoch's one sync point
+            if epoch == profiled_epoch:
+                logger.log({"event": "profile_written", "dir": t_cfg.profile_dir})
             n_steps = len(losses)
             global_step += n_steps
             timer.tick(n_steps)
@@ -171,16 +179,15 @@ def train(
             for batch in iter_batches(data, train_idx, t_cfg.batch_size, shuffle=True,
                                       seed=t_cfg.seed * 100003 + epoch):
                 if t_cfg.profile_dir and global_step == 1 and prof is None:
-                    prof = torch.profiler.profile(activities=_activities(dev))
-                    prof.start()
+                    prof = contextlib.ExitStack()
+                    prof.enter_context(profiling.trace(t_cfg.profile_dir))
                 state, metrics = train_step(state, *to_dev(batch), gen)
                 pending.append(metrics["loss"])
                 n_steps += 1
                 global_step += 1
                 timer.tick()
                 if prof is not None and global_step == 1 + t_cfg.profile_steps:
-                    prof.stop()
-                    prof.export_chrome_trace(_trace_path(t_cfg.profile_dir))
+                    prof.close()
                     logger.log({"event": "profile_written", "dir": t_cfg.profile_dir})
                 if global_step % t_cfg.log_every == 0:
                     logger.log({"event": "train_step", "epoch": epoch, "step": global_step,
@@ -237,25 +244,9 @@ def train(
         if done:
             break
 
-    if prof is not None and global_step < 1 + t_cfg.profile_steps:
-        prof.stop()
-        prof.export_chrome_trace(_trace_path(t_cfg.profile_dir))
+    if prof is not None:
+        prof.close()  # a run that ended before profile_steps: a no-op after the close above
     if checkpointer is not None:
         checkpointer.close()
     return TrainResult(state=state, best_val_loss=best_val, best_epoch=best_epoch,
                        history=history)
-
-
-def _activities(dev: torch.device):
-    from torch.profiler import ProfilerActivity
-
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    return acts
-
-
-def _trace_path(profile_dir: str) -> str:
-    os.makedirs(profile_dir, exist_ok=True)
-    return os.path.join(profile_dir, f"trace_{int(time.time())}.json")
-

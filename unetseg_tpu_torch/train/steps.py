@@ -4,7 +4,9 @@
 One step: elastic augmentation -> photometric (gamma / illumination) ->
 per-item standardization -> additive noise -> targets -> U-Net forward ->
 center-cropped weighted softmax CE in fp32, averaged over the valid items'
-pixels -> backward -> optimizer update (+ EMA).
+pixels -> backward -> optimizer update (+ EMA). Spans (utils/profiling):
+train.step over train.augment, train.forward (with the loss),
+train.backward (with the all-reduce) and train.update.
 
 Randomness comes from a torch.Generator, drawn per stage in that order
 (AugmentDraws), where the JAX step folds distinct constants into one key;
@@ -63,6 +65,7 @@ from unetseg_tpu_torch.ops.intensity import (
 )
 from unetseg_tpu_torch.ops.losses import center_crop_nhw, per_pixel_ce, weighted_ce_pixels
 from unetseg_tpu_torch.train.state import TrainState
+from unetseg_tpu_torch.utils.profiling import annotate
 
 Forward = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
@@ -220,17 +223,20 @@ def loss_and_grads(
     normalised by the group's valid-pixel count, and the loss and the
     gradients come back summed over the group: the whole batch's."""
     cfg = model_cfg or state.model_cfg
-    params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-    n_valid = None if group is None else all_reduce_sum(valid.float().sum(), group)
-    with torch.enable_grad():
+    with annotate("train.forward"), torch.enable_grad():
+        params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+        n_valid = None if group is None else all_reduce_sum(valid.float().sum(), group)
         logits, new_bs = forward(params, state.batch_stats, images[..., None], cfg, bn_mask)
         loss = _masked_mean_loss(logits, targets, weights, valid, n_valid)
+    with annotate("train.backward"):
         keys = list(params)
-        gs = torch.autograd.grad(loss, [params[k] for k in keys], allow_unused=True)
-    grads = {k: (g if g is not None else torch.zeros_like(params[k])) for k, g in zip(keys, gs)}
-    # one SUM all-reduce of every gradient: the loss is globally normalised,
-    # so the sum is the whole batch's gradient (an average would divide it)
-    return all_reduce_sum(loss.detach(), group), new_bs, all_reduce_tree(grads, group)
+        with torch.enable_grad():
+            gs = torch.autograd.grad(loss, [params[k] for k in keys], allow_unused=True)
+        grads = {k: (g if g is not None else torch.zeros_like(params[k]))
+                 for k, g in zip(keys, gs)}
+        # one SUM all-reduce of every gradient: the loss is globally normalised,
+        # so the sum is the whole batch's gradient (an average would divide it)
+        return all_reduce_sum(loss.detach(), group), new_bs, all_reduce_tree(grads, group)
 
 
 def optax_global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -277,26 +283,30 @@ def make_train_step(
     group = data_group(mesh)
 
     def step(state: TrainState, images, masks, weights, valid, generator=None, *, draws=None):
-        cfg = model_cfg or state.model_cfg
-        n = images.shape[0] * (1 if mesh is None else mesh.num_data)
-        if draws is None:
-            draws = draw_augment(generator, images, augment, aug_gamma, aug_illum, aug_noise,
-                                 batch=n)
-        if mesh is not None:
-            draws = draws.rows(mesh.batch_rows(n))
-        images, targets, weights = augmenter(images, masks, weights, draws)
-        use_kernels = lanes_active(lanes, cfg, images.shape[1], images.device)
-        if tier2 and not (use_kernels and supports_tier2(cfg, images.shape[1], images.device)):
-            raise ValueError(
-                f"tier2 needs the kernel train forward, which lanes={lanes!r} does not take "
-                f"on {images.device} at input_size={images.shape[1]}")
-        forward = (functools.partial(train_forward, tier2=tier2, group=group) if use_kernels
-                   else functools.partial(unet_train_forward, group=group))
-        bn_mask = None if assume_valid else valid
-        loss, new_bs, grads = loss_and_grads(
-            forward, state, images, targets, weights, valid, bn_mask, cfg, group)
-        state = state.apply_gradients(grads, new_bs)
-        return state, {"loss": loss, "grad_norm": optax_global_norm(grads)}
+        with annotate("train.step"):
+            cfg = model_cfg or state.model_cfg
+            with annotate("train.augment"):
+                n = images.shape[0] * (1 if mesh is None else mesh.num_data)
+                if draws is None:
+                    draws = draw_augment(generator, images, augment, aug_gamma, aug_illum,
+                                         aug_noise, batch=n)
+                if mesh is not None:
+                    draws = draws.rows(mesh.batch_rows(n))
+                images, targets, weights = augmenter(images, masks, weights, draws)
+            use_kernels = lanes_active(lanes, cfg, images.shape[1], images.device)
+            if tier2 and not (use_kernels and supports_tier2(cfg, images.shape[1],
+                                                             images.device)):
+                raise ValueError(
+                    f"tier2 needs the kernel train forward, which lanes={lanes!r} does not "
+                    f"take on {images.device} at input_size={images.shape[1]}")
+            forward = (functools.partial(train_forward, tier2=tier2, group=group)
+                       if use_kernels else functools.partial(unet_train_forward, group=group))
+            bn_mask = None if assume_valid else valid
+            loss, new_bs, grads = loss_and_grads(
+                forward, state, images, targets, weights, valid, bn_mask, cfg, group)
+            with annotate("train.update"):
+                state = state.apply_gradients(grads, new_bs)
+                return state, {"loss": loss, "grad_norm": optax_global_norm(grads)}
 
     return step
 
