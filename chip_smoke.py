@@ -7,7 +7,7 @@ its own line, and any failure raises (non-zero exit):
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit, and
    whether Pillow and matplotlib import;
-2. build the kernels of the nineteen wrappers from the twelve CUDA sources
+2. build the kernels of the twenty-one wrappers from the thirteen CUDA sources
    of unetseg_tpu_torch/csrc (one nvcc per source, in parallel) and print
    ptxas's register and spill lines and any wgmma serialization warning;
 3. serving-kernel parity at the serving path's full-width shapes (700^2
@@ -95,6 +95,12 @@ its own line, and any failure raises (non-zero exit):
    summed device time, the wgmma forward's and the dgrad's parts of it,
    and the step's device time with the mma.sync forward or the mma.sync
    dgrad in their place (phase 5's device times at the step's cases);
+6b. the train step's update (update_path): fused_update and fused_ema at
+   the full parameter tree with the recipe's Adam and EMA from epoch 40,
+   bit for bit against the plain `_foreach` update on the card, grad_norm
+   within 1e-6, no host sync; the passes' device times beside the plain
+   update's and the bytes bound, the host's time to issue an update, and
+   the launches and strided gradients of a recipe step;
 7. kernel parity of the weighted CE (forward and backward at batch 4,
    324^2 logits, C = 2 and 3, targets and weights read at the 512 -> 324
    crop) and the min-plus product ((32, 512, 512) with either operand
@@ -358,6 +364,11 @@ SOURCES = {
                             "unetseg_tpu/ops/pallas/conv3x3_train.py:370"),
     "conv3x3_dec0_dense_wgrad": ("unetseg_tpu_torch/csrc/conv3x3_wgrad.cu",
                                  "unetseg_tpu/ops/pallas/conv3x3_train.py:852"),
+    # the train step's update: no TPU kernel (optax under jit)
+    "fused_update": ("unetseg_tpu_torch/csrc/fused_update.cu",
+                     "none: optax under jit, unetseg_tpu/train/state.py"),
+    "fused_ema": ("unetseg_tpu_torch/csrc/fused_update.cu",
+                  "none: optax under jit, unetseg_tpu/train/state.py"),
 }
 # launches per forward chunk of the default serving path and of each
 # variant (phase 4b); the middle has 11 convs with CO % 128 == 0, 8 of
@@ -378,15 +389,19 @@ VARIANT_ROUNDS = 2  # timed runs of each variant and the default, alternating
 # needs no gradient), and with tier2=True: enc1 conv0 / conv1 and dec2
 # conv1 through the dense conv, dec2 conv0 through the dense entry, four
 # dense dgrads (dec2 conv0's into its concat), three dense wgrads and the
-# dense two-source wgrad; the tier-1 wrappers keep their counts
+# dense two-source wgrad; the tier-1 wrappers keep their counts. Every step
+# of the recipe (EMA on) ends in the update: one fused_update, and one
+# fused_ema for the parameters' shadow and one for the statistics'
+UPDATE_LAUNCHES = {"fused_update": 1, "fused_ema": 2}
 TRAIN_LAUNCHES = {"conv3x3_bias_relu": 3, "tconv2x2_bias": 1, "dec_conv0": 1, "conv3x3_dgrad": 3,
                   "conv3x3_wgrad": 3, "conv3x3_dec0_wgrad": 1, "sample_displaced": 1,
-                  "weighted_ce_fwd": 1, "weighted_ce_bwd": 1}
+                  "weighted_ce_fwd": 1, "weighted_ce_bwd": 1, **UPDATE_LAUNCHES}
 TIER2_LAUNCHES = {**TRAIN_LAUNCHES, "conv3x3_dense": 3, "dec_conv0_dense": 1,
                   "conv3x3_dense_dgrad": 4, "conv3x3_dense_wgrad": 3,
                   "conv3x3_dec0_dense_wgrad": 1}
-# the plain forward's step: the elastic sampler and the weighted CE
-PLAIN_LAUNCHES = {"sample_displaced": 1, "weighted_ce_fwd": 1, "weighted_ce_bwd": 1}
+# the plain forward's step: the elastic sampler, the weighted CE, the update
+PLAIN_LAUNCHES = {"sample_displaced": 1, "weighted_ce_fwd": 1, "weighted_ce_bwd": 1,
+                  **UPDATE_LAUNCHES}
 TRAINING = tuple(TRAIN_LAUNCHES)
 PREPROCESS = ("minplus",)
 # H100 SXM peaks (data sheet; dense, at the 700 W limit)
@@ -1646,6 +1661,134 @@ def profile_step(step, state, images, masks, wts, valid, gen, step_ms, fwd_cases
           f"instead: {mma:.3f} ms, with the mma.sync dgrad instead: {mma_dgrad:.3f} ms; idle "
           f"share {1 - dev_total / step_ms:.3f} of the unprofiled step", flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=10), flush=True)
+
+
+def update_path(gpu, stats):
+    """The train step's update (csrc/fused_update.cu) at the full parameter
+    tree with the recipe's Adam, cosine and EMA 0.999, from a state at epoch
+    40 of 80 as the benchmark's training cells take it: one step's
+    parameters, moments and shadows bit for bit against the plain `_foreach`
+    update on the card and grad_norm within 1e-6 relative, no host sync;
+    the device time of the passes (torch.profiler), CUDA events over
+    back-to-back updates and the host's time to issue one, each beside the
+    plain update's (its global norm included), each wrapper's device time
+    beside its plain version's and its bytes bound into `stats`; then two
+    recipe steps through the kernel forward, counting the gradients that
+    came back strided."""
+    import unetseg_tpu_torch.train.state as S
+    from unetseg_tpu_torch.ops.kernels.update import (
+        ema_plain, fused_update, global_norm_plain, update_plain,
+    )
+    from unetseg_tpu_torch.train.steps import optax_global_norm
+
+    dev, cfg = torch.device(DEVICE), TRAIN_MODEL
+    state = create_train_state(fast_random_variables(cfg, SEED), cfg, RECIPE_TRAIN,
+                               steps_per_epoch=STEPS_PER_EPOCH, device=dev)
+    start = 40 * STEPS_PER_EPOCH
+    state = dataclasses.replace(state, step=start, opt_state=dict(state.opt_state, count=start))
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    grads = {k: torch.randn(v.shape, generator=g, device=dev) * 1e-3
+             for k, v in state.params.items()}
+    new_bs = {k: torch.rand(v.shape, generator=g, device=dev) for k, v in state.batch_stats.items()}
+    route = S._flat_route
+
+    def update(st, flat):
+        S._flat_route = route if flat else (lambda tree: False)
+        try:
+            gr = S.Gradients(grads)
+            return st.apply_gradients(gr, new_bs), optax_global_norm(gr)
+        finally:
+            S._flat_route = route
+
+    packed = update(state, True)[0]  # packs the state: the steps below find it packed
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, norm = update(packed, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want, ref_norm = update(packed, False)
+    torch.cuda.synchronize()
+    trees = lambda s: {"params": s.params, "mu": s.opt_state["mu"], "nu": s.opt_state["nu"],  # noqa: E731
+                       "ema_params": s.ema_params, "ema_batch_stats": s.ema_batch_stats}
+    bad = [f"{n}.{k}" for n, t in trees(want).items() for k in t
+           if not torch.equal(trees(got)[n][k], t[k])]
+    norm_err = abs(norm.item() - ref_norm.item()) / ref_norm.item()
+    n_params = sum(v.numel() for v in state.params.values())
+    n_stats = sum(v.numel() for v in state.batch_stats.values())
+    print(f"parity fused_update + fused_ema (Adam, EMA, count {start}): {n_params} parameters "
+          f"in {len(grads)} leaves, {n_stats} statistics; leaves that differ from the plain "
+          f"update: {len(bad)} {bad[:5]}; grad_norm {norm.item():.6f} against {ref_norm.item():.6f}"
+          f" (relative {norm_err:.2e}); no host sync under set_sync_debug_mode('error')",
+          flush=True)
+    if bad or norm_err > 1e-6:
+        raise AssertionError("fused_update disagrees with the plain update")
+
+    kernel, plain = (lambda: update(packed, True)), (lambda: update(packed, False))
+    times = {}
+    for name, fn in (("kernel", kernel), ("plain", plain), ("kernel again", kernel)):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / 20
+        torch.cuda.synchronize()
+        times[name] = (host, cuda_ms(fn, iters=20), device_times(fn))
+    dev_k = times["kernel"][2]
+    update_ms = sum(v for k, v in dev_k.items() if "update_kernel" in k)
+    norm_ms = sum(v for k, v in dev_k.items() if "norm_kernel" in k)
+    ema_ms = sum(v for k, v in dev_k.items() if "ema_kernel" in k)
+    plain_ms = sum(times["plain"][2].values())
+    # Adam: p, g, mu, nu read and p, mu, nu written; each EMA: shadow and
+    # new read, shadow written; the norm's partials are under 0.1%
+    bound = (7 * n_params + 3 * n_params + 3 * n_stats) * 4 / HBM_BPS * 1e3
+    one_pass = (9 * n_params + 3 * n_stats) * 4 / HBM_BPS * 1e3
+    kernel_ms = update_ms + norm_ms + ema_ms
+    # each wrapper's plain version alone, on the packed state's leaves
+    keys = list(packed.params)
+    p_l, g_l = [packed.params[k] for k in keys], [grads[k] for k in keys]
+    m_l = [[packed.opt_state[m][k] for k in keys] for m in packed.tx.moments]
+    h = packed.tx.scalars(packed.opt_state["count"])
+    plain_update_ms = device_ms(lambda: (update_plain("adam", p_l, g_l, m_l, h),
+                                         global_norm_plain(g_l)))
+    e_s, s_l = list(packed.ema_batch_stats.values()), [new_bs[k] for k in packed.ema_batch_stats]
+    plain_ema_ms = device_ms(lambda: (ema_plain(list(packed.ema_params.values()), p_l, 0.01),
+                                      ema_plain(e_s, s_l, 0.01)))
+    st = stats["fused_update"]
+    add_bound(st, 0, PEAK_F32, 7 * n_params * 4)
+    add_times(st, update_ms + norm_ms, plain_update_ms, None)
+    st = stats["fused_ema"]
+    add_bound(st, 0, PEAK_F32, (3 * n_params + 3 * n_stats) * 4)
+    add_times(st, ema_ms, plain_ema_ms, None)
+    print(f"time fused update (device time, torch.profiler): update pass {update_ms:.4f} ms, "
+          f"norm {norm_ms:.4f} (plain update and norm {plain_update_ms:.4f}), EMA passes "
+          f"{ema_ms:.4f} (plain {plain_ema_ms:.4f}), sum {kernel_ms:.4f} (CUDA events over "
+          f"back-to-back updates {times['kernel'][1]:.4f}, again {times['kernel again'][1]:.4f});"
+          f" plain update {plain_ms:.4f} ms device ({times['plain'][1]:.4f} by events); bound "
+          f"{bound:.4f} ms in two passes ({one_pass:.4f} in one), share {bound / kernel_ms:.1%};"
+          f" host ms to issue one update: kernel {times['kernel'][0]:.3f}, again "
+          f"{times['kernel again'][0]:.3f}, plain {times['plain'][0]:.3f}; on {gpu}", flush=True)
+
+    # two recipe steps through the kernel forward: launches and strided gradients
+    frames, labels = cell_frames(np.random.RandomState(SEED + 3), TRAIN_BATCH, TRAIN_SIZE,
+                                 labels=True)
+    weights = np.stack([weight_map_np(lab, mode="reference") for lab in labels])
+    batch = [torch.from_numpy(a).to(dev) for a in (frames, labels, weights)]
+    batch.append(torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev))
+    step = make_train_step(cfg, lanes="auto", assume_valid=True, **RECIPE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    st = step(state, *batch, gen)[0]
+    before = fused_update.restrided
+    K.reset_launch_counts()
+    st = step(st, *batch, gen)[0]
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    print(f"update in a recipe step: fused_update {launches['fused_update']}, fused_ema "
+          f"{launches['fused_ema']} launches; {fused_update.restrided - before} of "
+          f"{len(grads)} gradients came back strided and were made contiguous", flush=True)
+    check_launches("update in a recipe step", launches, TRAIN_LAUNCHES, 1)
 
 
 def rel_err(got, ref):
@@ -3233,6 +3376,7 @@ def main():
     del main
     train_kernel_parity(stats)
     training, training2 = train_path(gpu)
+    update_path(gpu, stats)
     pre_labels = cell_frames(np.random.RandomState(SEED + 5), PRE_FRAMES, PRE_SIZE,
                              labels=True)[1]
     loss_and_edt_parity(stats, pre_labels)

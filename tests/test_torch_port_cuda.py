@@ -41,8 +41,11 @@ replaced (the pool on odd and 1-row outputs, relu on and off, CO 128 and
 192, ragged strips); the wrappers' refusals; the pipeline command at
 base 8 on the card; the full-width serving forward exported with a
 symbolic batch and loaded on the card (batches 1, 3 and 5, bit for bit
-against Predictor.probs) and on the CPU, and a pinned batch; and
-visualize-augmentation's deformation on the card.
+against Predictor.probs) and on the CPU, and a pinned batch;
+visualize-augmentation's deformation on the card; and the train step's
+fused update at the full parameter tree for SGD, Adam and AdamW with the
+EMA (bit for bit against the plain `_foreach` update), at 150 leaves of
+ragged sizes read at misaligned addresses, and with no host sync.
 
 Marked `cuda` and skipped without a card. The file imports no jax, so on a
 GPU machine it runs without the JAX package:
@@ -1093,7 +1096,8 @@ def test_data_parallel_on_the_card(g, tmp_path):
     """Two ranks on the one card over gloo (nccl refuses two ranks on one
     card) at base 8 in fp32, as chip_smoke.py's phase 12's fp32 step: the
     augmented data-parallel step (the plain forward; the elastic sampler
-    and the weighted CE through their kernels on each rank's share), with
+    and the weighted CE through their kernels on each rank's share, the
+    update and the recipe's EMA through theirs on every rank), with
     every item valid and with [T, T, T, F], held to the single-process
     step on the card with the same draws by chip_smoke.dp_compare (loss
     and grad_norm 2e-3 relative, the whole gradient 1e-2 relative L2,
@@ -1131,7 +1135,8 @@ def test_data_parallel_on_the_card(g, tmp_path):
             assert res[0][name][key] == res[1][name][key]
         for r in res:
             assert r[name]["launches"] == {"sample_displaced": 1, "weighted_ce_fwd": 1,
-                                           "weighted_ce_bwd": 1}
+                                           "weighted_ce_bwd": 1, "fused_update": 1,
+                                           "fused_ema": 2}
     per_rank = {"conv3x3_bias_relu": 4, "tconv2x2_bias": 2, "dec_conv0": 2, "conv3x3_head": 2}
     for r in res:
         assert r["masks_differ"] == 0 and 0 < r["foreground"] < 1
@@ -1193,3 +1198,152 @@ def test_augmentation_arrays_on_the_card(g):
                                                  torch.from_numpy(lab).cuda()[None], yy, xx)
     assert abs(di - ref_img[0].cpu().numpy()).max() <= 1e-5
     assert (dm == ref_lab[0].cpu().numpy()).all()
+
+
+# ---- the train step's update (csrc/fused_update.cu)
+
+UPDATE_KINDS = ("sgd", "adam", "adamw")
+
+
+def _update_state(kind, cfg=None):
+    """A state on the card with the kind's recipe and the EMA on."""
+    from unetseg_tpu_torch.core.config import ModelConfig, TrainConfig
+    from unetseg_tpu_torch.train.state import create_train_state
+
+    tcfg = TrainConfig(optimizer=kind, learning_rate=0.01 if kind == "sgd" else 3e-4,
+                       cosine_decay=kind != "sgd", num_epochs=80, ema_decay=0.999,
+                       weight_decay=0.01 if kind == "adamw" else 0.0)
+    return create_train_state(0, cfg or ModelConfig(), tcfg, steps_per_epoch=38, device="cuda")
+
+
+def _update_feed(g, state, n):
+    return [({k: torch.randn(v.shape, generator=g, device="cuda") * 1e-2
+              for k, v in state.params.items()},
+             {k: torch.rand(v.shape, generator=g, device="cuda")
+              for k, v in state.batch_stats.items()}) for _ in range(n)]
+
+
+def _run_updates(state, feed):
+    from unetseg_tpu_torch.train.state import Gradients
+    from unetseg_tpu_torch.train.steps import optax_global_norm
+
+    states, norms = [], []
+    for grads, stats in feed:
+        gr = Gradients(grads)
+        state = state.apply_gradients(gr, stats)
+        states.append(state)
+        norms.append(optax_global_norm(gr))
+    torch.cuda.synchronize()
+    return states, norms
+
+
+def _state_trees(s):
+    return {"params": s.params, "ema_params": s.ema_params, "ema_batch_stats": s.ema_batch_stats,
+            **{m: s.opt_state[m] for m in s.tx.moments}}
+
+
+@pytest.mark.parametrize("kind", UPDATE_KINDS)
+def test_fused_update_equals_the_plain_update(g, kind, monkeypatch):
+    """At the full unet-r15-c2 parameter tree (31,042,434 parameters, 82
+    leaves), three steps with the EMA on: the kernels' parameters, moments
+    and both shadows equal the plain `_foreach` path's on the card bit for
+    bit, grad_norm within 1e-6 relative; one fused_update and two fused_ema
+    launches a step, none on the plain path."""
+    import unetseg_tpu_torch.train.state as S
+
+    state0 = _update_state(kind)
+    assert sum(v.numel() for v in state0.params.values()) == 31_042_434
+    feed = _update_feed(g, state0, 3)
+    K.reset_launch_counts()
+    got, got_norms = _run_updates(state0, feed)
+    assert K.launch_counts() == _only(fused_update=3, fused_ema=6)
+    monkeypatch.setattr(S, "_flat_route", lambda tree: False)
+    want, want_norms = _run_updates(state0, feed)
+    assert K.launch_counts() == _only(fused_update=3, fused_ema=6)
+    for i, (a, b) in enumerate(zip(got, want)):
+        for name, tree in _state_trees(a).items():
+            ref = _state_trees(b)[name]
+            bad = [k for k in ref if not torch.equal(tree[k], ref[k])]
+            assert not bad, f"{kind} step {i} {name}: {bad[:5]}"
+    for a, b in zip(got_norms, want_norms):
+        assert abs(a.item() - b.item()) <= 1e-6 * b.item()
+
+
+@pytest.mark.parametrize("kind", UPDATE_KINDS)
+def test_fused_update_edges(g, kind, monkeypatch):
+    """150 leaves (two launches' tables), sizes off the float4 and block
+    grids, an empty leaf, leaves over several blocks, gradients and EMA
+    targets read at misaligned addresses: bit for bit against the plain
+    path; a channels-last and a transposed gradient are made contiguous,
+    counted, and give the bits of their contiguous copies."""
+    import unetseg_tpu_torch.train.state as S
+    from unetseg_tpu_torch.ops.kernels.update import fused_update, is_packed
+
+    sizes = [(0,)] + [(int(n),) for n in torch.randint(1, 9000, (146,), generator=g,
+                                                        device="cuda").tolist()]
+    sizes += [(64, 32, 3, 3), (3,), (5, 7)]
+    params = {f"l{i}": torch.randn(s, generator=g, device="cuda") for i, s in enumerate(sizes)}
+    opt = S.Optimizer(kind, 1e-2, weight_decay=0.01 if kind == "adamw" else 0.0)
+    state = opt.init(params)
+
+    def misaligned(tree):
+        """A copy of `tree` whose leaves lie one float apart in one buffer."""
+        buf = torch.empty(sum(v.numel() + 1 for v in tree.values()) + 1, device="cuda")
+        out, at = {}, 1
+        for k, v in tree.items():
+            out[k] = buf[at:at + v.numel()].view(v.shape).copy_(v)
+            at += v.numel() + 1
+        return out
+
+    feed = [misaligned({k: torch.randn(v.shape, generator=g, device="cuda")
+                        for k, v in params.items()}) for _ in range(2)]
+    runs = {}
+    for route in (True, False):
+        monkeypatch.setattr(S, "_flat_route", lambda tree, route=route: route)
+        p, st, shadow = params, state, {k: v.clone() for k, v in params.items()}
+        for grads in feed:
+            p, st = opt.apply(p, grads, st)
+            shadow = S._ema(shadow, misaligned(p), 0.25)
+        runs[route] = (p, st, shadow)
+    torch.cuda.synchronize()
+    assert is_packed(runs[True][0]) and not is_packed(runs[False][0])
+    (kp, kst, ks), (pp, pst, ps) = runs[True], runs[False]
+    for name, a, b in [("params", kp, pp), ("shadow", ks, ps),
+                       *[(m, kst[m], pst[m]) for m in opt.moments]]:
+        bad = [k for k in b if not torch.equal(a[k], b[k])]
+        assert not bad, f"{kind} {name}: {bad[:5]}"
+
+    monkeypatch.setattr(S, "_flat_route", lambda tree: True)
+    grads = feed[0]
+    strided = dict(grads, l147=grads["l147"].contiguous(memory_format=torch.channels_last),
+                   l149=grads["l149"].t().contiguous().t())
+    assert not strided["l149"].is_contiguous()
+    before = fused_update.restrided
+    a, _ = opt.apply(params, grads, state)
+    b, _ = opt.apply(params, strided, state)
+    torch.cuda.synchronize()
+    assert fused_update.restrided == before + 2
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_update_makes_no_host_sync(g):
+    """Packing a fresh state, then two steps of Adam with the EMA, under
+    torch.cuda.set_sync_debug_mode("error"): nothing waits on the card."""
+    from unetseg_tpu_torch.ops.kernels.build import library
+    from unetseg_tpu_torch.train.state import Gradients
+    from unetseg_tpu_torch.train.steps import optax_global_norm
+
+    library()
+    state = _update_state("adam")
+    feed = _update_feed(g, state, 2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for grads, stats in feed:
+            gr = Gradients(grads)
+            state = state.apply_gradients(gr, stats)
+            norm = optax_global_norm(gr)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert norm.is_cuda and norm.dim() == 0 and state.step == 2
+    assert torch.isfinite(norm).item()

@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     *GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
-P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the kernels' entry points (csrc/*.cu); each returns the
 # CUDA error code of its launch.
 SIGNATURES = {
@@ -52,6 +52,8 @@ SIGNATURES = {
     "conv3x3_wgrad_bf16": [P, I, I, I, I, I, P, I, I, I, P, I, I, I, I, I, P, P, P],
     "wgrad_stem_fma_reference_bf16": [P, I, I, P, I, I, I, P, P, P],
     "sample_displaced_f32": [P, P, P, P, I, I, I, P, P, P],
+    "fused_update_f32": [I, I, P, P, P, P, P, P, P, P, P, P, P, I, P, P],
+    "fused_ema_f32": [I, P, P, P, P, P, F, P],
 }
 
 

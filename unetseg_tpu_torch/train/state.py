@@ -9,7 +9,9 @@ orders some operations differently):
   sgd    trace = g + momentum * trace (no dampening, no Nesterov, as optax
          `trace`); p += -lr * trace
   adam   optax scale_by_adam (b1 0.9, b2 0.999, eps 1e-8, bias correction
-         with the post-increment count); p += -lr * update
+         with the post-increment count, applied as a product with its f32
+         reciprocal, as `_foreach_div` by a scalar does on the card);
+         p += -lr * update
   adamw  adam's update + weight_decay * p, decoupled, then scaled by -lr
 
 The cosine schedule reads the step count before its increment, as optax's
@@ -17,13 +19,22 @@ schedule count does. After every step the EMA shadows move by
 e += (1 - d) (p - e), d = min(ema_decay, (1 + t) / (10 + t)) with t the
 post-increment step (unetseg_tpu/train/state.py:40-58). Updates make new
 tensors, as the JAX state is immutable; the step then drops the old ones.
+
+Every scalar of a step (the rate, the bias corrections, the EMA decay) is
+computed on the host from the Python step count, so the update never
+waits on the device. On the card the parameters, the moments and the
+shadows are packed into flat buffers (ops/kernels/update.FlatTensors:
+dicts of per-leaf views) and each step is one pass of `fused_update` and
+one `fused_ema` per shadow; a state that arrives unpacked (fresh, resumed,
+or rebuilt by a caller) is packed at its first step. On the CPU the
+update is the plain `_foreach` code of ops/kernels/update.py.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Mapping, Optional, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,6 +42,9 @@ import torch
 from unetseg_tpu_torch.core.config import ModelConfig, TrainConfig
 from unetseg_tpu_torch.models.fast_init import fast_random_variables
 from unetseg_tpu_torch.models.unet import split_state_dict
+from unetseg_tpu_torch.ops.kernels.update import (
+    UpdateScalars, ema_plain, fused_ema, fused_update, is_packed, pack, update_plain,
+)
 from unetseg_tpu_torch.utils.flax_bridge import flax_to_state_dict
 
 Tensors = Dict[str, torch.Tensor]
@@ -47,9 +61,24 @@ def cosine_decay_schedule(init_value: float, decay_steps: int) -> Callable[[int]
     return schedule
 
 
-def _f32_pow(base: float, count: int, device) -> torch.Tensor:
-    """base ** count in f32, as optax's bias correction computes it."""
-    return torch.tensor(base, dtype=torch.float32, device=device) ** count
+def _f32_pow(base: float, count: int) -> np.float32:
+    """base ** count in f32, as optax's bias correction computes it: the
+    f32 base raised in f64 and rounded once, on the host."""
+    return np.float32(float(np.float32(base)) ** count)
+
+
+class Gradients(dict):
+    """A gradient tree (name -> tensor) that keeps the global norm the
+    fused update computed while reading it (train/steps.optax_global_norm
+    returns that one), so the norm costs no pass of its own."""
+
+    global_norm: Optional[torch.Tensor] = None
+
+
+def _flat_route(tree: Tensors) -> bool:
+    """The update's route, by the device of the tree's first leaf: packed
+    buffers and the fused kernels on the card, the plain leaves elsewhere."""
+    return next(iter(tree.values())).device.type == "cuda"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,44 +94,50 @@ class Optimizer:
         lr = self.learning_rate
         return float(lr(count)) if callable(lr) else float(lr)
 
-    def init(self, params: Tensors) -> Dict[str, Any]:
-        zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+    @property
+    def moments(self) -> Tuple[str, ...]:
         if self.kind == "sgd":
-            return {"count": 0, "trace": zeros}
-        return {"count": 0, "mu": zeros,
-                "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
+            return ("trace",)
+        if self.kind in ("adam", "adamw"):
+            return ("mu", "nu")
+        raise ValueError(f"unknown optimizer {self.kind!r}")
 
-    def apply(self, params: Tensors, grads: Tensors, state: Dict[str, Any]):
-        """-> (new params, new optimizer state)."""
-        keys = list(params)
-        p = [params[k] for k in keys]
-        g = [grads[k] for k in keys]
-        count = state["count"]
+    def init(self, params: Tensors) -> Dict[str, Any]:
+        return {"count": 0, **{m: {k: torch.zeros_like(v) for k, v in params.items()}
+                               for m in self.moments}}
+
+    def scalars(self, count: int) -> UpdateScalars:
+        """The host scalars of the step after `count` steps."""
         step = -self.lr(count)
         if self.kind == "sgd":
-            tr = torch._foreach_add(g, torch._foreach_mul([state["trace"][k] for k in keys],
-                                                          self.momentum))
-            upd = torch._foreach_mul(tr, step)
-            new_state = {"count": count + 1, "trace": dict(zip(keys, tr))}
-        elif self.kind in ("adam", "adamw"):
-            mu = torch._foreach_add(torch._foreach_mul(g, 1 - ADAM_B1),
-                                    torch._foreach_mul([state["mu"][k] for k in keys], ADAM_B1))
-            nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1 - ADAM_B2),
-                                    torch._foreach_mul([state["nu"][k] for k in keys], ADAM_B2))
-            dev = p[0].device
-            c1 = 1 - _f32_pow(ADAM_B1, count + 1, dev)
-            c2 = 1 - _f32_pow(ADAM_B2, count + 1, dev)
-            mu_hat = torch._foreach_div(mu, c1)
-            nu_hat = torch._foreach_div(nu, c2)
-            den = torch._foreach_add(torch._foreach_sqrt(nu_hat), ADAM_EPS)
-            upd = torch._foreach_div(mu_hat, den)
-            if self.kind == "adamw":
-                upd = torch._foreach_add(upd, torch._foreach_mul(p, self.weight_decay))
-            upd = torch._foreach_mul(upd, step)
-            new_state = {"count": count + 1, "mu": dict(zip(keys, mu)), "nu": dict(zip(keys, nu))}
-        else:
-            raise ValueError(f"unknown optimizer {self.kind!r}")
-        return dict(zip(keys, torch._foreach_add(p, upd))), new_state
+            return UpdateScalars(step, momentum=self.momentum)
+        one = np.float32(1.0)
+        c1 = one - _f32_pow(ADAM_B1, count + 1)
+        c2 = one - _f32_pow(ADAM_B2, count + 1)
+        return UpdateScalars(step, b1=ADAM_B1, b2=ADAM_B2, inv_c1=float(one / c1),
+                             inv_c2=float(one / c2), eps=ADAM_EPS,
+                             weight_decay=self.weight_decay if self.kind == "adamw" else 0.0)
+
+    def apply(self, params: Tensors, grads: Tensors, state: Dict[str, Any]):
+        """-> (new params, new optimizer state). On the card, in packed
+        buffers through `fused_update`, which also leaves the gradients'
+        global norm on `grads` when it is a `Gradients`."""
+        count, names = state["count"], self.moments
+        h = self.scalars(count)
+        if _flat_route(params):
+            p = params if is_packed(params) else pack(params)
+            ms = [state[m] if is_packed(state[m], p.layout) else pack(state[m], p.layout)
+                  for m in names]
+            new_p, new_ms, norm = fused_update(self.kind, p, grads, ms, h)
+            if isinstance(grads, Gradients):
+                grads.global_norm = norm
+            return new_p, {"count": count + 1, **dict(zip(names, new_ms))}
+        keys = list(params)
+        new_p, new_ms = update_plain(self.kind, [params[k] for k in keys],
+                                     [grads[k] for k in keys],
+                                     [[state[m][k] for k in keys] for m in names], h)
+        return dict(zip(keys, new_p)), {"count": count + 1,
+                                        **{m: dict(zip(keys, v)) for m, v in zip(names, new_ms)}}
 
 
 def make_optimizer(cfg: TrainConfig, steps_per_epoch: Optional[int] = None) -> Optimizer:
@@ -122,10 +157,11 @@ def make_optimizer(cfg: TrainConfig, steps_per_epoch: Optional[int] = None) -> O
 
 
 def _ema(shadow: Tensors, new: Tensors, d: float) -> Tensors:
+    """The EMA's one entry on both routes: shadow + (new - shadow)(1 - d)."""
+    if _flat_route(shadow):
+        return fused_ema(shadow if is_packed(shadow) else pack(shadow), new, 1.0 - d)
     keys = list(shadow)
-    e = [shadow[k] for k in keys]
-    diff = torch._foreach_sub([new[k].to(shadow[k].dtype) for k in keys], e)
-    return dict(zip(keys, torch._foreach_add(e, torch._foreach_mul(diff, 1.0 - d))))
+    return dict(zip(keys, ema_plain([shadow[k] for k in keys], [new[k] for k in keys], 1.0 - d)))
 
 
 @dataclasses.dataclass

@@ -63,8 +63,9 @@ from unetseg_tpu_torch.ops.intensity import (
     photometric_augment_batch,
     standardize_batch,
 )
+from unetseg_tpu_torch.ops.kernels.update import global_norm_plain
 from unetseg_tpu_torch.ops.losses import center_crop_nhw, per_pixel_ce, weighted_ce_pixels
-from unetseg_tpu_torch.train.state import TrainState
+from unetseg_tpu_torch.train.state import Gradients, TrainState
 from unetseg_tpu_torch.utils.profiling import annotate
 
 Forward = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -236,12 +237,15 @@ def loss_and_grads(
                  for k, g in zip(keys, gs)}
         # one SUM all-reduce of every gradient: the loss is globally normalised,
         # so the sum is the whole batch's gradient (an average would divide it)
-        return all_reduce_sum(loss.detach(), group), new_bs, all_reduce_tree(grads, group)
+        return (all_reduce_sum(loss.detach(), group), new_bs,
+                Gradients(all_reduce_tree(grads, group)))
 
 
 def optax_global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(x.float().square().sum() for x in tree.values()))
+    """sqrt of the sum of squares of every leaf, in f32: the norm that the
+    fused update already computed where it read `tree` (a Gradients)."""
+    norm = getattr(tree, "global_norm", None)
+    return global_norm_plain(tree.values()) if norm is None else norm
 
 
 def make_train_step(
