@@ -1,17 +1,22 @@
-"""The yardstick's arithmetic: operations and bytes of the U-Net's logical
+"""The yardstick's arithmetic: operations and bytes of a net's logical
 layers from their shapes, the published peaks of one NVIDIA H100, and
 the roofline bound of a call or a step.
 
 Counted by logical layer, never by kernel name, so a count reads the same
 work whatever implements it. A layer's bound is max(ops / peak, bytes /
 HBM bandwidth), with each input read once and each output written once.
-Convolutions (3x3, 2x2 up-conv, 1x1 head, and in training their input
-and weight gradients) count at the bf16 tensor-core peak; elementwise
-layers at the f32 peak. A convolution's bias and ReLU are part of its
-layer. Layers that only move what a neighbour counts (the skip crop and
-concat, which the decoder's first conv reads as its input; a flip, which
-is indexing) count no bytes of their own, and an elementwise layer whose
-input is the previous layer's output counts its output only.
+Convolutions (and in training their input and weight gradients) count at
+the bf16 tensor-core peak; elementwise layers at the f32 peak. A
+convolution's bias and ReLU are part of its layer. Layers that only move
+what a neighbour counts (a skip's crop and concat, which the next conv
+reads as its input; a flip, which is indexing) count no bytes of their
+own, and an elementwise layer whose input is the previous layer's output
+counts its output only.
+
+The net's own layers come from its architecture module
+(reference/<architecture>.py: forward_layers, leaf_shapes), which every
+function here that needs them takes as `arch`; this module imports none.
+`shapes` and `tile_grid` are the valid-conv geometry every such net keeps.
 
 Frozen copies: conv_ops and bound_s from chip_smoke.py:654 (conv_ops) and
 chip_smoke.py:675 (add_bound), the peaks from chip_smoke.py:393.
@@ -21,8 +26,6 @@ from __future__ import annotations
 
 import math
 from typing import Any, Dict, List
-
-import synth
 
 # NVIDIA's data sheet, H100 SXM, dense: bf16 tensor cores, f32 outside the
 # tensor cores, HBM3 bandwidth; stated at the card's full power limit of
@@ -44,19 +47,25 @@ def bound_s(ops: float, peak: float, n_bytes: float) -> float:
 
 
 def layer(name: str, ops: float, in_bytes: float, out_bytes: float, peak: float,
-          w_bytes: float = 0.0, conv: bool = False) -> Layer:
+          w_bytes: float = 0.0, conv: bool = False, bn_relu: bool = False,
+          dgrad: bool = False, grad_in_bytes: float = 0.0) -> Layer:
     """One logical layer: activations read (`in_bytes`), weights read
-    (`w_bytes`), output written (`out_bytes`)."""
+    (`w_bytes`), output written (`out_bytes`). What a train step adds to it
+    (train_step): a convolution's output passes BatchNorm + ReLU where
+    `bn_relu`, and its input gradient is computed where `dgrad`; any other
+    layer's backward reads its output's gradient and writes
+    `grad_in_bytes`, its input's."""
     n_bytes = in_bytes + w_bytes + out_bytes
     return {"name": name, "ops": float(ops), "in_bytes": float(in_bytes),
             "w_bytes": float(w_bytes), "out_bytes": float(out_bytes), "bytes": float(n_bytes),
-            "peak": peak, "conv": conv, "bound_s": bound_s(ops, peak, n_bytes)}
+            "peak": peak, "conv": conv, "bn_relu": bn_relu, "dgrad": dgrad,
+            "grad_in_bytes": float(grad_in_bytes), "bound_s": bound_s(ops, peak, n_bytes)}
 
 
 def scaled(x: Layer, k: float) -> Layer:
     """A layer run k times over (the weights are read each time)."""
     return dict(x, **{key: x[key] * k for key in ("ops", "in_bytes", "w_bytes", "out_bytes",
-                                                  "bytes", "bound_s")})
+                                                  "bytes", "grad_in_bytes", "bound_s")})
 
 
 def shapes(size: int, levels: int) -> Dict[str, Any]:
@@ -83,50 +92,9 @@ def shapes(size: int, levels: int) -> Dict[str, Any]:
     return {"enc": enc, "dec": dec, "out": s}
 
 
-def forward_layers(model: Dict[str, Any], b: int, size: int) -> List[Layer]:
-    """The logical layers of one forward of `b` tiles of `size`^2:
-    3x3 conv + bias + ReLU, 2x2 max-pool, 2x2 up-conv, 1x1 head, and the
-    class probabilities (softmax and the threshold)."""
-    sh = shapes(size, model["levels"])
-    feats = [model["base_features"] * 2**i for i in range(model["levels"])]
-    nc = model["num_classes"]
-    out: List[Layer] = []
-
-    def conv(name, hi, ci, co, act_in=BF16):
-        ho = hi - 2
-        out.append(layer(name, conv_ops(b, ho, ho, ci, co), b * hi * hi * ci * act_in,
-                         b * ho * ho * co * BF16, PEAK_BF16,
-                         w_bytes=9 * ci * co * BF16 + co * F32, conv=True))
-
-    cin = model["in_channels"]
-    prev = size
-    for lvl, ((hi, _), f) in enumerate(zip(sh["enc"], feats)):
-        if lvl > 0:
-            out.append(layer(f"pool{lvl}", 3 * b * hi * hi * cin, 0, b * hi * hi * cin * BF16,
-                             PEAK_F32))
-        conv(f"enc{lvl}.conv0", hi, cin, f, act_in=F32 if lvl == 0 else BF16)
-        conv(f"enc{lvl}.conv1", hi - 2, f, f)
-        cin, prev = f, hi - 4
-    h = prev
-    for i, (hi, _) in enumerate(sh["dec"]):
-        ci, co = feats[-1 - i], feats[-1 - i] // 2
-        out.append(layer(f"up{i}", conv_ops(b, hi, hi, ci, co, taps=1), b * h * h * ci * BF16,
-                         b * hi * hi * co * BF16, PEAK_BF16,
-                         w_bytes=4 * ci * co * BF16 + co * F32, conv=True))
-        skip = feats[-2 - i]
-        conv(f"dec{i}.conv0", hi, skip + co, skip)
-        conv(f"dec{i}.conv1", hi - 2, skip, skip)
-        h = hi - 4
-    o = sh["out"]
-    out.append(layer("head", conv_ops(b, o, o, feats[0], nc, taps=1), 0, b * o * o * nc * F32,
-                     PEAK_BF16, w_bytes=feats[0] * nc * BF16 + nc * F32, conv=True))
-    out.append(layer("softmax_threshold", 5 * b * o * o * nc, 0, b * o * o * F32, PEAK_F32))
-    return out
-
-
 def model_flops(layers: List[Layer]) -> float:
-    """2 x multiply-adds of every convolution, up-conv and head (and, in a
-    train step, of their gradients)."""
+    """2 x multiply-adds of every convolution (and, in a train step, of
+    their gradients)."""
     return sum(x["ops"] for x in layers if x["conv"])
 
 
@@ -142,19 +110,22 @@ def tile_grid(h: int, tile_in: int, levels: int) -> Dict[str, int]:
     return {"tile_out": t_out, "per_side": n, "tiles": n * n}
 
 
-def serve_call(model: Dict[str, Any], traffic: Dict[str, Any]) -> Dict[str, Any]:
+def serve_call(arch, model: Dict[str, Any], traffic: Dict[str, Any]) -> Dict[str, Any]:
     """One masks call: frames x tiles in forward chunks of tile_batch, for
-    each member and each TTA flip, with the tile extraction, stitching,
-    merges and the uint8 masks. -> {"layers", "model_flops", "bound_s",
-    "forwards"} for the whole call."""
+    each member and each TTA flip, each forward ending in the class
+    probabilities (softmax and the threshold), with the tile extraction,
+    stitching, merges and the uint8 masks. -> {"layers", "model_flops",
+    "bound_s", "forwards"} for the whole call."""
     f, h, t_in, tb = (traffic[k] for k in ("frames", "size", "tile_input", "tile_batch"))
     grid = tile_grid(h, t_in, model["levels"])
     flips = {"none": 1, "flips": 4, "flips8": 8}[traffic["tta"]]
     members = traffic["members"]
     chunks = math.ceil(f * grid["tiles"] / tb)
     forwards = members * flips * chunks
-    o, n_pad = grid["tile_out"], chunks * tb
-    layers = [scaled(x, forwards) for x in forward_layers(model, tb, t_in)] + [
+    o, n_pad, nc = grid["tile_out"], chunks * tb, model["num_classes"]
+    forward = arch.forward_layers(model, tb, t_in) + [
+        layer("softmax_threshold", 5 * tb * o * o * nc, 0, tb * o * o * F32, PEAK_F32)]
+    layers = [scaled(x, forwards) for x in forward] + [
         layer("tiles", 4 * flips * n_pad * t_in * t_in, f * h * h * F32,
               flips * n_pad * t_in * t_in * F32, PEAK_F32),
         layer("stitch_flip", flips * f * h * h, 0, flips * f * h * h * F32, PEAK_F32),
@@ -167,48 +138,47 @@ def serve_call(model: Dict[str, Any], traffic: Dict[str, Any]) -> Dict[str, Any]
             "bound_s": total_bound_s(layers), "forwards": forwards}
 
 
-def param_count(model: Dict[str, Any]) -> Dict[str, int]:
+def param_count(arch, model: Dict[str, Any]) -> Dict[str, int]:
     """{"params": parameters, "stats": BatchNorm running statistics} of the
-    U-Net's variables (synth.leaf_shapes)."""
+    net's variables (arch.leaf_shapes)."""
     n = {"params": 0, "batch_stats": 0}
-    for path, shape, _ in synth.leaf_shapes(model):
+    for path, shape, _ in arch.leaf_shapes(model):
         n[path.split("/")[0]] += math.prod(shape)
     return {"params": n["params"], "stats": n["batch_stats"]}
 
 
-def train_step(model: Dict[str, Any], traffic: Dict[str, Any]) -> Dict[str, Any]:
+def train_step(arch, model: Dict[str, Any], traffic: Dict[str, Any]) -> Dict[str, Any]:
     """One augmented train step on a batch of `batch` frames of `size`^2:
-    the augmentation, the forward convs each with BatchNorm + ReLU, the
-    pools, the loss, the backward (input and weight gradients of every
-    conv, the stem's input gradient excepted; BatchNorm + ReLU and pool
+    the augmentation, the net's forward layers (each convolution's output
+    through BatchNorm + ReLU where the layer says so), the loss, the
+    backward (weight gradients of every convolution, input gradients where
+    the layer says so; BatchNorm + ReLU backward; the other layers'
     backward), and the Adam + EMA update. -> {"layers", "model_flops",
     "bound_s"}."""
     b, s = traffic["batch"], traffic["size"]
     layers: List[Layer] = []
-    for x in forward_layers(model, b, s):
+    for x in arch.forward_layers(model, b, s):
         name = x["name"]
-        if name == "softmax_threshold":
-            continue
         layers.append(dict(x, name=name + ".fwd"))
         act = x["out_bytes"]
         if x["conv"]:
-            if not name.startswith(("up", "head")):  # BatchNorm + ReLU on the conv's output
+            if x["bn_relu"]:
                 layers.append(layer(name + ".bn_relu", 4 * act / BF16, act, act, PEAK_F32))
                 layers.append(layer(name + ".bn_relu.bwd", 8 * act / BF16, 2 * act, act,
                                     PEAK_F32))
-            if name != "enc0.conv0":  # dgrad: read g and w, write dx
+            if x["dgrad"]:  # read g and w, write dx
                 layers.append(layer(name + ".dgrad", x["ops"], act, x["in_bytes"], PEAK_BF16,
                                     w_bytes=x["w_bytes"], conv=True))
             # wgrad: read x and g, write dw (f32)
             layers.append(layer(name + ".wgrad", x["ops"], x["in_bytes"] + act,
                                 2 * x["w_bytes"], PEAK_BF16, conv=True))
-        else:  # pool backward: read the pooled gradient, write the input's
-            layers.append(layer(name + ".bwd", x["ops"], act, 4 * act, PEAK_F32))
+        else:  # read the output's gradient, write the input's
+            layers.append(layer(name + ".bwd", x["ops"], act, x["grad_in_bytes"], PEAK_F32))
     o = shapes(s, model["levels"])["out"]
     nc = model["num_classes"]
     layers.append(layer("loss", 20 * b * o * o * nc, b * o * o * (nc * F32 + 4 + F32),
                         b * o * o * nc * F32, PEAK_F32))
-    n = param_count(model)
+    n = param_count(arch, model)
     layers.append(layer("adam_ema", 20 * n["params"] + 4 * n["stats"],
                         5 * F32 * n["params"] + 2 * F32 * n["stats"],
                         4 * F32 * n["params"] + F32 * n["stats"], PEAK_F32))

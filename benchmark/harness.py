@@ -1,8 +1,9 @@
 """The benchmark's machinery, shared by every cell: finding a cell's
-configuration, traffic, limits and metrics by name; the run (set-up,
-window, traced stretch, the check); reading the profiler's trace; the
-result line. What belongs to one configuration, traffic mix or metric
-lives in files of its own (README.md), which this module finds by name.
+configuration, its architecture, traffic, limits and metrics by name; the
+run (set-up, window, traced stretch, the check); reading the profiler's
+trace; the result line. What belongs to one configuration, architecture,
+traffic mix or metric lives in files of its own (README.md), which this
+module finds by name.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ def benchmark_json(root: Path) -> Dict[str, Any]:
 
 
 def load_cell(name: str, root: Path) -> Dict[str, Any]:
-    """The cell `name` of BENCHMARK.json with its configuration, traffic,
-    limits and the metrics it reports, each read from its own file."""
+    """The cell `name` of BENCHMARK.json with its configuration, the
+    configuration's architecture module, traffic, limits and the metrics it
+    reports, each read from its own file."""
     bench = benchmark_json(root)
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -44,10 +46,12 @@ def load_cell(name: str, root: Path) -> Dict[str, Any]:
     def reports(metric):
         return name in metric.get("workloads", [name])
 
+    body = read_json(root / config["file"])
     return {
         "name": name,
         "chips": cell["chips"],
-        "config": read_json(root / config["file"]),
+        "config": body,
+        "architecture": architecture_of(body),
         "traffic": read_json(HERE / "traffic" / f"{cell['traffic']}.json"),
         "limits": read_json(HERE / "limits" / f"{name}.json")["limits"],
         "end_to_end": [m for m in bench["end_to_end"] if reports(m)],
@@ -69,6 +73,14 @@ def kind_of(spec: Dict[str, Any]):
     """The traffic kind's module, kinds/<kind>.py."""
     kind = spec["traffic"]["kind"]
     return load_module(HERE / "kinds" / f"{kind}.py", f"ubench_kind_{kind}")
+
+
+def architecture_of(config: Dict[str, Any]):
+    """The architecture module a configuration names under "architecture"
+    (reference/<architecture>.py; `unet` where it names none): everything
+    of the benchmark that depends on the net's layer graph (README.md)."""
+    arch = config.get("architecture", "unet")
+    return load_module(HERE / "reference" / f"{arch}.py", f"ubench_arch_{arch}")
 
 
 def model_config(model: Dict[str, Any]):
@@ -243,8 +255,9 @@ def run_cell(spec: Dict[str, Any], seed: int, seconds: float, trace: bool, devic
         dev.update(busy_s=summary["busy_s"], window_s=summary["wall_s"])
     else:
         values = dict(cell.end_to_end(window), setup_s=setup_s)
+        # a metric of the device's trace has no value on the CPU, where the tests run
         metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
-                   for m in spec["end_to_end"]}
+                   for m in spec["end_to_end"] if m["name"] in values}
     dev["memory_peak_bytes"] = torch.cuda.max_memory_allocated() if device != "cpu" else 0
     readings = cell.readings()
     checks = {k: {"value": readings[k], "limit": spec["limits"][k]} for k in spec["limits"]}

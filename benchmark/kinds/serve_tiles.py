@@ -24,14 +24,15 @@ import flops
 import synth
 from harness import model_config, print_phases
 from reference import serve as ref_serve
-from reference.unet import exact_f32
+from reference.common import exact_f32
 
 UNIT = "ubench.call"
 
 
 class Cell:
-    """Set-up of a serve_tiles cell: the members' variables (planted), the
-    Predictor, the pool of frame batches, the warm-up calls."""
+    """Set-up of a serve_tiles cell: the members' variables (planted by the
+    architecture module), the Predictor, the pool of frame batches, the
+    warm-up calls."""
 
     unit = UNIT
 
@@ -41,11 +42,12 @@ class Cell:
 
         self.device = device
         self.model, self.t = spec["config"]["model"], spec["traffic"]
+        self.arch = spec["architecture"]
         t = self.t
         plant = t["plant"]
         marks = [("start", time.perf_counter())]
-        self.variables = [synth.plant_intensity_path(
-            synth.variables(self.model, seed, device, tag=f"member{m}"), **plant)
+        self.variables = [self.arch.plant_intensity_path(
+            synth.variables(self.arch, self.model, seed, device, tag=f"member{m}"), **plant)
             for m in range(t["members"])]
         marks.append(("variables", time.perf_counter()))
         frames, _ = synth.cell_frames(synth.generator(seed, "frames", device),
@@ -108,7 +110,7 @@ class Cell:
         return n
 
     def observation(self, w: Dict[str, Any]) -> Dict[str, Any]:
-        per = flops.serve_call(self.model, self.t)
+        per = flops.serve_call(self.arch, self.model, self.t)
         return {"kind": "serve", "window_s": w["window_s"], "units": w["units"],
                 "model_flops": per["model_flops"], "bound_s": per["bound_s"]}
 
@@ -117,9 +119,9 @@ class Cell:
         batch of frames, on the host."""
         t = self.t
         exact_f32()
-        nets = ref_serve.nets_from(self.variables, self.device)
+        nets = ref_serve.nets_from(self.arch, self.variables, self.device)
         x = torch.from_numpy(frames).to(self.device)
-        masks, soft = ref_serve.masks(x, nets, self.model["levels"], t["tile_input"], t["tta"],
+        masks, soft = ref_serve.masks(x, nets, self.arch, self.model, t["tile_input"], t["tta"],
                                       t["tta_merge"], t["ensemble_merge"], t["standardize"],
                                       t["threshold"], block=t["reference_block"], quant=quant)
         return masks.cpu().numpy(), soft.cpu().numpy()

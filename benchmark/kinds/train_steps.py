@@ -14,7 +14,10 @@ epoch `start_epoch` of the recipe's schedule: the step count is that
 epoch's first, so the cosine rate and the EMA's decay are the ones of
 that point of a run, while the variables, Adam's moments (zero) and the
 EMA shadows (the variables) are fresh. The check follows the first
-`check_steps` steps with the plain reference from the same state.
+`check_steps` steps with the plain reference from the same state; the
+configuration's architecture module names the program's leaves for the
+reference (ref_key) and the leaves whose first-gradient errors it reads
+(watched).
 """
 
 from __future__ import annotations
@@ -31,34 +34,12 @@ import torch
 
 import flops
 import synth
-from harness import model_config, print_phases
+from harness import model_config, print_phases, profile
 from reference import train as ref_train
-from reference.unet import exact_f32, to_tensors
+from reference.common import exact_f32
 
 UNIT = "ubench.step"
 NOUGHT = 1e-3  # a leaf whose first reference gradient is under this x the median leaf's
-HEAD = "outc/kernel"  # its gradient reads the whole forward and the loss, and no BatchNorm backward
-
-
-def last_decoder(levels: int) -> Dict[str, List[str]]:
-    """The kernels of the decoder's last level, whose first gradients pass
-    the input- and weight-gradient kernels and one BatchNorm backward:
-    {"dec3_grad1_err": its two 3x3 convs, "up3_grad1_err": its up-conv}
-    for 5 levels."""
-    i = levels - 2
-    return {f"dec{i}_grad1_err": [f"dec{i}/conv0/kernel", f"dec{i}/conv1/kernel"],
-            f"up{i}_grad1_err": [f"up{i}_tconv/kernel"]}
-
-
-def ref_key(key: str) -> str:
-    """The program's state-dict name -> the reference's Flax path."""
-    block, *rest = key.split(".")
-    if block.endswith("_tconv") or block == "outc":
-        return f"{block}/{'kernel' if rest[0] == 'weight' else 'bias'}"
-    layer, leaf = rest
-    leaf = {"weight": "kernel" if layer.startswith("conv") else "scale",
-            "running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
-    return f"{block}/{layer}/{leaf}"
 
 
 def norms(tree: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -87,6 +68,7 @@ class Cell:
 
         self.device = device
         self.model, self.t = spec["config"]["model"], spec["traffic"]
+        self.arch = spec["architecture"]
         t, cfg = self.t, spec["config"]
         self.config = cfg
         self.three_class = self.model["num_classes"] == 3
@@ -104,7 +86,7 @@ class Cell:
                        for _ in range(t["epochs_drawn"])]
         self.valid = torch.ones(t["batch"], dtype=torch.bool, device=device)
         marks.append(("data and draws", time.perf_counter()))
-        self.variables = synth.variables(self.model, seed, device)
+        self.variables = synth.variables(self.arch, self.model, seed, device)
         marks.append(("variables", time.perf_counter()))
         tcfg = TrainConfig(batch_size=t["batch"], num_epochs=t["num_epochs"],
                            learning_rate=t["learning_rate"], optimizer=t["optimizer"],
@@ -165,15 +147,33 @@ class Cell:
         return {"window_s": ends[-1], "units": steps, "failed": 0}
 
     def end_to_end(self, w: Dict[str, Any]) -> Dict[str, float]:
-        return {"train_step_ms": w["window_s"] / w["units"] * 1e3}
+        """train_step_ms, the window's seconds over its steps; on the card
+        also train_device_ms, the device's busy milliseconds a step (the
+        union of its kernels, copies and sets) over one whole epoch traced
+        after the window: the step's time where the host keeps the card
+        fed, and steady where the host's own speed is not (PERF.md)."""
+        out = {"train_step_ms": w["window_s"] / w["units"] * 1e3}
+        if self.device != "cpu":
+            summary, n = profile(self.traced_epoch, UNIT)
+            out["train_device_ms"] = summary["busy_s"] / n * 1e3
+        return out
 
-    def traced(self) -> int:
-        n = self.t["trace_steps"]
+    def traced_epoch(self) -> int:
+        """A whole epoch under the annotation, then one more annotated
+        stretch that waits for the card, so that the trace's span holds
+        all of the epoch's device work."""
+        n = self.traced(self.t["steps_per_epoch"])
+        with torch.profiler.record_function(UNIT):
+            torch.cuda.synchronize()
+        return n
+
+    def traced(self, steps: Optional[int] = None) -> int:
+        n = steps or self.t["trace_steps"]
         self.run_epoch(annotate=True, steps=n)
         return n
 
     def observation(self, w: Dict[str, Any]) -> Dict[str, Any]:
-        per = flops.train_step(self.model, self.t)
+        per = flops.train_step(self.arch, self.model, self.t)
         return {"kind": "train", "window_s": w["window_s"], "units": w["units"],
                 "model_flops": per["model_flops"], "bound_s": per["bound_s"]}
 
@@ -189,6 +189,7 @@ class Cell:
         leaf norm under the reference's names."""
         k = self.t["check_steps"]
         s0, s1, sk = self.snap[0], self.snap[1], self.snap[k]
+        ref_key = self.arch.ref_key
         g1 = {ref_key(n): v / (1 - ref_train.B1) for n, v in s1.opt_state["mu"].items()}
 
         def change(new, old):
@@ -202,10 +203,10 @@ class Cell:
 
     def reference_readout(self, quant: Optional[Callable] = None) -> Dict[str, Any]:
         exact_f32()
-        params, stats = to_tensors(self.variables, self.device)
+        params, stats = self.arch.to_tensors(self.variables, self.device)
         t = self.t
         out = ref_train.follow(params, stats, self.batches(), self.raw_draws[:t["check_steps"]],
-                               t, t["steps_per_epoch"], self.start, self.model["levels"],
+                               t, t["steps_per_epoch"], self.start, self.arch, self.model,
                                self.three_class, self.config.get("border_halo", 2),
                                self.config.get("border_boost", 1.0), quant)
         tr = out["trainer"]
@@ -222,12 +223,11 @@ class Cell:
         reference's: the worst step's relative loss gap; the worst leaf's
         gap of first-gradient norms; the worst leaf's gap of change norms
         after check_steps (parameters, running statistics and both EMA
-        shadows); and the head's first-gradient error, the norm of the
-        difference over the reference's norm. Leaves whose first reference
-        gradient is nought to rounding are left out of the gradients, the
-        parameters and their shadows. Beside the head, the same error of
-        the last decoder level's convs and up-conv (the worst leaf of
-        each), whose gradients run the backward conv kernels."""
+        shadows); and for each reading the architecture module's `watched`
+        names, the first-gradient error of the worst of its leaves: the
+        norm of the difference over the reference's norm. Leaves whose
+        first reference gradient is nought to rounding are left out of the
+        gradients, the parameters and their shadows."""
         got = self.got
         self.state = self.step = None
         gc.collect()
@@ -249,9 +249,8 @@ class Cell:
         print(f"train check: losses {got['losses']} reference {want['losses']}; "
               f"{len(g) - len(moved)} leaves nought to rounding; worst grad1 leaf {grad1[1:]}; "
               f"worst change leaf {change[1:]}", file=sys.stderr, flush=True)
-        out = {"loss_gap": loss, "grad1_gap": grad1[0], "change_gap": change[0],
-               "head_grad1_err": err[HEAD] / g[HEAD]}
-        for name, leaves in last_decoder(self.model["levels"]).items():
+        out = {"loss_gap": loss, "grad1_gap": grad1[0], "change_gap": change[0]}
+        for name, leaves in self.arch.watched(self.model).items():
             out[name] = max(err[k] / g[k] for k in leaves)
         return out
 

@@ -14,19 +14,19 @@ majority); stitch the disjoint output tiles, crop to the frame and undo
 the flip. Then merge the flips (vote: thresholded, strict majority; mean:
 the mean probability over the threshold). Beside the masks it returns
 the members' foreground probability averaged over members and flips,
-which says how near the threshold each pixel lies. Plain PyTorch in
-float32; imports nothing of the program.
+which says how near the threshold each pixel lies. The members' forward
+is the configuration's architecture module's (`arch`,
+reference/<architecture>.py). Plain PyTorch in float32; imports nothing of
+the program.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-
-from reference.unet import forward, to_tensors
 
 FLIPS = {"none": [()], "flips": [(), (-2,), (-1,), (-2, -1)]}
 
@@ -45,13 +45,13 @@ def output_size(size: int, levels: int) -> int:
     return s
 
 
-def member_probs(nets: Sequence[tuple], tiles: torch.Tensor, levels: int, merge: str,
-                 threshold: float, quant: Optional[Callable] = None) -> torch.Tensor:
+def member_probs(nets: Sequence[tuple], tiles: torch.Tensor, arch, model: Dict[str, Any],
+                 merge: str, threshold: float, quant: Optional[Callable] = None) -> torch.Tensor:
     """(n, T, T) normalised tiles -> (2, n, o, o): the merged foreground
     values and the members' mean foreground probability."""
     acc = mean = None
     for params, stats in nets:
-        logits, _ = forward(params, stats, tiles[:, None], levels, quant=quant)
+        logits, _ = arch.forward(params, stats, tiles[:, None], model, quant=quant)
         p = torch.softmax(logits, dim=1)[:, 1]
         mean = p if mean is None else mean + p
         if len(nets) > 1 and merge == "vote":
@@ -64,15 +64,15 @@ def member_probs(nets: Sequence[tuple], tiles: torch.Tensor, levels: int, merge:
 
 
 @torch.no_grad()
-def masks(frames: torch.Tensor, nets: Sequence[tuple], levels: int, tile_input: int,
-          tta: str, tta_merge: str, ensemble_merge: str, standardize: bool, threshold: float,
-          block: int = 4, quant: Optional[Callable] = None):
+def masks(frames: torch.Tensor, nets: Sequence[tuple], arch, model: Dict[str, Any],
+          tile_input: int, tta: str, tta_merge: str, ensemble_merge: str, standardize: bool,
+          threshold: float, block: int = 4, quant: Optional[Callable] = None):
     """(F, H, W) f32 frames on the reference's device -> ((F, H, W) uint8
     masks, (F, H, W) f32 mean foreground probability over members and
-    flips). `nets` is [(params, stats)] per member
-    (reference/unet.to_tensors); the forwards run `block` tiles at a time."""
+    flips). `nets` is [(params, stats)] per member (nets_from); the
+    forwards run `block` tiles at a time."""
     f, h, w = frames.shape
-    o = output_size(tile_input, levels)
+    o = output_size(tile_input, model["levels"])
     margin = tile_input - o
     ny, nx = math.ceil(h / o), math.ceil(w / o)
     top = left = margin // 2
@@ -89,7 +89,7 @@ def masks(frames: torch.Tensor, nets: Sequence[tuple], levels: int, tile_input: 
             mu = tiles.mean(dim=(1, 2), keepdim=True)
             sd = tiles.std(dim=(1, 2), keepdim=True, correction=0).clamp_min(1e-6)
             tiles = (tiles - mu) / sd
-        out = torch.cat([member_probs(nets, tiles[s:s + block], levels, ensemble_merge,
+        out = torch.cat([member_probs(nets, tiles[s:s + block], arch, model, ensemble_merge,
                                       threshold, quant)
                          for s in range(0, tiles.shape[0], block)], dim=1)
         out = out.reshape(2, f, ny, nx, o, o).permute(0, 1, 2, 4, 3, 5)
@@ -105,7 +105,7 @@ def masks(frames: torch.Tensor, nets: Sequence[tuple], levels: int, tile_input: 
     raise ValueError(f"tta_merge {tta_merge!r} has no reference")
 
 
-def nets_from(variables_list, device) -> List[tuple]:
+def nets_from(arch, variables_list, device) -> List[tuple]:
     """[(params, stats)] of each member's Flax-layout variables."""
-    return [to_tensors(v, device) for v in variables_list]
+    return [arch.to_tensors(v, device) for v in variables_list]
 

@@ -26,6 +26,9 @@ One step:
     c the count before the step, T = epochs x steps an epoch; then the
     EMA: e += (1 - d)(p - e), d = min(decay, (1 + t) / (10 + t)), t the
     count after the step, for the parameters and the running statistics.
+
+The net's forward is the configuration's architecture module's (`arch`,
+reference/<architecture>.py), in train mode.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 import torch
 import torch.nn.functional as F
 
-from reference.unet import Tensors, centre_crop, forward
+from reference.common import Tensors, centre_crop
 
 B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -108,8 +111,8 @@ def augment(images, labels, weights, draws: Mapping[str, torch.Tensor], aug: Map
     return x, targets, weights
 
 
-def loss_of(params, stats, x, targets, weights, levels, quant=None):
-    logits, new_stats = forward(params, stats, x[:, None], levels, train=True, quant=quant)
+def loss_of(params, stats, x, targets, weights, arch, model, quant=None):
+    logits, new_stats = arch.forward(params, stats, x[:, None], model, train=True, quant=quant)
     o = logits.shape[-1]
     t, w = centre_crop(targets, o), centre_crop(weights, o)
     ce = F.cross_entropy(logits, t.long(), reduction="none")
@@ -138,14 +141,14 @@ class Trainer:
         c = min(self.count, self.decay_steps)
         return self.recipe["learning_rate"] * 0.5 * (1 + math.cos(math.pi * c / self.decay_steps))
 
-    def step(self, images, labels, weights, draws, levels: int, three_class: bool, halo: int,
-             border_boost: float) -> Dict[str, Any]:
+    def step(self, images, labels, weights, draws, arch, model: Mapping[str, Any],
+             three_class: bool, halo: int, border_boost: float) -> Dict[str, Any]:
         """One step; returns {"loss", "grads"}."""
         x, t, w = augment(images, labels, weights, draws, self.recipe, three_class, halo,
                           border_boost)
         params = {k: v.detach().requires_grad_(True) for k, v in self.params.items()}
         with torch.enable_grad():
-            loss, new_stats = loss_of(params, self.stats, x, t, w, levels, self.quant)
+            loss, new_stats = loss_of(params, self.stats, x, t, w, arch, model, self.quant)
             keys = list(params)
             grads = dict(zip(keys, torch.autograd.grad(loss, [params[k] for k in keys])))
         lr, n = self.lr(), self.count + 1
@@ -165,8 +168,8 @@ class Trainer:
 
 
 def follow(params: Tensors, stats: Tensors, batches: List[tuple], draws: List[Mapping],
-           recipe: Mapping[str, Any], steps_per_epoch: int, count: int, levels: int,
-           three_class: bool, halo: int, border_boost: float,
+           recipe: Mapping[str, Any], steps_per_epoch: int, count: int, arch,
+           model: Mapping[str, Any], three_class: bool, halo: int, border_boost: float,
            quant: Optional[Callable] = None) -> Dict[str, Any]:
     """Run the reference over `batches` [(images, labels, weights)] with
     their draws, from step `count` of the schedule with fresh moments and
@@ -175,7 +178,7 @@ def follow(params: Tensors, stats: Tensors, batches: List[tuple], draws: List[Ma
     tr = Trainer(params, stats, recipe, steps_per_epoch, count, quant)
     losses, grads1 = [], None
     for (images, labels, weights), dr in zip(batches, draws):
-        out = tr.step(images, labels, weights, dr, levels, three_class, halo, border_boost)
+        out = tr.step(images, labels, weights, dr, arch, model, three_class, halo, border_boost)
         losses.append(out["loss"])
         grads1 = out["grads"] if grads1 is None else grads1
     return {"losses": losses, "grads1": grads1, "trainer": tr}

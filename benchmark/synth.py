@@ -1,14 +1,15 @@
 """Inputs the benchmark makes from a seed and hands to both the program
 and the plain reference: cell frames, instance labels, weight maps,
-augmentation draws and U-Net variables. Imports nothing of the program.
+augmentation draws and the net's variables, whose leaves the
+configuration's architecture module lists (reference/<architecture>.py,
+leaf_shapes). Imports nothing of the program.
 
 Frozen copies (adapted, and never to be edited to follow the originals):
   cell_frames            chip_smoke.py:1119 (cell_frames), moved from a
                          numpy RandomState on the host to a torch.Generator
                          on the frames' device, all frames at once
-  plant_intensity_path   chip_smoke.py:1146, unchanged
   variables              unetseg_tpu_torch/models/fast_init.py:24, the same
-                         leaves and scales drawn on the device in two calls
+                         scales drawn on the device in two calls
 """
 
 from __future__ import annotations
@@ -98,43 +99,16 @@ def augment_draws(g: torch.Generator, steps: int, batch: int, size: int, aug: Di
     return out
 
 
-def leaf_shapes(model: Dict[str, Any]) -> List[Tuple[str, Tuple[int, ...], str]]:
-    """[(path, shape, role)] of the U-Net's variables in the Flax layout;
-    role is kernel, zeros, scale (U[0.5, 1.5)) or shift (U[-0.2, 0.2))."""
-    feats = [model["base_features"] * 2**i for i in range(model["levels"])]
-    out: List[Tuple[str, Tuple[int, ...], str]] = []
-
-    def block(name, cin, f):
-        for i, ci in enumerate((cin, f)):
-            out.append((f"params/{name}/conv{i}/kernel", (3, 3, ci, f), "kernel"))
-            out.append((f"params/{name}/conv{i}/bias", (f,), "zeros"))
-            out.append((f"params/{name}/bn{i}/scale", (f,), "scale"))
-            out.append((f"params/{name}/bn{i}/bias", (f,), "shift"))
-            out.append((f"batch_stats/{name}/bn{i}/mean", (f,), "shift"))
-            out.append((f"batch_stats/{name}/bn{i}/var", (f,), "scale"))
-
-    cin = model["in_channels"]
-    for lvl, f in enumerate(feats):
-        block(f"enc{lvl}", cin, f)
-        cin = f
-    for i, skip_f in enumerate(reversed(feats[:-1])):
-        in_f = feats[-1 - i]
-        out.append((f"params/up{i}_tconv/kernel", (2, 2, in_f, in_f // 2), "kernel"))
-        out.append((f"params/up{i}_tconv/bias", (in_f // 2,), "zeros"))
-        block(f"dec{i}", skip_f + in_f // 2, skip_f)
-    out.append(("params/outc/kernel", (1, 1, feats[0], model["num_classes"]), "kernel"))
-    out.append(("params/outc/bias", (model["num_classes"],), "zeros"))
-    return out
-
-
-def variables(model: Dict[str, Any], seed: int, device, tag: str = "variables") -> Dict[str, Any]:
-    """Seeded U-Net variables {'params', 'batch_stats'} as numpy f32 arrays in
-    the Flax layout (HWIO kernels): kernels N(0, 2 / (kH kW O)) (He
+def variables(arch, model: Dict[str, Any], seed: int, device,
+              tag: str = "variables") -> Dict[str, Any]:
+    """Seeded variables {'params', 'batch_stats'} of the net
+    `arch.leaf_shapes(model)` lists, as numpy f32 arrays in the Flax layout
+    (HWIO kernels), in its order: kernels N(0, 2 / (kH kW O)) (He
     fan-out), conv biases 0, BatchNorm scale and running var U[0.5, 1.5),
     BatchNorm bias and running mean U[-0.2, 0.2). Drawn on `device` in one
     normal and one uniform call from the stream `tag` of `seed`, then
     copied to the host once."""
-    leaves = leaf_shapes(model)
+    leaves = arch.leaf_shapes(model)
     g = generator(seed, tag, device)
     sizes = [math.prod(s) for _, s, _ in leaves]
     n_kernel = sum(n for n, (_, _, r) in zip(sizes, leaves) if r == "kernel")
@@ -160,32 +134,3 @@ def variables(model: Dict[str, Any], seed: int, device, tag: str = "variables") 
             node = node.setdefault(p, {})
         node[name] = np.ascontiguousarray(leaf, dtype=np.float32)
     return tree
-
-
-def plant_intensity_path(variables, gain=20.0, level=0.475, head_scale=0.05):
-    """A seeded stand-in for a trained model. Channel 0 of every encoder
-    and decoder block carries the input intensity unchanged (a centre tap
-    of 1 from input channel 0, BatchNorm the identity on it), and the head
-    thresholds it at `level` (margin gain * (I - level)) beside the random
-    head weights scaled by `head_scale`. Every other weight stays random
-    at full width. A purely random net puts its masks at 1-3% or 90+%
-    foreground with a dense band of logits at the threshold, where bf16
-    rounding alone flips 0.1-0.25% of the pixels in either bf16 path;
-    this net's masks follow the cells with a margin, as a trained model's
-    do, so the pixel-agreement bar tests the kernels and not the band."""
-    p, st = variables["params"], variables["batch_stats"]
-    for name, block in p.items():
-        if not name.startswith(("enc", "dec")):
-            continue
-        for i in (0, 1):
-            k = block[f"conv{i}"]["kernel"]  # (3, 3, CI, CO)
-            k[..., 0] = 0.0
-            k[1, 1, 0, 0] = 1.0
-            block[f"conv{i}"]["bias"][0] = 0.0
-            block[f"bn{i}"]["scale"][0], block[f"bn{i}"]["bias"][0] = 1.0, 0.0
-            st[name][f"bn{i}"]["mean"][0], st[name][f"bn{i}"]["var"][0] = 0.0, 1.0
-    ko = p["outc"]["kernel"]  # (1, 1, 64, 2)
-    ko *= head_scale
-    ko[0, 0, 0] = (-gain / 2, gain / 2)
-    p["outc"]["bias"][:] = (gain * level / 2, -gain * level / 2)
-    return variables

@@ -2,11 +2,13 @@
 
 import pytest
 
+from ubench_parent import CONFIGS, RECORDED
 from ubench_tiny import ROOT, harness
 
 import flops
 
 UNET = {"in_channels": 1, "num_classes": 2, "base_features": 64, "levels": 5}
+ARCH = harness.architecture_of({})
 
 
 def macs_572():
@@ -26,10 +28,10 @@ def macs_572():
 
 def test_paper_net_572():
     assert flops.shapes(572, 5)["out"] == 388
-    layers = flops.forward_layers(UNET, 1, 572)
+    layers = ARCH.forward_layers(UNET, 1, 572)
     assert flops.model_flops(layers) == 2 * macs_572()
     # batch scales every count
-    assert flops.model_flops(flops.forward_layers(UNET, 3, 572)) == 6 * macs_572()
+    assert flops.model_flops(ARCH.forward_layers(UNET, 3, 572)) == 6 * macs_572()
 
 
 @pytest.mark.parametrize("tile,out", [(700, 516), (512, 324), (252, 68), (188, 4)])
@@ -42,16 +44,16 @@ def test_tiles_of_the_serving_cells():
     assert flops.tile_grid(512, 512, 5) == {"tile_out": 324, "per_side": 2, "tiles": 4}
     serve = harness.read_json(ROOT / "benchmark/traffic/serve-700x16.json")
     flag = harness.read_json(ROOT / "benchmark/traffic/serve-flagship.json")
-    one = flops.serve_call(UNET, serve)
+    one = flops.serve_call(ARCH, UNET, serve)
     assert one["forwards"] == 1
-    assert one["model_flops"] == flops.model_flops(flops.forward_layers(UNET, 16, 700))
-    many = flops.serve_call(UNET, flag)
+    assert one["model_flops"] == flops.model_flops(ARCH.forward_layers(UNET, 16, 700))
+    many = flops.serve_call(ARCH, UNET, flag)
     assert many["forwards"] == 3 * 4 * 4  # members x flips x chunks of 8 of 32 tiles
-    assert many["model_flops"] == 48 * flops.model_flops(flops.forward_layers(UNET, 8, 512))
+    assert many["model_flops"] == 48 * flops.model_flops(ARCH.forward_layers(UNET, 8, 512))
 
 
 def test_a_layers_bound_is_its_slower_limit():
-    conv = flops.forward_layers(UNET, 16, 700)[1]  # enc0.conv1 at 698^2 -> 696^2
+    conv = ARCH.forward_layers(UNET, 16, 700)[1]  # enc0.conv1 at 698^2 -> 696^2
     assert conv["name"] == "enc0.conv1"
     assert conv["ops"] == 2 * 16 * 696**2 * 64 * 64 * 9
     assert conv["bytes"] == (16 * 698**2 * 64 * 2 + 9 * 64 * 64 * 2 + 64 * 4
@@ -59,20 +61,22 @@ def test_a_layers_bound_is_its_slower_limit():
     assert conv["bound_s"] == max(conv["ops"] / 989e12, conv["bytes"] / 3.35e12)
 
 
-def test_param_count_is_the_papers_net():
+@pytest.mark.parametrize("name", CONFIGS)
+def test_param_count_is_the_papers_net(name):
     from unetseg_tpu_torch.core.config import ModelConfig
     from unetseg_tpu_torch.models.unet import UNet, param_count
 
-    for classes in (2, 3):
-        m = dict(UNET, num_classes=classes)
-        assert flops.param_count(m)["params"] == param_count(UNet(ModelConfig(num_classes=classes)))
-    assert flops.param_count(UNET)["params"] == 31_042_434
+    model = harness.read_json(ROOT / "benchmark" / "configs" / f"{name}.json")["model"]
+    n = flops.param_count(ARCH, model)
+    assert n == RECORDED[f"{name}/param_count"]
+    assert n["params"] == param_count(UNet(ModelConfig(num_classes=model["num_classes"])))
+    assert flops.param_count(ARCH, UNET)["params"] == 31_042_434
 
 
 def test_train_step_counts_three_passes_less_the_stem_dgrad():
-    fwd = flops.forward_layers(UNET, 4, 512)
+    fwd = ARCH.forward_layers(UNET, 4, 512)
     stem = next(x for x in fwd if x["name"] == "enc0.conv0")
-    step = flops.train_step(UNET, {"batch": 4, "size": 512, "elastic_sigma": 20.0})
+    step = flops.train_step(ARCH, UNET, {"batch": 4, "size": 512, "elastic_sigma": 20.0})
     assert step["model_flops"] == 3 * flops.model_flops(fwd) - stem["ops"]
     aug = next(x for x in step["layers"] if x["name"] == "augment")
     # two fields an item, blurred by 2 x 80 + 1 taps along each of two axes

@@ -1,19 +1,19 @@
 """The plain reference agrees with the port at a tiny width on the CPU: the
-forward, every serving cell's masks and every training cell's first
-steps, each through a whole run of the harness."""
+forward (and, bit for bit, with the reference before architecture
+modules, ubench_parent.py), every serving cell's masks and every training
+cell's first steps, each through a whole run of the harness."""
 
+import hashlib
 import time
 
 import numpy as np
 import pytest
 import torch
 
+from ubench_parent import RECORDED, SEED  # seeds run past 32 signed bits
 from ubench_tiny import CELLS, tiny_spec, harness
 
 import synth
-from reference.unet import forward, to_tensors
-
-SEED = 2**31 + 977  # seeds run past 32 signed bits
 
 
 def test_reference_forward_is_the_ports_unet():
@@ -22,16 +22,18 @@ def test_reference_forward_is_the_ports_unet():
     from unetseg_tpu_torch.utils.flax_bridge import flax_to_state_dict
 
     model = {"in_channels": 1, "num_classes": 3, "base_features": 4, "levels": 5}
-    variables = synth.variables(model, SEED, "cpu")
+    arch = harness.architecture_of({})
+    variables = synth.variables(arch, model, SEED, "cpu")
     net = UNet(ModelConfig(num_classes=3, base_features=4, compute_dtype="float32"))
     net.load_state_dict(flax_to_state_dict(variables))
     x = torch.rand((2, 188, 188), generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         want = net(x[..., None]).permute(0, 3, 1, 2)
-        params, stats = to_tensors(variables, "cpu")
-        got, _ = forward(params, stats, x[:, None], 5)
+        params, stats = arch.to_tensors(variables, "cpu")
+        got, _ = arch.forward(params, stats, x[:, None], model)
     assert got.shape == want.shape == (2, 3, 4, 4)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert hashlib.sha256(got.numpy().tobytes()).hexdigest() == RECORDED["logits"]
 
 
 def run(spec, seed=SEED):

@@ -81,3 +81,18 @@ def test_exits_without_a_result_without_the_program(tmp_path):
     shutil.copytree(BENCH, tmp_path / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
     res = run_py(tmp_path)
     assert res.returncode != 0 and res.stdout == ""
+
+
+def test_train_device_ms_reads_a_traced_epoch(monkeypatch):
+    """On the card, a train cell's end-to-end line adds the device's busy
+    ms a step over the epoch traced after the window; the CPU reads none."""
+    from types import SimpleNamespace
+
+    kind = harness.kind_of(tiny_spec("c2-train-recipe"))
+    monkeypatch.setattr(kind, "profile", lambda run, unit: ({"busy_s": 0.57}, run()))
+    window = {"window_s": 2.0, "units": 40, "failed": 0}
+    card = SimpleNamespace(device="cuda", traced_epoch=lambda: 38)
+    assert kind.Cell.end_to_end(card, window) == {"train_step_ms": 50.0,
+                                                  "train_device_ms": 0.57 / 38 * 1e3}
+    cpu = SimpleNamespace(device="cpu", traced_epoch=None)
+    assert kind.Cell.end_to_end(cpu, window) == {"train_step_ms": 50.0}

@@ -24,7 +24,8 @@ TRAIN = {"frames": 8, "size": 252, "batch": 2, "steps_per_epoch": 4, "epochs_dra
 
 def tiny_spec(cell: str, dtype: str = "float32", **traffic) -> dict:
     """The cell's spec with a base-4 net in `dtype` and small traffic."""
-    spec = copy.deepcopy(harness.load_cell(cell, ROOT))
+    spec = harness.load_cell(cell, ROOT)
+    spec = copy.deepcopy(spec, {id(spec["architecture"]): spec["architecture"]})
     spec["config"]["model"].update(base_features=4, compute_dtype=dtype)
     t = spec["traffic"]
     t.update(SERVE if t["kind"] == "serve_tiles" else TRAIN)
