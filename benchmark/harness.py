@@ -8,6 +8,7 @@ module finds by name.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -47,6 +48,7 @@ def load_cell(name: str, root: Path) -> Dict[str, Any]:
         return name in metric.get("workloads", [name])
 
     body = read_json(root / config["file"])
+    model_config(body["model"], config["name"])  # a key the program lacks fails here
     return {
         "name": name,
         "chips": cell["chips"],
@@ -83,13 +85,17 @@ def architecture_of(config: Dict[str, Any]):
     return load_module(HERE / "reference" / f"{arch}.py", f"ubench_arch_{arch}")
 
 
-def model_config(model: Dict[str, Any]):
-    """The program's ModelConfig of a configuration file's "model"."""
+def model_config(model: Dict[str, Any], config: str = "(unnamed)"):
+    """The program's ModelConfig of a configuration file's "model": every
+    key passed, each one a field that ModelConfig declares; a field the
+    file leaves out takes ModelConfig's default."""
     from unetseg_tpu_torch.core.config import ModelConfig
 
-    return ModelConfig(**{k: model[k] for k in (
-        "in_channels", "num_classes", "base_features", "levels", "bilinear", "compute_dtype",
-        "bn_momentum", "bn_epsilon")})
+    unknown = sorted(set(model) - {f.name for f in dataclasses.fields(ModelConfig)})
+    if unknown:
+        raise ValueError(f"configuration {config}: model key(s) {unknown} are not fields of "
+                         "the program's ModelConfig")
+    return ModelConfig(**model)
 
 
 def print_phases(marks: List[Tuple[str, float]]) -> None:
@@ -245,7 +251,8 @@ def run_cell(spec: Dict[str, Any], seed: int, seconds: float, trace: bool, devic
     dev: Dict[str, Any] = {}
     if trace:
         summary, n = profile(cell.traced, cell.unit)
-        obs = dict(cell.observation(window), trace=summary, traced_units=n)
+        obs = dict(cell.observation(window), launches=launched, trace=summary,
+                   traced_units=n)
         metrics = {}
         for m in spec["per_layer"]:
             value = metric_reader(m["name"])(obs)
