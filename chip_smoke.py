@@ -7,7 +7,7 @@ its own line, and any failure raises (non-zero exit):
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit, and
    whether Pillow and matplotlib import;
-2. build the kernels of the twenty-one wrappers from the thirteen CUDA sources
+2. build the kernels of the twenty-three wrappers from the fourteen CUDA sources
    of unetseg_tpu_torch/csrc (one nvcc per source, in parallel) and print
    ptxas's register and spill lines and any wgmma serialization warning;
 3. serving-kernel parity at the serving path's full-width shapes (700^2
@@ -101,6 +101,14 @@ its own line, and any failure raises (non-zero exit):
    within 1e-6, no host sync; the passes' device times beside the plain
    update's and the bytes bound, the host's time to issue an update, and
    the launches and strided gradients of a recipe step;
+6c. the train step's BatchNorm+ReLU (bn_path; alone with `python3
+   chip_smoke.py --bn`): bn_relu_fwd and bn_relu_bwd at the recipe step's
+   18 shapes (batch 4 at 512^2) against the plain version in bf16 on the
+   card (max error over the reference's max), the same bits on a second
+   run; the device time of each stage (statistics, finalise, the
+   elementwise pass) of the forward and of the backward, summed over the
+   18, beside the plain version's, the bytes bound (8 passes) and its
+   share; the host's time to issue one step's 18 forwards and backwards;
 7. kernel parity of the weighted CE (forward and backward at batch 4,
    324^2 logits, C = 2 and 3, targets and weights read at the 512 -> 324
    crop) and the min-plus product ((32, 512, 512) with either operand
@@ -369,6 +377,11 @@ SOURCES = {
                      "none: optax under jit, unetseg_tpu/train/state.py"),
     "fused_ema": ("unetseg_tpu_torch/csrc/fused_update.cu",
                   "none: optax under jit, unetseg_tpu/train/state.py"),
+    # the train step's BatchNorm+ReLU: no TPU kernel (a custom VJP in XLA)
+    "bn_relu_fwd": ("unetseg_tpu_torch/csrc/bn_relu.cu",
+                    "none: a custom VJP in XLA, unetseg_tpu/ops/fused_bn.py:make_bn_relu_nhwc"),
+    "bn_relu_bwd": ("unetseg_tpu_torch/csrc/bn_relu.cu",
+                    "none: a custom VJP in XLA, unetseg_tpu/ops/fused_bn.py:make_bn_relu_nhwc"),
 }
 # launches per forward chunk of the default serving path and of each
 # variant (phase 4b); the middle has 11 convs with CO % 128 == 0, 8 of
@@ -389,13 +402,15 @@ VARIANT_ROUNDS = 2  # timed runs of each variant and the default, alternating
 # needs no gradient), and with tier2=True: enc1 conv0 / conv1 and dec2
 # conv1 through the dense conv, dec2 conv0 through the dense entry, four
 # dense dgrads (dec2 conv0's into its concat), three dense wgrads and the
-# dense two-source wgrad; the tier-1 wrappers keep their counts. Every step
-# of the recipe (EMA on) ends in the update: one fused_update, and one
+# dense two-source wgrad; the tier-1 wrappers keep their counts. Each of
+# the 18 BatchNorms runs bn_relu_fwd and bn_relu_bwd once. Every step of
+# the recipe (EMA on) ends in the update: one fused_update, and one
 # fused_ema for the parameters' shadow and one for the statistics'
 UPDATE_LAUNCHES = {"fused_update": 1, "fused_ema": 2}
 TRAIN_LAUNCHES = {"conv3x3_bias_relu": 3, "tconv2x2_bias": 1, "dec_conv0": 1, "conv3x3_dgrad": 3,
                   "conv3x3_wgrad": 3, "conv3x3_dec0_wgrad": 1, "sample_displaced": 1,
-                  "weighted_ce_fwd": 1, "weighted_ce_bwd": 1, **UPDATE_LAUNCHES}
+                  "weighted_ce_fwd": 1, "weighted_ce_bwd": 1, "bn_relu_fwd": 18,
+                  "bn_relu_bwd": 18, **UPDATE_LAUNCHES}
 TIER2_LAUNCHES = {**TRAIN_LAUNCHES, "conv3x3_dense": 3, "dec_conv0_dense": 1,
                   "conv3x3_dense_dgrad": 4, "conv3x3_dense_wgrad": 3,
                   "conv3x3_dec0_dense_wgrad": 1}
@@ -1676,6 +1691,7 @@ def update_path(gpu, stats):
     recipe steps through the kernel forward, counting the gradients that
     came back strided."""
     import unetseg_tpu_torch.train.state as S
+    from unetseg_tpu_torch.ops.kernels.bn_relu import bn_relu_bwd, bn_relu_fwd
     from unetseg_tpu_torch.ops.kernels.update import (
         ema_plain, fused_update, global_norm_plain, update_plain,
     )
@@ -1779,6 +1795,7 @@ def update_path(gpu, stats):
     batch.append(torch.ones(TRAIN_BATCH, dtype=torch.bool, device=dev))
     step = make_train_step(cfg, lanes="auto", assume_valid=True, **RECIPE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    bn_relu_fwd.restrided = bn_relu_bwd.restrided = 0
     st = step(state, *batch, gen)[0]
     before = fused_update.restrided
     K.reset_launch_counts()
@@ -1787,8 +1804,101 @@ def update_path(gpu, stats):
     launches = K.launch_counts()
     print(f"update in a recipe step: fused_update {launches['fused_update']}, fused_ema "
           f"{launches['fused_ema']} launches; {fused_update.restrided - before} of "
-          f"{len(grads)} gradients came back strided and were made contiguous", flush=True)
+          f"{len(grads)} gradients came back strided and were made contiguous; BatchNorm "
+          f"inputs copied to contiguous over the two steps: forward {bn_relu_fwd.restrided}, "
+          f"backward {bn_relu_bwd.restrided}", flush=True)
     check_launches("update in a recipe step", launches, TRAIN_LAUNCHES, 1)
+
+
+# phase 6c: the train step's 18 BatchNorms at batch 4 and 512^2: (side of
+# the activation, channels), enc0 .. enc4, then dec0 .. dec3. The forward
+# reads z twice and writes y, the backward reads gy and z twice and writes
+# dz: BN_PASSES passes over the bf16 activation at the bound
+BN_SHAPES = [(510, 64), (508, 64), (252, 128), (250, 128), (123, 256), (121, 256),
+             (58, 512), (56, 512), (26, 1024), (24, 1024), (46, 512), (44, 512),
+             (86, 256), (84, 256), (166, 128), (164, 128), (326, 64), (324, 64)]
+BN_FWD_PASSES, BN_BWD_PASSES = 3, 5
+BN_STAGES = {"forward": ("stats_kernel", "fwd_finalize_kernel", "apply_kernel"),
+             "backward": ("bwd_stats_kernel", "bwd_finalize_kernel", "dz_kernel")}
+
+
+def bn_path(gpu, stats):
+    """The train step's BatchNorm+ReLU (csrc/bn_relu.cu) at the recipe
+    step's 18 shapes, unmasked as the recipe runs it: y and dz against the
+    plain version in bf16 on the card (max error over the reference's
+    max), the same bits on a second run; the device time of each stage of
+    the forward and the backward summed over the 18 (torch.profiler, one
+    session each), beside the plain version's and the bytes bound; the
+    host's time to issue one step's 18 forwards and backwards."""
+    from unetseg_tpu_torch.ops.kernels import bn_relu as BN
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    cases, errs, n_elems = [], [], 0
+    for side, c in BN_SHAPES:
+        z = (torch.rand(c, generator=g, device="cuda") * 2 - 1
+             + torch.randn(TRAIN_BATCH, side, side, c, generator=g, device="cuda")).bfloat16()
+        gy = (0.1 * torch.randn(z.shape, generator=g, device="cuda")).bfloat16()
+        gamma = torch.rand(c, generator=g, device="cuda") + 0.5
+        beta = torch.rand(c, generator=g, device="cuda") - 0.5
+        rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+        args = (z, gamma, beta, rm, rv, None, 0.9, 1e-5)
+        y, _, _, saved = BN.bn_relu_fwd(*args)
+        dz = BN.bn_relu_bwd(gy, z, gamma, None, saved)[0]
+        y2, _, _, saved2 = BN.bn_relu_fwd(*args)
+        same = (torch.equal(y, y2) and torch.equal(saved, saved2)
+                and torch.equal(dz, BN.bn_relu_bwd(gy, z, gamma, None, saved2)[0]))
+        fy, _, _, fsaved = BN.bn_relu_fwd_plain(z.float(), *args[1:])
+        fdz = BN.bn_relu_bwd_plain(gy.float(), z.float(), gamma, None, fsaved)[0]
+        py, _, _, psaved = BN.bn_relu_fwd_plain(*args)
+        pdz = BN.bn_relu_bwd_plain(gy, z, gamma, None, psaved)[0]
+        errs.append((rel_err(y, fy), rel_err(dz, fdz), same, rel_err(py, fy), rel_err(pdz, fdz)))
+        del fy, fdz, fsaved, py, pdz
+        cases.append((args, gy, saved, psaved))
+        n_elems += z.numel()
+    worst = [max(e[i] for e in errs) for i in (0, 1, 3, 4)]
+    bad = [(sh, e) for sh, e in zip(BN_SHAPES, errs) if not e[2] or max(e[:2]) > 1e-2]
+    print(f"parity bn_relu at the recipe's 18 BatchNorms ({n_elems} elements): max error over "
+          f"the max of the plain version in f32, y {worst[0]:.3e} (the plain version in bf16 "
+          f"{worst[2]:.3e}), dz {worst[1]:.3e} (bf16 {worst[3]:.3e}); the same bits on a second "
+          f"run: {all(e[2] for e in errs)}", flush=True)
+    if bad:
+        raise AssertionError(f"bn_relu: shapes off the plain version or not repeatable: {bad}")
+
+    runs = {
+        "forward": lambda: [BN.bn_relu_fwd(*a) for a, _, _, _ in cases],
+        "backward": lambda: [BN.bn_relu_bwd(gy, a[0], a[1], None, sv) for a, gy, sv, _ in cases],
+        "plain forward": lambda: [BN.bn_relu_fwd_plain(*a) for a, _, _, _ in cases],
+        "plain backward": lambda: [BN.bn_relu_bwd_plain(gy, a[0], a[1], None, ps)
+                                   for a, gy, _, ps in cases],
+    }
+    dev = {name: device_times(fn, iters=5) for name, fn in runs.items()}
+    host = {}
+    for name in ("forward", "backward", "plain forward", "plain backward"):
+        runs[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name]()
+        host[name] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    elem_bytes = 2 * n_elems
+    line = []
+    for way, passes in (("forward", BN_FWD_PASSES), ("backward", BN_BWD_PASSES)):
+        parts = {k: sum(v for n, v in dev[way].items() if k in n) for k in BN_STAGES[way]}
+        ms, plain_ms = sum(dev[way].values()), sum(dev["plain " + way].values())
+        st = stats["bn_relu_fwd" if way == "forward" else "bn_relu_bwd"]
+        bound = add_bound(st, 0, PEAK_F32, passes * elem_bytes)
+        add_times(st, ms, plain_ms, None)
+        st["max_abs_err"] = max(e[0 if way == "forward" else 1] for e in errs)
+        line.append(f"{way} {ms:.4f} ms ({', '.join(f'{k} {v:.4f}' for k, v in parts.items())}; "
+                    f"plain {plain_ms:.4f}; bound {bound:.4f}, share {bound / ms:.1%}; host ms "
+                    f"to issue {host[way]:.3f}, plain {host['plain ' + way]:.3f})")
+    total = sum(sum(dev[w].values()) for w in ("forward", "backward"))
+    plain = sum(sum(dev["plain " + w].values()) for w in ("forward", "backward"))
+    bound = (BN_FWD_PASSES + BN_BWD_PASSES) * elem_bytes / HBM_BPS * 1e3
+    print(f"time bn_relu over the 18 BatchNorms of a recipe step (device time, torch.profiler, "
+          f"summed): {'; '.join(line)}; both ways {total:.4f} ms against plain {plain:.4f} ms; "
+          f"bound {bound:.4f} ms ({BN_FWD_PASSES + BN_BWD_PASSES} passes of "
+          f"{elem_bytes / 1e9:.3f} GB), share {bound / total:.1%}; on {gpu}", flush=True)
 
 
 def rel_err(got, ref):
@@ -3344,6 +3454,27 @@ def importable(name):
         return False
 
 
+def main_bn():
+    """Phase 6c alone, after the environment and the build."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
+    gpu = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    gpu = gpu.splitlines()[0]
+    info = build()
+    print(f"build: {info['seconds']:.1f} s nvcc, {info['path']}", flush=True)
+    names = ("sums_kernel", *BN_STAGES["forward"], *BN_STAGES["backward"])
+    shown = False
+    for ln in info["log"].splitlines():  # ptxas's lines of the BatchNorm kernels
+        if "Compiling entry" in ln:
+            shown = any(n in ln for n in names)
+        if shown:
+            print(f"build: ptxas {ln.strip()}", flush=True)
+    stats = new_stats()
+    bn_path(gpu, stats)
+    print(json.dumps({k: {key: v for key, v in stats[k].items() if not key.startswith("_")}
+                      for k in ("bn_relu_fwd", "bn_relu_bwd")}))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
@@ -3377,6 +3508,7 @@ def main():
     train_kernel_parity(stats)
     training, training2 = train_path(gpu)
     update_path(gpu, stats)
+    bn_path(gpu, stats)
     pre_labels = cell_frames(np.random.RandomState(SEED + 5), PRE_FRAMES, PRE_SIZE,
                              labels=True)[1]
     loss_and_edt_parity(stats, pre_labels)
@@ -3417,5 +3549,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         dp_worker(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--bn"]:
+        main_bn()
     else:
         main()

@@ -45,7 +45,10 @@ against Predictor.probs) and on the CPU, and a pinned batch;
 visualize-augmentation's deformation on the card; and the train step's
 fused update at the full parameter tree for SGD, Adam and AdamW with the
 EMA (bit for bit against the plain `_foreach` update), at 150 leaves of
-ragged sizes read at misaligned addresses, and with no host sync.
+ragged sizes read at misaligned addresses, and with no host sync; and the
+train step's BatchNorm+ReLU (csrc/bn_relu.cu) at the recipe step's 18
+shapes, with a masked item, exact ties, a group of equal ranks, a strided
+activation and no host sync, the same bits on a second run.
 
 Marked `cuda` and skipped without a card. The file imports no jax, so on a
 GPU machine it runs without the JAX package:
@@ -1347,3 +1350,209 @@ def test_update_makes_no_host_sync(g):
         torch.cuda.set_sync_debug_mode(0)
     assert norm.is_cuda and norm.dim() == 0 and state.step == 2
     assert torch.isfinite(norm).item()
+
+
+# ---- the train step's BatchNorm+ReLU (csrc/bn_relu.cu)
+# the recipe step's 18 BatchNorms at batch 4 and 512^2: (side, channels)
+BN_SHAPES = [(510, 64), (508, 64), (252, 128), (250, 128), (123, 256), (121, 256),
+             (58, 512), (56, 512), (26, 1024), (24, 1024), (46, 512), (44, 512),
+             (86, 256), (84, 256), (166, 128), (164, 128), (326, 64), (324, 64)]
+# Tolerances against the plain version run in f32 on the same bf16 inputs:
+# the kernels round once, at the bf16 store (at most 2^-8 of the value); the
+# f32 sums of the two routes are added in other orders (under 1e-6 of the
+# sum of magnitudes at these sizes), which BN_SCALE of each element's
+# magnitudes covers with room; where t = a z + b lies within that of 0 the
+# ReLU's gate may fall either way (never at an exact 0: both give the tie
+# there), and such elements (BN_GATE of the magnitudes, a few in 1e5) are
+# counted, not compared.
+BN_REL, BN_SCALE, BN_GATE, BN_SUMS = 2.0**-8, 2.0**-12, 2.0**-16, 1e-4
+
+
+def _bn_inputs(g, b, side, c, mask=None):
+    d = dict(device="cuda")
+    mu, sd = torch.rand(c, generator=g, **d) * 2 - 1, torch.rand(c, generator=g, **d) * 1.5 + 0.5
+    z = (mu + sd * torch.randn(b, side, side, c, generator=g, **d)).to(torch.bfloat16)
+    gamma = torch.rand(c, generator=g, **d) + 0.5
+    beta = torch.rand(c, generator=g, **d) - 0.5
+    rm, rv = torch.rand(c, generator=g, **d), torch.rand(c, generator=g, **d) + 1.0
+    gy = (0.1 * torch.randn(b, side, side, c, generator=g, **d)).to(torch.bfloat16)
+    ct = 1e-3 * torch.randn(2, c, generator=g, **d)
+    return z, gamma, beta, rm, rv, mask, gy, ct[0], ct[1]
+
+
+def _bn_kernel(z, gamma, beta, rm, rv, mask, gy, ctm, ctv, group=None):
+    from unetseg_tpu_torch.ops.kernels import bn_relu as BN
+
+    y, nm, nv, saved = BN.bn_relu_fwd(z, gamma, beta, rm, rv, mask, 0.9, 1e-5, group)
+    grads = BN.bn_relu_bwd(gy, z, gamma, mask, saved, ctm, ctv, 0.9, group)
+    return (y, nm, nv, saved, *grads)
+
+
+def _bn_plain(z, gamma, beta, rm, rv, mask, gy, ctm, ctv):
+    from unetseg_tpu_torch.ops.kernels import bn_relu as BN
+
+    y, nm, nv, saved = BN.bn_relu_fwd_plain(z, gamma, beta, rm, rv, mask, 0.9, 1e-5)
+    return (y, nm, nv, saved,
+            *BN.bn_relu_bwd_plain(gy, z, gamma, mask, saved, ctm, ctv, 0.9))
+
+
+def _bn_check(z, gamma, beta, rm, rv, mask, gy, ctm, ctv):
+    """The kernels against the plain version in f32 (BN_REL, BN_SCALE,
+    BN_SUMS), no farther from it than the plain version in bf16, and the
+    same bits on a second run."""
+    from unetseg_tpu_torch.ops.kernels import bn_relu as BN
+
+    args = (z, gamma, beta, rm, rv, mask, gy, ctm, ctv)
+    k = _bn_kernel(*args)
+    again = _bn_kernel(*args)
+    f = _bn_plain(z.float(), gamma, beta, rm, rv, mask, gy.float(), ctm, ctv)
+    p = _bn_plain(*args)
+    torch.cuda.synchronize()
+    names = ("y", "new_mean", "new_var", "saved", "dz", "dgamma", "dbeta", "d_mean", "d_var")
+    assert all(torch.equal(a, b) for a, b in zip(k, again)), \
+        [n for n, a, b in zip(names, k, again) if not torch.equal(a, b)]
+    assert BN.bn_relu_fwd.launches > 0 and BN.bn_relu_bwd.launches > 0
+
+    ref = dict(zip(BN.SAVED, f[3].unbind(0)))
+    zf, gyf = z.float(), gy.float()
+    t = torch.addcmul(ref["b"], zf, ref["a"])
+    mag = (zf * ref["a"]).abs() + ref["b"].abs()
+    gate = (t.abs() <= BN_GATE * mag) & (t != 0)
+    assert gate.float().mean().item() < 1e-3, gate.float().mean().item()
+
+    def close(name, got, want, scale, skip=None):
+        err = (got.float() - want.float()).abs()
+        bad = err > BN_REL * want.float().abs() + BN_SCALE * scale
+        if skip is not None:
+            bad &= ~skip
+        assert not bad.any(), f"{name}: {int(bad.sum())} elements, worst {err.max().item():.3e}"
+
+    close("y", k[0], f[0], mag, gate)
+    gp = gyf * BN._tie(t)
+    stat = (f[4] - gp * ref["a"]).abs().amax(dim=(0, 1, 2))
+    close("dz", k[4], f[4], (gp * ref["a"]).abs() + stat, gate)
+    dims = (0, 1, 2)
+    g_abs = gyf.abs().sum(dims)
+    gz_abs = ((gyf * zf).abs().sum(dims) + ref["mean"].abs() * g_abs) * ref["inv"]
+    for name, got, want, scale in (("dbeta", k[6], f[6], g_abs), ("dgamma", k[5], f[5], gz_abs)):
+        assert ((got - want).abs() <= BN_SUMS * scale).all(), name
+    spread = ref["var_raw"].clamp_min(0).sqrt() + ref["mean"].abs() + 1
+    for name, got, want in (("new_mean", k[1], f[1]), ("new_var", k[2], f[2]),
+                            ("mean", k[3][2], ref["mean"]), ("a", k[3][0], ref["a"]),
+                            ("b", k[3][1], ref["b"])):
+        assert ((got - want).abs() <= 1e-5 * spread * (1 + want.abs())).all(), name
+    assert torch.equal(k[7], f[7]) and torch.equal(k[8], f[8])  # 0.9 x the cotangents
+    # closer to the f32 version than the plain version in bf16 is
+    for i, name in ((0, "y"), (4, "dz"), (5, "dgamma"), (6, "dbeta")):
+        assert (k[i].float() - f[i]).norm() <= (p[i].float() - f[i]).norm(), name
+    return k
+
+
+@pytest.mark.parametrize("side,c", BN_SHAPES, ids=[f"{s}x{c}" for s, c in BN_SHAPES])
+def test_bn_relu_at_the_recipe_shapes(g, side, c):
+    """The BatchNorm+ReLU kernels at each of the recipe step's 18 shapes
+    against the plain version: y, the new running statistics, dz, dgamma,
+    dbeta and the running statistics' cotangents; the same bits twice."""
+    _bn_check(*_bn_inputs(g, 4, side, c))
+
+
+def test_bn_relu_masked_item(g):
+    """A masked item leaves the statistics, never multiplied: NaN there
+    gives the same statistics, bit for bit, as finite values."""
+    mask = torch.tensor([True, False, True, True], device="cuda")
+    args = list(_bn_inputs(g, 4, 252, 128, mask))
+    args[0][1] = (3 * args[0][1].float()).to(torch.bfloat16)
+    k = _bn_check(*args)
+    args[0] = args[0].clone()
+    args[0][1] = float("nan")
+    from unetseg_tpu_torch.ops.kernels import bn_relu as BN
+
+    _, nm, nv, saved = BN.bn_relu_fwd(*args[:6], 0.9, 1e-5)
+    assert torch.equal(nm, k[1]) and torch.equal(nv, k[2]) and torch.equal(saved, k[3])
+    assert saved[BN.SAVED.index("n")][0].item() == 3 * 252 * 252
+
+
+def test_bn_relu_exact_ties(g):
+    """Exact zeros of t = a z + b take the tie (0.5) in both routes: a
+    channel of zeros with beta 0 (zero variance too), and a channel of
+    -1, 0, 1 whose mean is exactly 0, with beta 0."""
+    z, gamma, beta, rm, rv, _, gy, ctm, ctv = _bn_inputs(g, 4, 60, 64)
+    beta[:2] = 0
+    z[..., 0] = 0
+    v = torch.randint(-1, 2, (2, 60, 60), generator=g, device="cuda").to(torch.bfloat16)
+    z[..., 1] = torch.cat([v, -v])
+    k = _bn_check(z, gamma, beta, rm, rv, None, gy, ctm, ctv)
+    from unetseg_tpu_torch.ops.kernels import bn_relu as BN
+
+    assert k[3][BN.SAVED.index("var_raw")][0].item() == 0.0
+    assert not k[0][..., 0].any()
+    gyf, zf = gy.float(), z.float()
+    tie = (zf[..., :2] > 0).float() + 0.5 * (zf[..., :2] == 0).float()
+    want = (gyf[..., :2] * tie).sum((0, 1, 2))  # dbeta = sum gy x the ReLU's tie
+    assert ((k[6][:2] - want).abs() <= BN_SUMS * gyf[..., :2].abs().sum((0, 1, 2))).all()
+
+
+def test_bn_relu_group_of_equal_ranks(g, monkeypatch):
+    """The group route (4 launches each way) where every rank holds the
+    same items (the sum over the group stood in for by twice the value):
+    the moments, y, dz, dgamma and dbeta bit for bit those of one process,
+    the running variance apart by its unbiasing n / (n - 1) alone."""
+    from unetseg_tpu_torch.ops.kernels import bn_relu as BN
+
+    monkeypatch.setattr(BN, "all_reduce_sum", lambda t, group: 2 * t)
+    for mask in (None, torch.tensor([True, True, False, True], device="cuda")):
+        args = _bn_inputs(g, 4, 123, 256, mask)
+        one = _bn_kernel(*args)
+        two = _bn_kernel(*args, group="stand-in")
+        for i in (0, 4, 5, 6, 7, 8):
+            assert torch.equal(one[i], two[i]), i
+        for row in ("a", "b", "mean", "inv", "var_raw"):
+            j = BN.SAVED.index(row)
+            assert torch.equal(one[3][j], two[3][j]), row
+        n = one[3][BN.SAVED.index("n")][0].item()
+        torch.testing.assert_close(two[3][BN.SAVED.index("n")], 2 * one[3][BN.SAVED.index("n")])
+        var = one[3][BN.SAVED.index("var_raw")].clamp_min(0)
+        torch.testing.assert_close(two[2], 0.9 * args[4] + 0.1 * var * 2 * n / (2 * n - 1))
+
+
+def test_bn_relu_strided_and_refused_inputs(g):
+    """A strided activation is copied (counted) and gives the same bits;
+    what the kernels do not take raises."""
+    from unetseg_tpu_torch.ops.kernels import bn_relu as BN
+
+    z, gamma, beta, rm, rv, _, gy, ctm, ctv = _bn_inputs(g, 2, 20, 64)
+    want = _bn_kernel(z, gamma, beta, rm, rv, None, gy, ctm, ctv)
+    zs = z.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert not zs.is_contiguous()
+    before = BN.bn_relu_fwd.restrided
+    got = _bn_kernel(zs, gamma, beta, rm, rv, None, gy, ctm, ctv)
+    assert BN.bn_relu_fwd.restrided == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+    with pytest.raises(TypeError, match="bfloat16"):
+        BN.bn_relu_fwd(z.float(), gamma, beta, rm, rv)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        BN.bn_relu_fwd(z[..., :60], gamma[:60], beta[:60], rm[:60], rv[:60])
+    with pytest.raises(ValueError, match="different devices"):
+        BN.bn_relu_fwd(z, gamma, beta, rm, rv, torch.ones(2, dtype=torch.bool))
+
+
+def test_bn_relu_makes_no_host_sync(g):
+    """Forward and backward under set_sync_debug_mode("error"), masked and
+    not: nothing waits on the card."""
+    from unetseg_tpu_torch.ops.fused_bn import bn_relu_nhwc
+    from unetseg_tpu_torch.ops.kernels.build import library
+
+    library()
+    for mask in (None, torch.tensor([True, False], device="cuda")):
+        z, gamma, beta, rm, rv, _, gy, _, _ = _bn_inputs(g, 2, 30, 128)
+        z.requires_grad_(True)
+        gamma.requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, _, _ = bn_relu_nhwc(z, gamma, beta, rm, rv, 0.9, 1e-5, mask)
+            dz, dgamma = torch.autograd.grad(y, (z, gamma), gy)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert dz.dtype == torch.bfloat16 and dgamma.dtype == torch.float32
+        assert torch.isfinite(dz.float()).all() and torch.isfinite(dgamma).all()

@@ -81,11 +81,13 @@ RESULTS_PATH = REPO / "docs" / "results_torch_latest.json"
 DEFAULT_OPTIONS = dict(tier2=False, fused_enc0=False, dec_fuse="head", cblock=())
 # launches of one augmented train step through the kernel train forward at
 # tier 1 (the stem's input gradient is skipped: the input needs none), with
-# the recipe's update: Adam in one pass, the EMA of the parameters and of the
-# statistics in one each
+# the 18 BatchNorms' fused forward and backward, and the recipe's update:
+# Adam in one pass, the EMA of the parameters and of the statistics in one
+# each
 TRAIN_LAUNCHES = {"conv3x3_bias_relu": 3, "tconv2x2_bias": 1, "dec_conv0": 1, "conv3x3_dgrad": 3,
                   "conv3x3_wgrad": 3, "conv3x3_dec0_wgrad": 1, "sample_displaced": 1,
-                  "weighted_ce_fwd": 1, "weighted_ce_bwd": 1, "fused_update": 1, "fused_ema": 2}
+                  "weighted_ce_fwd": 1, "weighted_ce_bwd": 1, "bn_relu_fwd": 18,
+                  "bn_relu_bwd": 18, "fused_update": 1, "fused_ema": 2}
 STEPS_PER_EPOCH = 38  # the recipe's 152 training frames / batch 4
 SEG_SOURCE = ("not measured: no docs/results_torch_latest.json (written by "
               "tools/reproduce_flagship_torch.sh); docs/results_latest.json holds the JAX "

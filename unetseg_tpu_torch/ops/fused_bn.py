@@ -7,12 +7,15 @@ the minimum pass count over the activation:
   forward : one masked-reduction pass (s, sq) + one normalise+ReLU pass
   backward: one reduction pass (G1 = sum g'z, G2 = sum g') + one dz pass
 
-with every reduction accumulated in fp32 and the elementwise work in the
-activation's dtype. JAX's tie conventions are kept: the ReLU gradient is
-0.5 at exactly 0 and so is the gradient of the variance clamp at 0 (the
-`jnp.maximum` convention), so the two packages agree on those ties too.
-This is plain PyTorch: the JAX version is a custom VJP in XLA, not a
-Pallas kernel.
+with every reduction accumulated in fp32. JAX's tie conventions are kept:
+the ReLU gradient is 0.5 at exactly 0 and so is the gradient of the
+variance clamp at 0 (the `jnp.maximum` convention), so the two packages
+agree on those ties too. The passes are ops/kernels/bn_relu.py's
+`bn_relu_fwd` and `bn_relu_bwd`: on a CUDA tensor the kernels of
+csrc/bn_relu.cu (three launches each way, the elementwise work in f32),
+on a CPU tensor the plain PyTorch version (the elementwise work in the
+activation's dtype). The JAX version is a custom VJP in XLA, not a Pallas
+kernel.
 
 With a process group (`group`, the data axis of a mesh) the moments are
 global, as the JAX forward's psum((s, sq, n)) makes them: the forward
@@ -30,12 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from unetseg_tpu_torch.core.distributed import all_reduce_cat
-
-
-def _tie(x: torch.Tensor) -> torch.Tensor:
-    """Gradient factor of max(x, 0): 1 above 0, 0.5 at 0, 0 below (f32)."""
-    return torch.where(x > 0, 1.0, torch.where(x < 0, 0.0, 0.5)).float()
+from unetseg_tpu_torch.ops.kernels.bn_relu import bn_relu_bwd, bn_relu_fwd
 
 
 class BnReluNHWC(torch.autograd.Function):
@@ -44,59 +42,23 @@ class BnReluNHWC(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, z, gamma, beta, run_mean, run_var, item_mask, momentum, eps, group):
-        b, h, w, _ = z.shape
-        dims = (0, 1, 2)
-        if item_mask is not None:
-            wm = item_mask.to(z.dtype)[:, None, None, None]
-            s = (z * wm).sum(dims, dtype=torch.float32)
-            sq = (z.square() * wm).sum(dims, dtype=torch.float32)
-            n = item_mask.float().sum() * (h * w)
-        else:
-            s = z.sum(dims, dtype=torch.float32)
-            sq = z.square().sum(dims, dtype=torch.float32)
-            n = torch.tensor(float(b * h * w), device=z.device)
-        if group is not None:
-            s, sq, n = all_reduce_cat(group, s, sq, n)
-        n = n.clamp_min(1.0)
-        mean = s / n
-        var_raw = sq / n - mean.square()
-        var = var_raw.clamp_min(0.0)
-        unbias = n / (n - 1.0).clamp_min(1.0)
-        new_mean = momentum * run_mean + (1 - momentum) * mean
-        new_var = momentum * run_var + (1 - momentum) * var * unbias
-        a = gamma * torch.rsqrt(var + eps)
-        bb = beta - mean * a
-        ac, bc = a.to(z.dtype), bb.to(z.dtype)
-        y = torch.addcmul(bc, z, ac).clamp_min_(0)
-        ctx.save_for_backward(z, gamma, item_mask, mean, var_raw, var, n, unbias, ac, bc)
-        ctx.momentum, ctx.eps, ctx.group = momentum, eps, group
+        y, new_mean, new_var, saved = bn_relu_fwd(z, gamma, beta, run_mean, run_var, item_mask,
+                                                  momentum, eps, group)
+        # an unused running statistic's cotangent arrives as None, not as
+        # zeros built on the device
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(z, gamma, item_mask, saved)
+        ctx.momentum, ctx.group = momentum, group
         return y, new_mean, new_var
 
     @staticmethod
     def backward(ctx, gy, ct_mean, ct_var):
-        z, gamma, item_mask, mean, var_raw, var, n, unbias, ac, bc = ctx.saved_tensors
-        mom = ctx.momentum
-        inv = torch.rsqrt(var + ctx.eps)
-        a = gamma * inv
-        gp = gy * _tie(torch.addcmul(bc, z, ac)).to(gy.dtype)
-        dims = (0, 1, 2)
-        g1 = (gp * z).sum(dims, dtype=torch.float32)
-        g2 = gp.sum(dims, dtype=torch.float32)
-        da = g1 - mean * g2
-        dgamma, dbeta, d_run = da * inv, g2, (mom * ct_mean, mom * ct_var)
-        if ctx.group is not None:  # the statistics' cotangents from every rank
-            g1, g2, ct_mean, ct_var = all_reduce_cat(ctx.group, g1, g2, ct_mean, ct_var)
-            da = g1 - mean * g2
-        dvar = -0.5 * inv.pow(3) * (gamma * da)
-        dvar = (dvar + (1 - mom) * unbias * ct_var) * _tie(var_raw)
-        dmean = -a * g2 + (1 - mom) * ct_mean - 2.0 * mean * dvar
-        ds, dsq = dmean / n, dvar / n
-        dt = z.dtype
-        stat = torch.addcmul(ds.to(dt), z, (2.0 * dsq).to(dt))
-        if item_mask is not None:
-            stat = stat * item_mask.to(dt)[:, None, None, None]
-        dz = torch.addcmul(stat, gp, a.to(dt))
-        return dz, dgamma, dbeta, *d_run, None, None, None, None
+        z, gamma, item_mask, saved = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros_like(z)
+        dz, dgamma, dbeta, d_mean, d_var = bn_relu_bwd(gy, z, gamma, item_mask, saved, ct_mean,
+                                                       ct_var, ctx.momentum, ctx.group)
+        return dz, dgamma, dbeta, d_mean, d_var, None, None, None, None
 
 
 def bn_relu_nhwc(

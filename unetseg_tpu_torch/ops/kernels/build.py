@@ -54,6 +54,13 @@ SIGNATURES = {
     "sample_displaced_f32": [P, P, P, P, I, I, I, P, P, P],
     "fused_update_f32": [I, I, P, P, P, P, P, P, P, P, P, P, P, I, P, P],
     "fused_ema_f32": [I, P, P, P, P, P, F, P],
+    "bn_relu_stats_bf16": [P, P, L, I, L, I, P, P],
+    "bn_relu_fwd_finalize_f32": [P, I, I, P, P, I, L, F, P, P, P, P, F, F, F, P, P, P, P],
+    "bn_relu_sums_f32": [P, I, I, P, P],
+    "bn_relu_apply_bf16": [P, L, I, I, P, P, P],
+    "bn_relu_bwd_stats_bf16": [P, P, L, I, I, P, P, P],
+    "bn_relu_bwd_finalize_f32": [P, I, I, P, P, P, P, P, F, F, P, P, P, P, P, P],
+    "bn_relu_dz_bf16": [P, P, P, L, I, L, I, P, P, P, P],
 }
 
 
