@@ -20,41 +20,32 @@ its own line, and any failure raises (non-zero exit):
    forward (csrc/conv_fwd_wgmma.cu: every conv3x3_bias_relu, conv3x3_dense,
    conv3x3_cblock, dec_conv0 and dec_conv0_dense case with more than one
    input channel) also prints its kernel's and cuDNN's events and
-   torch.profiler device times, kernel / cuDNN, its share of the bound, the
-   launch plan's form (im2col or windowed) and tile fill, and the device
-   time of the mma.sync kernel that it replaced (K.conv3x3_mma_reference)
-   on the same tensors. The head conv (the wgmma forward's head variant)
-   and the tconv (a streaming wgmma GEMM) print one line each: events and
-   device time, the device time of the mma.sync kernel each replaced on
-   the same tensors (K.conv3x3_mma_reference with the head,
-   K.tconv2x2_mma_reference), the library's (the head: cuDNN conv + bias,
-   ReLU and the 1x1 conv, three calls; the tconv: F.conv_transpose2d with
-   its bias), the share of the bound and, for the head, the tile fill; the
-   stem (the row kernel, CI = 1) prints the same line: its events and
-   device time, the device time of the FMA kernel it replaced
-   (K.stem_fma_reference) and of cuDNN's conv + bias on the same tensors,
-   the share of its bytes bound, and whether its bits equal the FMA
-   kernel's (a miss fails); the fused decoder tail (dec_tail_kernel of the
-   wgmma forward's source) prints the same line with the mma.sync tail it
-   replaced (K.dec_tail_mma_reference) and the wgmma chain dec_conv0 ->
-   conv3x3_head in place of the library, its walk and conv0's recompute
-   factor; the fused enc0 (enc0_fused_kernel of the same source) the same
-   line with the mma.sync enc0 it replaced (K.enc0_fused_mma_reference)
-   and the counted chain stem -> wgmma conv1 + pool in place of the
-   library, its walk, conv1's fill and the stem's recompute factor; two
-   launches at enc4 conv1, at the dec3 entry, of the head and of the tconv
-   must give the same bits; the fused enc0 must equal the stem kernel and
-   the wgmma conv chained, enc0_fused_mma_reference the stem kernel and
-   the mma.sync conv, dec_tail the wgmma chain, and dec_tail_mma_reference
-   the mma.sync conv and head chained, each bit for bit (any miss fails);
+   torch.profiler device times, kernel / cuDNN, its share of the bound and
+   the launch plan's form (im2col or windowed) and tile fill. The head conv
+   (the wgmma forward's head variant) and the tconv (a streaming wgmma
+   GEMM) print one line each: events and device time, the library's (the
+   head: cuDNN conv + bias, ReLU and the 1x1 conv, three calls; the tconv:
+   F.conv_transpose2d with its bias), the share of the bound and, for the
+   head, the tile fill; the stem (the row kernel, CI = 1) prints the same
+   line: its events and device time, cuDNN's conv + bias on the same
+   tensors and the share of its bytes bound; the fused decoder tail
+   (dec_tail_kernel of the wgmma forward's source) prints the same line
+   with the wgmma chain dec_conv0 -> conv3x3_head in place of the library,
+   its walk and conv0's recompute factor; the fused enc0
+   (enc0_fused_kernel of the same source) the same line with the counted
+   chain stem -> wgmma conv1 + pool in place of the library, its walk,
+   conv1's fill and the stem's recompute factor; two launches at enc4
+   conv1, at the dec3 entry, of the head and of the tconv must give the
+   same bits; the fused enc0 must equal the stem kernel and the wgmma conv
+   chained, and dec_tail the wgmma chain, each bit for bit (any miss
+   fails);
 4. serving path: Predictor.masks_tiled on 16 seeded synthetic 512^2 cell
    frames at full width, with seeded He-scaled weights, random BatchNorm
    statistics and a planted intensity path (see plant_intensity_path);
    checks the uint8 masks, that its four kernels launched exactly as
    before (2, 1, 1, 1 per forward chunk), finite logits, and >= 0.999
    pixel agreement with the plain fp32 forward on the card, and times it
-   with CUDA events beside the plain bf16 forward and the MPix/s recorded
-   with the mma.sync head and tconv;
+   with CUDA events beside the plain bf16 forward;
 4b. serving variants: Predictor.masks_tiled on the same frames with (a)
    tier2, (b) fused_enc0 with dec_fuse="tail", (c) cblock=("all",), (d)
    all three; checks each one's uint8 masks, finite
@@ -68,20 +59,17 @@ its own line, and any failure raises (non-zero exit):
    concat, dec2 conv1), dense wgrad (enc1 conv0 and conv1, dec2 conv1),
    dense decoder-entry wgrad (skip1 at (41, 41)) and its forward kernels
    with relu=False (conv3x3_dense, dec_conv0_dense); same bound. Each
-   multi-channel weight gradient also prints its fraction of the bound,
-   cuDNN's time and the time of the mma.sync kernel that the wgmma kernel
-   replaced; the stem's (CI = 1, the TMA kernel) the device time of its
-   kernel and reduce beside the FMA kernel it replaced
-   (KT.wgrad_stem_fma_reference) and cuDNN's, its share of the bytes
-   bound, and the same bits on two launches (a miss fails); two launches
-   at enc0 conv1 must give the same bits; the
+   multi-channel weight gradient also prints its fraction of the bound
+   and cuDNN's time; the stem's (CI = 1, the TMA kernel) the device time
+   of its kernel and reduce beside cuDNN's, its share of the bytes bound,
+   and the same bits on two launches (a miss fails); two launches at enc0
+   conv1 must give the same bits; the
    relu=False forwards print phase 3's wgmma lines, the tconv at the
    train step's up3 (4, 164, 164, 128) phase 3's tconv line and the train
    stem (relu=False) phase 3's stem line; each of the seven dgrads (tier
    1's three, tier 2's four; the wgmma forward's kernels on g read at
-   (-2, -2)) prints the same line with the mma.sync dgrad it replaced
-   (KT.conv3x3_dgrad_mma_reference) and conv2d_input beside it, its
-   plan's form, and must give the same bits on two launches;
+   (-2, -2)) prints the same line with conv2d_input beside it, its plan's
+   form, and must give the same bits on two launches;
 6. train path: make_train_step with the best recipe's options (Adam 3e-4,
    cosine, EMA 0.999, standardize, elastic 2000/20, gamma / illumination /
    noise) on 4 seeded synthetic 512^2 frames with instance labels and
@@ -92,9 +80,7 @@ its own line, and any failure raises (non-zero exit):
    plain path in bf16; times tier-1, tier-2 and plain bf16 steps the same
    number of times, rotating which goes first, and prints a torch.profiler
    table (top 10 operations) of three steps of each kernel path, with the
-   summed device time, the wgmma forward's and the dgrad's parts of it,
-   and the step's device time with the mma.sync forward or the mma.sync
-   dgrad in their place (phase 5's device times at the step's cases);
+   summed device time and the wgmma forward's and the dgrad's parts of it;
 6b. the train step's update (update_path): fused_update and fused_ema at
    the full parameter tree with the recipe's Adam and EMA from epoch 40,
    bit for bit against the plain `_foreach` update on the card, grad_norm
@@ -440,53 +426,26 @@ SAMPLER_ATOL = 1e-5
 # at most max(GRAD_FACTOR x the plain bf16 path's error, GRAD_FLOOR)
 GRAD_FACTOR, GRAD_FLOOR, LOSS_RTOL = 2.0, 1e-2, 1e-2
 TIMING_ROUNDS = 4  # timed runs of each train path, alternating which goes first
-# csrc/conv3x3_wgrad.cu's multi-channel kernel was mma.sync with unpipelined
-# staging before the wgmma ring; its ms at phase 5's cases (this script,
-# NVIDIA H100 80GB HBM3, 700.00 W), printed beside the new ones
-MMA_SYNC_WGRAD_MS = {"wgrad_enc0_conv1": 0.520, "wgrad_dec3_conv1": 0.234,
-                     "dec0_wgrad_dec3_conv0": 0.431, "dense_wgrad_enc1_conv0": 0.261,
-                     "dense_wgrad_enc1_conv1": 0.488, "dense_wgrad_dec2_conv1": 0.232,
-                     "dec0_dense_wgrad_dec2_conv0": 0.441}
 # the cases of phases 3 and 5 that run csrc/conv_fwd_wgmma.cu: these wrappers
-# with more than one input channel; the relu=False forwards of each train
-# step (tier 1: enc0 conv1, dec3 conv0 and conv1; tier 2 adds enc1 and dec2)
+# with more than one input channel
 FWD_KERNELS = ("conv3x3_bias_relu", "conv3x3_dense", "conv3x3_cblock", "dec_conv0",
                "dec_conv0_dense")
-STEP_FWD = {"kernel": ("enc0_conv1_relu_false", "dec3_conv0_relu_false",
-                       "dec3_conv1_relu_false")}
-STEP_FWD["kernel_tier2"] = STEP_FWD["kernel"] + (
-    "enc1_conv0_dense_relu_false", "enc1_conv1_dense_relu_false", "dec2_conv0_dense_relu_false",
-    "dec2_conv1_dense_relu_false")
-FWD_DEVICE = {}  # case -> (wgmma kernel, mma.sync kernel) device ms, phases 3 and 5
-# the redesigned kernels (the head conv and the tconv on wgmma, the dgrad
-# on the wgmma forward's kernels, the stem's row kernel, the fused decoder
-# tail and the fused enc0 on the wgmma forward's machinery): per kind, the
-# profiler's name of its kernel and of the kernel it replaced (the
-# uncounted reference entry), and what the library line times
-REDESIGNED = {"conv3x3_head": ("conv_fwd_kernel", "conv3x3_mma_kernel",
-                               "cuDNN conv + bias, ReLU, 1x1 conv: three calls"),
-              "tconv2x2_bias": ("tconv2x2_wgmma_kernel", "tconv2x2_mma_kernel",
-                                "F.conv_transpose2d with bias"),
-              "dgrad": ("conv_dgrad", "conv3x3_mma_kernel", "conv2d_input"),
-              "stem": ("stem_rows_kernel", "stem_fma_kernel", "cuDNN conv + bias"),
-              "dec_tail": ("dec_tail_kernel", "dec_tail_mma_kernel",
-                           "the wgmma chain dec_conv0 -> conv3x3_head: two kernels"),
-              "enc0_fused": ("enc0_fused_kernel", "enc0_fused_mma_kernel",
-                             "the counted chain stem_rows_kernel -> wgmma conv1 + pool: two "
-                             "kernels")}
+# the kernels with a line of their own (the head conv and the tconv on
+# wgmma, the dgrad on the wgmma forward's kernels, the stem's row kernel,
+# the fused decoder tail and the fused enc0 on the wgmma forward's
+# machinery): per kind, the profiler's name of its kernel and what the
+# library line times
+KERNEL_LINES = {"conv3x3_head": ("conv_fwd_kernel",
+                                 "cuDNN conv + bias, ReLU, 1x1 conv: three calls"),
+                "tconv2x2_bias": ("tconv2x2_wgmma_kernel", "F.conv_transpose2d with bias"),
+                "dgrad": ("conv_dgrad", "conv2d_input"),
+                "stem": ("stem_rows_kernel", "cuDNN conv + bias"),
+                "dec_tail": ("dec_tail_kernel",
+                             "the wgmma chain dec_conv0 -> conv3x3_head: two kernels"),
+                "enc0_fused": ("enc0_fused_kernel",
+                               "the counted chain stem_rows_kernel -> wgmma conv1 + pool: two "
+                               "kernels")}
 DGRAD_KERNELS = ("conv3x3_dgrad", "conv3x3_dense_dgrad")
-# the dgrads of each train step (tier 1: enc0 conv1, dec3 conv1 and conv0;
-# tier 2 adds enc1 and dec2), and their (wgmma, mma.sync) device ms from
-# phase 5
-STEP_DGRAD = {"kernel": ("dgrad_enc0_conv1", "dgrad_dec3_conv1", "dgrad_dec3_conv0")}
-STEP_DGRAD["kernel_tier2"] = STEP_DGRAD["kernel"] + (
-    "dense_dgrad_enc1_conv0", "dense_dgrad_enc1_conv1", "dense_dgrad_dec2_conv0",
-    "dense_dgrad_dec2_conv1")
-DGRAD_DEVICE = {}
-# Predictor.masks_tiled with the mma.sync head and tconv, this script's
-# phase 4 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): printed beside
-# the run's own
-MMA_SYNC_SERVING_MPIX = (147.45, 149.94)
 GPU = ""  # nvidia-smi's name and power limit, set by main()
 # the weighted CE against its plain version, max |k - ref| / max |ref|:
 # both are f32 with the same formula, apart in exp/log implementations and
@@ -823,24 +782,13 @@ def kernel_parity(sh, c=64):
     same_bits("wgmma head conv at dec3 conv1", lambda: K.conv3x3_head(*head))
     same_bits("wgmma tconv at up3", lambda: K.tconv2x2_bias(*up3))
     # enc0_fused sums and rounds in the order of the counted chain, the stem
-    # kernel then the wgmma conv with the pool, and the mma.sync enc0 it
-    # replaced in the order of the stem kernel and the mma.sync conv;
-    # dec_tail in the order of the wgmma chain dec_conv0 -> conv3x3_head,
-    # and the mma.sync tail it replaced in the order of the mma.sync conv and
-    # the mma.sync head chained
-    stem_out = K.conv3x3_bias_relu(*stem)
-    chained = K.conv3x3_bias_relu(stem_out, *enc0[1:], fuse_pool=True)
-    mma_chained = K.conv3x3_mma_reference(stem_out, *enc0[1:], fuse_pool=True)
-    entry = K.conv3x3_mma_reference(dec0[0], *dec0[2:4], up=dec0[1], row_off=off, col_off=off)
-    mma_head = K.conv3x3_mma_reference(entry, *head[1:3], k_head=head[3], b_head=head[4])
+    # kernel then the wgmma conv with the pool; dec_tail in the order of the
+    # wgmma chain dec_conv0 -> conv3x3_head
+    chained = K.conv3x3_bias_relu(K.conv3x3_bias_relu(*stem), *enc0[1:], fuse_pool=True)
     wgmma_chain = K.conv3x3_head(K.dec_conv0(*dec0), *head[1:])
     same = {"enc0_fused == stem kernel + wgmma conv chain":
             all(map(torch.equal, K.enc0_fused(*fused0), chained)),
-            "enc0_fused_mma_reference == stem kernel + mma.sync chain":
-            all(map(torch.equal, K.enc0_fused_mma_reference(*fused0), mma_chained)),
-            "dec_tail == wgmma chain": torch.equal(K.dec_tail(*tail), wgmma_chain),
-            "dec_tail_mma_reference == mma.sync chain":
-            torch.equal(K.dec_tail_mma_reference(*tail), mma_head)}
+            "dec_tail == wgmma chain": torch.equal(K.dec_tail(*tail), wgmma_chain)}
     print(f"parity fused kernels equal to their chains bit for bit: {same}", flush=True)
     if not all(same.values()):
         raise AssertionError(f"fused kernels differ from their chains: {same}")
@@ -885,38 +833,35 @@ def run_cases(cases, stats, batch):
         print(f"time {case}: kernel {ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, library {lib_txt} "
               f"ms, bound {bound:.3f} ms ({ops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB; "
               f"batch {batch})", flush=True)
-        if case in MMA_SYNC_WGRAD_MS:
+        if case == "wgrad_stem":
+            stem_wgrad_line(case, kernel, args, lib, ms, lib_ms, bound)
+        elif "wgrad" in kname:
             # events over back-to-back calls time the host where its launch
             # path outlasts the kernels; the profiler's device time does not
             dev, lib_dev = device_ms(lambda: kernel(*args, **kw)), device_ms(lib)
-            prev = MMA_SYNC_WGRAD_MS[case]
             print(f"wgrad {case}: kernel {ms:.4f} ms, cuDNN {lib_ms:.4f} ms (kernel / cuDNN "
                   f"{ms / lib_ms:.2f}); device time kernel {dev:.4f} ms, cuDNN {lib_dev:.4f} ms "
                   f"(kernel / cuDNN {dev / lib_dev:.2f}); bound {bound:.4f} ms ({bound / ms:.1%} "
-                  f"of the bound, {bound / dev:.1%} in device time, {ops / dev / 1e9:.0f} TFLOP/s); "
-                  f"mma.sync kernel {prev:.3f} ms ({prev / ms:.2f}x)", flush=True)
-        if case == "wgrad_stem":
-            stem_wgrad_line(case, kernel, args, lib, ms, lib_ms, bound)
+                  f"of the bound, {bound / dev:.1%} in device time, {ops / dev / 1e9:.0f} "
+                  f"TFLOP/s)", flush=True)
         if kname in FWD_KERNELS and args[0].shape[3] > 1:
             fwd_line(case, kname, kernel, args, kw, lib, ms, lib_ms, bound, ops)
-        kind = redesign_of(kname, args)
+        kind = line_kind(kname, args)
         if kind is not None:
-            redesigned_line(case, kind, kernel, args, kw, ms, ops, n_bytes)
+            kernel_line(case, kind, kernel, args, kw, ms, ops, n_bytes)
         st["max_abs_err"] = max(st["max_abs_err"], err)
         add_times(st, ms, plain_ms, lib_ms)
 
 
 def stem_wgrad_line(case, kernel, args, lib, ms, lib_ms, bound):
     """The stem's weight gradient (CI = 1): device times of the TMA kernel
-    and its split-K reduce, of the FMA kernel it replaced
-    (KT.wgrad_stem_fma_reference, with the same reduce) and of cuDNN's
-    conv2d_weight, each in a profiler session of its own (the reduce is
-    one kernel under one name for both); the share of the bound; the same
-    bits on two launches (a miss fails). At 0.05-0.16 ms events over
-    back-to-back calls can time the host. Every one of the three must read
-    g, so a session whose device time falls under the bytes bound lost
-    activity (cuDNN once read 0.039 ms against its 0.163 by events): it is
-    measured again, up to three sessions, and flagged if it stays under."""
+    and its split-K reduce and of cuDNN's conv2d_weight, each in a profiler
+    session of its own; the share of the bound; the same bits on two
+    launches (a miss fails). At 0.05-0.16 ms events over back-to-back calls
+    can time the host. Both must read g, so a session whose device time
+    falls under the bytes bound lost activity (cuDNN once read 0.039 ms
+    against its 0.163 by events): it is measured again, up to three
+    sessions, and flagged if it stays under."""
     def parts(fn, keep):
         for _ in range(3):
             got = {}
@@ -929,18 +874,16 @@ def stem_wgrad_line(case, kernel, args, lib, ms, lib_ms, bound):
         return got, " (under the bound in three sessions: the profiler lost activity)"
 
     ours, ours_note = parts(lambda: kernel(*args), lambda k: "wgrad_" in k)
-    old, old_note = parts(lambda: KT.wgrad_stem_fma_reference(*args), lambda k: "wgrad_" in k)
     lib, lib_note = parts(lib, lambda k: "copy" not in k)
-    dev, old_dev, lib_dev = sum(ours.values()), sum(old.values()), sum(lib.values())
-    if not any("wgrad_stem_tma_kernel" in k for k in ours) or min(dev, old_dev, lib_dev) <= 0:
-        raise AssertionError(f"{case}: a kernel is missing from the profile: {ours}, {old}")
+    dev, lib_dev = sum(ours.values()), sum(lib.values())
+    if not any("wgrad_stem_tma_kernel" in k for k in ours) or min(dev, lib_dev) <= 0:
+        raise AssertionError(f"{case}: a kernel is missing from the profile: {ours}, {lib}")
     first, again = kernel(*args), kernel(*args)
     torch.cuda.synchronize()
     same = torch.equal(first, again)
     print(f"wgrad {case} (TMA kernel, CI = 1): kernel {ms:.4f} ms, cuDNN {lib_ms:.4f} ms by "
           f"events; device time kernel {dev:.4f} ms ("
-          f"{', '.join(f'{k} {v:.4f}' for k, v in ours.items())}){ours_note}, FMA kernel it "
-          f"replaced {old_dev:.4f}{old_note} ({old_dev / dev:.2f}x the kernel), cuDNN "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in ours.items())}){ours_note}, cuDNN "
           f"{lib_dev:.4f}{lib_note} (kernel / cuDNN {dev / lib_dev:.2f}); bound {bound:.4f} ms "
           f"by bytes ({bound / dev:.1%} in device "
           f"time, {bound / ms:.1%} by events); two launches equal bit for bit: {same}; on {GPU}",
@@ -949,54 +892,37 @@ def stem_wgrad_line(case, kernel, args, lib, ms, lib_ms, bound):
         raise AssertionError(f"{case}: two launches on the same inputs differ")
 
 
-def mma_sync_call(kname, args, kw):
-    """The mma.sync forward that the wgmma kernel replaced, on a case's
-    arguments (uncounted)."""
-    if kname.startswith("dec_conv0"):
-        skip, up, w, b, row_off, col_off = args
-        return lambda: K.conv3x3_mma_reference(skip, w, b, up=up, row_off=row_off,
-                                               col_off=col_off, **kw)
-    return lambda: K.conv3x3_mma_reference(*args, **kw)
-
-
 def fwd_line(case, kname, kernel, args, kw, lib, ms, lib_ms, bound, ops):
     """A wgmma-forward case's line: events and device times of the kernel
     and of cuDNN (the wrappers' and the library call's weight and bias
     dtype copies left out of the device times), their ratio, the share of
-    the bound, the launch plan's tile fill, and the mma.sync kernel's device
-    time on the same tensors."""
+    the bound and the launch plan's tile fill."""
     def fn():
         return kernel(*args, **kw)
 
-    mma = mma_sync_call(kname, args, kw)
+    def both():
+        fn(), lib()
 
-    def all_three():
-        fn(), lib(), mma()
-
-    # one profiler session, the three told apart by kernel name
-    times = device_times(all_three)
+    # one profiler session, the two told apart by kernel name
+    times = device_times(both)
     dev = sum(v for k, v in times.items() if "conv_fwd" in k)
-    mma_dev = sum(v for k, v in times.items() if "conv3x3_mma_kernel" in k)
-    lib_dev = sum(v for k, v in times.items() if "copy" not in k
-                  and "conv_fwd" not in k and "conv3x3_mma_kernel" not in k)
-    if min(dev, mma_dev, lib_dev) <= 0:
+    lib_dev = sum(v for k, v in times.items() if "copy" not in k and "conv_fwd" not in k)
+    if min(dev, lib_dev) <= 0:
         raise AssertionError(f"{case}: a kernel is missing from the profile: {sorted(times)}")
     out = fn()
     bsz, ho, wo, co = (out[0] if isinstance(out, tuple) else out).shape
     plan = K.fwd_plan(bsz, ho, wo, co, torch.cuda.get_device_properties(0).multi_processor_count,
                       pool=kw.get("fuse_pool", False),
                       sources=2 if kname.startswith("dec_conv0") else 1)
-    FWD_DEVICE[case] = (dev, mma_dev)
     print(f"fwd {case}: kernel {ms:.4f} ms, device {dev:.4f}; cuDNN {lib_ms:.4f}, device "
           f"{lib_dev:.4f}; kernel / cuDNN {dev / lib_dev:.2f} in device time ({ms / lib_ms:.2f} "
           f"by events); {bound / dev:.1%} of the bound in device time ({ops / dev / 1e9:.0f} "
           f"TFLOP/s); {plan.mode} form, tile fill {plan.fill:.3f} (N {plan.n}, {plan.tiles} tiles "
-          f"on {plan.grid} blocks); mma.sync kernel device {mma_dev:.4f} ms "
-          f"({mma_dev / dev:.2f}x)", flush=True)
+          f"on {plan.grid} blocks)", flush=True)
 
 
-def redesign_of(kname, args):
-    """The REDESIGNED kind of a case, or None: the head and the tconv by
+def line_kind(kname, args):
+    """The KERNEL_LINES kind of a case, or None: the head and the tconv by
     wrapper, both dgrad wrappers, the stem (conv3x3_bias_relu or
     conv3x3_dense on one input channel), the fused decoder tail, the fused
     enc0."""
@@ -1011,19 +937,18 @@ def redesign_of(kname, args):
     return None
 
 
-def redesigned_line(case, kind, kernel, args, kw, ms, ops, n_bytes):
-    """A redesigned kernel's line (the head conv, the tconv, a dgrad, the
-    stem, the decoder tail): events and device time of the kernel, of the
-    kernel it replaced and of the library on the same tensors (one profiler
-    session, told apart by kernel name; the wrappers' and the library's
-    weight copies and flips left out; for the tail the wgmma chain it fuses
-    stands in for the library), the bound and its share, for the head the
-    launch plan's tile fill, for a dgrad its plan's form, for the stem
-    whether its bits equal the FMA kernel's (a miss fails), for the tail
-    its walk and conv0's recompute factor, for the fused enc0 (the counted
-    chain it fuses standing in for the library) its walk, conv1's fill and
-    the stem's recompute factor."""
-    mine, old, lib_name = REDESIGNED[kind]
+def kernel_line(case, kind, kernel, args, kw, ms, ops, n_bytes):
+    """A KERNEL_LINES kernel's line (the head conv, the tconv, a dgrad, the
+    stem, the decoder tail, the fused enc0): events and device time of the
+    kernel and of the library on the same tensors (one profiler session,
+    told apart by kernel name; the wrappers' and the library's weight
+    copies and flips left out; for the tail the wgmma chain it fuses stands
+    in for the library), the bound and its share, for the head the launch
+    plan's tile fill, for a dgrad its plan's form, for the stem its strips,
+    for the tail its walk and conv0's recompute factor, for the fused enc0
+    (the counted chain it fuses standing in for the library) its walk,
+    conv1's fill and the stem's recompute factor."""
+    mine, lib_name = KERNEL_LINES[kind]
     extra = ""
     if kind == "conv3x3_head":
         x, w, b, kh, bh = args
@@ -1031,9 +956,6 @@ def redesigned_line(case, kind, kernel, args, kw, ms, ops, n_bytes):
 
         def lib():
             return F.conv2d(F.relu(F.conv2d(to_nchw(x), wb, bb)), khb, bhb)
-
-        def mma():
-            return K.conv3x3_mma_reference(x, w, b, k_head=kh, b_head=bh)
 
         bsz, h, wd, _ = x.shape
         plan = K.fwd_plan(bsz, h - 2, wd - 2, 64,
@@ -1045,9 +967,6 @@ def redesigned_line(case, kind, kernel, args, kw, ms, ops, n_bytes):
 
         def lib():
             return F.conv_transpose2d(to_nchw(x), wb, bb, stride=2)
-
-        def mma():
-            return K.tconv2x2_mma_reference(x, w, b)
     elif kind == "dgrad":
         gr, w = args
         wb = bf(w)
@@ -1056,9 +975,6 @@ def redesigned_line(case, kind, kernel, args, kw, ms, ops, n_bytes):
 
         def lib():
             return torch.nn.grad.conv2d_input((bsz, ci, hg + 2, wg + 2), wb, to_nchw(gr))
-
-        def mma():
-            return KT.conv3x3_dgrad_mma_reference(gr, w)
 
         plan = KT.dgrad_plan(bsz, hg, wg, ci,
                              torch.cuda.get_device_properties(0).multi_processor_count)
@@ -1069,9 +985,6 @@ def redesigned_line(case, kind, kernel, args, kw, ms, ops, n_bytes):
 
         def lib():
             return K.conv3x3_bias_relu(K.conv3x3_bias_relu(x, w0, b0), w1, b1, fuse_pool=True)
-
-        def mma():
-            return K.enc0_fused_mma_reference(*args)
 
         bsz, h, wd, _ = x.shape
         plan = K.enc0_fused_plan(bsz, h - 4, wd - 4,
@@ -1085,9 +998,6 @@ def redesigned_line(case, kind, kernel, args, kw, ms, ops, n_bytes):
         def lib():
             return K.conv3x3_head(K.dec_conv0(skip, up, w0, b0, row_off, col_off), w1, b1, kh, bh)
 
-        def mma():
-            return K.dec_tail_mma_reference(*args)
-
         plan = K.dec_tail_plan(up.shape[0], up.shape[1] - 4, up.shape[2] - 4,
                                torch.cuda.get_device_properties(0).multi_processor_count)
         extra = (f"; bands of {K.TAIL_OUT} rows: {plan.nbands} bands x {plan.nj} steps = "
@@ -1100,36 +1010,23 @@ def redesigned_line(case, kind, kernel, args, kw, ms, ops, n_bytes):
         def lib():
             return F.conv2d(to_nchw(x), wb, bb)
 
-        def mma():
-            return K.stem_fma_reference(x, w, b, **kw)
-
-        first, ref = kernel(*args, **kw), mma()
-        torch.cuda.synchronize()
-        same = torch.equal(first, ref)
-        del first, ref
         bsz, h, wd, _ = x.shape
         plan = K.stem_plan(bsz, h - 2, wd - 2, w.shape[0],
                            torch.cuda.get_device_properties(0).multi_processor_count)
-        extra = (f"; {plan.strips} strips on {plan.grid} blocks; bits equal the FMA kernel's: "
-                 f"{same}")
-        if not same:
-            raise AssertionError(f"{case}: the stem's row kernel differs from the FMA kernel")
+        extra = f"; {plan.strips} strips on {plan.grid} blocks"
 
     lib_ms = cuda_ms(lib)
-    times = device_times(lambda: (kernel(*args, **kw), mma(), lib()))
+    times = device_times(lambda: (kernel(*args, **kw), lib()))
     dev = sum(v for k, v in times.items() if mine in k)
-    mma_dev = sum(v for k, v in times.items() if old in k)
     lib_dev = sum(v for k, v in times.items()
-                  if "copy" not in k and "flip" not in k and mine not in k and old not in k)
-    if min(dev, mma_dev, lib_dev) <= 0:
+                  if "copy" not in k and "flip" not in k and mine not in k)
+    if min(dev, lib_dev) <= 0:
         raise AssertionError(f"{case}: a kernel is missing from the profile: {sorted(times)}")
-    if kind == "dgrad":
-        DGRAD_DEVICE[case] = (dev, mma_dev)
     t_ops, t_bytes = ops / PEAK_BF16 * 1e3, n_bytes / HBM_BPS * 1e3
     bound, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-    print(f"{kind} {case}: kernel {ms:.4f} ms, device {dev:.4f}; replaced kernel device "
-          f"{mma_dev:.4f} ({mma_dev / dev:.2f}x the kernel); library ({lib_name}) {lib_ms:.4f} ms, "
-          f"device {lib_dev:.4f} (kernel / library {dev / lib_dev:.2f} in device time); bound "
+    print(f"{kind} {case}: kernel {ms:.4f} ms, device {dev:.4f}; library ({lib_name}) "
+          f"{lib_ms:.4f} ms, device {lib_dev:.4f} (kernel / library {dev / lib_dev:.2f} in "
+          f"device time); bound "
           f"{bound:.4f} ms by {by} ({ops / 1e9:.1f} GFLOP, {n_bytes / 1e6:.1f} MB): "
           f"{bound / dev:.1%} of it in device time, {bound / ms:.1%} by events "
           f"({ops / dev / 1e9:.0f} TFLOP/s, {n_bytes / dev / 1e6:.0f} GB/s){extra}; on {GPU}",
@@ -1275,9 +1172,7 @@ def main_path(gpu):
     mpix = FRAMES * SIZE * SIZE / 1e6 / (ms / 1e3)
     print(f"main path: {ms:.2f} ms per {FRAMES} frames = {mpix:.2f} MPix/s "
           f"(plain bf16 forward: {plain_ms:.2f} ms = "
-          f"{FRAMES * SIZE * SIZE / 1e6 / (plain_ms / 1e3):.2f} MPix/s; recorded with the mma.sync "
-          f"head and tconv: {MMA_SYNC_SERVING_MPIX[0]:.2f}-{MMA_SYNC_SERVING_MPIX[1]:.2f} MPix/s) "
-          f"on {gpu}", flush=True)
+          f"{FRAMES * SIZE * SIZE / 1e6 / (plain_ms / 1e3):.2f} MPix/s) on {gpu}", flush=True)
     return launches, dict(pred=pred, variables=variables, frames=frames, ref_masks=plain["fp32"],
                           masks=masks)
 
@@ -1638,19 +1533,15 @@ def train_path(gpu):
           f"{TRAIN_SIZE}^2, best recipe, on {gpu}", flush=True)
     for name in ("kernel", "kernel_tier2"):
         print(f"profile of the {name} step:", flush=True)
-        profile_step(steps[name], state, images, masks, wts, valid, gen, med[name],
-                     STEP_FWD[name], STEP_DGRAD[name])
+        profile_step(steps[name], state, images, masks, wts, valid, gen, med[name])
     return launches, launches2
 
 
-def profile_step(step, state, images, masks, wts, valid, gen, step_ms, fwd_cases, dgrad_cases,
-                 steps=3):
+def profile_step(step, state, images, masks, wts, valid, gen, step_ms, steps=3):
     """torch.profiler over `steps` kernel-path train steps: device time by
-    operation, its sum, the wgmma forward's and the dgrad's parts of it,
-    and the sum with the mma.sync forward or the mma.sync dgrad in their
-    place (phase 5's device times at the step's `fwd_cases` and
-    `dgrad_cases`); the device's idle share of the step time measured
-    without the profiler (`step_ms`), which slows the host down."""
+    operation, its sum and the wgmma forward's and the dgrad's parts of it;
+    the device's idle share of the step time measured without the profiler
+    (`step_ms`), which slows the host down."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1667,14 +1558,10 @@ def profile_step(step, state, images, masks, wts, valid, gen, step_ms, fwd_cases
     dev_total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     fwd = sum(e.self_device_time_total for e in kernels if "conv_fwd" in e.key) / 1e3 / steps
     dgrad = sum(e.self_device_time_total for e in kernels if "conv_dgrad" in e.key) / 1e3 / steps
-    mma = dev_total + sum(FWD_DEVICE[c][1] - FWD_DEVICE[c][0] for c in fwd_cases)
-    mma_dgrad = dev_total + sum(DGRAD_DEVICE[c][1] - DGRAD_DEVICE[c][0] for c in dgrad_cases)
     print(f"profile: {wall:.2f} ms wall per step with the profiler on, {step_ms:.2f} ms "
           f"without; summed device kernel time {dev_total:.3f} ms per step, the wgmma forward "
-          f"{fwd:.3f} of it ({len(fwd_cases)} launches), the dgrad {dgrad:.3f} "
-          f"({len(dgrad_cases)} launches); with the mma.sync forward at phase 5's device times "
-          f"instead: {mma:.3f} ms, with the mma.sync dgrad instead: {mma_dgrad:.3f} ms; idle "
-          f"share {1 - dev_total / step_ms:.3f} of the unprofiled step", flush=True)
+          f"{fwd:.3f} of it, the dgrad {dgrad:.3f}; idle share {1 - dev_total / step_ms:.3f} of "
+          f"the unprofiled step", flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=10), flush=True)
 
 

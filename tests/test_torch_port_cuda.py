@@ -10,11 +10,9 @@ pixel counts, odd crop offsets, bf16 logits and three classes; the
 min-plus product at sizes off its 128-tile, K = 1 and both shared-operand
 patterns; the serving variants' kernels: the fused enc0 at odd sizes,
 batch 1, one pooled row and over several bands and blocks (bit for bit
-against the stem kernel chained with the wgmma conv and pool, its
-mma.sync reference against the mma.sync chain), the fused decoder tail at
-odd crop offsets with 1-4 classes and over several bands (bit for bit
-against the wgmma chain, its mma.sync reference against the mma.sync
-chain), the stem's TMA weight gradient at a 3 x
+against the stem kernel chained with the wgmma conv and pool), the fused
+decoder tail at odd crop offsets with 1-4 classes and over several bands
+(bit for bit against the wgmma chain), the stem's TMA weight gradient at a 3 x
 3 g, rows off the 16-byte pitch and CO 128 (the same bits twice), the cblock conv at
 CI 1024 on a 6x6 input, the dense decoder entry at offset 41, the dense
 conv on both conv paths; the tier-2 train kernels: the dense dgrad with
@@ -27,18 +25,15 @@ output channels in its im2col and windowed forms, from 32- and
 96-channel sources, with the pool on odd sizes, relu=False and tiles that
 cross image edges, one tap at a time in both forms, from two sources
 (64+32, 128+128, 32+96) at odd offsets, with the
-same bits on a second launch; the uncounted mma.sync reference, to which
-the fused kernels' mma.sync references are held bit for bit (the head
-through its MODE_HEAD); the head conv on the wgmma forward's head variant at 1-4
-classes and ragged sizes; the streaming wgmma tconv with each (dy, dx) tap
-alone at CO 128, ragged pixel counts, 32-, 96- and 256-channel inputs and
-three column groups, and its mma.sync reference; both new kernels with the
-same bits on a second launch; the dgrad on the wgmma forward's kernels
-through both wrappers at 64-, 128- and 256-channel dx from 1x1, 2x3 and
-odd g at batch 1 and 4 (the same bits twice), and its uncounted mma.sync
-reference; the stem's row kernel bit for bit against the FMA kernel it
-replaced (the pool on odd and 1-row outputs, relu on and off, CO 128 and
-192, ragged strips); the wrappers' refusals; the pipeline command at
+same bits on a second launch; the head conv on the wgmma forward's head
+variant at 1-4 classes and ragged sizes; the streaming wgmma tconv with
+each (dy, dx) tap alone at CO 128, ragged pixel counts, 32-, 96- and
+256-channel inputs and three column groups; both with the same bits on a
+second launch; the dgrad on the wgmma forward's kernels through both
+wrappers at 64-, 128- and 256-channel dx from 1x1, 2x3 and odd g at batch
+1 and 4 (the same bits twice); the stem's row kernel (the pool on odd and
+1-row outputs, relu on and off, CO 128 and 192, ragged strips; the same
+bits on a second launch); the wrappers' refusals; the pipeline command at
 base 8 on the card; the full-width serving forward exported with a
 symbolic batch and loaded on the card (batches 1, 3 and 5, bit for bit
 against Predictor.probs) and on the CPU, and a pinned batch;
@@ -232,20 +227,16 @@ def test_dec0_wgrad(g, row_off, col_off):
 ])
 def test_wgrad_stem_edges(g, b, h, w, co):
     """The stem's TMA weight gradient (x with one channel) at edge shapes
-    against the plain version and the FMA kernel it replaced, with the same
-    bits on two launches."""
+    against the plain version, with the same bits on two launches."""
     x = _act(g, b, h, w, 1)
     gr = _g(g, b, h - 2, w - 2, co)
     KT.conv3x3_wgrad.launches = 0
     first, again = KT.conv3x3_wgrad(x, gr), KT.conv3x3_wgrad(x, gr)
-    old = KT.wgrad_stem_fma_reference(x, gr)
     torch.cuda.synchronize()
-    assert KT.conv3x3_wgrad.launches == 2  # the reference is uncounted
+    assert KT.conv3x3_wgrad.launches == 2
     assert first.shape == (co, 1, 3, 3) and first.dtype == torch.float32
     assert torch.equal(first, again)
-    ref = KT.conv3x3_wgrad_plain(x.float(), gr.float())
-    _close_rel(first, ref)
-    _close_rel(old, ref)
+    _close_rel(first, KT.conv3x3_wgrad_plain(x.float(), gr.float()))
 
 
 def test_wgrad_is_deterministic(g):
@@ -441,29 +432,10 @@ def test_enc0_fused(g, b, h, w):
     _close(pooled, r_pool, to_nhwc(torch.nn.functional.max_pool2d(to_nchw(slack), 2)))
 
 
-@pytest.mark.parametrize("b,h,w", [(1, 37, 45), (1, 7, 9), (3, 75, 70)])
-def test_enc0_fused_mma_reference(g, b, h, w):
-    """The mma.sync kernel the wgmma kernel replaced: the bits of the stem
-    kernel chained with the mma.sync conv and its pool, and uncounted."""
-    x = _act(g, b, h, w, 1)
-    w0, b0 = _w(g, 64, 1, 3, 3, fan=9 * 64), _b(g, 64)
-    w1, b1 = _w(g, 64, 64, 3, 3, fan=9 * 64), _b(g, 64)
-    K.reset_launch_counts()
-    skip, pooled = K.enc0_fused_mma_reference(x, w0, b0, w1, b1)
-    assert K.launch_counts()["enc0_fused"] == 0
-    c_skip, c_pool = K.conv3x3_mma_reference(K.conv3x3_bias_relu(x, w0, b0), w1, b1,
-                                             fuse_pool=True)
-    torch.cuda.synchronize()
-    assert torch.equal(skip, c_skip) and torch.equal(pooled, c_pool)
-    with pytest.raises(RuntimeError, match="CUDA tensors only"):
-        K.enc0_fused_mma_reference(x.cpu(), w0.cpu(), b0.cpu(), w1.cpu(), b1.cpu())
-
-
 def _dec_tail_case(g, nc, b, hs, ws, hu, wu, row_off, col_off):
-    """dec_tail on random inputs: the new kernel against the wgmma chain
+    """dec_tail on random inputs: the kernel against the wgmma chain
     dec_conv0 -> conv3x3_head bit for bit (the same slices, taps and k16
-    steps per pixel), dec_tail_mma_reference against the mma.sync chain bit
-    for bit, and the kernel against the fp32 plain version within both
+    steps per pixel), and against the fp32 plain version within both
     roundings."""
     skip, up = _act(g, b, hs, ws, 64), _act(g, b, hu, wu, 64)
     w0, b0 = _w(g, 64, 128, 3, 3, fan=9 * 64), _b(g, 64)
@@ -474,13 +446,9 @@ def _dec_tail_case(g, nc, b, hs, ws, hu, wu, row_off, col_off):
     assert K.launch_counts()["dec_tail"] == 1
     assert got.shape == (b, hu - 4, wu - 4, nc) and got.dtype == torch.float32
     wgmma_chain = K.conv3x3_head(K.dec_conv0(skip, up, w0, b0, row_off, col_off), w1, b1, kh, bh)
-    old = K.dec_tail_mma_reference(skip, up, w0, b0, w1, b1, kh, bh, row_off, col_off)
-    entry = K.conv3x3_mma_reference(skip, w0, b0, up=up, row_off=row_off, col_off=col_off)
-    mma_chain = K.conv3x3_mma_reference(entry, w1, b1, k_head=kh, b_head=bh)
     torch.cuda.synchronize()
-    assert K.launch_counts()["dec_tail"] == 1  # the reference is uncounted
+    assert K.launch_counts()["dec_tail"] == 1
     assert torch.equal(got, wgmma_chain)
-    assert torch.equal(old, mma_chain)
     y = K.dec_conv0_plain(skip.float(), up.float(), w0, b0, row_off, col_off)
     a = K.conv3x3_bias_relu_plain(y, w1, b1)
     slack = HEAD_SLACK * _abs_conv(a, kh) + ROUND * _abs_conv(_abs_conv(y, w1), kh)
@@ -530,8 +498,8 @@ def test_dec_conv0_dense_offset_41(g):
 
 @pytest.mark.parametrize("ci,pool", [(1, True), (64, True), (32, False)])
 def test_conv3x3_dense(g, ci, pool):
-    """conv3x3_dense on both conv paths (the stem's FMAs, the mma
-    epilogue), with and without the pool; it counts apart from
+    """conv3x3_dense on both conv paths (the stem's row kernel, the wgmma
+    forward), with and without the pool; it counts apart from
     conv3x3_bias_relu."""
     x = _g(g, 2, 19, 26, ci)
     wt, b = _w(g, 64, ci, 3, 3, fan=9 * 64), _b(g, 64)
@@ -638,22 +606,6 @@ def test_conv_fwd_wgmma_repeats_its_bits(g):
     assert torch.equal(first, again)
 
 
-def test_conv3x3_mma_reference(g):
-    """The uncounted mma.sync forward against the plain version, with one
-    source and the pool, and with two at an odd offset."""
-    x = _act(g, 2, 21, 18, 64)
-    wt, bias = _w(g, 128, 64, 3, 3, fan=9 * 128), _b(g, 128)
-    K.reset_launch_counts()
-    y, pooled = K.conv3x3_mma_reference(x, wt, bias, fuse_pool=True)
-    for a, r in zip((y, pooled), K.conv3x3_bias_relu_plain(x.float(), wt, bias, fuse_pool=True)):
-        _close(a, r)
-    skip, up = _act(g, 1, 33, 31, 64), _act(g, 1, 20, 18, 32)
-    w0, b0 = _w(g, 64, 96, 3, 3, fan=9 * 64), _b(g, 64)
-    got = K.conv3x3_mma_reference(skip, w0, b0, relu=False, up=up, row_off=5, col_off=7)
-    _close(got, K.dec_conv0_plain(skip.float(), up.float(), w0, b0, 5, 7, relu=False))
-    assert K.launch_counts() == _only()
-
-
 # ------------------------------------------------------ tier-2 train kernels
 
 
@@ -758,20 +710,6 @@ def test_conv3x3_head_wgmma(g, nc, b, h, w):
     _close(got, K.conv3x3_head_plain(x.float(), wt, bias, kh, bh), _head_slack(x, wt, bias, kh))
 
 
-def test_conv3x3_head_mma_reference(g):
-    """The uncounted mma.sync head (MODE_HEAD) against the plain version,
-    and its refusals."""
-    x, wt, bias, kh, bh = _head_case(g, 2, 27, 23, 3)
-    K.reset_launch_counts()
-    got = K.conv3x3_mma_reference(x, wt, bias, k_head=kh, b_head=bh)
-    assert K.launch_counts() == _only()
-    _close(got, K.conv3x3_head_plain(x.float(), wt, bias, kh, bh), _head_slack(x, wt, bias, kh))
-    with pytest.raises(ValueError, match="both"):
-        K.conv3x3_mma_reference(x, wt, bias, k_head=kh)
-    with pytest.raises(ValueError, match="no pool"):
-        K.conv3x3_mma_reference(x, wt, bias, fuse_pool=True, k_head=kh, b_head=bh)
-
-
 @pytest.mark.parametrize("tap", range(4))
 def test_tconv2x2_each_tap(g, tap):
     """One (dy, dx) tap at a time (the other taps' weights zero) at CO 128
@@ -809,16 +747,6 @@ def test_tconv2x2_shapes(g, b, h, w, ci, co):
     got = K.tconv2x2_bias(x, wt, bias)
     assert K.launch_counts() == _only(tconv2x2_bias=1)
     assert got.shape == (b, 2 * h, 2 * w, co) and got.dtype == torch.bfloat16
-    _close(got, K.tconv2x2_bias_plain(x.float(), wt, bias))
-
-
-def test_tconv2x2_mma_reference(g):
-    """The uncounted mma.sync tconv against the plain version."""
-    x = _act(g, 2, 13, 21, 128)
-    wt, bias = _w(g, 128, 64, 2, 2, fan=4 * 64), _b(g, 64)
-    K.reset_launch_counts()
-    got = K.tconv2x2_mma_reference(x, wt, bias)
-    assert K.launch_counts() == _only()
     _close(got, K.tconv2x2_bias_plain(x.float(), wt, bias))
 
 
@@ -865,16 +793,6 @@ def test_dgrad_wgmma_shapes(g, wrapper, b, hg, wg, co, ci):
     assert torch.equal(got, again)
 
 
-def test_dgrad_mma_reference(g):
-    """The mma.sync dgrad kept for timings: the same function, uncounted."""
-    gr = _g(g, 2, 13, 9, 64)
-    wt = _w(g, 64, 128, 3, 3, fan=9 * 64)
-    K.reset_launch_counts()
-    got = KT.conv3x3_dgrad_mma_reference(gr, wt)
-    assert K.launch_counts() == _only()
-    _close(got, KT.conv3x3_dgrad_plain(gr.float(), wt))
-
-
 # ------------------------------------------------- the stem's row kernel
 
 
@@ -883,25 +801,26 @@ def test_dgrad_mma_reference(g):
     (1, 3, 3, 64, True, True), (2, 140, 300, 64, True, True), (1, 4, 131, 192, True, False),
     (1, 35, 258, 64, False, False),
 ])
-def test_stem_rows_equal_the_fma_kernel(g, b, h, w, co, pool, relu):
-    """The stem's row kernel against the FMA kernel it replaced, bit for
-    bit: the pool on odd sizes (floor) and on a 1-row output (no pooled
-    pixel), relu on and off, 64-192 output channels, outputs wider than
-    one 128-column strip with a ragged last one; one launch counted, none
-    for the reference; and the plain version within the bound."""
+def test_stem_row_kernel(g, b, h, w, co, pool, relu):
+    """The stem's row kernel at its edges: the pool on odd sizes (floor)
+    and on a 1-row output (no pooled pixel), relu on and off, 64-192 output
+    channels, outputs wider than one 128-column strip with a ragged last
+    one; one launch counted, the same bits on a second launch, and the
+    plain version within the bound."""
     x = _act(g, b, h, w, 1)
     wt, bias = _w(g, co, 1, 3, 3, fan=9 * co), _b(g, co)
     K.reset_launch_counts()
     got = K.conv3x3_bias_relu(x, wt, bias, fuse_pool=pool, relu=relu)
     assert K.launch_counts() == _only(conv3x3_bias_relu=1)
-    ref = K.stem_fma_reference(x, wt, bias, fuse_pool=pool, relu=relu)
-    assert K.launch_counts() == _only(conv3x3_bias_relu=1)
+    again = K.conv3x3_bias_relu(x, wt, bias, fuse_pool=pool, relu=relu)
     torch.cuda.synchronize()
-    pairs = list(zip(got, ref)) if pool else [(got, ref)]
+    pairs = list(zip(got, again)) if pool else [(got, again)]
     for a, r in pairs:
         assert a.shape == r.shape and torch.equal(a, r)
-    # F.max_pool2d refuses a 1x1 map: the 1-row case's pool is held to the
-    # FMA kernel's (empty) bits above
+    if pool:
+        assert got[1].shape == (b, (h - 2) // 2, (w - 2) // 2, co)
+    # F.max_pool2d refuses a 1x1 map: the 1-row case's pool is held to its
+    # (empty) shape above
     pool_plain = pool and h > 3 and w > 3
     plain = K.conv3x3_bias_relu_plain(x.float(), wt, bias, fuse_pool=pool_plain, relu=relu)
     for a, r in zip(got, plain) if pool_plain else [(got[0] if pool else got, plain)]:

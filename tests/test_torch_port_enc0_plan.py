@@ -1,13 +1,15 @@
 """The fused enc0 (enc0_fused_kernel of csrc/conv_fwd_wgmma.cu) as
 ops/kernels/conv3x3.py mirrors it, on the CPU: its band walk against every
 skip0 and pooled pixel, its shared memory and the serving plan, the
-source's constants against the mirror's, and an emulation of the walk (per
-step the flat x rows the kernel copies, the stem into a NaN-filled h tile of
-two, conv1 tap by tap from it, the pool of the rounded values) against
-enc0_fused_plain. The kernel itself is held bit for bit to the chained
-kernels by tests/test_torch_port_cuda.py on the card. No jax.
+source's constants against the mirror's, every C entry's ctypes signature
+against its declaration, and an emulation of the walk (per step the flat x
+rows the kernel copies, the stem into a NaN-filled h tile of two, conv1 tap
+by tap from it, the pool of the rounded values) against enc0_fused_plain.
+The kernel itself is held bit for bit to the chained kernels by
+tests/test_torch_port_cuda.py on the card. No jax.
 """
 
+import ctypes
 import re
 
 import numpy as np
@@ -100,27 +102,50 @@ def test_enc0_constants_match_the_source():
     assert f"constexpr int E0_X_ROW = {K.ENC0_X_ROW};" in text
 
 
-def test_c_entries_match_the_signatures():
-    """Every C entry of csrc/*.cu has a ctypes signature in build.py with
-    as many arguments, and every signature names an entry."""
+def _c_entries():
+    """{name: [parameter C types]} of every C entry of csrc/*.cu."""
     entries = {}
     for src in build.CSRC.glob("*.cu"):
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
-            entries[name] = len([p for p in params.split(",") if p.strip()])
-    assert set(entries) == set(build.SIGNATURES)
-    for name, n_args in entries.items():
-        assert len(build.SIGNATURES[name]) == n_args, name
+            params = [" ".join(p.split()) for p in params.split(",") if p.strip()]
+            entries[name] = [re.sub(r"\s*\b\w+$", "", p) for p in params]
+    return entries
 
 
-def test_enc0_mma_reference_refuses_cpu_tensors():
-    """The mma.sync reference runs only on the card; on CPU tensors it
-    raises, and enc0_fused runs its plain version without counting."""
+C_ENTRIES = _c_entries()
+
+
+def test_c_entries_match_the_signatures():
+    """Every C entry of csrc/*.cu has a ctypes signature in build.py with
+    as many arguments, and every signature names an entry."""
+    assert set(C_ENTRIES) == set(build.SIGNATURES)
+    for name, params in C_ENTRIES.items():
+        assert len(build.SIGNATURES[name]) == len(params), name
+
+
+def _ctype(c_type):
+    """The ctypes class that passes a C parameter type."""
+    if c_type.endswith("*"):
+        return ctypes.c_void_p
+    return {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}[c_type]
+
+
+@pytest.mark.parametrize("entry", sorted(C_ENTRIES))
+def test_c_entry_argument_types(entry):
+    """Each parameter of a C entry, in order, has the ctypes class that
+    passes its C type in build.py's signature (a pointer c_void_p, int
+    c_int, long long c_longlong, float c_float): a swapped int and long
+    long or a float passed as an int would reach the kernel as garbage."""
+    assert build.SIGNATURES[entry] == [_ctype(c) for c in C_ENTRIES[entry]]
+
+
+def test_enc0_fused_runs_plain_on_cpu_uncounted():
+    """On CPU tensors enc0_fused runs its plain version without counting a
+    launch."""
     rs = np.random.RandomState(0)
     x = _bf16_values(rs, 1, 9, 9, 1)
     w0, b0 = _bf16_values(rs, 64, 1, 3, 3), _bf16_values(rs, 64)
     w1, b1 = _bf16_values(rs, 64, 64, 3, 3, scale=0.05), _bf16_values(rs, 64)
-    with pytest.raises(RuntimeError, match="CUDA tensors only"):
-        K.enc0_fused_mma_reference(x, w0, b0, w1, b1)
     K.reset_launch_counts()
     skip, pooled = K.enc0_fused(x, w0, b0, w1, b1)
     assert K.launch_counts()["enc0_fused"] == 0

@@ -6,18 +6,19 @@ otherwise): the ring fits a block's shared memory, the N tiles cover the
 output channels exactly, the units of the persistent grid cover every
 output pixel once per N block, and the tile fill the plan predicts; the
 head variant (conv3x3_head: windowed, N = 64, the 1x1 weights in shared
-memory) at the serving path's 516^2 logits and at ragged sizes. CPU only:
+memory) at the serving path's 516^2 logits and at ragged sizes; and every
+constant the kernels' Python plans mirror against its CUDA source. CPU only:
 the kernel itself is held to its plain version by
 tests/test_torch_port_cuda.py on the card.
 """
 
 import numpy as np
 import pytest
-import torch
 
 from unetseg_tpu_torch.models.shapes import unet_shapes
-from unetseg_tpu_torch.ops.kernels import build, fwd_variants
+from unetseg_tpu_torch.ops.kernels import build
 from unetseg_tpu_torch.ops.kernels import conv3x3 as K
+from unetseg_tpu_torch.ops.kernels import conv3x3_train as KT
 
 SMS = 132  # an H100 SXM's SMs
 
@@ -195,16 +196,6 @@ def test_fwd_plan_tiles_and_grid(b, side, co, pool, sources, tiles, grid):
     assert (plan.tiles, plan.grid) == (tiles, grid)
 
 
-@pytest.mark.parametrize("head", [False, True])
-def test_mma_reference_needs_the_card(head):
-    """conv3x3_mma_reference runs the mma.sync kernel only, with or without
-    the head: a CPU tensor raises instead of running a plain version."""
-    x = torch.zeros(1, 6, 6, 32, dtype=torch.bfloat16)
-    kw = {"k_head": torch.zeros(2, 64, 1, 1), "b_head": torch.zeros(2)} if head else {}
-    with pytest.raises(RuntimeError, match="CUDA tensors only"):
-        K.conv3x3_mma_reference(x, torch.zeros(64, 32, 3, 3), torch.zeros(64), **kw)
-
-
 # ------------------------------------------------------------ the head variant
 
 
@@ -236,20 +227,42 @@ def test_head_plan_fits_shared_memory():
         K.fwd_plan(16, 516, 516, 128, SMS, head=True)
 
 
-@pytest.mark.parametrize("variant", sorted(fwd_variants.PATCHES))
-def test_fwd_variants_patch_the_source(variant):
-    """ops/kernels/fwd_variants.py builds its A/B variants by replacing
-    lines of csrc/conv_fwd_wgmma.cu (or of the file SOURCE_OF names): each
-    line it replaces is there exactly once, and the launches it patches
-    name configurations the plans mirror."""
-    src = fwd_variants.SOURCE_OF.get(variant, "conv_fwd_wgmma.cu")
+# ------------------------------------------------- the mirrors of the sources
+
+# the lines of csrc/ that hold each constant the Python plans mirror
+MIRRORS = {
+    "tconv_stages": ("tconv2x2_bias.cu", [
+        f"constexpr int AST = {K.TCONV_STAGES[0]}, WST = {K.TCONV_STAGES[1]};"]),
+    "tconv_tile": ("tconv2x2_bias.cu", [
+        f"constexpr int MT = {K.TCONV_MT};", f"constexpr int NG = {K.TCONV_NG};"]),
+    "fwd_window_n64": ("conv_fwd_wgmma.cu", [f"launch<64, {K.FWD_STAGES[64][0]}, "
+                                             f"{K.FWD_STAGES[64][1]}>("]),
+    "fwd_window_n128": ("conv_fwd_wgmma.cu", [f"launch<128, {K.FWD_STAGES[128][0]}, "
+                                              f"{K.FWD_STAGES[128][1]}>("]),
+    "fwd_im2col": ("conv_fwd_wgmma.cu", [f"launch_im2col<128, {K.FWD_IM2COL_STAGES}>("]),
+    "head_classes": ("conv_fwd_wgmma.cuh", [f"constexpr int MAX_NC = {K.MAX_HEAD_CLASSES};"]),
+    "dec_tail": ("conv_fwd_wgmma.cu", [
+        f"constexpr int TB_OUT = {K.TAIL_OUT}, ",
+        f"constexpr int TB_WST = {K.TAIL_STAGES[0]}, TB_BST = {K.TAIL_STAGES[1]};"]),
+    "stem_rows": ("conv3x3_bias_relu.cu", [
+        f"constexpr int STEM_SW = {K.STEM_SW};", f"constexpr int STEM_TILES = {K.STEM_TILES};",
+        f"constexpr int STEM_BLOCKS_PER_SM = {K.STEM_BLOCKS_PER_SM};"]),
+    "wgrad_stages": ("conv3x3_wgrad.cu", [
+        f"constexpr int STAGES = {KT.WGRAD_STAGES};",
+        f"constexpr int GT_H = {KT.WGRAD_TILE[0]}, GT_W = {KT.WGRAD_TILE[1]};"]),
+    "wgrad_stem": ("conv3x3_wgrad.cu", [
+        f"constexpr int ST_H = {KT.WGRAD_STEM_TILE[0]}, ST_W = {KT.WGRAD_STEM_TILE[1]};",
+        f"constexpr int ST_STAGES = {KT.WGRAD_STEM_STAGES};"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MIRRORS))
+def test_plans_mirror_the_cuda_constants(name):
+    """Each constant that a Python plan mirrors (stages, tiles, launch
+    configurations, head classes) is the one its CUDA source holds: a plan
+    that drifted from its kernel would pass the geometry tests above and
+    say nothing of the kernel."""
+    src, lines = MIRRORS[name]
     text = (build.CSRC / src).read_text()
-    for old, _ in fwd_variants.PATCHES[variant]:
-        assert text.count(old) == 1, old
-    text = (build.CSRC / "conv_fwd_wgmma.cu").read_text()
-    tconv = (build.CSRC / "tconv2x2_bias.cu").read_text()
-    assert f"constexpr int AST = {K.TCONV_STAGES[0]}, WST = {K.TCONV_STAGES[1]};" in tconv
-    assert f"MT = {K.TCONV_MT};" in tconv and f"NG = {K.TCONV_NG};" in tconv
-    for n, (wst, bst) in K.FWD_STAGES.items():
-        assert f"launch<{n}, {wst}, {bst}>(" in text
-    assert f"launch_im2col<128, {K.FWD_IM2COL_STAGES}>(" in text
+    for line in lines:
+        assert line in text, line

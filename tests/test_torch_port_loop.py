@@ -44,6 +44,7 @@ from unetseg_tpu_torch.core.config import (
 )
 from unetseg_tpu_torch.data import dataset
 from unetseg_tpu_torch.infer.engine import Predictor
+from unetseg_tpu_torch.infer.tiling import min_tile_input
 from unetseg_tpu_torch.models.fast_init import fast_random_variables
 from unetseg_tpu_torch.ops.weight_maps import weight_map_np
 from unetseg_tpu_torch.train import checkpoint as ckpt
@@ -228,7 +229,9 @@ def test_checkpoints_restore_and_serve(loop_runs):
     variables = ckpt.restore_params_for_inference(d)
     for k, a in _leaves(variables["params"]).items():
         np.testing.assert_array_equal(a, torch.from_numpy(a).bfloat16().float().numpy(), k)
-    pred = Predictor(pcfg.model, variables, InferConfig(tile_input=S, tile_batch=2), "cpu")
+    # one tile a frame: min_tile_input(188) = 380 -> 196 output pixels
+    pred = Predictor(pcfg.model, variables,
+                     InferConfig(tile_input=min_tile_input(S), tile_batch=2), "cpu")
     out = pred.masks_tiled(imgs[:2])
     assert out.shape == (2, S, S) and out.dtype == np.uint8 and set(np.unique(out)) <= {0, 1}
     with pytest.raises(FileNotFoundError, match="EMA"):

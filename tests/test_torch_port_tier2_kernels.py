@@ -34,7 +34,6 @@ from unetseg_tpu.ops.pallas.conv3x3_train import (
     make_conv_dense_train,
     make_dec0_dense_train,
 )
-from unetseg_tpu_torch.ops.kernels import build, wgrad_variants
 from unetseg_tpu_torch.ops.kernels import conv3x3_train as KT
 from unetseg_tpu_torch.ops.kernels.launches import launch_counts, reset_launch_counts
 from unetseg_tpu_torch.utils.flax_bridge import _conv_to_torch
@@ -197,19 +196,6 @@ def test_wgrad_chunks_fill_one_wave():
     assert KT.wgrad_chunks(1, 3, 3, (64,), 64, 132) == 1  # one tile: one chunk
     # 32-channel sources take a 64-channel slice each (the copy zero-fills)
     assert KT.wgrad_chunks(1, 9, 40, (32, 32), 64, 132) == 9  # 3 x 3 tiles
-
-
-@pytest.mark.parametrize("variant", sorted(wgrad_variants.PATCHES))
-def test_wgrad_variants_patch_the_source(variant):
-    """ops/kernels/wgrad_variants.py builds its A/B variants by replacing
-    lines of csrc/conv3x3_wgrad.cu: each line it replaces is there exactly
-    once, and a variant's geometry keeps the shared-memory limit."""
-    text = (build.CSRC / "conv3x3_wgrad.cu").read_text()
-    for old, new in wgrad_variants.PATCHES[variant]:
-        assert text.count(old) == 1, old
-        text = text.replace(old, new)
-    stages = wgrad_variants.PYTHON.get(variant, {}).get("WGRAD_STAGES", KT.WGRAD_STAGES)
-    assert f"constexpr int STAGES = {stages};" in text
 
 
 @pytest.mark.parametrize("n,cis,co", [s for s in TRAIN_WGRADS if s[1] != (1,)])

@@ -34,8 +34,7 @@
 //   pixels for 8 channels: f32 from the accumulator's bias, the nine taps
 //   in order by FMA (weights in shared memory as f32, laid out so that the
 //   eight channel groups of a quarter warp read 128 contiguous bytes),
-//   rounded by __floats2bfloat162_rn: the same operations in the same
-//   order as the kernel it replaced, so the same bits.
+//   rounded by __floats2bfloat162_rn.
 // - Output: each quad's four pixels go as 16-byte vectors into a shared
 //   tile of whole 128-byte pixel rows (two rows x STEM_SW pixels x 64
 //   channels, STEM_TILES buffers; eight lanes write one pixel's 128 bytes,
@@ -50,17 +49,6 @@
 // Odd sizes floor under the pool (the TMA box of the pooled map clips the
 // last half quad). CO is any multiple of 64.
 //
-// stem_fma_reference_bf16 keeps the FMA kernel it replaced (one 2x2 quad x
-// 8 channels a thread, 61,424 short blocks per serving call, 16 scalar
-// 2-byte loads a thread, 16-byte stores straight from registers at 44% of
-// the bytes bound): uncounted, on no path, the stem's bits for the card
-// tests and chip_smoke.py, and its timing beside the row kernel.
-//
-// conv3x3_mma_reference_bf16 keeps the mma.sync implicit GEMM of
-// conv_mma.cuh that the multi-channel path ran before (one or two sources,
-// the pool): the mma.sync references of enc0_fused.cu and dec_tail.cu sum
-// in its order, so the tests and chip_smoke.py hold them to it bit for bit,
-// and chip_smoke.py times it beside the wgmma kernel. No path launches it.
 #include "conv_fwd_wgmma.cuh"
 
 #include "hopper.cuh"
@@ -68,7 +56,6 @@
 namespace {
 
 constexpr int STEM_THREADS = 256;
-constexpr int STEM_QUADS = STEM_THREADS / 8;  // the FMA kernel's quads per block (8 threads each)
 
 // The row kernel: a strip is two output rows (one row of 2x2 quads) x
 // STEM_SW columns of one 64-channel block; a TMA box is at most 256 wide.
@@ -258,88 +245,6 @@ stem_rows_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
   if (tid == 0) hopper::bulk_wait<0>();  // the last stores are done
 }
 
-// The FMA kernel the row kernel replaced (stem_fma_reference_bf16).
-__global__ void __launch_bounds__(STEM_THREADS)
-stem_fma_kernel(const __nv_bfloat16* __restrict__ x, int H, int W,
-                const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
-                int relu, int Ho, int Wo, int CO, __nv_bfloat16* __restrict__ y,
-                __nv_bfloat16* __restrict__ pooled) {
-  __shared__ float w_s[9][64];
-  __shared__ float b_s[64];
-  const int tid = threadIdx.x;
-  const int n_co_blk = CO / 64;
-  const int b = blockIdx.z / n_co_blk;
-  const int co0 = (blockIdx.z % n_co_blk) * 64;
-  for (int i = tid; i < 9 * 64; i += STEM_THREADS) {
-    const int co = i % 64, tap = i / 64;
-    w_s[tap][co] = __bfloat162float(w[(size_t)(co0 + co) * 9 + tap]);
-  }
-  if (tid < 64) b_s[tid] = bias[co0 + tid];
-  __syncthreads();
-
-  const int cg = tid % 8;  // channels co0 + 8*cg .. +7
-  const int qx = blockIdx.x * STEM_QUADS + tid / 8;
-  const int qy = blockIdx.y;
-  const int oy = 2 * qy, ox = 2 * qx;
-  if (ox >= Wo) return;
-
-  float p[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int iy = oy + r, ix = ox + c;
-      p[r][c] = (iy < H && ix < W)
-                    ? __bfloat162float(x[((size_t)b * H + iy) * W + ix])
-                    : 0.f;
-    }
-
-  float acc[4][8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float bb = b_s[cg * 8 + k];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q][k] = bb;
-  }
-#pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-    const int ky = tap / 3, kx = tap % 3;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float wv = w_s[tap][cg * 8 + k];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q][k] += wv * p[(q >> 1) + ky][(q & 1) + kx];
-    }
-  }
-
-  __align__(16) __nv_bfloat162 out[4][4];  // [quad pixel][channel pair]
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      out[q][k] = __floats2bfloat162_rn(unet::act(acc[q][2 * k], relu),
-                                        unet::act(acc[q][2 * k + 1], relu));
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int py = oy + (q >> 1), px = ox + (q & 1);
-    if (py < Ho && px < Wo) {
-      const size_t off = ((size_t)b * Ho + py) * Wo + px;
-      *reinterpret_cast<uint4*>(y + off * CO + co0 + cg * 8) =
-          *reinterpret_cast<const uint4*>(out[q]);
-    }
-  }
-  if (pooled != nullptr && oy + 1 < Ho && ox + 1 < Wo) {
-    __align__(16) __nv_bfloat162 m[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      m[k] = __hmax2(__hmax2(out[0][k], out[1][k]), __hmax2(out[2][k], out[3][k]));
-    const int Hp = Ho / 2, Wp = Wo / 2;
-    const size_t off = ((size_t)b * Hp + qy) * Wp + qx;
-    *reinterpret_cast<uint4*>(pooled + off * CO + co0 + cg * 8) =
-        *reinterpret_cast<const uint4*>(m);
-  }
-}
-
 int launch_stem(const void* x, const void* w, const void* bias, void* y, void* pooled, int B,
                 int H, int W, int CO, int relu, cudaStream_t st) {
   const int Ho = H - 2, Wo = W - 2;
@@ -395,35 +300,4 @@ extern "C" int conv3x3_bias_relu_bf16(const void* x, const void* w,
   unet::Src s0{(const __nv_bfloat16*)x, H, W, CI, 0, 0};
   unet::Src s1{nullptr, 0, 0, 0, 0, 0};
   return unet::launch_conv_fwd_wgmma(s0, s1, w, bias, relu, B, Ho, Wo, CO, y, pooled, stream);
-}
-
-// The stem (CI == 1) through the FMA kernel the row kernel replaced: x
-// (B,H,W,1), w (CO,3,3,1), bias (CO,) -> y and, when pooled is not null,
-// its pool, as conv3x3_bias_relu_bf16. Returns the launch's CUDA error.
-extern "C" int stem_fma_reference_bf16(const void* x, const void* w, const void* bias, void* y,
-                                       void* pooled, int B, int H, int W, int CO, int relu,
-                                       void* stream) {
-  const int Ho = H - 2, Wo = W - 2;
-  const int Hq = (Ho + 1) / 2, Wq = (Wo + 1) / 2;
-  dim3 grid((Wq + STEM_QUADS - 1) / STEM_QUADS, Hq, B * (CO / 64));
-  stem_fma_kernel<<<grid, STEM_THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, H, W, (const __nv_bfloat16*)w, (const float*)bias, relu, Ho, Wo,
-      CO, (__nv_bfloat16*)y, (__nv_bfloat16*)pooled);
-  return (int)cudaGetLastError();
-}
-
-// The mma.sync forward: s0 (B,H0,W0,C0) read at (off_y, off_x) and, when
-// C1 > 0, s1 (B,H1,W1,C1) at (0, 0), bf16; w (CO,3,3,C0+C1) bf16, bias
-// (CO,) f32 -> y (B,Ho,Wo,CO) bf16 and, when pooled is not null, its 2x2
-// max-pool. Returns the launch's CUDA error.
-extern "C" int conv3x3_mma_reference_bf16(const void* s0, int H0, int W0, int C0, int off_y,
-                                          int off_x, const void* s1, int H1, int W1, int C1,
-                                          const void* w, const void* bias, void* y,
-                                          void* pooled, int B, int Ho, int Wo, int CO,
-                                          int relu, void* stream) {
-  unet::Src a{(const __nv_bfloat16*)s0, H0, W0, C0, off_y, off_x};
-  unet::Src b{(const __nv_bfloat16*)s1, H1, W1, C1, 0, 0};
-  return unet::launch_conv3x3_mma<unet::MODE_STORE>(a, b, w, bias, relu, B, Ho, Wo, CO, y,
-                                                    pooled, nullptr, nullptr, 0, nullptr,
-                                                    stream);
 }

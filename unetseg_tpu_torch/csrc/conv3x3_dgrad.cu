@@ -25,11 +25,6 @@
 // flipped, transposed kernel is a 74 KB re-layout done by the wrapper: wt
 // (CI, 3, 3, CO) is the forward's OHWI layout with O = dx channels and I
 // = g channels.
-//
-// conv3x3_dgrad_mma_reference_bf16 keeps the mma.sync implicit GEMM of
-// conv_mma.cuh that the dgrad ran before (16x16 tiles, 64 channels a
-// block, staging through registers): uncounted, on no path, timed beside
-// the wgmma kernels by chip_smoke.py.
 #include "conv_fwd_wgmma.cuh"
 
 // g (B,Hg,Wg,CO) bf16; wt (CI,3,3,CO) bf16, wt[ci,ky,kx,co] =
@@ -40,15 +35,4 @@ extern "C" int conv3x3_dgrad_bf16(const void* g, const void* wt, void* dx,
                                   int B, int Hg, int Wg, int CO, int CI,
                                   void* stream) {
   return unet::launch_conv_dgrad_wgmma(g, B, Hg, Wg, CO, wt, CI, dx, stream);
-}
-
-// The same function through the mma.sync kernel (conv_mma.cuh).
-extern "C" int conv3x3_dgrad_mma_reference_bf16(const void* g, const void* wt, void* dx,
-                                                int B, int Hg, int Wg, int CO, int CI,
-                                                void* stream) {
-  unet::Src s0{(const __nv_bfloat16*)g, Hg, Wg, CO, -2, -2};
-  unet::Src s1{nullptr, 0, 0, 0, 0, 0};
-  return unet::launch_conv3x3_mma<unet::MODE_STORE>(
-      s0, s1, wt, nullptr, /*relu=*/0, B, Hg + 2, Wg + 2, CI, dx, nullptr,
-      nullptr, nullptr, 0, nullptr, stream);
 }

@@ -11,11 +11,6 @@
 // N = 64: CO must be 64) with its head epilogue: bias and ReLU rounded to
 // bf16 in shared memory, as the unfused path stores the activation, then
 // the head in f32, writing 4 NC bytes per pixel.
-//
-// conv3x3_head_mma_reference_bf16 keeps the mma.sync kernel it replaced
-// (conv_mma.cuh MODE_HEAD), whose order dec_tail.cu sums in: the tests and
-// chip_smoke.py hold dec_tail to it bit for bit and time it beside the
-// wgmma kernel. No path launches it.
 #include "conv_fwd_wgmma.cuh"
 
 // x (B,H,W,CI) bf16; w (64,3,3,CI) bf16; bias (64,) f32; head_w (NC,64) f32
@@ -29,17 +24,4 @@ extern "C" int conv3x3_head_bf16(const void* x, const void* w, const void* bias,
   unet::Src s0{(const __nv_bfloat16*)x, H, W, CI, 0, 0};
   return unet::launch_conv_head_wgmma(s0, w, bias, head_w, head_b, NC, B, H - 2, W - 2, logits,
                                       stream);
-}
-
-// The same function through the mma.sync kernel. Returns the launch's CUDA
-// error.
-extern "C" int conv3x3_head_mma_reference_bf16(const void* x, const void* w, const void* bias,
-                                               const void* head_w, const void* head_b,
-                                               void* logits, int B, int H, int W, int CI,
-                                               int NC, void* stream) {
-  unet::Src s0{(const __nv_bfloat16*)x, H, W, CI, 0, 0};
-  unet::Src s1{nullptr, 0, 0, 0, 0, 0};
-  return unet::launch_conv3x3_mma<unet::MODE_HEAD>(
-      s0, s1, w, bias, /*relu=*/1, B, H - 2, W - 2, unet::NCO, nullptr,
-      nullptr, head_w, head_b, NC, logits, stream);
 }

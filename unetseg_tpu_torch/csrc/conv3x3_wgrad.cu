@@ -18,11 +18,10 @@
 // sequential grid; Hopper's blocks run in parallel, so K is split: block
 // (chunk, ci slice, co block) walks a fixed range of 4x16-pixel output
 // tiles, down the columns of tiles (faster than along the rows at 64
-// channels, where each byte of x and g is read by one block only:
-// ops/kernels/wgrad_variants.py), and writes its 64 x (9 x 64)
-// partial sums to a (chunk, CO, 9, CI) f32 scratch; a second kernel sums
-// the chunks in a fixed order into the OIHW result. No atomics, so results
-// repeat bit for bit.
+// channels, where each byte of x and g is read by one block only), and
+// writes its 64 x (9 x 64) partial sums to a (chunk, CO, 9, CI) f32
+// scratch; a second kernel sums the chunks in a fixed order into the OIHW
+// result. No atomics, so results repeat bit for bit.
 //
 // The multi-channel kernel (CI a multiple of 32 per source, CO of 64):
 // - wgmma with both operands in shared memory. A = g^T is stored
@@ -87,11 +86,8 @@
 //   (ops/kernels/conv3x3_train.py wgrad_chunks); at the end the four warps'
 //   sums meet in shared memory in a fixed order, and the reduce kernel
 //   below sums the chunks: the same bits on every launch.
-// What it replaced, kept as wgrad_stem_fma_reference_bf16 (uncounted, for
-// chip_smoke.py's timings): an FMA kernel, thread per output channel,
-// staging 8x16-pixel tiles through registers between two barriers and
-// issuing ten shared loads per nine FMAs (27% of the bytes bound).
-#include "conv_mma.cuh"
+#include <cuda_bf16.h>
+
 #include "hopper.cuh"
 
 namespace {
@@ -115,12 +111,6 @@ constexpr int ST_THREADS = ST_WARPS * 32 + 32;       // + the producer warp
 constexpr int ST_RED_BYTES = ST_WARPS * 64 * 9 * 4;  // the warps' sums
 constexpr int ST_SMEM = 1024 + ST_STAGES * ST_STAGE + ST_RED_BYTES + 2 * ST_STAGES * 8;
 static_assert(ST_SMEM <= SMEM_PER_BLOCK, "stem stages exceed the 227 KB a block can use");
-
-// The FMA kernel it replaced (wgrad_stem_fma_reference_bf16).
-constexpr int WTH = 8, WTW = 16;          // output pixels per stem tile
-constexpr int WPIX = WTH * WTW;
-constexpr int WROWS = WTH + 2, WCOLS = WTW + 2;
-constexpr int WWIN = WROWS * WCOLS;
 
 // Image b and origin of a tile, the tiles of an image in row-major order of
 // (nty, ntx) tiles of th x tw; with the roles of rows and columns swapped
@@ -278,73 +268,6 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap gmap,
   }
 }
 
-constexpr int STEM_PARTS = unet::THREADS / unet::NCO;  // 4 pixel groups
-
-__global__ void __launch_bounds__(unet::THREADS)
-wgrad_stem_fma_kernel(const __nv_bfloat16* __restrict__ x, int H, int W,
-                  const __nv_bfloat16* __restrict__ g, int B, int Ho, int Wo,
-                  int CO, int nchunks, float* __restrict__ partial) {
-  using namespace unet;
-  __shared__ __align__(16) __nv_bfloat16 gs[WPIX * NCO];  // [pixel][co]
-  __shared__ float xs[WWIN];
-  __shared__ float red[STEM_PARTS][9][NCO];
-
-  const int tid = threadIdx.x;
-  const int co = tid % NCO, part = tid / NCO;
-  const int chunk = blockIdx.x;
-  const int co0 = blockIdx.z * NCO;
-  const int nty = (Ho + WTH - 1) / WTH, ntx = (Wo + WTW - 1) / WTW;
-  const long long ntiles = (long long)B * nty * ntx;
-  const long long t_begin = ntiles * chunk / nchunks;
-  const long long t_end = ntiles * (chunk + 1) / nchunks;
-
-  float acc[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) acc[k] = 0.f;
-
-  for (long long tile = t_begin; tile < t_end; ++tile) {
-    int b, y0, x0;
-    tile_origin(tile, WTH, WTW, nty, ntx, b, y0, x0);
-    for (int i = tid; i < WPIX * (NCO / 8); i += THREADS) {
-      const int v = i % (NCO / 8), pix = i / (NCO / 8);
-      const int oy = y0 + pix / WTW, ox = x0 + pix % WTW;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (oy < Ho && ox < Wo) {
-        const size_t off = ((size_t)b * Ho + oy) * Wo + ox;
-        val = *reinterpret_cast<const uint4*>(g + off * CO + co0 + v * 8);
-      }
-      *reinterpret_cast<uint4*>(gs + pix * NCO + v * 8) = val;
-    }
-    for (int p = tid; p < WWIN; p += THREADS) {
-      const int iy = y0 + p / WCOLS, ix = x0 + p % WCOLS;
-      xs[p] = (iy < H && ix < W)
-                  ? __bfloat162float(x[((size_t)b * H + iy) * W + ix])
-                  : 0.f;
-    }
-    __syncthreads();
-    for (int pix = part; pix < WPIX; pix += STEM_PARTS) {
-      const float gv = __bfloat162float(gs[pix * NCO + co]);
-      const int r = pix / WTW, c = pix % WTW;
-#pragma unroll
-      for (int k = 0; k < 9; ++k)
-        acc[k] += gv * xs[(r + k / 3) * WCOLS + c + k % 3];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int k = 0; k < 9; ++k) red[part][k][co] = acc[k];
-  __syncthreads();
-  if (part == 0) {
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      float v = red[0][k][co];
-#pragma unroll
-      for (int q = 1; q < STEM_PARTS; ++q) v += red[q][k][co];
-      partial[((size_t)chunk * CO + co0 + co) * 9 + k] = v;
-    }
-  }
-}
-
 // Four 8x8 bf16 matrices of shared memory, transposed, into the mma.sync
 // fragment registers: thread 8i + r gives row r of matrix i.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
@@ -352,6 +275,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
+}
+
+// d (m16 x n8, f32) += a (m16 x k16) b (k16 x n8), bf16 fragments in registers.
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Two bf16 values as one mma.sync operand register (a in the low half).
@@ -463,8 +395,8 @@ wgrad_stem_tma_kernel(const __grid_constant__ CUtensorMap gmap,
         const int c = 2 * m + (mi & 1);
         uint32_t a[4];
         ldmatrix_x4_trans(a, gs + k * 128 + ((c ^ (k & 7)) << 4));
-        unet::mma_bf16_16816(acc[m][0], a, b0);
-        unet::mma_bf16_16816(acc[m][1], a, b1);
+        mma_bf16_16816(acc[m][0], a, b0);
+        mma_bf16_16816(acc[m][1], a, b1);
       }
     }
     __syncwarp();
@@ -597,21 +529,4 @@ extern "C" int conv3x3_wgrad_bf16(const void* x0, int H0, int W0, int C0,
     if (err != cudaSuccess) return (int)err;
   }
   return launch_reduce((const float*)partial, nchunks, CO, CI, (float*)dw, st);
-}
-
-// The stem's weight gradient through the FMA kernel that the TMA kernel
-// replaced: x (B,H,W,1), g (B,H-2,W-2,CO) bf16; partial: f32 scratch of
-// nchunks*CO*9 -> dw (CO, 1, 3, 3) f32. Returns the first failing launch's
-// CUDA error.
-extern "C" int wgrad_stem_fma_reference_bf16(const void* x, int H, int W, const void* g, int B,
-                                             int CO, int nchunks, void* partial, void* dw,
-                                             void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid(nchunks, 1, CO / unet::NCO);
-  wgrad_stem_fma_kernel<<<grid, unet::THREADS, 0, st>>>(
-      (const __nv_bfloat16*)x, H, W, (const __nv_bfloat16*)g, B, H - 2, W - 2, CO, nchunks,
-      (float*)partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_reduce((const float*)partial, nchunks, CO, 1, (float*)dw, st);
 }

@@ -27,8 +27,7 @@
 // On an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) bytes bound enc0 conv1 (571
 // GFLOP over 2.2 GB per 16 tiles of 700^2), just above its operations, and
 // operations bound every conv from 128 channels on. What bounds the kernel
-// (chip_smoke.py and ops/kernels/fwd_variants.py, H100 80GB HBM3 at
-// 700 W): at 64 output channels (N = 64) each wgmma.m64n64k16 reads 4 KB of
+// (chip_smoke.py, H100 80GB HBM3 at 700 W): at 64 output channels (N = 64) each wgmma.m64n64k16 reads 4 KB of
 // shared memory per 32 clocks of tensor work, all of an SM's 128 bytes a
 // clock, and a tile of one 64-channel slice is nine stages between a
 // pipeline fill and an epilogue: enc0 conv1 + pool runs at 430 TFLOP/s,
@@ -56,8 +55,7 @@
 //   the copy's (kx, ky) offset), and the weight tile. It copies 9x the
 //   window's A bytes and runs faster all the same: 0.63-0.69x the windowed
 //   time at enc4c1,
-//   0.80x at enc4c0, 0.84-0.86x at dec0c1, 0.89-0.96x at 128-512 channels
-//   (fwd_variants.py "window").
+//   0.80x at enc4c0, 0.84-0.86x at dec0c1, 0.89-0.96x at 128-512 channels.
 // - windowed form (the fused pool, whose 2x2 windows span two output rows;
 //   two sources): a unit is 8x8 output pixels, each core matrix (8 rows of
 //   A) the 8 pixels of one output row; units consecutive in (image, unit
@@ -78,10 +76,7 @@
 //   a pixel reach device memory. Its nine weight taps (one 64-channel
 //   slice) fit the weight stages: they are copied once per block and stay
 //   resident instead of streaming through the ring every tile (11% faster
-//   at 16 x 516^2, fwd_variants.py "head_streamed"). Replaces the mma.sync
-//   MODE_HEAD of conv_mma.cuh, which restaged the 9-tap weight slice of a
-//   16x16 tile every 32 channels between two barriers (22% of its
-//   operations bound).
+//   at 16 x 516^2).
 // - Fused decoder tail (dec_tail_kernel, entry dec_tail.cu): conv0, conv1
 //   and the head in one kernel, conv0's tile kept in shared memory; the
 //   product transposed (M = channels, N = pixels): its note below.
@@ -98,7 +93,7 @@
 //   from the registers, 16 bytes of each of 8 pixels a warp instruction,
 //   took 1.2-1.7x the time at 64-256 channels (PERF.md).
 //
-// The five faults of the mma.sync kernel it replaces (conv_mma.cuh): (1)
+// The five faults of the mma.sync kernel it replaced: (1)
 // mma.sync m16n8k16 -> wgmma m64nNk16; (2) 256 threads staging through
 // registers between two barriers -> TMA into rings the producer keeps
 // ahead; (3) 64 output channels a block, the window re-staged CO/64 times,

@@ -6,9 +6,24 @@
 // (dec_tail) and enc0_fused.cu (enc0_fused).
 #pragma once
 
-#include "conv_mma.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace unet {
+
+constexpr int MAX_NC = 4;  // head classes
+
+// A convolution's input: NHWC bf16 at p, read at (off_y, off_x); rows and
+// columns outside it read as zeros.
+struct Src {
+  const __nv_bfloat16* p;
+  int H, W, C, off_y, off_x;
+};
+
+__device__ __forceinline__ float act(float v, int relu) {
+  return relu ? fmaxf(v, 0.f) : v;
+}
 
 // y (B, Ho, Wo, CO) = act(conv3x3(concat(s0 at (s0.off_y, s0.off_x), s1)) +
 // bias) in bf16, and its 2x2 max-pool (B, Ho/2, Wo/2, CO) when pooled is

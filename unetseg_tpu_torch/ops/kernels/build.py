@@ -37,20 +37,12 @@ SIGNATURES = {
     "minplus_f32": [P, L, P, L, P, I, I, I, I, P],
     "conv3x3_bias_relu_bf16": [P, P, P, P, P, I, I, I, I, I, I, P],
     "dec_conv0_bf16": [P, I, I, I, I, I, P, I, I, I, P, P, P, I, I, I, P],
-    "conv3x3_mma_reference_bf16": [P, I, I, I, I, I, P, I, I, I, P, P, P, P, I, I, I, I, I, P],
     "conv3x3_head_bf16": [P, P, P, P, P, P, I, I, I, I, I, P],
-    "conv3x3_head_mma_reference_bf16": [P, P, P, P, P, P, I, I, I, I, I, P],
     "enc0_fused_bf16": [P, P, P, P, P, P, P, I, I, I, P],
-    "enc0_fused_mma_reference_bf16": [P, P, P, P, P, P, P, I, I, I, P],
     "dec_tail_bf16": [P, I, I, I, I, I, P, I, I, I, P, P, P, P, P, P, I, P, I, P],
-    "dec_tail_mma_reference_bf16": [P, I, I, I, I, I, P, I, I, I, P, P, P, P, P, P, I, P, I, P],
     "tconv2x2_bias_bf16": [P, P, P, P, I, I, I, I, I, P],
-    "tconv2x2_mma_reference_bf16": [P, P, P, P, I, I, I, I, I, P],
     "conv3x3_dgrad_bf16": [P, P, P, I, I, I, I, I, P],
-    "conv3x3_dgrad_mma_reference_bf16": [P, P, P, I, I, I, I, I, P],
-    "stem_fma_reference_bf16": [P, P, P, P, P, I, I, I, I, I, P],
     "conv3x3_wgrad_bf16": [P, I, I, I, I, I, P, I, I, I, P, I, I, I, I, I, P, P, P],
-    "wgrad_stem_fma_reference_bf16": [P, I, I, P, I, I, I, P, P, P],
     "sample_displaced_f32": [P, P, P, P, I, I, I, P, P, P],
     "fused_update_f32": [I, I, P, P, P, P, P, P, P, P, P, P, P, I, P, P],
     "fused_ema_f32": [I, P, P, P, P, P, F, P],

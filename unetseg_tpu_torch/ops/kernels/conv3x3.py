@@ -35,37 +35,27 @@ kernel's counterpart counts its launches apart:
 With one input channel (the stem), conv3x3_bias_relu and conv3x3_dense
 launch a row-streaming FMA kernel (csrc/conv3x3_bias_relu.cu): strips of
 two output rows through shared memory, written by TMA tensor stores;
-`stem_plan` and `stem_strips` mirror its launch, and
-`stem_fma_reference` runs the FMA kernel it replaced, uncounted, for the
-card's bit-for-bit checks and timings.
+`stem_plan` and `stem_strips` mirror its launch.
 
 With more than one input channel, conv3x3_bias_relu, conv3x3_dense,
 conv3x3_cblock, dec_conv0 and dec_conv0_dense launch csrc/conv_fwd_wgmma.cu
 (wgmma fed by a TMA ring, in an im2col form for one source without the
 pool at N = 128 and a windowed form otherwise), and conv3x3_head its
 windowed form at N = 64 with the 1x1 head in the epilogue; `fwd_plan`
-mirrors its launch plan. `conv3x3_mma_reference` runs the mma.sync
-implicit GEMM that they launched before (csrc/conv_mma.cuh), with the head
-when given one, which enc0_fused_mma_reference and dec_tail_mma_reference
-sum like: uncounted, on no path, for the card's bit-for-bit checks and
-timings. tconv2x2_bias launches a streaming wgmma GEMM with resident
-weights (csrc/tconv2x2_bias.cu); `tconv_plan` and `tconv_store_offsets`
-mirror its tiles and its pixel-shuffle stores, and `tconv2x2_mma_reference`
-runs the mma.sync kernel it replaced, uncounted, for the card's timings.
+mirrors its launch plan. tconv2x2_bias launches a streaming wgmma GEMM
+with resident weights (csrc/tconv2x2_bias.cu); `tconv_plan` and
+`tconv_store_offsets` mirror its tiles and its pixel-shuffle stores.
 dec_tail launches the wgmma forward's fused-tail kernel (bands of 30
-logits rows walked 8 columns a step, conv0's tile kept in shared memory);
-`dec_tail_plan` and `dec_tail_steps` mirror its walk, and
-`dec_tail_mma_reference` runs the mma.sync kernel it replaced, uncounted,
-for the card's bit-for-bit checks and timings. enc0_fused (csrc/enc0_fused.cu)
+logits rows walked 8 columns a step, conv0's tile kept in shared memory),
+whose bits are the chain dec_conv0 -> conv3x3_head; `dec_tail_plan` and
+`dec_tail_steps` mirror its walk. enc0_fused (csrc/enc0_fused.cu)
 launches the wgmma forward's fused-enc0 kernel (bands of 32 output rows
 walked 8 columns a step; a stem warpgroup fills one of two shared h tiles
 on the FMA units, carrying the two halo columns from the step before,
 while two consumer warpgroups run conv1 from the other as the tail's
 transposed product with resident weights; the pool from registers), whose
 bits are the chain conv3x3_bias_relu -> conv3x3_bias_relu(fuse_pool=True);
-`enc0_fused_plan` and `enc0_fused_steps` mirror its walk, and
-`enc0_fused_mma_reference` runs the mma.sync kernel it replaced,
-uncounted, for the card's bit-for-bit checks and timings.
+`enc0_fused_plan` and `enc0_fused_steps` mirror its walk.
 """
 
 from __future__ import annotations
@@ -84,7 +74,7 @@ from unetseg_tpu_torch.ops.kernels.launches import (  # noqa: F401 (re-exported)
     reset_launch_counts,
 )
 
-MAX_HEAD_CLASSES = 4  # csrc/conv_mma.cuh MAX_NC
+MAX_HEAD_CLASSES = 4  # csrc/conv_fwd_wgmma.cuh MAX_NC
 CBLOCK_CO = 128  # conv_cblock.py asserts CO % 128 == 0
 
 # csrc/conv_fwd_wgmma.cu's launch plan, mirrored for the CPU geometry tests
@@ -612,131 +602,6 @@ def _launch_dec_conv0(name, skip, up, w, b, row_off, col_off, relu):
     return y
 
 
-def conv3x3_mma_reference(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, fuse_pool: bool = False,
-    relu: bool = True, up: Optional[torch.Tensor] = None, row_off: int = 0, col_off: int = 0,
-    k_head: Optional[torch.Tensor] = None, b_head: Optional[torch.Tensor] = None,
-) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """The mma.sync forward (csrc/conv_mma.cuh) on CUDA tensors, uncounted:
-    conv3x3_bias_relu's function for x alone (CI % 32 == 0), dec_conv0's
-    with `up` (x is the skip, read at (row_off, col_off)), conv3x3_head's
-    with `k_head` and `b_head` (its MODE_HEAD: x alone, CO == 64, ReLU, no
-    pool). The summation order of enc0_fused and dec_tail; no serving or
-    train path calls it."""
-    if x.device.type != "cuda":
-        raise RuntimeError("conv3x3_mma_reference runs the mma.sync kernel: CUDA tensors only")
-    if (k_head is None) != (b_head is None):
-        raise ValueError("the head needs both k_head and b_head")
-    if k_head is not None:
-        if up is not None or fuse_pool or not relu:
-            raise ValueError("the mma.sync head takes x alone, with the ReLU and no pool")
-        return _launch_head("conv3x3_mma_reference", "conv3x3_head_mma_reference_bf16", x, w, b,
-                            k_head, b_head)
-    bsz, hs, ws, c0 = x.shape
-    c1 = 0 if up is None else up.shape[3]
-    co = w.shape[0]
-    if tuple(w.shape) != (co, c0 + c1, 3, 3) or tuple(b.shape) != (co,):
-        raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} do not fit the inputs")
-    if up is None:
-        _check_act("x", x)
-        ho, wo = hs - 2, ws - 2
-    else:
-        _check_crop(x, up, row_off, col_off)
-        ho, wo = up.shape[1] - 2, up.shape[2] - 2
-    _check_co(co)
-    y = torch.empty((bsz, ho, wo, co), dtype=x.dtype, device=x.device)
-    pooled = (torch.empty((bsz, ho // 2, wo // 2, co), dtype=x.dtype, device=x.device)
-              if fuse_pool else None)
-    wk, bk = _ohwi(w), _f32(b)
-    err = library().conv3x3_mma_reference_bf16(
-        x.data_ptr(), hs, ws, c0, row_off, col_off,
-        None if up is None else up.data_ptr(), *(up.shape[1:4] if up is not None else (0, 0, 0)),
-        wk.data_ptr(), bk.data_ptr(), y.data_ptr(), pooled.data_ptr() if fuse_pool else None,
-        bsz, ho, wo, co, int(relu), _stream(x),
-    )
-    _raise_on(err, "conv3x3_mma_reference")
-    return (y, pooled) if fuse_pool else y
-
-
-def _launch_head(name, entry, x, w, b, k_head, b_head):
-    """A head kernel (C entry `entry` of csrc/conv3x3_head.cu) on CUDA
-    tensors; the caller counts the launch."""
-    bsz, h, wd, ci = x.shape
-    co = w.shape[0]
-    if tuple(w.shape) != (co, ci, 3, 3) or tuple(b.shape) != (co,):
-        raise ValueError("head conv weights do not fit x")
-    kh, bh = _head(k_head, b_head, co)
-    _check_act("x", x)
-    _check_co(co, exact=64)
-    if h < 3 or wd < 3:
-        raise ValueError(f"input {h}x{wd} too small for a valid 3x3 conv")
-    logits = torch.empty((bsz, h - 2, wd - 2, kh.shape[0]), dtype=torch.float32, device=x.device)
-    wk, bk = _ohwi(w), _f32(b)
-    err = getattr(library(), entry)(
-        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), kh.data_ptr(), bh.data_ptr(),
-        logits.data_ptr(), bsz, h, wd, ci, kh.shape[0], _stream(x),
-    )
-    _raise_on(err, name)
-    return logits
-
-
-def _launch_tconv(name, entry, x, w, b):
-    """A tconv kernel (C entry `entry` of csrc/tconv2x2_bias.cu) on CUDA
-    tensors; the caller counts the launch."""
-    bsz, h, wd, ci = x.shape
-    co = w.shape[1]
-    if tuple(w.shape) != (ci, co, 2, 2) or tuple(b.shape) != (co,):
-        raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} do not fit x {tuple(x.shape)}")
-    _check_act("x", x)
-    _check_co(co)
-    y = torch.empty((bsz, 2 * h, 2 * wd, co), dtype=x.dtype, device=x.device)
-    wk, bk = _tconv_weights(w), _f32(b)
-    err = getattr(library(), entry)(
-        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(), bsz, h, wd, ci, co, _stream(x),
-    )
-    _raise_on(err, name)
-    return y
-
-
-def stem_fma_reference(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, fuse_pool: bool = False, relu: bool = True,
-) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """The stem (x with one channel) through the FMA kernel that the row
-    kernel replaced (csrc/conv3x3_bias_relu.cu), on CUDA tensors,
-    uncounted: conv3x3_bias_relu's function and bits; no serving or train
-    path calls it."""
-    if x.device.type != "cuda":
-        raise RuntimeError("stem_fma_reference runs the FMA kernel: CUDA tensors only")
-    bsz, h, wd, ci = x.shape
-    co = w.shape[0]
-    if ci != 1 or tuple(w.shape) != (co, 1, 3, 3) or tuple(b.shape) != (co,):
-        raise ValueError(f"stem weight {tuple(w.shape)} / bias {tuple(b.shape)} do not fit x "
-                         f"{tuple(x.shape)}")
-    _check_act("x", x, channels_multiple=1)
-    _check_co(co)
-    if h < 3 or wd < 3:
-        raise ValueError(f"input {h}x{wd} too small for a valid 3x3 conv")
-    y = torch.empty((bsz, h - 2, wd - 2, co), dtype=x.dtype, device=x.device)
-    pooled = (torch.empty((bsz, (h - 2) // 2, (wd - 2) // 2, co), dtype=x.dtype, device=x.device)
-              if fuse_pool else None)
-    wk, bk = _ohwi(w), _f32(b)
-    err = library().stem_fma_reference_bf16(
-        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(),
-        pooled.data_ptr() if fuse_pool else None, bsz, h, wd, co, int(relu), _stream(x),
-    )
-    _raise_on(err, "stem_fma_reference")
-    return (y, pooled) if fuse_pool else y
-
-
-def tconv2x2_mma_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """tconv2x2_bias's function through the mma.sync kernel that the wgmma
-    GEMM replaced (csrc/tconv2x2_bias.cu), on CUDA tensors, uncounted: no
-    serving or train path calls it."""
-    if x.device.type != "cuda":
-        raise RuntimeError("tconv2x2_mma_reference runs the mma.sync kernel: CUDA tensors only")
-    return _launch_tconv("tconv2x2_mma_reference", "tconv2x2_mma_reference_bf16", x, w, b)
-
-
 # ----------------------------------------------------------------- wrappers
 @counted
 def conv3x3_bias_relu(
@@ -789,44 +654,6 @@ def conv3x3_cblock(
     return out
 
 
-def _launch_enc0(name, entry, x, w0, b0, w1, b1):
-    """A fused-enc0 kernel (C entry `entry` of csrc/enc0_fused.cu) on CUDA
-    tensors; the caller counts the launch."""
-    bsz, h, wd, ci = x.shape
-    f = w0.shape[0]
-    if (ci != 1 or tuple(w0.shape) != (f, 1, 3, 3) or tuple(w1.shape) != (f, f, 3, 3)
-            or tuple(b0.shape) != (f,) or tuple(b1.shape) != (f,)):
-        raise ValueError(f"stem {tuple(w0.shape)} / conv1 {tuple(w1.shape)} do not fit "
-                         f"x {tuple(x.shape)}")
-    _check_act("x", x, channels_multiple=1)
-    _check_co(f, exact=64)
-    ho, wo = h - 4, wd - 4
-    if ho < 1 or wo < 1:
-        raise ValueError(f"input {h}x{wd} too small for two valid 3x3 convs")
-    y = torch.empty((bsz, ho, wo, f), dtype=x.dtype, device=x.device)
-    pooled = torch.empty((bsz, ho // 2, wo // 2, f), dtype=x.dtype, device=x.device)
-    w0k, w1k, b0k, b1k = _ohwi(w0), _ohwi(w1), _f32(b0), _f32(b1)
-    err = getattr(library(), entry)(
-        x.data_ptr(), w0k.data_ptr(), b0k.data_ptr(), w1k.data_ptr(), b1k.data_ptr(),
-        y.data_ptr(), pooled.data_ptr(), bsz, h, wd, _stream(x),
-    )
-    _raise_on(err, name)
-    return y, pooled
-
-
-def enc0_fused_mma_reference(
-    x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """enc0_fused's function through the mma.sync kernel that the wgmma
-    kernel replaced (csrc/enc0_fused.cu), on CUDA tensors, uncounted: the
-    bits of the stem kernel chained with conv3x3_mma_reference and the
-    pool; no serving path calls it."""
-    if x.device.type != "cuda":
-        raise RuntimeError("enc0_fused_mma_reference runs the mma.sync kernel: CUDA tensors only")
-    return _launch_enc0("enc0_fused_mma_reference", "enc0_fused_mma_reference_bf16", x, w0, b0,
-                        w1, b1)
-
-
 @counted
 def enc0_fused(
     x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
@@ -842,9 +669,27 @@ def enc0_fused(
     chained with conv3x3_bias_relu(..., fuse_pool=True)."""
     if _on_cpu(x, w0, b0, w1, b1):
         return enc0_fused_plain(x, w0, b0, w1, b1)
-    out = _launch_enc0("enc0_fused", "enc0_fused_bf16", x, w0, b0, w1, b1)
+    bsz, h, wd, ci = x.shape
+    f = w0.shape[0]
+    if (ci != 1 or tuple(w0.shape) != (f, 1, 3, 3) or tuple(w1.shape) != (f, f, 3, 3)
+            or tuple(b0.shape) != (f,) or tuple(b1.shape) != (f,)):
+        raise ValueError(f"stem {tuple(w0.shape)} / conv1 {tuple(w1.shape)} do not fit "
+                         f"x {tuple(x.shape)}")
+    _check_act("x", x, channels_multiple=1)
+    _check_co(f, exact=64)
+    ho, wo = h - 4, wd - 4
+    if ho < 1 or wo < 1:
+        raise ValueError(f"input {h}x{wd} too small for two valid 3x3 convs")
+    y = torch.empty((bsz, ho, wo, f), dtype=x.dtype, device=x.device)
+    pooled = torch.empty((bsz, ho // 2, wo // 2, f), dtype=x.dtype, device=x.device)
+    w0k, w1k, b0k, b1k = _ohwi(w0), _ohwi(w1), _f32(b0), _f32(b1)
+    err = library().enc0_fused_bf16(
+        x.data_ptr(), w0k.data_ptr(), b0k.data_ptr(), w1k.data_ptr(), b1k.data_ptr(),
+        y.data_ptr(), pooled.data_ptr(), bsz, h, wd, _stream(x),
+    )
+    _raise_on(err, "enc0_fused")
     enc0_fused.launches += 1
-    return out
+    return y, pooled
 
 
 @counted
@@ -853,7 +698,19 @@ def tconv2x2_bias(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
     (torch ConvTranspose2d layout), b (CO,) -> (B,2h,2w,CO)."""
     if _on_cpu(x, w, b):
         return tconv2x2_bias_plain(x, w, b)
-    y = _launch_tconv("tconv2x2_bias", "tconv2x2_bias_bf16", x, w, b)
+    bsz, h, wd, ci = x.shape
+    co = w.shape[1]
+    if tuple(w.shape) != (ci, co, 2, 2) or tuple(b.shape) != (co,):
+        raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} do not fit x "
+                         f"{tuple(x.shape)}")
+    _check_act("x", x)
+    _check_co(co)
+    y = torch.empty((bsz, 2 * h, 2 * wd, co), dtype=x.dtype, device=x.device)
+    wk, bk = _tconv_weights(w), _f32(b)
+    err = library().tconv2x2_bias_bf16(
+        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), y.data_ptr(), bsz, h, wd, ci, co, _stream(x),
+    )
+    _raise_on(err, "tconv2x2_bias")
     tconv2x2_bias.launches += 1
     return y
 
@@ -904,51 +761,24 @@ def conv3x3_head(
     unfused path stores and reads them. The kernel needs CO == 64."""
     if _on_cpu(x, w, b, k_head, b_head):
         return conv3x3_head_plain(x, w, b, k_head, b_head)
-    logits = _launch_head("conv3x3_head", "conv3x3_head_bf16", x, w, b, k_head, b_head)
+    bsz, h, wd, ci = x.shape
+    co = w.shape[0]
+    if tuple(w.shape) != (co, ci, 3, 3) or tuple(b.shape) != (co,):
+        raise ValueError("head conv weights do not fit x")
+    kh, bh = _head(k_head, b_head, co)
+    _check_act("x", x)
+    _check_co(co, exact=64)
+    if h < 3 or wd < 3:
+        raise ValueError(f"input {h}x{wd} too small for a valid 3x3 conv")
+    logits = torch.empty((bsz, h - 2, wd - 2, kh.shape[0]), dtype=torch.float32, device=x.device)
+    wk, bk = _ohwi(w), _f32(b)
+    err = library().conv3x3_head_bf16(
+        x.data_ptr(), wk.data_ptr(), bk.data_ptr(), kh.data_ptr(), bh.data_ptr(),
+        logits.data_ptr(), bsz, h, wd, ci, kh.shape[0], _stream(x),
+    )
+    _raise_on(err, "conv3x3_head")
     conv3x3_head.launches += 1
     return logits
-
-
-def _launch_tail(name, entry, skip, up, w0, b0, w1, b1, k_head, b_head, row_off, col_off):
-    """A decoder-tail kernel (C entry `entry` of csrc/dec_tail.cu) on CUDA
-    tensors; the caller counts the launch."""
-    bsz, hs, ws, cis = skip.shape
-    _, hu, wu, ciu = up.shape
-    co = w0.shape[0]
-    if (tuple(w0.shape) != (co, cis + ciu, 3, 3) or tuple(w1.shape) != (co, co, 3, 3)
-            or tuple(b0.shape) != (co,) or tuple(b1.shape) != (co,)):
-        raise ValueError(f"skip {tuple(skip.shape)}, up {tuple(up.shape)}, conv0 "
-                         f"{tuple(w0.shape)}, conv1 {tuple(w1.shape)} do not fit together")
-    kh, bh = _head(k_head, b_head, co)
-    _check_crop(skip, up, row_off, col_off)
-    _check_co(co, exact=64)
-    if hu < 5 or wu < 5:
-        raise ValueError(f"up {hu}x{wu} too small for two valid 3x3 convs")
-    logits = torch.empty((bsz, hu - 4, wu - 4, kh.shape[0]), dtype=torch.float32,
-                         device=up.device)
-    w0k, w1k, b0k, b1k = _ohwi(w0), _ohwi(w1), _f32(b0), _f32(b1)
-    err = getattr(library(), entry)(
-        skip.data_ptr(), hs, ws, cis, row_off, col_off, up.data_ptr(), hu, wu, ciu,
-        w0k.data_ptr(), b0k.data_ptr(), w1k.data_ptr(), b1k.data_ptr(),
-        kh.data_ptr(), bh.data_ptr(), kh.shape[0], logits.data_ptr(), bsz, _stream(up),
-    )
-    _raise_on(err, name)
-    return logits
-
-
-def dec_tail_mma_reference(
-    skip: torch.Tensor, up: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
-    w1: torch.Tensor, b1: torch.Tensor, k_head: torch.Tensor, b_head: torch.Tensor,
-    row_off: int, col_off: int,
-) -> torch.Tensor:
-    """dec_tail's function through the mma.sync kernel that the wgmma kernel
-    replaced (csrc/dec_tail.cu), on CUDA tensors, uncounted: the bits of
-    conv3x3_mma_reference's entry conv chained with its head; no serving
-    path calls it."""
-    if up.device.type != "cuda":
-        raise RuntimeError("dec_tail_mma_reference runs the mma.sync kernel: CUDA tensors only")
-    return _launch_tail("dec_tail_mma_reference", "dec_tail_mma_reference_bf16", skip, up, w0, b0,
-                        w1, b1, k_head, b_head, row_off, col_off)
 
 
 @counted
@@ -965,7 +795,26 @@ def dec_tail(
     logits (B,Hu-4,Wu-4,NC). The kernel needs CO == 64."""
     if _on_cpu(skip, up, w0, b0, w1, b1, k_head, b_head):
         return dec_tail_plain(skip, up, w0, b0, w1, b1, k_head, b_head, row_off, col_off)
-    logits = _launch_tail("dec_tail", "dec_tail_bf16", skip, up, w0, b0, w1, b1, k_head, b_head,
-                          row_off, col_off)
+    bsz, hs, ws, cis = skip.shape
+    _, hu, wu, ciu = up.shape
+    co = w0.shape[0]
+    if (tuple(w0.shape) != (co, cis + ciu, 3, 3) or tuple(w1.shape) != (co, co, 3, 3)
+            or tuple(b0.shape) != (co,) or tuple(b1.shape) != (co,)):
+        raise ValueError(f"skip {tuple(skip.shape)}, up {tuple(up.shape)}, conv0 "
+                         f"{tuple(w0.shape)}, conv1 {tuple(w1.shape)} do not fit together")
+    kh, bh = _head(k_head, b_head, co)
+    _check_crop(skip, up, row_off, col_off)
+    _check_co(co, exact=64)
+    if hu < 5 or wu < 5:
+        raise ValueError(f"up {hu}x{wu} too small for two valid 3x3 convs")
+    logits = torch.empty((bsz, hu - 4, wu - 4, kh.shape[0]), dtype=torch.float32,
+                         device=up.device)
+    w0k, w1k, b0k, b1k = _ohwi(w0), _ohwi(w1), _f32(b0), _f32(b1)
+    err = library().dec_tail_bf16(
+        skip.data_ptr(), hs, ws, cis, row_off, col_off, up.data_ptr(), hu, wu, ciu,
+        w0k.data_ptr(), b0k.data_ptr(), w1k.data_ptr(), b1k.data_ptr(),
+        kh.data_ptr(), bh.data_ptr(), kh.shape[0], logits.data_ptr(), bsz, _stream(up),
+    )
+    _raise_on(err, "dec_tail")
     dec_tail.launches += 1
     return logits

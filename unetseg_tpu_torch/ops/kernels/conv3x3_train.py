@@ -14,12 +14,9 @@ Both dgrad wrappers launch the wgmma forward's kernels (csrc/
 conv_fwd_wgmma.cu under the names conv_dgrad_kernel and
 conv_dgrad_im2col_kernel) on g read at (-2, -2) with the flipped,
 transposed weights of `dgrad_weights`; `dgrad_plan` is their launch plan.
-`conv3x3_dgrad_mma_reference` runs the mma.sync kernel they launched
-before, uncounted, for the card's timings. The wgrad wrappers launch the
-split-K wgmma kernel of csrc/conv3x3_wgrad.cu, or for one input channel
-(the stem) its TMA + mma.sync kernel; `wgrad_chunks` and
-`wgrad_stem_tiles` mirror their split, and `wgrad_stem_fma_reference`
-runs the stem's FMA kernel it replaced, uncounted, for the card's timings.
+The wgrad wrappers launch the split-K wgmma kernel of
+csrc/conv3x3_wgrad.cu, or for one input channel (the stem) its TMA +
+mma.sync kernel; `wgrad_chunks` and `wgrad_stem_tiles` mirror their split.
 
 The TPU needed one kernel per layout (2-phase lanes for tier 1, dense
 lanes for tier 2's enc1 and dec2); on NHWC the two layouts' gradients are
@@ -78,12 +75,10 @@ from unetseg_tpu_torch.ops.kernels.launches import counted
 # window, each stage 1 KB aligned), one block per SM. The stem's TMA kernel
 # (ci == 1): tiles of 4 x 64 g pixels, a ring of 6 stages (the g tile and
 # the tile's 6 x rows of WGRAD_STEM_XIN values, 1 KB aligned), four
-# consumer warps, one block per SM. The FMA kernel it replaced (uncounted
-# wgrad_stem_fma_reference): 8x16 tiles, two blocks per SM.
+# consumer warps, one block per SM.
 WGRAD_TILE, WGRAD_CHANNELS, WGRAD_STAGES, WGRAD_BLOCKS_PER_SM = (4, 16), 64, 8, 1
 WGRAD_STEM_TILE, WGRAD_STEM_STAGES, WGRAD_STEM_BLOCKS_PER_SM = (4, 64), 6, 1
 WGRAD_STEM_XIN = WGRAD_STEM_TILE[1] + 16
-WGRAD_STEM_FMA_TILE, WGRAD_STEM_FMA_BLOCKS_PER_SM = (8, 16), 2
 SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory an H100 block can use
 
 
@@ -123,10 +118,9 @@ def dgrad_plan(bsz: int, hg: int, wg: int, ci: int, sm_count: int):
 
 
 # ------------------------------------------------------------------ launches
-def _launch_dgrad(name, g, w, entry="conv3x3_dgrad_bf16"):
-    """A dgrad kernel (C entry `entry` of csrc/conv3x3_dgrad.cu) on CUDA
-    tensors, for the wrappers that launch it; the caller counts the
-    launch."""
+def _launch_dgrad(name, g, w):
+    """csrc/conv3x3_dgrad.cu on CUDA tensors, for the wrappers that launch
+    it; the caller counts the launch."""
     bsz, hg, wg, co = g.shape
     ci = w.shape[1]
     if tuple(w.shape) != (co, ci, 3, 3):
@@ -135,20 +129,11 @@ def _launch_dgrad(name, g, w, entry="conv3x3_dgrad_bf16"):
     _check_co(ci)
     dx = torch.empty((bsz, hg + 2, wg + 2, ci), dtype=g.dtype, device=g.device)
     wt = dgrad_weights(w)
-    err = getattr(library(), entry)(
+    err = library().conv3x3_dgrad_bf16(
         g.data_ptr(), wt.data_ptr(), dx.data_ptr(), bsz, hg, wg, co, ci, _stream(g),
     )
     _raise_on(err, name)
     return dx
-
-
-def conv3x3_dgrad_mma_reference(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """conv3x3_dgrad's function through the mma.sync kernel that the wgmma
-    kernels replaced (csrc/conv3x3_dgrad.cu), on CUDA tensors, uncounted:
-    no train path calls it."""
-    if g.device.type != "cuda":
-        raise RuntimeError("conv3x3_dgrad_mma_reference runs the mma.sync kernel: CUDA tensors only")
-    return _launch_dgrad("conv3x3_dgrad_mma_reference", g, w, "conv3x3_dgrad_mma_reference_bf16")
 
 
 @functools.lru_cache(maxsize=None)
@@ -240,39 +225,6 @@ def _wgrad_launch(name, s0, off0, s1, g):
         _stream(g),
     )
     _raise_on(err, name)
-    return dw
-
-
-def wgrad_stem_fma_chunks(bsz: int, ho: int, wo: int, co: int, sm_count: int) -> int:
-    """Split-K chunks of the stem's FMA reference kernel over g (bsz, ho,
-    wo, co): its 8x16 tiles, one wave at two blocks per SM, as
-    `wgrad_chunks` plans the kernels the train step runs."""
-    (th, tw), per_sm = WGRAD_STEM_FMA_TILE, WGRAD_STEM_FMA_BLOCKS_PER_SM
-    tiles = bsz * -(-ho // th) * -(-wo // tw)
-    return max(1, min(tiles, per_sm * sm_count // (co // 64)))
-
-
-def wgrad_stem_fma_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The stem's weight gradient (x with one channel) through the FMA
-    kernel that the TMA kernel replaced (csrc/conv3x3_wgrad.cu), on CUDA
-    tensors, uncounted: conv3x3_wgrad's function; no train path calls it."""
-    if x.device.type != "cuda":
-        raise RuntimeError("wgrad_stem_fma_reference runs the FMA kernel: CUDA tensors only")
-    bsz, h, w, ci = x.shape
-    co = g.shape[3]
-    if ci != 1 or g.shape[0] != bsz or tuple(g.shape[1:3]) != (h - 2, w - 2):
-        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} do not fit the stem")
-    _check_act("x", x, channels_multiple=1)
-    _check_act("g", g)
-    _check_co(co)
-    nchunks = wgrad_stem_fma_chunks(bsz, h - 2, w - 2, co, _sm_count(g.device.index or 0))
-    partial = torch.empty((nchunks, co, 9, 1), dtype=torch.float32, device=g.device)
-    dw = torch.empty((co, 1, 3, 3), dtype=torch.float32, device=g.device)
-    err = library().wgrad_stem_fma_reference_bf16(
-        x.data_ptr(), h, w, g.data_ptr(), bsz, co, nchunks, partial.data_ptr(), dw.data_ptr(),
-        _stream(g),
-    )
-    _raise_on(err, "wgrad_stem_fma_reference")
     return dw
 
 
