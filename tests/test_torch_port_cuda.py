@@ -25,7 +25,11 @@ output channels in its im2col and windowed forms, from 32- and
 96-channel sources, with the pool on odd sizes, relu=False and tiles that
 cross image edges, one tap at a time in both forms, from two sources
 (64+32, 128+128, 32+96) at odd offsets, with the
-same bits on a second launch; the head conv on the wgmma forward's head
+same bits on a second launch; the default serving forward's middle
+stages at both serving cells' shapes (conv3x3_bias_relu with and without
+the pool, tconv2x2_bias at CI 256-1024, dec_conv0 at 128+128 to 512+512)
+and the whole default forward against the plain fp32 and bf16 forwards,
+batch-invariant bit for bit; the head conv on the wgmma forward's head
 variant at 1-4 classes and ragged sizes; the streaming wgmma tconv with
 each (dy, dx) tap alone at CO 128, ragged pixel counts, 32-, 96- and
 256-channel inputs and three column groups; both with the same bits on a
@@ -606,6 +610,114 @@ def test_conv_fwd_wgmma_repeats_its_bits(g):
     assert torch.equal(first, again)
 
 
+# ------------------------------------------ the default serving forward's middle
+
+
+def _middle_stages():
+    """(id, wrapper, shape) of each middle stage of the default serving
+    forward (base 64) in both serving cells, 16 tiles of 700^2 and 8 of
+    512^2: enc{l} conv0 (B, S, CI, CO, pool=False) and conv1 (pool for
+    l < 4), up{i} (B, S, CI, CO), dec{i} conv0 (B, skip S, up S, skip CI,
+    up CI, offset) and conv1."""
+    from unetseg_tpu_torch.models.shapes import unet_shapes
+
+    out = []
+    for cell, size, b in (("700x16", 700, 16), ("512x8", 512, 8)):
+        enc = unet_shapes(size).encoder
+        for lvl in range(1, 5):
+            s, ci, co = enc[lvl - 1] // 2, 32 << lvl, 64 << lvl
+            out.append((f"{cell}-enc{lvl}c0", "conv", (b, s, ci, co, False)))
+            out.append((f"{cell}-enc{lvl}c1", "conv", (b, s - 2, co, co, lvl < 4)))
+        s = enc[4]
+        for i in range(3):
+            ci = 1024 >> i
+            up, skip = 2 * s, enc[3 - i]
+            out.append((f"{cell}-up{i}", "tconv", (b, s, ci, ci // 2)))
+            out.append((f"{cell}-dec{i}c0", "dec", (b, skip, up, ci // 2, ci // 2,
+                                                    (skip - up) // 2)))
+            out.append((f"{cell}-dec{i}c1", "conv", (b, up - 2, ci // 2, ci // 2, False)))
+            s = up - 4
+    return out
+
+
+MIDDLE = _middle_stages()
+
+
+@pytest.mark.parametrize("kind,shape", [c[1:] for c in MIDDLE], ids=[c[0] for c in MIDDLE])
+def test_middle_stage_at_the_serving_cells_shapes(g, kind, shape):
+    """Each middle stage's kernel at its shape in both serving cells against
+    its plain version in fp32: conv3x3_bias_relu with and without the pool
+    (the pool's floor at 512^2's 121-wide enc2 output), tconv2x2_bias at CI
+    1024, 512 and 256, dec_conv0 at 512+512, 256+256 and 128+128 channels
+    with the skip at its centre-crop offset (4, 16, 41 at 512^2; 4, 16, 40
+    at 700^2); one launch each, counted under its wrapper."""
+    K.reset_launch_counts()
+    if kind == "conv":
+        b, s, ci, co, pool = shape
+        x = _act(g, b, s, s, ci)
+        wt, bias = _w(g, co, ci, 3, 3, fan=9 * co), _b(g, co)
+        got = K.conv3x3_bias_relu(x, wt, bias, fuse_pool=pool)
+        ref = K.conv3x3_bias_relu_plain(x.float(), wt, bias, fuse_pool=pool)
+        wrapper = "conv3x3_bias_relu"
+    elif kind == "tconv":
+        b, s, ci, co = shape
+        x = _act(g, b, s, s, ci)
+        wt, bias = _w(g, ci, co, 2, 2, fan=4 * co), _b(g, co)
+        got, ref = K.tconv2x2_bias(x, wt, bias), K.tconv2x2_bias_plain(x.float(), wt, bias)
+        wrapper = "tconv2x2_bias"
+    else:
+        b, hs, hu, cis, ciu, off = shape
+        skip, up = _act(g, b, hs, hs, cis), _act(g, b, hu, hu, ciu)
+        wt, bias = _w(g, ciu, cis + ciu, 3, 3, fan=9 * ciu), _b(g, ciu)
+        got = K.dec_conv0(skip, up, wt, bias, off, off)
+        ref = K.dec_conv0_plain(skip.float(), up.float(), wt, bias, off, off)
+        wrapper = "dec_conv0"
+    assert K.launch_counts() == _only(**{wrapper: 1})
+    for a, r in zip(got, ref) if isinstance(got, tuple) else [(got, ref)]:
+        assert a.shape == r.shape and a.dtype == torch.bfloat16
+        _close(a, r)
+
+
+@pytest.mark.parametrize("size,classes", [(252, 2), (512, 3)])
+def test_default_forward_on_the_card(g, size, classes):
+    """The whole default kernel forward at full width: 13 / 4 / 4 / 1
+    launches, finite logits, their rms difference from the plain fp32
+    forward (infer/folding.FoldedUNet, TF32 off) over its std at most 1.5
+    times the plain bf16 forward's (cuDNN; both round the same activations
+    to bf16, the kernels after the bias); a tile's logits in a batch of 3
+    bit for bit its logits alone, since every kernel sums each output in
+    one order whatever the batch."""
+    import dataclasses
+
+    from unetseg_tpu_torch.core.config import ModelConfig
+    from unetseg_tpu_torch.infer.folding import FoldedUNet, fold_batchnorm
+    from unetseg_tpu_torch.infer.kernel_net import folded_forward_kernels
+    from unetseg_tpu_torch.models.fast_init import fast_random_variables
+    from unetseg_tpu_torch.utils.flax_bridge import flax_to_state_dict
+
+    cfg = ModelConfig(num_classes=classes)
+    net = fold_batchnorm(cfg, flax_to_state_dict(fast_random_variables(cfg, 5))).cuda()
+    ref32 = FoldedUNet(dataclasses.replace(cfg, compute_dtype="float32")).cuda()
+    ref32.load_state_dict(net.state_dict())
+    x = torch.rand(3, size, size, 1, generator=g, device="cuda") * 2 - 1
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        got = folded_forward_kernels(net, x)
+        torch.cuda.synchronize()
+        assert K.launch_counts() == _only(conv3x3_bias_relu=13, tconv2x2_bias=4, dec_conv0=4,
+                                          conv3x3_head=1)
+        one = folded_forward_kernels(net, x[1:2])
+        l32, l16 = ref32(x), net(x).float()
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == l32.shape and bool(torch.isfinite(got).all())
+
+    def rel(a):
+        return ((a - l32).pow(2).mean().sqrt() / l32.std()).item()
+
+    assert rel(got) <= 1.5 * rel(l16) < 0.05, (rel(got), rel(l16))
+    assert torch.equal(one, got[1:2])
+
+
 # ------------------------------------------------------ tier-2 train kernels
 
 
@@ -863,7 +975,7 @@ def test_label_components_on_the_card_equal_the_cpu(g):
 
 def test_ensemble_vote_on_the_card(g):
     """A 3-member vote ensemble at full width on the card: each member
-    through the four serving kernels (counted), the merged probabilities
+    through the default serving kernels (counted), the merged probabilities
     the strict majority of the members' thresholded probabilities, bit for
     bit, and masks_tiled through the same merge."""
     from unetseg_tpu_torch.core.config import InferConfig, ModelConfig
@@ -879,7 +991,7 @@ def test_ensemble_vote_on_the_card(g):
     K.reset_launch_counts()
     got = ens.probs(imgs)
     torch.cuda.synchronize()
-    per_member = {"conv3x3_bias_relu": 2, "tconv2x2_bias": 1, "dec_conv0": 1, "conv3x3_head": 1}
+    per_member = {"conv3x3_bias_relu": 13, "tconv2x2_bias": 4, "dec_conv0": 4, "conv3x3_head": 1}
     assert K.launch_counts() == _only(**{k: 3 * v for k, v in per_member.items()})
     votes = sum((Predictor(cfg, v, icfg, "cuda").probs(imgs) > icfg.threshold).int()
                 for v in members)
@@ -1003,9 +1115,6 @@ K.reset_launch_counts()
 got = Predictor(scfg, variables, icfg, dev, mesh=mesh).masks_tiled(frames)
 out["serving"] = {k: v for k, v in K.launch_counts().items() if v}
 out["foreground"] = float(got.mean())
-# cuDNN picks the middle's algorithm by the batch: compare without it
-torch.backends.cudnn.enabled = False
-got = Predictor(scfg, variables, icfg, dev, mesh=mesh).masks_tiled(frames)
 want = Predictor(scfg, variables, icfg, dev).masks_tiled(frames)
 out["masks_differ"] = int((got != want).sum())
 D.shutdown()
@@ -1028,8 +1137,8 @@ def test_data_parallel_on_the_card(g, tmp_path):
     ranks' parameters bit for bit equal; and tile-sharded
     masks_tiled (4 frames of 120^2, 4 tiles of 252^2 a frame, chunks of 8
     split 4 + 4; the kernel forward, full width) equal to one rank's
-    masks with cuDNN off (cuDNN picks the middle's algorithm by the
-    batch)."""
+    masks bit for bit (its kernels sum each output in one order whatever
+    the batch)."""
     import json
     import os
     import subprocess
@@ -1059,7 +1168,7 @@ def test_data_parallel_on_the_card(g, tmp_path):
             assert r[name]["launches"] == {"sample_displaced": 1, "weighted_ce_fwd": 1,
                                            "weighted_ce_bwd": 1, "fused_update": 1,
                                            "fused_ema": 2}
-    per_rank = {"conv3x3_bias_relu": 4, "tconv2x2_bias": 2, "dec_conv0": 2, "conv3x3_head": 2}
+    per_rank = {"conv3x3_bias_relu": 26, "tconv2x2_bias": 8, "dec_conv0": 8, "conv3x3_head": 2}
     for r in res:
         assert r["masks_differ"] == 0 and 0 < r["foreground"] < 1
         assert r["serving"] == per_rank  # two chunks of 8, 4 tiles a rank
@@ -1069,8 +1178,8 @@ def test_data_parallel_on_the_card(g, tmp_path):
 def test_export_and_load_on_the_card(g, tmp_path, image_size):
     """The full-width default serving forward exported on the card with a
     symbolic batch, loaded on the card and on the CPU: on the card each
-    call at batches 1, 3 and 5 launches the four serving kernels (2, 1, 1,
-    1) and equals Predictor.probs bit for bit; on the CPU the same
+    call at batches 1, 3 and 5 launches the four serving kernels (13, 4,
+    4, 1) and equals Predictor.probs bit for bit; on the CPU the same
     artifact equals the CPU Predictor; a batch pinned to 2 refuses 3."""
     from unetseg_tpu_torch.core.config import InferConfig, ModelConfig
     from unetseg_tpu_torch.infer.engine import Predictor
@@ -1084,7 +1193,7 @@ def test_export_and_load_on_the_card(g, tmp_path, image_size):
     fn = load_exported(path, device="cuda")
     pred = Predictor(cfg, v, icfg, "cuda")
     imgs = torch.rand(5, image_size, image_size, generator=g, device="cuda").cpu().numpy()
-    per_call = {"conv3x3_bias_relu": 2, "tconv2x2_bias": 1, "dec_conv0": 1, "conv3x3_head": 1}
+    per_call = {"conv3x3_bias_relu": 13, "tconv2x2_bias": 4, "dec_conv0": 4, "conv3x3_head": 1}
     for b in (1, 3, 5):
         K.reset_launch_counts()
         got = fn(imgs[:b])

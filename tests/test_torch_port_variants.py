@@ -8,7 +8,12 @@ counterparts (conv3x3_dense, dec_conv0_dense, conv3x3_cblock) against
 conv3x3_lanes, dec_conv0_lanes and conv_cblock.conv3x3_cblock (with the
 unit scale every ported path passes them); conv3x3_bias_relu and
 conv3x3_dense against conv3x3_nhwc; the Predictor with every option on
-against the JAX Predictor; the options' refusals.
+against the JAX Predictor; the options' refusals; the wrappers each
+option set's forward calls, spied on, against bench.serving_launches (the
+default reaches every middle stage through its wrapper), and the default
+forward bit for bit equal to the composition with a cuDNN-style middle
+(F.conv2d, bias in the compute dtype, F.relu, F.max_pool2d, torch.cat of
+the cropped skip and the up-conv) that it replaced.
 
 Tiny fp32 nets at base 8 (the JAX tier 2 needs base % 8, and base 8
 puts enc4 at 128 output channels, the width cblock routes), input 188;
@@ -20,11 +25,13 @@ plain versions; the CUDA kernels are held to those on the card
 """
 
 import dataclasses
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from unetseg_tpu.core.config import InferConfig as JaxInferConfig
 from unetseg_tpu.core.config import ModelConfig as JaxModelConfig
@@ -46,12 +53,15 @@ from unetseg_tpu.ops.pallas.conv3x3 import (
     to_lanes_p2,
 )
 from unetseg_tpu.ops.pallas.conv_cblock import conv3x3_cblock as jax_conv3x3_cblock
+from unetseg_tpu_torch import bench
 from unetseg_tpu_torch.core.config import InferConfig, ModelConfig
+from unetseg_tpu_torch.infer import kernel_net
 from unetseg_tpu_torch.infer.engine import Predictor
 from unetseg_tpu_torch.infer.folding import fold_batchnorm
 from unetseg_tpu_torch.infer.kernel_net import folded_forward_kernels, supports_tier2
 from unetseg_tpu_torch.infer.tiling import extract_tiles, mirror_pad, plan_tiles, stitch
 from unetseg_tpu_torch.models.fast_init import fast_random_variables
+from unetseg_tpu_torch.models.unet import center_crop_nhwc, compute_dtype, to_nchw, to_nhwc
 from unetseg_tpu_torch.ops.kernels import conv3x3 as K
 from unetseg_tpu_torch.utils.flax_bridge import _conv_to_torch, flax_to_state_dict
 
@@ -293,3 +303,102 @@ def test_supports_tier2_where_the_kernel_forward_runs():
     assert supports_tier2(ModelConfig(base_features=4, compute_dtype="float32"), cpu)
     assert not supports_tier2(ModelConfig(**BASE8), cuda)
     assert not supports_tier2(dataclasses.replace(ModelConfig(), bilinear=True), cuda)
+
+
+# ------------------------------------------------- the kernel middle's route
+WRAPPERS = ("conv3x3_bias_relu", "conv3x3_dense", "conv3x3_cblock", "enc0_fused",
+            "tconv2x2_bias", "dec_conv0", "dec_conv0_dense", "conv3x3_head", "dec_tail")
+
+
+@pytest.fixture
+def spied(monkeypatch):
+    """Every serving wrapper wrapped to record (name, args, kwargs) and run:
+    in ops/kernels/conv3x3.py, where the custom operators of
+    ops/kernels/library.py look them up, and where infer/kernel_net.py
+    imported the variants' wrappers by name."""
+    calls = []
+    for name in WRAPPERS:
+        def spy(*args, _fn=getattr(K, name), _name=name, **kw):
+            calls.append((_name, args, kw))
+            return _fn(*args, **kw)
+        monkeypatch.setattr(K, name, spy)
+        if hasattr(kernel_net, name):
+            monkeypatch.setattr(kernel_net, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("name", ["default", *sorted(VARIANTS)])
+def test_forward_calls_the_wrappers_it_launches(net, spied, name):
+    """Each option set's forward calls each wrapper as often as
+    bench.serving_launches counts its launches on the card (base 8: cblock
+    routes enc4's two 128-channel convs alone). The default reaches each
+    middle stage through its wrapper: 13 conv3x3_bias_relu (the stem, enc0
+    conv1 and the 11 middle convs; enc0..enc3 conv1 with the pool), 4
+    tconv2x2_bias, 4 dec_conv0 reading the whole skip, one conv3x3_head."""
+    _, _, folded, x = net
+    opts = VARIANTS.get(name, {})
+    with torch.inference_mode():
+        folded_forward_kernels(folded, torch.from_numpy(x), **opts)
+    cfg = ModelConfig(**BASE8)
+    assert Counter(n for n, _, _ in spied) == bench.serving_launches(cfg, **opts)
+    if name != "default":
+        return
+    assert bench.serving_launches(cfg) == {"conv3x3_bias_relu": 13, "tconv2x2_bias": 4,
+                                           "dec_conv0": 4, "conv3x3_head": 1}
+    pooled = [a[0].shape[1] - 2 for n, a, kw in spied
+              if n == "conv3x3_bias_relu" and kw.get("fuse_pool")]
+    assert pooled == [184, 88, 40, 16]  # enc0..enc3 conv1's outputs at 188^2
+    entries = [(a[0].shape[1], a[1].shape[1]) for n, a, _ in spied if n == "dec_conv0"]
+    assert entries == [(16, 8), (40, 8), (88, 8), (184, 8)]  # (skip, up) at 188^2: no crop
+
+
+def _cudnn_style_forward(folded, x):
+    """The default kernel forward as composed before its middle ran on the
+    kernels: the ends through the wrappers' plain versions, the middle on
+    NCHW views of channels_last storage: F.conv2d with the bias in the
+    compute dtype, F.relu, F.max_pool2d at the next level's start, the skip
+    center-cropped and concatenated before the up-conv's output."""
+    p, cfg = folded, folded.cfg
+    x = x.to(compute_dtype(cfg)).contiguous()
+
+    def conv(h, c):
+        return F.relu(F.conv2d(h, c.weight.to(h.dtype), c.bias.to(h.dtype)))
+
+    h = K.conv3x3_bias_relu_plain(x, p.enc0.conv0.weight, p.enc0.conv0.bias)
+    skip0, pooled = K.conv3x3_bias_relu_plain(h, p.enc0.conv1.weight, p.enc0.conv1.bias,
+                                              fuse_pool=True)
+    xm, skips = to_nchw(pooled.contiguous()), []
+    for lvl in range(1, cfg.levels):
+        if lvl > 1:
+            xm = F.max_pool2d(xm, 2)
+        blk = getattr(p, f"enc{lvl}")
+        xm = conv(conv(xm, blk.conv0), blk.conv1)
+        skips.append(xm)
+    last = cfg.levels - 2
+    for i in range(last):
+        t = getattr(p, f"up{i}_tconv")
+        xm = F.conv_transpose2d(xm, t.weight.to(xm.dtype), t.bias.to(xm.dtype), stride=2)
+        skip_c = center_crop_nhwc(to_nhwc(skips[-(i + 2)]), xm.shape[2], xm.shape[3])
+        d = getattr(p, f"dec{i}")
+        xm = conv(conv(torch.cat([to_nchw(skip_c), xm], dim=1), d.conv0), d.conv1)
+    t = getattr(p, f"up{last}_tconv")
+    up = K.tconv2x2_bias_plain(to_nhwc(xm).contiguous(), t.weight, t.bias)
+    d = getattr(p, f"dec{last}")
+    offs = kernel_net._crop_offsets(skip0, up)
+    y = K.dec_conv0_plain(skip0, up, d.conv0.weight, d.conv0.bias, *offs)
+    return K.conv3x3_head_plain(y, d.conv1.weight, d.conv1.bias, p.outc.weight, p.outc.bias)
+
+
+@pytest.mark.parametrize("classes", [2, 3])
+@pytest.mark.parametrize("size", [188, 252])
+def test_default_forward_equals_the_cudnn_style_composition(size, classes):
+    """On the CPU the wrappers' plain versions are the replaced middle op
+    for op, so the kernel forward's logits are its logits bit for bit."""
+    cfg = ModelConfig(num_classes=classes, **BASE8)
+    folded = fold_batchnorm(cfg, flax_to_state_dict(fast_random_variables(cfg, SEED + classes)))
+    x = torch.from_numpy(_x(size + classes, 2, size, size, 1))
+    with torch.inference_mode():
+        got, want = folded_forward_kernels(folded, x), _cudnn_style_forward(folded, x)
+    out = 4 if size == 188 else 68
+    assert got.shape == (2, out, out, classes) and float(got.std()) > 1e-2
+    assert torch.equal(got, want)

@@ -101,11 +101,11 @@ def log(msg: str) -> None:
 def serving_launches(cfg: ModelConfig, tier2: bool = False, fused_enc0: bool = False,
                      dec_fuse: str = "head", cblock: Sequence[str] = ()) -> Dict[str, int]:
     """Kernel launches of one forward chunk of infer/kernel_net's forward
-    with these options (its stages, counted)."""
+    with these options (its stages, counted): every middle conv that
+    cblock does not route runs conv3x3_bias_relu, every up-conv
+    tconv2x2_bias, every decoder entry outside the tail and tier 2's
+    dec2 dec_conv0."""
     names = check_options(cfg, dec_fuse, cblock)
-    n = ({"enc0_fused": 1} if fused_enc0 else {"conv3x3_bias_relu": 2})
-    if tier2:
-        n.update(conv3x3_dense=3, dec_conv0_dense=1)
     start, last = (2 if tier2 else 1), cfg.levels - 2
     middle = [(f"enc{lvl}c{i}", cfg.base_features * 2**lvl)
               for lvl in range(start, cfg.levels) for i in (0, 1)]
@@ -113,11 +113,14 @@ def serving_launches(cfg: ModelConfig, tier2: bool = False, fused_enc0: bool = F
                for i in range(last - 1 if tier2 else last)]
     routed = sum(1 for name, co in middle
                  if ("all" in names or name in names) and co % CBLOCK_CO == 0)
-    if routed:
-        n["conv3x3_cblock"] = routed
-    n["tconv2x2_bias"] = 1
-    n.update({"dec_tail": 1} if dec_fuse == "tail" else {"dec_conv0": 1, "conv3x3_head": 1})
-    return n
+    tail = dec_fuse == "tail"
+    n = {"enc0_fused": int(fused_enc0),
+         "conv3x3_bias_relu": (0 if fused_enc0 else 2) + len(middle) - routed,
+         "conv3x3_dense": 3 * tier2, "dec_conv0_dense": int(tier2),
+         "conv3x3_cblock": routed, "tconv2x2_bias": cfg.levels - 1,
+         "dec_conv0": (last - 1 if tier2 else last) + (not tail),
+         "dec_tail": int(tail), "conv3x3_head": int(not tail)}
+    return {k: v for k, v in n.items() if v}
 
 
 def forward_chunks(size: int, frames: int, tile_in: int, tile_chunk: int) -> int:

@@ -37,11 +37,9 @@ each forward chunk's tiles over the mesh's ranks and gather the shares
 (infer/tiling.py), as the JAX Predictor's mesh does. Unlike the JAX
 Predictor, which leaves its kernel path under a mesh because GSPMD cannot
 partition a pallas_call, every rank here runs whole kernels on its own
-card, so the kernel forward stays on. The masks are the single-rank
-masks up to the cuDNN middle's algorithm, which cuDNN picks by the
-chunk's batch (28 of 4.2M pixels apart at 8 tiles a rank against 16 on
-an H100; bit for bit with cuDNN off). The other paths run whole on every
-rank.
+card, so the kernel forward stays on. Its kernels sum each output in
+one fixed order whatever the chunk's batch, so the masks are the
+single-rank masks bit for bit. The other paths run whole on every rank.
 
 Sequences: `predict_frames` is the in-memory core (frames and their
 numbers in; frame number, binary mask and instances out, one frame at a

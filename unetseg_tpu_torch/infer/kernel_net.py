@@ -3,36 +3,44 @@ unetseg_tpu/infer/lanes_net.py:folded_forward_tier1 with the NHWC middle:
 the options tier2, fused_enc0, dec_fuse and cblock; the HCNW middle is a
 TPU layout and has no counterpart).
 
-The same stages as the JAX forward, without its lanes layouts. The
-defaults are the JAX Predictor's (dec_fuse="head", the rest off):
+The same stages as the JAX forward, without its lanes layouts, on
+contiguous NHWC tensors from the stem to the head. The defaults are the
+JAX Predictor's (dec_fuse="head", the rest off):
 
-    stem             conv3x3_bias_relu             (B,S,S,1)  -> (B,S-2,S-2,f0)
-    enc0 conv1+pool0 conv3x3_bias_relu(fuse_pool)  -> skip0 (B,S-4,S-4,f0), pooled
-    middle           plain PyTorch (enc1..enc4, pools, up0..up2, dec0..dec2),
-                     as the JAX package leaves these stages to XLA
-    up3              tconv2x2_bias                 -> (B,c,c,f0), c = crops[-1]
-    dec3 conv0       dec_conv0, skip0 read at its center-crop offset
+    stem             conv3x3_bias_relu             (B,S,S,1) -> (B,S-2,S-2,f0)
+    enc{l} conv0     conv3x3_bias_relu             l = 1..4
+    enc{l} conv1     conv3x3_bias_relu(fuse_pool)  -> skip l and enc{l+1}'s input,
+                                                   l = 0..3
+    enc4 conv1       conv3x3_bias_relu
+    up{i}            tconv2x2_bias                 (B,h,w,2f) -> (B,2h,2w,f), i = 0..3
+    dec{i} conv0     dec_conv0                     skip 3-i read at its centre-crop
+                                                   offset: no crop or concat is written
+    dec{i} conv1     conv3x3_bias_relu             i = 0..2
     dec3 conv1+head  conv3x3_head                  -> f32 logits (B,s',s',NC)
+
+The JAX package leaves the middle (enc1..enc4, up0..up2, dec0..dec2) to
+XLA, which fuses each bias, ReLU and pool into its conv; here the same
+kernels as at the net's ends carry them in their epilogues.
 
 The options change these stages, as in lanes_net.py:250-500:
 
     fused_enc0   stem + enc0 conv1 + pool0 in one kernel, enc0_fused
     tier2        enc1 conv0 and conv1 (+ pool1) through conv3x3_dense on the
-                 pooled enc0 output; the plain middle runs enc2..enc4 and
-                 dec0..dec1; up2 stays plain (XLA's in JAX); dec2 through
-                 dec_conv0_dense (skip1 at its centre-crop offset: 40 at
-                 700^2 tiles, 41 at 512^2) and conv3x3_dense
+                 pooled enc0 output; dec2 through dec_conv0_dense (skip1 at
+                 its centre-crop offset: 40 at 700^2 tiles, 41 at 512^2) and
+                 conv3x3_dense
     dec_fuse     "head": dec3 conv1 and the head in one kernel (the default);
                  "tail": dec3 conv0, conv1 and the head in one kernel,
                  dec_tail. The JAX "none" (the head as a plain product
                  outside the kernels) ports no kernel and is refused
     cblock       middle convs named in it ("all", enc{l}c{i}, dec{i}c1) with
-                 output channels a multiple of 128 run conv3x3_cblock; the
-                 decoder entries stay plain (fused in JAX, not routed there)
+                 output channels a multiple of 128 run conv3x3_cblock, a
+                 routed enc{l}c1 with its pool as a separate max_pool2d; the
+                 decoder entries stay dec_conv0 (fused in JAX, not routed)
 
 On a CUDA device the kernels run the hand-written Hopper kernels; on the
 CPU their plain versions, which is what the CPU tests compare with the
-JAX package. The default path's four wrappers are called as the custom
+JAX package. The default path's wrappers are called as the custom
 operators of ops/kernels/library.py (torch.ops.unetseg.*), so that
 torch.export can trace the forward (infer/export.py); the variants'
 wrappers are called directly.
@@ -48,12 +56,7 @@ import torch.nn.functional as F
 from unetseg_tpu_torch.core.config import ModelConfig
 from unetseg_tpu_torch.infer.folding import FoldedUNet
 from unetseg_tpu_torch.models.shapes import center_crop_bounds
-from unetseg_tpu_torch.models.unet import (
-    center_crop_nhwc,
-    compute_dtype,
-    to_nchw,
-    to_nhwc,
-)
+from unetseg_tpu_torch.models.unet import compute_dtype, to_nchw, to_nhwc
 from unetseg_tpu_torch.ops.kernels import library as ops
 from unetseg_tpu_torch.ops.kernels.conv3x3 import (
     CBLOCK_CO,
@@ -114,17 +117,17 @@ def check_options(
     return names
 
 
-def _middle_conv(x, conv, routed):
-    """ReLU(conv + bias) of an NCHW view of channels_last storage:
-    conv3x3_cblock when routed and the output channels are a multiple of
-    CBLOCK_CO, else cuDNN."""
+def _middle_conv(x, conv, routed, pool=False):
+    """ReLU(conv + bias) of a contiguous NHWC tensor, and with `pool` also
+    its 2x2 max-pool, as (y, pooled): conv3x3_cblock when routed and the
+    output channels are a multiple of CBLOCK_CO, the pool apart; else
+    conv3x3_bias_relu, the pool in its epilogue."""
     if routed and conv.weight.shape[0] % CBLOCK_CO == 0:
-        return to_nchw(conv3x3_cblock(to_nhwc(x).contiguous(), conv.weight, conv.bias))
-    return F.relu(F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype)))
-
-
-def _plain_tconv(x, t):
-    return F.conv_transpose2d(x, t.weight.to(x.dtype), t.bias.to(x.dtype), stride=2)
+        y = conv3x3_cblock(x, conv.weight, conv.bias)
+        return (y, to_nhwc(F.max_pool2d(to_nchw(y), 2)).contiguous()) if pool else y
+    if pool:
+        return ops.conv3x3_bias_relu_pool(x, conv.weight, conv.bias)
+    return ops.conv3x3_bias_relu(x, conv.weight, conv.bias)
 
 
 def _crop_offsets(skip, up):
@@ -161,45 +164,39 @@ def folded_forward_kernels(
         skip0, pooled = ops.conv3x3_bias_relu_pool(h, e0.conv1.weight, e0.conv1.bias)
 
     # ---- tier 2: enc1 through the kernels, on the pooled enc0 output
-    xm, start = pooled, 1
+    xm, start, skips = pooled, 1, [skip0]
     if tier2:
         e1 = p.enc1
         h1 = conv3x3_dense(pooled, e1.conv0.weight, e1.conv0.bias)
         skip1, xm = conv3x3_dense(h1, e1.conv1.weight, e1.conv1.bias, fuse_pool=True)
-        start = 2
+        start, skips = 2, [skip0, skip1]
 
-    # ---- middle: plain PyTorch on NCHW views of channels_last storage
-    # (cuDNN's NHWC kernels; the concat is two strided copies, 1.5x faster
-    # on an H100 than torch.cat on the NHWC channel axis), cblock convs
-    # through the kernel
-    xm = to_nchw(xm)
-    skips = []
+    # ---- middle encoder: each pool in the epilogue of the conv before it
     for lvl in range(start, cfg.levels):
-        if lvl > start:
-            xm = F.max_pool2d(xm, 2)
         blk = getattr(p, f"enc{lvl}")
         xm = _middle_conv(xm, blk.conv0, routed(f"enc{lvl}c0"))
-        xm = _middle_conv(xm, blk.conv1, routed(f"enc{lvl}c1"))
-        skips.append(xm)
-    last = cfg.levels - 2  # the decoder level the tail kernels run (dec3)
-    for i in range(last - 1 if tier2 else last):
-        xm = _plain_tconv(xm, getattr(p, f"up{i}_tconv"))
-        skip_c = center_crop_nhwc(to_nhwc(skips[-(i + 2)]), xm.shape[2], xm.shape[3])
-        d = getattr(p, f"dec{i}")
-        xm = _middle_conv(torch.cat([to_nchw(skip_c), xm], dim=1), d.conv0, False)
-        xm = _middle_conv(xm, d.conv1, routed(f"dec{i}c1"))
-    xm = to_nhwc(xm)
+        if lvl < cfg.levels - 1:
+            skip, xm = _middle_conv(xm, blk.conv1, routed(f"enc{lvl}c1"), pool=True)
+            skips.append(skip)
+        else:
+            xm = _middle_conv(xm, blk.conv1, routed(f"enc{lvl}c1"))
 
-    # ---- tier 2: dec2 through the kernels, up2 plain
-    if tier2:
-        up2 = to_nhwc(_plain_tconv(to_nchw(xm), getattr(p, f"up{last - 1}_tconv"))).contiguous()
-        d = getattr(p, f"dec{last - 1}")
-        y2 = dec_conv0_dense(skip1, up2, d.conv0.weight, d.conv0.bias, *_crop_offsets(skip1, up2))
-        xm = conv3x3_dense(y2, d.conv1.weight, d.conv1.bias)
+    # ---- middle decoder: the skip read at its crop offset by the entry
+    last = cfg.levels - 2  # the decoder level the tail kernels run (dec3)
+    for i in range(last):
+        t = getattr(p, f"up{i}_tconv")
+        up = ops.tconv2x2_bias(xm, t.weight, t.bias)
+        skip, d = skips[last - i], getattr(p, f"dec{i}")
+        if tier2 and i == last - 1:
+            y = dec_conv0_dense(skip, up, d.conv0.weight, d.conv0.bias, *_crop_offsets(skip, up))
+            xm = conv3x3_dense(y, d.conv1.weight, d.conv1.bias)
+        else:
+            y = ops.dec_conv0(skip, up, d.conv0.weight, d.conv0.bias, *_crop_offsets(skip, up))
+            xm = _middle_conv(y, d.conv1, routed(f"dec{i}c1"))
 
     # ---- last decoder level + head: kernels
     t = getattr(p, f"up{last}_tconv")
-    up = ops.tconv2x2_bias(xm.contiguous(), t.weight, t.bias)
+    up = ops.tconv2x2_bias(xm, t.weight, t.bias)
     row_off, col_off = _crop_offsets(skip0, up)
     d = getattr(p, f"dec{last}")
     if dec_fuse == "tail":
