@@ -1,0 +1,5 @@
+"""idle.ag: idle.serve's reading, in the gated net's cell."""
+
+import harness
+
+read = harness.metric_reader("idle.serve")

@@ -7,7 +7,7 @@ its own line, and any failure raises (non-zero exit):
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit, and
    whether Pillow and matplotlib import;
-2. build the kernels of the twenty-three wrappers from the fourteen CUDA sources
+2. build the kernels of the twenty-five wrappers from the fifteen CUDA sources
    of unetseg_tpu_torch/csrc (one nvcc per source, in parallel) and print
    ptxas's register and spill lines and any wgmma serialization warning;
 3. serving-kernel parity at the serving path's full-width shapes (700^2
@@ -55,6 +55,24 @@ its own line, and any failure raises (non-zero exit):
    logits, its exact launch counts and >= 0.999 pixel agreement with phase
    4's plain fp32 masks, and times it with CUDA events beside the default
    configuration, alternating which goes first;
+4c. the gated net (ModelConfig(skip_gates=True), the Attention U-Net):
+   (a) each gate's two kernels (csrc/attn_gate.cu: attn_gate_kernel,
+   attn_gate_apply_kernel) at its level's widths and the 700^2 tile
+   shapes (batch 16; F 512 / 256 / 128 / 64, skip offsets 4 / 16 / 40 /
+   88) against their plain versions: alpha within GATE_ALPHA_ATOL of the
+   plain gate on the same bf16 operands, x_hat within one bf16 step of the
+   plain apply of the kernel's alpha, the same bits on two launches; each
+   level's kernel and plain ms by CUDA events, its bound, and the four
+   levels' sums beside their bounds (bytes: gate 0.484 ms, apply 0.644);
+   (b) Predictor.masks_tiled on phase 4's frames with the benchmark's
+   planted gated net (benchmark/reference/attn_unet.py): launches counted
+   from 0 exactly DEFAULT_LAUNCHES plus 4 attn_gate and 4 attn_gate_apply
+   per forward chunk, uint8 binary masks, finite logits whose rms
+   difference from the plain fp32 forward is at most GATED_RMS_FACTOR
+   times the plain bf16 forward's, pixel agreement with the plain fp32
+   masks printed beside the plain bf16 forward's, and the call timed
+   with CUDA events (`python3 chip_smoke.py --gated` runs phases 1, 2
+   and 4c alone);
 5. train-kernel parity at the train step's full-width shapes (batch 4,
    512^2 input): dgrad, wgrad, the decoder-entry wgrad, the elastic
    sampler, and the forward kernels with relu=False; the tier-2 option's
@@ -365,6 +383,10 @@ SOURCES = {
                      "none: optax under jit, unetseg_tpu/train/state.py"),
     "fused_ema": ("unetseg_tpu_torch/csrc/fused_update.cu",
                   "none: optax under jit, unetseg_tpu/train/state.py"),
+    # the gated net's gate: no TPU kernel (the JAX package has no gated net)
+    "attn_gate": ("unetseg_tpu_torch/csrc/attn_gate.cu", "none: the JAX package has no gated net"),
+    "attn_gate_apply": ("unetseg_tpu_torch/csrc/attn_gate.cu",
+                        "none: the JAX package has no gated net"),
     # the train step's BatchNorm+ReLU: no TPU kernel (a custom VJP in XLA)
     "bn_relu_fwd": ("unetseg_tpu_torch/csrc/bn_relu.cu",
                     "none: a custom VJP in XLA, unetseg_tpu/ops/fused_bn.py:make_bn_relu_nhwc"),
@@ -394,6 +416,17 @@ VARIANTS = {
                     "dec_conv0_dense": 1, "tconv2x2_bias": 4, "dec_conv0": 2, "dec_tail": 1}),
 }
 VARIANT_ROUNDS = 2  # timed runs of each variant and the default, alternating
+# phase 4c: the gated net's chunk runs the default path's kernels and a
+# gate and an apply before each of the four decoder entries
+GATED_LAUNCHES = {**DEFAULT_LAUNCHES, "attn_gate": 4, "attn_gate_apply": 4}
+# alpha against the plain gate on the same bf16 operands: f32 sums of the
+# same products in another order over K = 6F <= 3072 terms, then psi's f32
+# dot (tests/test_torch_port_cuda.py ALPHA_ATOL)
+GATE_ALPHA_ATOL = 1e-4
+# the gated forward's logits, rms difference from the plain fp32 forward
+# over its std: the kernels within this factor of the plain bf16 forward's
+# (tests/test_torch_port_cuda.py::test_gated_forward_on_the_card)
+GATED_RMS_FACTOR = 1.5
 # launches per train step at tier 1 (the stem's dgrad is skipped: the input
 # needs no gradient), and with tier2=True: enc1 conv0 / conv1 and dec2
 # conv1 through the dense conv, dec2 conv0 through the dense entry, four
@@ -1277,6 +1310,140 @@ def variants_path(gpu, main):
             raise AssertionError(f"variant {name}: agreement {agreement:.6f} < {AGREEMENT_BAR}")
         del pred, logits
     return total
+
+
+@torch.inference_mode()
+def gate_parity(stats):
+    """Phase 4c (a): each gate's kernels at the 700^2 tile's level shapes
+    against their plain versions, with times and bounds into `stats`."""
+    from unetseg_tpu_torch.ops.kernels import attn_gate as G
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    enc, b = unet_shapes(min_tile_input(SIZE)).encoder, BATCH
+    h = enc[4]
+    for i in range(4):
+        s, f = enc[3 - i], 512 >> i
+        n, off = f // 2, (s - 2 * h) // 2
+        skip = torch.rand(b, s, s, f, generator=g, device="cuda").to(torch.bfloat16)
+        gg = torch.rand(b, h, h, 2 * f, generator=g, device="cuda").to(torch.bfloat16)
+        wx, wg = he(g, n, f, 2, 2, fan_out=4 * n), he(g, n, 2 * f, 1, 1, fan_out=n)
+        bg = 0.1 * torch.randn(n, generator=g, device="cuda")
+        psi = torch.randn(1, n, 1, 1, generator=g, device="cuda") * (0.5 / n**0.5)
+        bpsi = torch.full((1,), 0.5, device="cuda")
+        args = (skip, gg, wx, wg, bg, psi, bpsi, off, off)
+        alpha = G.attn_gate(*args)
+        x_hat = G.attn_gate_apply(skip, alpha, off, off)
+        want = G.attn_gate_plain(*args)
+        ref = G.attn_gate_apply_plain(skip, alpha, off, off).float()
+        torch.cuda.synchronize()
+        err = (alpha - want).abs().max().item()
+        spread = alpha.std().item()
+        apply_ok = bool(((x_hat.float() - ref).abs() <= ref.abs() * 2.0**-7 + 1e-30).all())
+        same = (torch.equal(G.attn_gate(*args), alpha)
+                and torch.equal(G.attn_gate_apply(skip, alpha, off, off), x_hat))
+        times = {k: cuda_ms(fn) for k, fn in (
+            ("gate", lambda: G.attn_gate(*args)),
+            ("gate plain", lambda: G.attn_gate_plain(*args)),
+            ("apply", lambda: G.attn_gate_apply(skip, alpha, off, off)),
+            ("apply plain", lambda: G.attn_gate_apply_plain(skip, alpha, off, off)))}
+        crop, gb, ab = b * 4 * h * h * f * 2, b * h * h * 2 * f * 2, b * h * h * 4
+        ops = conv_ops(b, h, h, 6 * f, n, taps=1) + conv_ops(b, h, h, n, 1, taps=1)
+        bounds = (add_bound(stats["attn_gate"], ops, PEAK_BF16, crop + gb + ab),
+                  add_bound(stats["attn_gate_apply"], b * 4 * h * h * (f + 7), PEAK_F32,
+                            2 * crop + ab))
+        add_times(stats["attn_gate"], times["gate"], times["gate plain"], None)
+        add_times(stats["attn_gate_apply"], times["apply"], times["apply plain"], None)
+        for k, e in (("attn_gate", err), ("attn_gate_apply", (x_hat.float() - ref).abs().max())):
+            stats[k]["max_abs_err"] = max(stats[k]["max_abs_err"], float(e))
+        print(f"gate parity gate{i}: skip {s}^2 x {f} at offset {off}, g {h}^2 x {2 * f}, "
+              f"batch {b}: alpha max_abs_err {err:.3e} (atol {GATE_ALPHA_ATOL}), alpha std "
+              f"{spread:.3f}; apply within one bf16 step: {apply_ok}; two launches equal bit "
+              f"for bit: {same}; gate {times['gate']:.3f} ms (plain {times['gate plain']:.3f}, "
+              f"bound {bounds[0]:.3f}), apply {times['apply']:.3f} ms (plain "
+              f"{times['apply plain']:.3f}, bound {bounds[1]:.3f}) on {GPU}", flush=True)
+        if not (err <= GATE_ALPHA_ATOL and spread > 0.02 and apply_ok and same):
+            raise AssertionError(f"gate{i}: kernels disagree with their plain versions "
+                                 f"(alpha err {err:.3e}, std {spread:.3f}, apply {apply_ok}, "
+                                 f"repeatable {same})")
+        h = 2 * h - 4
+    st, sa = stats["attn_gate"], stats["attn_gate_apply"]
+    print(f"gate parity, the four levels: gate {st['ms']:.3f} ms (plain {st['plain_ms']:.3f}), "
+          f"bound {st['bound_ms']:.3f} ms ({st['bound_ms'] / st['ms']:.1%}); apply "
+          f"{sa['ms']:.3f} ms (plain {sa['plain_ms']:.3f}), bound {sa['bound_ms']:.3f} ms "
+          f"({sa['bound_ms'] / sa['ms']:.1%}); by events on {GPU}", flush=True)
+
+
+def gated_variables(cfg, seed):
+    """The benchmark's planted gated net (benchmark/reference/attn_unet.py:
+    seeded weights, the intensity path through every gate)."""
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import synth
+    from reference import attn_unet
+
+    model = {k: getattr(cfg, k) for k in ("in_channels", "num_classes", "base_features",
+                                          "levels")}
+    return attn_unet.plant_intensity_path(synth.variables(attn_unet, model, seed, "cuda"))
+
+
+@torch.inference_mode()
+def gated_path(gpu, stats):
+    """Phase 4c: the gate kernels' parity, then Predictor.masks_tiled on
+    the gated net at full width. Returns the launches counted from 0."""
+    gate_parity(stats)
+    cfg = ModelConfig(skip_gates=True)
+    frames = cell_frames(np.random.RandomState(SEED), FRAMES, SIZE)
+    tile = min_tile_input(SIZE)
+    pred = Predictor(cfg, gated_variables(cfg, SEED), InferConfig(tile_input=tile,
+                                                                  tile_batch=BATCH), "cuda")
+    if not pred.uses_kernels:
+        raise AssertionError("Predictor did not select the kernel forward for the gated net")
+    pred.masks_tiled(frames)  # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    masks = pred.masks_tiled(frames)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    grid = plan_tiles(SIZE, SIZE, tile)
+    check_launches("gated path", launches, GATED_LAUNCHES, chunks(grid))
+    if (masks.shape != (FRAMES, SIZE, SIZE) or masks.dtype != np.uint8
+            or set(np.unique(masks)) - {0, 1}):
+        raise AssertionError(f"gated path: masks {masks.shape} {masks.dtype} not binary")
+    x = torch.from_numpy(frames).cuda()
+    tiles = extract_tiles(mirror_pad(x, grid), grid).reshape(-1, tile, tile)
+    logits = folded_forward_kernels(pred.folded, tiles[..., None])
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("gated path: logits not finite")
+    ref32 = FoldedUNet(dataclasses.replace(cfg, compute_dtype="float32")).cuda()
+    ref32.load_state_dict(pred.folded.state_dict())
+    l32, l16 = ref32(tiles[..., None]), pred.folded(tiles[..., None]).float()
+
+    def rel(a):
+        return ((a - l32).pow(2).mean().sqrt() / l32.std()).item()
+
+    fns = {
+        name: make_tiled_mask_batch_fn(
+            lambda c, net=net: binary_probs_from_logits(net(c[..., None])), grid,
+            n_frames=FRAMES, threshold=pred.cfg.threshold, tile_batch=BATCH,
+        )
+        for name, net in (("fp32", ref32), ("bf16", pred.folded))
+    }
+    plain = {name: fn(x).cpu().numpy() for name, fn in fns.items()}
+    ms = cuda_ms(lambda: pred.masks_tiled(frames), iters=5, warmup=1)
+    print(f"gated path: launches {GATED_LAUNCHES} per chunk, foreground "
+          f"{float(masks.mean()):.4f} (plain fp32 {float(plain['fp32'].mean()):.4f}); logits "
+          f"rms difference / std from the plain fp32 forward: kernels {rel(logits):.4e}, plain "
+          f"bf16 {rel(l16):.4e}; pixel agreement with the plain fp32 masks: kernels "
+          f"{float((plain['fp32'] == masks).mean()):.6f}, plain bf16 "
+          f"{float((plain['fp32'] == plain['bf16']).mean()):.6f}; {ms:.2f} ms per {FRAMES} "
+          f"frames = {FRAMES * SIZE * SIZE / 1e6 / (ms / 1e3):.2f} MPix/s on {gpu}", flush=True)
+    if not rel(logits) <= GATED_RMS_FACTOR * rel(l16):
+        raise AssertionError(f"gated path: kernels' logits {rel(logits):.4e} from fp32, over "
+                             f"{GATED_RMS_FACTOR} x the plain bf16 forward's {rel(l16):.4e}")
+    return launches
 
 
 @torch.inference_mode()
@@ -3386,6 +3553,31 @@ def main_bn():
                       for k in ("bn_relu_fwd", "bn_relu_bwd")}))
 
 
+def main_gated():
+    """Phases 1, 2 and 4c alone: the environment, the build and the gated net."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
+    global GPU
+    gpu = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    gpu = GPU = gpu.splitlines()[0]
+    info = build()
+    print(f"build: {info['seconds']:.1f} s nvcc, {info['path']}", flush=True)
+    shown = False
+    for ln in info["log"].splitlines():  # ptxas's lines of the gate kernels
+        if "Compiling entry" in ln:
+            shown = "attn_gate" in ln
+        if shown:
+            print(f"build: ptxas {ln.strip()}", flush=True)
+    stats = new_stats()
+    launches = gated_path(gpu, stats)
+    print(json.dumps({"kernels": [
+        {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
+         "launches": launches[k], **{key: v for key, v in stats[k].items()
+                                    if not key.startswith("_")}}
+        for k in ("attn_gate", "attn_gate_apply")]}))
+    print(gpu)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
@@ -3413,6 +3605,7 @@ def main():
     stats = kernel_parity(sh)
     serving, main = main_path(gpu)
     variants = variants_path(gpu, main)
+    gated = gated_path(gpu, stats)
     phase4_masks = main["masks"]
     export_inputs = main["variables"], main["frames"]
     del main
@@ -3433,13 +3626,13 @@ def main():
     flagship = flagship_path(gpu, pil)
 
     # launches: each path's run (serving call, the four variant calls, the
-    # tier-1 and tier-2 train steps, preprocess of PRE_FRAMES frames, the
+    # gated net's call, the tier-1 and tier-2 train steps, preprocess of PRE_FRAMES frames, the
     # loop's first train(), the sequence core's run, the scoring path's
     # core run and pipeline command, the data-parallel steps and tile-sharded
     # serving of both ranks, the exported artifact's calls and the
     # augmentation panel's deformation, the benchmark's checked segment
     # calls and train step, the flagship script's processes), counted from 0
-    paths = (serving, variants, training, training2, preprocess, loop, sequence, scoring, dp,
+    paths = (serving, variants, gated, training, training2, preprocess, loop, sequence, scoring, dp,
              exported, benched, flagship)
     record = [
         {"name": k, "route": "cuda", "source": SOURCES[k][0], "replaces": SOURCES[k][1],
@@ -3462,5 +3655,7 @@ if __name__ == "__main__":
         dp_worker(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ["--bn"]:
         main_bn()
+    elif sys.argv[1:2] == ["--gated"]:
+        main_gated()
     else:
         main()

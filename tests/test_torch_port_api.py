@@ -66,6 +66,7 @@ SUBPACKAGES = ("core", "data", "infer", "models", "ops", "parallel", "post", "tr
 CLI_EXCEPTIONS = {
     ("*", "cpu"): "the port's commands run on the card unless --cpu",
     ("export", "platforms"): "the port names cuda,cpu where the JAX command names tpu,cpu",
+    ("*", "skip_gates"): "the port's gated net (ModelConfig.skip_gates) has no JAX counterpart",
 }
 JAX_COMMANDS = ("preprocess", "train", "infer", "predict", "refine", "track", "evaluate",
                 "evaluate-divisions", "evaluate-ctc", "visualize", "visualize-prediction",
@@ -212,7 +213,14 @@ def test_param_count_matches_jax(kw):
 
 
 def test_jax_model_config_defaults_are_the_ports():
-    assert JaxModelConfig().__dict__ == ModelConfig().__dict__
+    """Every JAX field's default is the port's; the port's own fields
+    (core/config.PORT_ONLY) sit at the default that keeps today's net."""
+    from unetseg_tpu_torch.core.config import PORT_ONLY
+
+    ours = dict(ModelConfig().__dict__)
+    for k, default in PORT_ONLY["model"].items():
+        assert ours.pop(k) == default
+    assert JaxModelConfig().__dict__ == ours
 
 
 def subcommands(parser: argparse.ArgumentParser):

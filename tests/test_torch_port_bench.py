@@ -217,6 +217,19 @@ def test_serving_launches_match_chip_smoke(variant):
     assert bench.serving_launches(ModelConfig(), **opts) == want
 
 
+@pytest.mark.parametrize("variant", [None, *chip_smoke.VARIANTS])
+def test_gated_serving_launches_match_chip_smoke(variant):
+    """A gated net's chunk: the ungated chunk's launches and a gate and an
+    apply before each of the four decoder entries (chip_smoke.py phase 4c
+    counts them on the card for the default options)."""
+    opts, want = ({}, chip_smoke.DEFAULT_LAUNCHES) if variant is None else \
+        chip_smoke.VARIANTS[variant]
+    got = bench.serving_launches(ModelConfig(skip_gates=True), **opts)
+    assert got == {**want, "attn_gate": 4, "attn_gate_apply": 4}
+    if variant is None:
+        assert got == chip_smoke.GATED_LAUNCHES
+
+
 def test_train_launches_match_chip_smoke():
     assert bench.TRAIN_LAUNCHES == chip_smoke.TRAIN_LAUNCHES
     # one 512^2 segment call of 16 frames is one chunk of 16 700^2 tiles

@@ -1584,3 +1584,200 @@ def test_bn_relu_makes_no_host_sync(g):
             torch.cuda.set_sync_debug_mode(0)
         assert dz.dtype == torch.bfloat16 and dgamma.dtype == torch.float32
         assert torch.isfinite(dz.float()).all() and torch.isfinite(dgamma).all()
+
+
+# ------------------------------------------------- the gated net's gate kernels
+def _gate_levels():
+    """(id, (B, skip S, g h, F, offset)) of each gate of the gated serving
+    forward at both serving cells' tile sizes (700^2: offsets 4, 16, 40,
+    88; 512^2: 4, 16, 41, 90 over odd and ragged g sizes)."""
+    from unetseg_tpu_torch.models.shapes import unet_shapes
+
+    out = []
+    for cell, size in (("700", 700), ("512", 512)):
+        enc = unet_shapes(size).encoder
+        h = enc[4]
+        for i in range(4):
+            skip, f = enc[3 - i], 512 >> i
+            out.append((f"{cell}-gate{i}", (2, skip, h, f, (skip - 2 * h) // 2)))
+            h = 2 * h - 4
+    return out
+
+
+# alpha: f32 sums of the same bf16 products in another order over K = 6F
+# <= 3072 terms, then psi's f32 dot: ~1e-6 of alpha's range
+ALPHA_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("shape", [c[1] for c in _gate_levels()],
+                         ids=[c[0] for c in _gate_levels()])
+def test_attn_gate_at_the_serving_shapes(g, shape):
+    """The gate kernel at each level's published widths and the 700^2 and
+    512^2 tile shapes against its plain version on the same bf16 operands
+    (TF32 off): alpha within ALPHA_ATOL, with psi scaled so that alpha
+    spreads over (0, 1); the apply kernel against the plain apply of the
+    kernel's alpha within one bf16 step (2^-7 of the value: the bilinear
+    weights' f32 products may round apart before the bf16 rounding); one
+    launch each, the same bits twice."""
+    from unetseg_tpu_torch.ops.kernels import attn_gate as G
+
+    b, s, h, f, off = shape
+    n = f // 2
+    skip, gg = _act(g, b, s, s, f), _act(g, b, h, h, 2 * f)
+    wx, wg = _w(g, n, f, 2, 2, fan=4 * n), _w(g, n, 2 * f, 1, 1, fan=n)
+    bg = _b(g, n)
+    psi = torch.randn(1, n, 1, 1, generator=g, device="cuda") * (0.5 / n**0.5)
+    bpsi = torch.full((1,), 0.5, device="cuda")
+    K.reset_launch_counts()
+    alpha = G.attn_gate(skip, gg, wx, wg, bg, psi, bpsi, off, off)
+    x_hat = G.attn_gate_apply(skip, alpha, off, off)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["attn_gate"] == K.launch_counts()["attn_gate_apply"] == 1
+    want = G.attn_gate_plain(skip, gg, wx, wg, bg, psi, bpsi, off, off)
+    assert alpha.shape == (b, h, h) and bool(torch.isfinite(alpha).all())
+    assert 0.02 < alpha.std().item(), "alpha saturated: the comparison would be blind"
+    err = (alpha - want).abs().max().item()
+    assert err <= ALPHA_ATOL, err
+    ref = G.attn_gate_apply_plain(skip, alpha, off, off).float()
+    assert x_hat.shape == (b, 2 * h, 2 * h, f) and x_hat.dtype == torch.bfloat16
+    assert bool(((x_hat.float() - ref).abs() <= ref.abs() * 2.0**-7 + 1e-30).all())
+    assert torch.equal(G.attn_gate(skip, gg, wx, wg, bg, psi, bpsi, off, off), alpha)
+    assert torch.equal(G.attn_gate_apply(skip, alpha, off, off), x_hat)
+
+
+def test_attn_gate_refuses_what_the_kernels_do_not_take(g):
+    from unetseg_tpu_torch.ops.kernels import attn_gate as G
+
+    f, n = 32, 16  # a width the kernel does not take
+    skip, gg = _act(g, 1, 20, 20, f), _act(g, 1, 8, 8, 2 * f)
+    args = (_w(g, n, f, 2, 2, fan=4), _w(g, n, 2 * f, 1, 1, fan=1), _b(g, n),
+            torch.ones(1, n, 1, 1, device="cuda"), torch.zeros(1, device="cuda"))
+    with pytest.raises(ValueError, match="skip channels"):
+        G.attn_gate(skip, gg, *args, 2, 2)
+    skip, gg = _act(g, 1, 20, 20, 64), _act(g, 1, 8, 8, 128)
+    args = (_w(g, 32, 64, 2, 2, fan=4), _w(g, 32, 128, 1, 1, fan=1), _b(g, 32),
+            torch.ones(1, 32, 1, 1, device="cuda"), torch.zeros(1, device="cuda"))
+    with pytest.raises(ValueError, match="leaves skip"):
+        G.attn_gate(skip, gg, *args, 5, 2)  # 5 + 16 > 20
+    with pytest.raises(ValueError, match="leaves skip"):
+        G.attn_gate_apply(skip, torch.rand(1, 8, 8, device="cuda"), 2, 5)
+
+
+@pytest.mark.parametrize("size", [252, 512])
+def test_gated_forward_on_the_card(g, size):
+    """The gated net's kernel forward at full width: 13 / 4 / 4 / 1
+    launches beside 4 + 4 of the gate kernels, finite logits, their rms
+    difference from the plain fp32 forward (TF32 off) over its std at most
+    1.5 times the plain bf16 forward's, and a tile's logits in a batch of 3
+    bit for bit its logits alone."""
+    import dataclasses
+
+    from unetseg_tpu_torch.core.config import ModelConfig
+    from unetseg_tpu_torch.infer.folding import FoldedUNet, fold_batchnorm
+    from unetseg_tpu_torch.infer.kernel_net import folded_forward_kernels
+    from unetseg_tpu_torch.models.fast_init import fast_random_variables
+    from unetseg_tpu_torch.utils.flax_bridge import flax_to_state_dict
+
+    cfg = ModelConfig(skip_gates=True)
+    v = fast_random_variables(cfg, 5)
+    for i in range(4):  # psi at a scale that keeps alpha off 0 and 1
+        v["params"][f"gate{i}"]["psi"]["kernel"] *= 0.05
+    net = fold_batchnorm(cfg, flax_to_state_dict(v)).cuda()
+    ref32 = FoldedUNet(dataclasses.replace(cfg, compute_dtype="float32")).cuda()
+    ref32.load_state_dict(net.state_dict())
+    x = torch.rand(3, size, size, 1, generator=g, device="cuda") * 2 - 1
+    with torch.inference_mode():
+        K.reset_launch_counts()
+        got = folded_forward_kernels(net, x)
+        torch.cuda.synchronize()
+        assert K.launch_counts() == _only(conv3x3_bias_relu=13, tconv2x2_bias=4, dec_conv0=4,
+                                          conv3x3_head=1, attn_gate=4, attn_gate_apply=4)
+        one = folded_forward_kernels(net, x[1:2])
+        l32, l16 = ref32(x), net(x).float()
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == l32.shape and bool(torch.isfinite(got).all())
+
+    def rel(a):
+        return ((a - l32).pow(2).mean().sqrt() / l32.std()).item()
+
+    print(f"gated forward {size}: kernels {rel(got):.4f}, plain bf16 {rel(l16):.4f}")
+    assert rel(got) <= 1.5 * rel(l16) < 0.05, (rel(got), rel(l16))
+    assert torch.equal(one, got[1:2])
+
+
+# a leaf's gradient difference norm over its norm against the f32
+# reference: the kernel path's within 1.5 times the plain bf16 path's
+# (cuDNN, unet_train_forward) plus 0.02. bf16 alone moves these gradients
+# by 1-11% at batch 1 (the gates' most, through the sigmoid), so one fixed
+# bound would be loose for some leaves and tight for others
+GATED_GRAD_RATIO, GATED_GRAD_SLACK = 1.5, 0.02
+
+
+def test_gated_train_gradients_on_the_card(g):
+    """One train step's forward and backward of the gated net at full width,
+    batch 1 and 512^2 through the kernel train forward, and through the
+    plain bf16 path, against the benchmark's plain reference
+    (benchmark/reference/attn_unet.py, f32, TF32 off) in train mode, with
+    the cross-entropy against a cell frame's cells: the losses within 1%,
+    and each gate leaf's, the head's, dec3's and up3's gradient error
+    within GATED_GRAD_RATIO of the plain bf16 path's plus GATED_GRAD_SLACK.
+    Seeded weights with psi at 0.05 of its draw, so that no gate saturates:
+    where alpha sits at 0 or 1, alpha (1 - alpha) leaves a gate's gradient
+    to a few pixels and either bf16 path misses it by 50-90%."""
+    import sys
+    from pathlib import Path
+
+    import torch.nn.functional as F
+
+    bench = str(Path(__file__).resolve().parents[1] / "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import synth
+    from reference import attn_unet as ref
+
+    from unetseg_tpu_torch.core.config import ModelConfig
+    from unetseg_tpu_torch.models.train_forward import train_forward
+    from unetseg_tpu_torch.models.unet import split_state_dict, unet_train_forward
+    from unetseg_tpu_torch.utils.flax_bridge import flax_to_state_dict
+
+    size = 512
+    model = {"in_channels": 1, "num_classes": 2, "base_features": 64, "levels": 5}
+    cfg = ModelConfig(skip_gates=True)
+    v = synth.variables(ref, model, 2**31 + 27, "cuda")
+    for i in range(4):
+        v["params"][f"gate{i}"]["psi"]["kernel"] *= 0.05
+    x, _ = synth.cell_frames(synth.generator(27, "frames", "cuda"), 1, size, "cuda")
+    params, stats = split_state_dict(flax_to_state_dict(v))
+    stats = {k: t.cuda() for k, t in stats.items()}
+    watched = [k for k in params if k.endswith("weight")
+               and k.startswith(("gate", "outc", "dec3.conv", "up3_tconv"))]
+
+    def grads(forward):
+        p = {k: t.cuda().requires_grad_() for k, t in params.items()}
+        logits = forward(p, stats, x[..., None], cfg)[0].permute(0, 3, 1, 2)
+        o = logits.shape[-1]
+        c = (size - o) // 2
+        loss = F.cross_entropy(logits.float(), (x[:, c:c + o, c:c + o] > 0.475).long())
+        loss.backward()
+        return loss.item(), {k: p[k].grad for k in watched}
+
+    loss_k, got = grads(train_forward)
+    loss_p, plain = grads(unet_train_forward)
+    rp, rs = ref.to_tensors(v, "cuda")
+    rp = {k: t.requires_grad_() for k, t in rp.items()}
+    rl, _ = ref.forward(rp, rs, x[:, None], model, train=True)
+    o = rl.shape[-1]
+    c = (size - o) // 2
+    rloss = F.cross_entropy(rl, (x[:, c:c + o, c:c + o] > 0.475).long())
+    rloss.backward()
+    torch.cuda.synchronize()
+    assert abs(loss_k - rloss.item()) <= 0.01 * abs(rloss.item()), (loss_k, rloss.item())
+
+    def err(grad, k):
+        want = rp[ref.ref_key(k)].grad
+        return ((grad - want).norm() / want.norm()).item()
+
+    errs = {k: (round(err(got[k], k), 4), round(err(plain[k], k), 4)) for k in watched}
+    print("gated grad errs (kernels, plain bf16)", errs, "losses", loss_k, loss_p, rloss.item())
+    assert len(errs) == 12 + 4
+    assert all(e <= GATED_GRAD_RATIO * p + GATED_GRAD_SLACK for e, p in errs.values()), errs

@@ -41,7 +41,8 @@ SEED = 2  # a tiny random net whose probabilities spread around 0.5
 SIZE = 188  # output 4x4
 ATOL = 2e-4  # tests/test_torch_port_slice.py's tolerance against the JAX U-Net
 NORMS = {"normalize": dict(normalize=True), "standardize": dict(standardize=True)}
-OP_NAMES = {f"unetseg.{name}.default" for name in library.OPS}
+# the operators of an ungated net's forward (attn_gate* are the gated net's)
+OP_NAMES = {f"unetseg.{name}.default" for name in library.OPS if not name.startswith("attn_gate")}
 
 
 def _x(seed, b):
@@ -88,6 +89,10 @@ def _op_args(name, g):
         "dec_conv0": [(r(2, 14, 13, 3), r(2, 8, 7, 5), r(4, 8, 3, 3), r(4), 3, 2),
                       (r(2, 14, 13, 3), r(2, 8, 7, 5), r(4, 8, 3, 3), r(4), 1, 0, False)],
         "conv3x3_head": [(x, w, b, r(3, 6, 1, 1), r(3))],
+        # skip (2, 14, 13, 4) at (3, 2) over 8 x 6, g (2, 4, 3, 8): F = 4, F/2 = 2
+        "attn_gate": [(r(2, 14, 13, 4), r(2, 4, 3, 8), r(2, 4, 2, 2), r(2, 8, 1, 1), r(2),
+                       r(1, 2, 1, 1), r(1), 3, 2)],
+        "attn_gate_apply": [(r(2, 14, 13, 4), torch.rand(2, 4, 3, generator=g), 3, 2)],
     }[name]
 
 
@@ -103,6 +108,7 @@ def test_opcheck(name):
 
 def test_ops_equal_their_wrappers():
     """Each operator returns its counted wrapper's result (contiguous)."""
+    from unetseg_tpu_torch.ops.kernels import attn_gate as G
     from unetseg_tpu_torch.ops.kernels import conv3x3 as K
 
     g = torch.Generator().manual_seed(1)
@@ -113,7 +119,7 @@ def test_ops_equal_their_wrappers():
                 want = K.conv3x3_bias_relu(*args[:3], fuse_pool=name.endswith("_pool"),
                                            relu=args[3] if len(args) > 3 else True)
             else:
-                want = getattr(K, name)(*args)
+                want = getattr(G if name.startswith("attn_gate") else K, name)(*args)
             for a, b in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
                 assert a.is_contiguous() and torch.equal(a, b.contiguous()), name
 

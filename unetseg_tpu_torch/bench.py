@@ -104,7 +104,8 @@ def serving_launches(cfg: ModelConfig, tier2: bool = False, fused_enc0: bool = F
     with these options (its stages, counted): every middle conv that
     cblock does not route runs conv3x3_bias_relu, every up-conv
     tconv2x2_bias, every decoder entry outside the tail and tier 2's
-    dec2 dec_conv0."""
+    dec2 dec_conv0; a gated net (cfg.skip_gates) adds attn_gate and
+    attn_gate_apply before every decoder entry."""
     names = check_options(cfg, dec_fuse, cblock)
     start, last = (2 if tier2 else 1), cfg.levels - 2
     middle = [(f"enc{lvl}c{i}", cfg.base_features * 2**lvl)
@@ -119,7 +120,9 @@ def serving_launches(cfg: ModelConfig, tier2: bool = False, fused_enc0: bool = F
          "conv3x3_dense": 3 * tier2, "dec_conv0_dense": int(tier2),
          "conv3x3_cblock": routed, "tconv2x2_bias": cfg.levels - 1,
          "dec_conv0": (last - 1 if tier2 else last) + (not tail),
-         "dec_tail": int(tail), "conv3x3_head": int(not tail)}
+         "dec_tail": int(tail), "conv3x3_head": int(not tail),
+         "attn_gate": last + 1 if cfg.skip_gates else 0,
+         "attn_gate_apply": last + 1 if cfg.skip_gates else 0}
     return {k: v for k, v in n.items() if v}
 
 

@@ -69,6 +69,8 @@ def _model_cfg(cfg: Config, args) -> ModelConfig:
         kw["compute_dtype"] = args.dtype
     if args.bilinear:
         kw["bilinear"] = True
+    if getattr(args, "skip_gates", False):
+        kw["skip_gates"] = True
     return dataclasses.replace(cfg.model, **kw)
 
 
@@ -861,6 +863,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--max-steps", type=int, default=None)
     sp.add_argument("--classes", type=int, default=None)
     sp.add_argument("--bilinear", action="store_true")
+    sp.add_argument("--skip-gates", dest="skip_gates", action="store_true",
+                    help="the Attention U-Net: an attention gate on every skip "
+                         "(ModelConfig.skip_gates; the port's own)")
     sp.add_argument("--mesh", choices=["auto", "on", "off"], default=None,
                     help="device-mesh DP train: auto (mesh when >1 device), "
                     "on, or off (default auto)")
@@ -885,6 +890,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(its training does not normalize - documented skew)")
     sp.add_argument("--classes", type=int, default=None)
     sp.add_argument("--bilinear", action="store_true")
+    sp.add_argument("--skip-gates", dest="skip_gates", action="store_true",
+                    help="the Attention U-Net: an attention gate on every skip "
+                         "(ModelConfig.skip_gates; the port's own)")
     sp.set_defaults(fn=cmd_infer)
 
     sp = sub.add_parser("predict", help="segment a sequence into masks + instances")
@@ -941,6 +949,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "without a mask round trip)")
     sp.add_argument("--classes", type=int, default=None)
     sp.add_argument("--bilinear", action="store_true")
+    sp.add_argument("--skip-gates", dest="skip_gates", action="store_true",
+                    help="the Attention U-Net: an attention gate on every skip "
+                         "(ModelConfig.skip_gates; the port's own)")
     sp.set_defaults(fn=cmd_predict)
 
     sp = sub.add_parser("refine", help="backward temporal refinement of existing instance "
@@ -1005,6 +1016,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--batch-size", dest="batch_size", type=int, default=None)
     sp.add_argument("--classes", type=int, default=None)
     sp.add_argument("--bilinear", action="store_true")
+    sp.add_argument("--skip-gates", dest="skip_gates", action="store_true",
+                    help="the Attention U-Net: an attention gate on every skip "
+                         "(ModelConfig.skip_gates; the port's own)")
     sp.set_defaults(fn=cmd_evaluate)
 
     sp = sub.add_parser("evaluate-divisions",
@@ -1095,6 +1109,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--standardize", action="store_const", const=True, default=None)
     sp.add_argument("--classes", type=int, default=None)
     sp.add_argument("--bilinear", action="store_true")
+    sp.add_argument("--skip-gates", dest="skip_gates", action="store_true",
+                    help="the Attention U-Net: an attention gate on every skip "
+                         "(ModelConfig.skip_gates; the port's own)")
     sp.set_defaults(fn=cmd_export)
 
     sp = sub.add_parser("bench", help="run the performance benchmark")

@@ -3,11 +3,13 @@
 `EvalConfig`, `MeshConfig` and the `Config` tree with its JSON writer and
 loaders (unetseg_tpu/core/config.py), so that its config files (e.g.
 configs/best_recipe.json) load here and a file either package writes
-loads in both.
+loads in both. `ModelConfig.skip_gates` is the port's own (PORT_ONLY): a
+file leaves it out at its default, so only a gated net's file is the
+port's alone.
 
 Copied rather than imported because importing anything under
 `unetseg_tpu` imports jax. tests/test_torch_port_bridge.py keeps the
-fields and defaults equal to the originals.
+fields and defaults equal to the originals, but for PORT_ONLY.
 """
 
 from __future__ import annotations
@@ -34,6 +36,14 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"  # "bfloat16" | "float32"
     bn_momentum: float = 0.9         # flax convention; == torch momentum 0.1
     bn_epsilon: float = 1e-5
+    # The port's own field (no JAX counterpart): an attention gate on every
+    # skip (Oktay et al., arXiv:1804.03999), models/unet.py AttentionGate.
+    skip_gates: bool = False
+
+
+# Fields of the port alone, left out of Config.to_dict at their defaults so
+# that a file an ungated run writes still loads in the JAX package.
+PORT_ONLY = {"model": {"skip_gates": False}}
 
 
 @dataclass(frozen=True)
@@ -231,7 +241,12 @@ class Config:
         return dataclasses.replace(self, **kw)
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        for section, fields in PORT_ONLY.items():
+            for k, default in fields.items():
+                if d[section][k] == default:
+                    del d[section][k]
+        return d
 
     def to_json(self, indent: int = 2) -> str:
         """The JSON text that from_json_file reads back (either package's)."""

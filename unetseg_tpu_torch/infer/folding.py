@@ -7,7 +7,9 @@ the preceding convolution, in fp32:
     b' = (b - mean) * gamma / sqrt(var + eps) + beta
 
 `FoldedUNet` holds the folded fp32 parameters under the unfolded
-module names (enc0.conv0.weight, up0_tconv.weight, outc.weight, ...). Its
+module names (enc0.conv0.weight, up0_tconv.weight, outc.weight, ...); a
+gated net's gates (gate{i}.wx, .wg, .psi) have no BatchNorm and are
+carried over unchanged. Its
 `forward` is the plain PyTorch network of unetseg_tpu's FoldedUNet:
 conv + bias + ReLU in the compute dtype, and a 1x1 head reading the
 compute-dtype activation with f32 accumulation and f32 logits. The kernel
@@ -41,7 +43,7 @@ def fold_batchnorm(
     folded: Dict[str, torch.Tensor] = {}
     for key, t in state.items():
         block = key.split(".")[0]
-        if not block.startswith(("enc", "dec")):  # outc, up{i}_tconv: no BN
+        if not block.startswith(("enc", "dec")):  # outc, up{i}_tconv, gate{i}: no BN
             folded[key] = t.float()
             continue
         if ".conv" not in key or not key.endswith(".weight"):

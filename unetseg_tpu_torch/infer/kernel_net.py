@@ -18,6 +18,15 @@ JAX Predictor's (dec_fuse="head", the rest off):
     dec{i} conv1     conv3x3_bias_relu             i = 0..2
     dec3 conv1+head  conv3x3_head                  -> f32 logits (B,s',s',NC)
 
+A gated net (ModelConfig.skip_gates, the port's own) adds before each
+decoder entry, inside a `serve.gate` span (utils/profiling.annotate):
+
+    gate{i}          attn_gate        alpha (B,h,w) f32 from skip 3-i at its crop
+                                      offset and g, up{i}'s input
+                     attn_gate_apply  x_hat (B,2h,2w,f) = upsample2x(alpha) * crop
+    dec{i} conv0     reads x_hat at offset (0, 0), as do the options' entries
+                     (tier2's dec_conv0_dense, dec_fuse="tail"'s dec_tail)
+
 The JAX package leaves the middle (enc1..enc4, up0..up2, dec0..dec2) to
 XLA, which fuses each bias, ReLU and pool into its conv; here the same
 kernels as at the net's ends carry them in their epilogues.
@@ -67,15 +76,16 @@ from unetseg_tpu_torch.ops.kernels.conv3x3 import (
     dec_tail,
     enc0_fused,
 )
+from unetseg_tpu_torch.utils.profiling import annotate
 
 DEC_FUSE = ("head", "tail")
 
 
 def supports(model_cfg: ModelConfig, device: torch.device) -> bool:
     """True when the kernel forward runs this net on this device: the
-    5-level transposed-conv U-Net with a 1-channel input, as on the TPU;
-    on a CUDA device also the kernels' widths and dtype (bf16, 64 base
-    features, at most MAX_HEAD_CLASSES classes)."""
+    5-level transposed-conv U-Net with a 1-channel input, as on the TPU,
+    gated or not; on a CUDA device also the kernels' widths and dtype
+    (bf16, 64 base features, at most MAX_HEAD_CLASSES classes)."""
     if model_cfg.levels != 5 or model_cfg.bilinear or model_cfg.in_channels != 1:
         return False
     if torch.device(device).type == "cuda":
@@ -135,6 +145,20 @@ def _crop_offsets(skip, up):
             center_crop_bounds(skip.shape[2], up.shape[2])[0])
 
 
+def _entry_skip(folded: FoldedUNet, i: int, skip, g, up):
+    """(the skip as decoder entry i reads it, row offset, column offset):
+    skip at its crop offset, or for a gated net x_hat at (0, 0) through the
+    gate kernels, g being up{i}'s input."""
+    row_off, col_off = _crop_offsets(skip, up)
+    if not folded.cfg.skip_gates:
+        return skip, row_off, col_off
+    gate = getattr(folded, f"gate{i}")
+    with annotate("serve.gate"):
+        alpha = ops.attn_gate(skip, g, gate.wx.weight, gate.wg.weight, gate.wg.bias,
+                              gate.psi.weight, gate.psi.bias, row_off, col_off)
+        return ops.attn_gate_apply(skip, alpha, row_off, col_off), 0, 0
+
+
 def folded_forward_kernels(
     folded: FoldedUNet,
     x: torch.Tensor,
@@ -186,21 +210,22 @@ def folded_forward_kernels(
     for i in range(last):
         t = getattr(p, f"up{i}_tconv")
         up = ops.tconv2x2_bias(xm, t.weight, t.bias)
-        skip, d = skips[last - i], getattr(p, f"dec{i}")
+        skip, row_off, col_off = _entry_skip(p, i, skips[last - i], xm, up)
+        d = getattr(p, f"dec{i}")
         if tier2 and i == last - 1:
-            y = dec_conv0_dense(skip, up, d.conv0.weight, d.conv0.bias, *_crop_offsets(skip, up))
+            y = dec_conv0_dense(skip, up, d.conv0.weight, d.conv0.bias, row_off, col_off)
             xm = conv3x3_dense(y, d.conv1.weight, d.conv1.bias)
         else:
-            y = ops.dec_conv0(skip, up, d.conv0.weight, d.conv0.bias, *_crop_offsets(skip, up))
+            y = ops.dec_conv0(skip, up, d.conv0.weight, d.conv0.bias, row_off, col_off)
             xm = _middle_conv(y, d.conv1, routed(f"dec{i}c1"))
 
     # ---- last decoder level + head: kernels
     t = getattr(p, f"up{last}_tconv")
     up = ops.tconv2x2_bias(xm, t.weight, t.bias)
-    row_off, col_off = _crop_offsets(skip0, up)
+    skip, row_off, col_off = _entry_skip(p, last, skip0, xm, up)
     d = getattr(p, f"dec{last}")
     if dec_fuse == "tail":
-        return dec_tail(skip0, up, d.conv0.weight, d.conv0.bias, d.conv1.weight,
+        return dec_tail(skip, up, d.conv0.weight, d.conv0.bias, d.conv1.weight,
                         d.conv1.bias, p.outc.weight, p.outc.bias, row_off, col_off)
-    y = ops.dec_conv0(skip0, up, d.conv0.weight, d.conv0.bias, row_off, col_off)
+    y = ops.dec_conv0(skip, up, d.conv0.weight, d.conv0.bias, row_off, col_off)
     return ops.conv3x3_head(y, d.conv1.weight, d.conv1.bias, p.outc.weight, p.outc.bias)

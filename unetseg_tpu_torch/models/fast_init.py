@@ -59,6 +59,12 @@ def fast_random_variables(cfg: ModelConfig, seed: int = 0) -> Dict[str, Any]:
             params[f"up{i}_tconv"] = {
                 "kernel": kernel((2, 2, in_f, up_f)), "bias": zeros(up_f)
             }
+        if cfg.skip_gates:  # models/unet.AttentionGate: F -> F/2 from x and g
+            params[f"gate{i}"] = {
+                "wx": {"kernel": kernel((2, 2, skip_f, skip_f // 2))},
+                "wg": {"kernel": kernel((1, 1, in_f, skip_f // 2)), "bias": zeros(skip_f // 2)},
+                "psi": {"kernel": kernel((1, 1, skip_f // 2, 1)), "bias": zeros(1)},
+            }
         params[f"dec{i}"], stats[f"dec{i}"] = block(skip_f + up_f, skip_f)
     params["outc"] = {
         "kernel": kernel((1, 1, feats[0], cfg.num_classes)),

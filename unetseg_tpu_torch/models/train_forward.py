@@ -27,6 +27,10 @@ instead of the lanes layout:
               read at its center-crop offset; dgrad + two-source wgrad),
               conv1 through Conv3x3Train, each with the fused BN+ReLU
     head      1x1 conv in f32, plain PyTorch
+    gates     a gated net's (ModelConfig.skip_gates) before every decoder
+              entry: models/unet.gate_from, plain PyTorch with autograd
+              (f32 sums of compute-dtype products); the kernel entries read
+              x_hat, the compact gated crop, at offset (0, 0)
 
 On a CUDA tensor the Functions launch the hand-written kernels; on the CPU
 their plain versions, which is what the CPU tests compare with the JAX
@@ -43,7 +47,13 @@ import torch.nn.functional as F
 
 from unetseg_tpu_torch.core.config import ModelConfig
 from unetseg_tpu_torch.models.shapes import center_crop_bounds, unet_shapes
-from unetseg_tpu_torch.models.unet import center_crop_nhwc, compute_dtype, to_nchw, to_nhwc
+from unetseg_tpu_torch.models.unet import (
+    center_crop_nhwc,
+    compute_dtype,
+    gate_from,
+    to_nchw,
+    to_nhwc,
+)
 from unetseg_tpu_torch.ops.fused_bn import bn_relu_nhwc
 from unetseg_tpu_torch.ops.kernels.conv3x3_train import (
     Conv3x3DenseTrain,
@@ -108,11 +118,17 @@ def train_forward(
     def kconv(h: torch.Tensor, name: str, fn=Conv3x3Train) -> torch.Tensor:
         return fn.apply(h, params[f"{name}.weight"], params[f"{name}.bias"])
 
-    def kdec(skip: torch.Tensor, up: torch.Tensor, name: str, entry, conv) -> torch.Tensor:
-        """A decoder block through the kernels, NHWC: the entry conv reads
-        skip at its center-crop offset."""
+    def kdec(skip: torch.Tensor, up: torch.Tensor, i: int, g: torch.Tensor, entry,
+             conv) -> torch.Tensor:
+        """Decoder block i through the kernels, NHWC: the entry conv reads
+        skip at its center-crop offset, or a gated net's x_hat (from g, the
+        up-conv's NCHW input) at (0, 0)."""
+        name = f"dec{i}"
         row_off = center_crop_bounds(skip.shape[1], up.shape[1])[0]
         col_off = center_crop_bounds(skip.shape[2], up.shape[2])[0]
+        if cfg.skip_gates:
+            crop = to_nchw(center_crop_nhwc(skip, up.shape[1], up.shape[2]))
+            skip, row_off, col_off = to_nhwc(gate_from(params, i, crop, g)).contiguous(), 0, 0
         z = entry.apply(skip, up, params[f"{name}.conv0.weight"],
                         params[f"{name}.conv0.bias"], row_off, col_off)
         h = bn(z, f"{name}.bn0")
@@ -151,19 +167,21 @@ def train_forward(
     # ---- decoder: plain PyTorch up to dec2 (tier 1) or dec1 (tier 2)
     last = cfg.levels - 2  # the decoder level the kernels run (dec3)
     for i in range(last - 1 if tier2 else last):
-        xm = up_plain(i, xm)
-        skip_c = center_crop_nhwc(to_nhwc(skips[-(i + 2)]), xm.shape[2], xm.shape[3])
-        xm = middle_block(torch.cat([to_nchw(skip_c), xm], dim=1), f"dec{i}")
+        g, xm = xm, up_plain(i, xm)
+        skip_c = to_nchw(center_crop_nhwc(to_nhwc(skips[-(i + 2)]), xm.shape[2], xm.shape[3]))
+        if cfg.skip_gates:
+            skip_c = gate_from(params, i, skip_c, g)
+        xm = middle_block(torch.cat([skip_c, xm], dim=1), f"dec{i}")
     if tier2:  # dec2 through the kernels after a plain up2
         up = to_nhwc(up_plain(last - 1, xm)).contiguous()
-        xm = to_nchw(kdec(to_nhwc(skips[0]), up, f"dec{last - 1}",
+        xm = to_nchw(kdec(to_nhwc(skips[0]), up, last - 1, xm,
                           DecConv0DenseTrain, Conv3x3DenseTrain))
 
     # ---- up3 + dec3: kernels
     t = f"up{last}_tconv"
     up = TConv2x2Train.apply(to_nhwc(xm).contiguous(), params[f"{t}.weight"],
                              params[f"{t}.bias"])
-    h = kdec(skip0, up, f"dec{last}", DecConv0Train, Conv3x3Train)
+    h = kdec(skip0, up, last, xm, DecConv0Train, Conv3x3Train)
 
     # ---- 1x1 head in f32
     k = params["outc.weight"]

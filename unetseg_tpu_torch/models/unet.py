@@ -9,6 +9,13 @@ logits. Module names follow the Flax names (`enc0.conv0`, `enc0.bn0`,
 `up0_tconv`, `outc`) so utils/flax_bridge.py maps one tree onto the other
 by name.
 
+With `ModelConfig.skip_gates` (the port's own: the JAX package has no
+gates) it is the Attention U-Net of Oktay et al. (arXiv:1804.03999, Eq.
+1-2, in 2-D): before decoder step i the cropped skip x (B, F, 2h, 2w) is
+scaled pixel by pixel by alpha, computed by `gate{i}` (AttentionGate) from
+x and the up-conv's input g (B, 2F, h, w); `attention_gate` is the
+arithmetic every path shares.
+
 In eval mode BatchNorm normalises with its running statistics. In train
 mode `UNet.forward` returns `(logits, new_batch_stats)`, the counterpart
 of `UNet.apply(train=True, mutable=["batch_stats"])`: `unet_train_forward`
@@ -151,6 +158,50 @@ class DoubleConv(nn.Module):
         return x
 
 
+class AttentionGate(nn.Module):
+    """The gate of one skip, F skip channels, F_int = F / 2 (the default of
+    the authors' gate block): wx a 2x2 stride-2 conv F -> F/2 without bias, wg a
+    1x1 conv 2F -> F/2, psi a 1x1 conv F/2 -> 1. No BatchNorm."""
+
+    def __init__(self, f: int):
+        super().__init__()
+        self.wx = nn.Conv2d(f, f // 2, 2, stride=2, bias=False)
+        self.wg = nn.Conv2d(2 * f, f // 2, 1)
+        self.psi = nn.Conv2d(f // 2, 1, 1)
+
+    def forward(self, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:  # NCHW
+        return attention_gate(x, g, self.wx.weight, self.wg.weight, self.wg.bias,
+                              self.psi.weight, self.psi.bias)
+
+
+def gate_alpha(
+    x: torch.Tensor, g: torch.Tensor, wx: torch.Tensor, wg: torch.Tensor, bg: torch.Tensor,
+    psi: torch.Tensor, bpsi: torch.Tensor,
+) -> torch.Tensor:
+    """alpha (B, 1, h, w) f32 of Eq. 1 at g's grid: sigmoid(psi . ReLU(wx *
+    x + wg * g + bg) + bpsi), x (B, F, 2h, 2w) and g (B, 2F, h, w) NCHW.
+    The products take x, g, wx and wg in x's dtype and sum in f32, as the
+    gate kernel does (ops/kernels/attn_gate.py)."""
+    dt = x.dtype
+    t = F.conv2d(x.float(), wx.to(dt).float(), stride=2)
+    t = t + F.conv2d(g.to(dt).float(), wg.to(dt).float(), bg.float())
+    return torch.sigmoid(F.conv2d(F.relu(t), psi.float(), bpsi.float()))
+
+
+def upsample_alpha(alpha: torch.Tensor) -> torch.Tensor:
+    """alpha (B, 1, h, w) -> (B, 1, 2h, 2w), bilinear, align_corners=False."""
+    return F.interpolate(alpha, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+def attention_gate(
+    x: torch.Tensor, g: torch.Tensor, wx: torch.Tensor, wg: torch.Tensor, bg: torch.Tensor,
+    psi: torch.Tensor, bpsi: torch.Tensor,
+) -> torch.Tensor:
+    """x_hat = upsample2x(alpha) * x in x's dtype (Eq. 2), NCHW."""
+    alpha = upsample_alpha(gate_alpha(x, g, wx, wg, bg, psi, bpsi))
+    return (alpha * x.float()).to(x.dtype)
+
+
 class UNet(nn.Module):
     """Input NHWC (N, H, W, in_channels); output f32 logits
     (N, H', W', num_classes) with H' = H - margin(H). Built in eval mode;
@@ -195,7 +246,7 @@ def param_count(variables: Union[nn.Module, Mapping[str, Any]]) -> int:
 def add_blocks(net: nn.Module, make_block: Callable[[int, int], nn.Module]) -> None:
     """Give `net` (with a ModelConfig `net.cfg`) the U-Net's modules under
     the Flax names: enc{k} and dec{i} from make_block(in_channels,
-    features), up{i}_tconv, outc."""
+    features), up{i}_tconv, gate{i} where cfg.skip_gates, outc."""
     cfg = net.cfg
     feats = [cfg.base_features * 2**i for i in range(cfg.levels)]
     cin = cfg.in_channels
@@ -207,6 +258,8 @@ def add_blocks(net: nn.Module, make_block: Callable[[int, int], nn.Module]) -> N
         up_f = in_f if cfg.bilinear else in_f // 2
         if not cfg.bilinear:
             net.add_module(f"up{i}_tconv", nn.ConvTranspose2d(in_f, up_f, 2, stride=2))
+        if cfg.skip_gates:
+            net.add_module(f"gate{i}", AttentionGate(skip_f))
         net.add_module(f"dec{i}", make_block(skip_f + up_f, skip_f))
     net.outc = nn.Conv2d(feats[0], cfg.num_classes, 1)
 
@@ -221,17 +274,20 @@ def trunk(net: nn.Module, x: torch.Tensor) -> torch.Tensor:
         t = getattr(net, f"up{i}_tconv")
         return F.conv_transpose2d(h, t.weight.to(dtype), t.bias.to(dtype), stride=2)
 
-    return trunk_with(net.cfg, x, lambda name, h: getattr(net, name)(h), tconv)
+    return trunk_with(net.cfg, x, lambda name, h: getattr(net, name)(h), tconv,
+                      lambda i, skip, g: getattr(net, f"gate{i}")(skip, g))
 
 
 def trunk_with(
     cfg: ModelConfig, x: torch.Tensor,
     block: Callable[[str, torch.Tensor], torch.Tensor],
     tconv: Callable[[int, torch.Tensor], torch.Tensor],
+    gate: Optional[Callable[[int, torch.Tensor, torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """The U-Net's encoder and decoder around `block(name, x)` (the
-    DoubleConv named enc{k} or dec{i}) and `tconv(i, x)` (up{i}_tconv),
-    both NCHW."""
+    DoubleConv named enc{k} or dec{i}), `tconv(i, x)` (up{i}_tconv) and,
+    where cfg.skip_gates, `gate(i, skip, g)` (gate{i}: the cropped skip
+    scaled by its gate, from g, the up-conv's input), all NCHW."""
     skips = []
     for lvl in range(cfg.levels):
         if lvl > 0:
@@ -241,15 +297,28 @@ def trunk_with(
 
     x = skips[-1]
     for i, skip in enumerate(reversed(skips[:-1])):
+        g = x
         if cfg.bilinear:
             x = to_nchw(upsample_bilinear_align_corners(to_nhwc(x)))
         else:
             x = tconv(i, x)
-        skip_c = center_crop_nhwc(to_nhwc(skip), x.shape[2], x.shape[3])
+        skip_c = to_nchw(center_crop_nhwc(to_nhwc(skip), x.shape[2], x.shape[3]))
+        if cfg.skip_gates:
+            skip_c = gate(i, skip_c, g)
         # skip first, as the reference concatenates
-        x = torch.cat([to_nchw(skip_c), x.to(skip.dtype)], dim=1)
+        x = torch.cat([skip_c, x.to(skip.dtype)], dim=1)
         x = block(f"dec{i}", x)
     return x
+
+
+def gate_from(params: Mapping[str, torch.Tensor], i: int, x: torch.Tensor,
+              g: torch.Tensor) -> torch.Tensor:
+    """attention_gate of gate{i} from a flat parameter dict (state-dict
+    names), NCHW."""
+    p = f"gate{i}"
+    return attention_gate(x, g, params[f"{p}.wx.weight"], params[f"{p}.wg.weight"],
+                          params[f"{p}.wg.bias"], params[f"{p}.psi.weight"],
+                          params[f"{p}.psi.bias"])
 
 
 def split_state_dict(sd: Mapping[str, torch.Tensor]):
@@ -292,6 +361,7 @@ def unet_train_forward(
     h = trunk_with(cfg, to_nchw(x.to(dtype)), block,
                    lambda i, h: F.conv_transpose2d(
                        h, params[f"up{i}_tconv.weight"].to(dtype),
-                       params[f"up{i}_tconv.bias"].to(dtype), stride=2))
+                       params[f"up{i}_tconv.bias"].to(dtype), stride=2),
+                   lambda i, skip, g: gate_from(params, i, skip, g))
     logits = F.conv2d(h.float(), params["outc.weight"], params["outc.bias"])
     return to_nhwc(logits), new_stats

@@ -53,6 +53,8 @@ SIGNATURES = {
     "bn_relu_bwd_stats_bf16": [P, P, L, I, I, P, P, P],
     "bn_relu_bwd_finalize_f32": [P, I, I, P, P, P, P, P, F, F, P, P, P, P, P, P],
     "bn_relu_dz_bf16": [P, P, P, L, I, L, I, P, P, P, P],
+    "attn_gate_bf16": [P, I, I, I, I, I, P, I, I, I, P, P, P, P, P, P],
+    "attn_gate_apply_bf16": [P, I, I, I, I, I, P, I, I, I, P, P],
 }
 
 

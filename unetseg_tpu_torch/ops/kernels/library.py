@@ -15,6 +15,11 @@ operator of its own:
     torch.ops.unetseg.tconv2x2_bias(x, w, b)                      -> y
     torch.ops.unetseg.dec_conv0(skip, up, w, b, row_off, col_off, relu=True) -> y
     torch.ops.unetseg.conv3x3_head(x, w, b, k_head, b_head)       -> f32 logits
+    torch.ops.unetseg.attn_gate(skip, g, wx, wg, bg, psi, bpsi, row_off, col_off)
+                                                                 -> f32 alpha (B, h, w)
+    torch.ops.unetseg.attn_gate_apply(skip, alpha, row_off, col_off) -> x_hat
+
+The last two are the gated net's (ops/kernels/attn_gate.py).
 
 Outputs are contiguous NHWC tensors on either device. Importing this
 module registers the operators and builds nothing: a kernel is compiled
@@ -29,11 +34,12 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
+from unetseg_tpu_torch.ops.kernels import attn_gate as G
 from unetseg_tpu_torch.ops.kernels import conv3x3 as K
 
 NAMESPACE = "unetseg"
 OPS = ("conv3x3_bias_relu", "conv3x3_bias_relu_pool", "tconv2x2_bias", "dec_conv0",
-       "conv3x3_head")
+       "conv3x3_head", "attn_gate", "attn_gate_apply")
 
 
 def _nhwc(x: Tensor, h: int, w: int, c: int, dtype: torch.dtype = None) -> Tensor:
@@ -92,3 +98,24 @@ def conv3x3_head(x: Tensor, w: Tensor, b: Tensor, k_head: Tensor, b_head: Tensor
 @conv3x3_head.register_fake
 def _(x, w, b, k_head, b_head):
     return _nhwc(x, x.shape[1] - 2, x.shape[2] - 2, k_head.shape[0], torch.float32)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::attn_gate", mutates_args=())
+def attn_gate(skip: Tensor, g: Tensor, wx: Tensor, wg: Tensor, bg: Tensor, psi: Tensor,
+              bpsi: Tensor, row_off: int, col_off: int) -> Tensor:
+    return G.attn_gate(skip, g, wx, wg, bg, psi, bpsi, row_off, col_off).contiguous()
+
+
+@attn_gate.register_fake
+def _(skip, g, wx, wg, bg, psi, bpsi, row_off, col_off):
+    return g.new_empty((g.shape[0], g.shape[1], g.shape[2]), dtype=torch.float32)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::attn_gate_apply", mutates_args=())
+def attn_gate_apply(skip: Tensor, alpha: Tensor, row_off: int, col_off: int) -> Tensor:
+    return G.attn_gate_apply(skip, alpha, row_off, col_off).contiguous()
+
+
+@attn_gate_apply.register_fake
+def _(skip, alpha, row_off, col_off):
+    return _nhwc(skip, 2 * alpha.shape[1], 2 * alpha.shape[2], skip.shape[3])

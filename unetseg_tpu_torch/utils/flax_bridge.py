@@ -8,6 +8,8 @@ unetseg_tpu/utils/torch_import.py:
   Conv           HWIO (kH,kW,I,O)            <-> OIHW (O,I,kH,kW)
   ConvTranspose  (kH,kW,I,O) spatially flipped <-> (I,O,kH,kW)
   BatchNorm      scale/bias <-> weight/bias; mean/var <-> running_mean/var
+A gated net's gate{i} holds three convs, wx, wg and psi (Conv, as above):
+gate{i}/wx/kernel <-> gate{i}.wx.weight, and so on; wx has no bias.
 
 Flax's ConvTranspose applies its kernel flipped
 (out[2r+dy, 2j+dx] += W[1-dy, 1-dx] x[r, j]); torch's does not, so the
@@ -53,6 +55,11 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         elif block == "outc":
             sd["outc.weight"] = _conv_to_torch(np.asarray(tree["kernel"]))
             sd["outc.bias"] = np.asarray(tree["bias"])
+        elif block.startswith("gate"):  # wx, wg, psi
+            for name, leaf in tree.items():
+                sd[f"{block}.{name}.weight"] = _conv_to_torch(np.asarray(leaf["kernel"]))
+                if "bias" in leaf:
+                    sd[f"{block}.{name}.bias"] = np.asarray(leaf["bias"])
         else:  # enc{k} / dec{k}: conv0, bn0, conv1, bn1
             for name, leaf in tree.items():
                 if name.startswith("conv"):
@@ -85,7 +92,11 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
                 params.setdefault(block, {})["bias"] = v
             continue
         name = parts[1]
-        if name.startswith("conv"):
+        if block.startswith("gate"):
+            params.setdefault(block, {}).setdefault(name, {})[
+                "kernel" if leaf == "weight" else "bias"
+            ] = np.ascontiguousarray(_conv_to_flax(v)) if leaf == "weight" else v
+        elif name.startswith("conv"):
             if leaf == "weight":
                 v = np.ascontiguousarray(_conv_to_flax(v))
             params.setdefault(block, {}).setdefault(name, {})[
